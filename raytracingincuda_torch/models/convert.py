@@ -1,0 +1,66 @@
+"""Carry state across from the JAX package as numpy arrays.
+
+The JAX package's ``Scene`` and ``CameraConfig`` are pytrees; their
+leaves, each taken with ``np.asarray`` in ``jax.tree_util.tree_leaves``
+order, are all that crosses. Nothing here imports JAX.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from ..ops.vec import Vec3
+from .camera import CameraConfig
+from .scene import Scene, SceneParams
+
+
+def _t(a, device, dtype=None) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, copy=True)).to(device=device,
+                                                        dtype=dtype)
+
+
+def scene_from_numpy(arrays: Sequence[np.ndarray], device="cpu") -> Scene:
+    """Scene from the 11 leaves of a JAX ``Scene``: center x/y/z, radius,
+    albedo x/y/z, fuzz, ior, mat_type, active."""
+    if len(arrays) != 11:
+        raise ValueError(f"a Scene has 11 leaves, got {len(arrays)}")
+    cx, cy, cz, radius, ar, ag, ab, fuzz, ior, mat, active = arrays
+    return Scene(
+        params=SceneParams(
+            center=Vec3(_t(cx, device), _t(cy, device), _t(cz, device)),
+            radius=_t(radius, device),
+            albedo=Vec3(_t(ar, device), _t(ag, device), _t(ab, device)),
+            fuzz=_t(fuzz, device),
+            ior=_t(ior, device),
+        ),
+        mat_type=_t(mat, device, torch.int32),
+        active=_t(active, device, torch.bool),
+    )
+
+
+def camera_config_from_numpy(arrays: Sequence[np.ndarray],
+                             device="cpu") -> CameraConfig:
+    """CameraConfig from the 12 leaves of a JAX ``CameraConfig``: vfov,
+    lookfrom x/y/z, lookat x/y/z, vup x/y/z, defocus_angle, focus_dist."""
+    if len(arrays) != 12:
+        raise ValueError(f"a CameraConfig has 12 leaves, got {len(arrays)}")
+    t = [_t(a, device) for a in arrays]
+    return CameraConfig(
+        vfov=t[0],
+        lookfrom=Vec3(*t[1:4]),
+        lookat=Vec3(*t[4:7]),
+        vup=Vec3(*t[7:10]),
+        defocus_angle=t[10],
+        focus_dist=t[11],
+    )
+
+
+def camera_row_from_numpy(row: np.ndarray, device="cpu") -> torch.Tensor:
+    """A packed (1, 24) f32 camera row (the JAX ``pack_camera`` layout),
+    so both packages can be fed one identical derived camera."""
+    row = np.asarray(row, np.float32)
+    if row.shape != (1, 24):
+        raise ValueError(f"camera row must have shape (1, 24), got {row.shape}")
+    return _t(row, device)

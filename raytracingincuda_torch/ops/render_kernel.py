@@ -1,0 +1,477 @@
+"""The forward render through the regeneration kernel.
+
+The counterpart of ``raytracingincuda_tpu/ops/pallas_kernel.py``'s
+``render_pallas(mode='regen')``. Every lane owns one pixel and traces
+that pixel's samples back to back: when a path dies (miss, absorption,
+depth cap or Russian roulette) the lane banks its radiance and starts
+the pixel's next sample.
+
+Two implementations share one signature:
+
+  * ``regen_kernel`` launches the hand-written CUDA kernel
+    (``csrc/regen_render.cu``, one thread per pixel) on CUDA tensors;
+  * ``regen_reference`` is the plain PyTorch version: the JAX
+    ``_regen_body`` recurrence, one wave at a time over all lanes.
+
+``_regen`` picks the kernel for CUDA tensors and the plain version only
+for CPU tensors; nothing falls back from one to the other.
+
+Around them sit the host plumbing (``_lane_setup``, ``_finalize_output``),
+``render_kernel`` (the ``render_pallas`` counterpart) and the difficulty
+prepass (``measure_difficulty``, ``difficulty_order``), which sorts pixels
+by traced depth so that each warp holds pixels of similar path length.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from ..models.camera import Camera, CameraConfig, initialize
+from ..models.scene import Scene, SceneParams, _round_up
+from . import rng as rtrng
+from . import vec
+from .tracer import _linear_to_gamma, _sky_color, primary_rays_from_ij, shade_hit
+from .vec import Vec3
+
+# Scene-matrix columns (the JAX pack_scene_matrix layout).
+COL_CX, COL_CY, COL_CZ = 0, 1, 2
+COL_RADIUS = 3
+COL_ALB_R, COL_ALB_G, COL_ALB_B = 4, 5, 6
+COL_FUZZ, COL_IOR, COL_MAT, COL_ACTIVE = 7, 8, 9, 10
+NUM_COLS = 16
+USED_COLS = 11
+
+# Lanes per CUDA block; images are padded to a multiple of it.
+PAD = 128
+# layout='vmem' stages the scene in shared memory (44 bytes a slot, about
+# 180 KB at this bound, inside the 227 KB a Hopper block may take).
+MAX_VMEM_SLOTS = 4096
+# Pixel ids and coordinates travel as f32 in the lane rows: exact below.
+MAX_PIXELS = 1 << 24
+# The plain version bounds its (spheres x lanes) temporaries to this many
+# elements by tracing lanes in chunks (lanes are independent).
+_REFERENCE_CHUNK_ELEMS = 1 << 24
+
+# Launches of the CUDA kernel (``regen_kernel`` adds one per launch).
+LAUNCHES = 0
+
+
+def pack_scene_matrix(scene: Scene) -> torch.Tensor:
+    """Scene -> (N, 16) f32 attribute matrix on the scene's device."""
+    p = scene.params
+    cols = [
+        p.center.x, p.center.y, p.center.z,
+        p.radius,
+        p.albedo.x, p.albedo.y, p.albedo.z,
+        p.fuzz, p.ior,
+        scene.mat_type, scene.active,
+    ]
+    m = torch.zeros((scene.num_slots, NUM_COLS), dtype=torch.float32,
+                    device=scene.mat_type.device)
+    for k, c in enumerate(cols):
+        m[:, k] = c.to(torch.float32)
+    return m
+
+
+def scene_from_matrix(scene_mat: torch.Tensor) -> Scene:
+    """A Scene view over the columns of a packed matrix."""
+    col = lambda k: scene_mat[:, k]  # noqa: E731
+    return Scene(
+        params=SceneParams(
+            center=Vec3(col(COL_CX), col(COL_CY), col(COL_CZ)),
+            radius=col(COL_RADIUS),
+            albedo=Vec3(col(COL_ALB_R), col(COL_ALB_G), col(COL_ALB_B)),
+            fuzz=col(COL_FUZZ),
+            ior=col(COL_IOR),
+        ),
+        mat_type=col(COL_MAT).to(torch.int32),
+        active=col(COL_ACTIVE) > 0.5,
+    )
+
+
+def pack_camera(cam: Camera) -> torch.Tensor:
+    """Derived camera -> (1, 24) f32 row."""
+    vals = [
+        *cam.pixel00_loc, *cam.pixel_delta_u, *cam.pixel_delta_v,
+        *cam.center, *cam.defocus_disk_u, *cam.defocus_disk_v,
+        cam.use_defocus,
+    ]
+    row = torch.zeros((1, 24), dtype=torch.float32, device=cam.center.x.device)
+    for k, v in enumerate(vals):
+        row[0, k] = v.to(torch.float32)
+    return row
+
+
+def unpack_camera(cam_row: torch.Tensor) -> Camera:
+    g = lambda k: cam_row[0, k]  # noqa: E731
+    v3 = lambda k: Vec3(g(k), g(k + 1), g(k + 2))  # noqa: E731
+    return Camera(
+        pixel00_loc=v3(0),
+        pixel_delta_u=v3(3),
+        pixel_delta_v=v3(6),
+        center=v3(9),
+        defocus_disk_u=v3(12),
+        defocus_disk_v=v3(15),
+        use_defocus=g(18) > 0.5,
+    )
+
+
+def _check_args(ids, ii, jj, budget, scene_mat, cam_row, *, samples,
+                max_depth, rr_start, sample_offset, layout):
+    """What both implementations take; raises on anything else."""
+    dev = ids.device
+    for name, t, dtype, shape in (
+        ("ids", ids, torch.int32, None),
+        ("ii", ii, torch.float32, ids.shape),
+        ("jj", jj, torch.float32, ids.shape),
+        ("budget", budget, torch.float32, ids.shape),
+        ("scene_mat", scene_mat, torch.float32, None),
+        ("cam_row", cam_row, torch.float32, (1, 24)),
+    ):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, ids on {dev}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+        if shape is not None and tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name} must have shape {tuple(shape)}, "
+                             f"got {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if ids.dim() != 1 or ids.shape[0] % PAD or ids.shape[0] >= MAX_PIXELS:
+        raise ValueError(f"ids must be 1-D, a multiple of {PAD} long and "
+                         f"shorter than {MAX_PIXELS}; got {tuple(ids.shape)}")
+    if scene_mat.dim() != 2 or scene_mat.shape[1] != NUM_COLS:
+        raise ValueError(f"scene_mat must be (N, {NUM_COLS}), got "
+                         f"{tuple(scene_mat.shape)}")
+    if layout not in ("vmem", "hbm"):
+        raise ValueError(f"layout must be 'vmem' or 'hbm', got {layout!r}")
+    if layout == "vmem" and scene_mat.shape[0] > MAX_VMEM_SLOTS:
+        raise ValueError(
+            f"layout='vmem' stages at most {MAX_VMEM_SLOTS} slots in shared "
+            f"memory, the scene has {scene_mat.shape[0]}; use layout='hbm'"
+        )
+    if max_depth < 1 or samples < 1 or sample_offset < 0:
+        raise ValueError("samples and max_depth must be positive and "
+                         "sample_offset non-negative")
+    rtrng.validate_stream_ids(sample_offset + samples, max_depth)
+    return rtrng.validate_rr_start(rr_start)
+
+
+def regen_reference(ids, ii, jj, budget, scene_mat, cam_row, *, samples: int,
+                    max_depth: int, seed: int = rtrng.DEFAULT_SEED,
+                    legacy_sky: bool = False, emit_depth: bool = False,
+                    rr_start=None, sample_offset: int = 0,
+                    finalize_scale: Optional[float] = None,
+                    layout: str = "vmem") -> torch.Tensor:
+    """Plain PyTorch version of the regeneration kernel.
+
+    Lane ``i`` renders pixel ``ids[i]`` (column ``ii[i]``, row ``jj[i]``)
+    over samples ``[sample_offset, budget[i])``. Returns a (3, padded) f32
+    radiance sum (scaled by ``finalize_scale`` and gamma'd when given) or,
+    with ``emit_depth``, a (1, padded) per-lane total of traced segments.
+    Like the JAX kernel it stops after ``samples * max_depth`` waves,
+    which never binds while ``budget - sample_offset <= samples``.
+    ``layout`` only changes where the kernel keeps the scene."""
+    rr_start = _check_args(ids, ii, jj, budget, scene_mat, cam_row,
+                           samples=samples, max_depth=max_depth,
+                           rr_start=rr_start, sample_offset=sample_offset,
+                           layout=layout)
+    chunk = max(PAD, _REFERENCE_CHUNK_ELEMS // scene_mat.shape[0] // PAD * PAD)
+    scene = scene_from_matrix(scene_mat)
+    cam = unpack_camera(cam_row)
+    outs = [
+        _regen_lanes(*lanes, scene, cam, samples=samples, max_depth=max_depth,
+                     seed=seed, legacy_sky=legacy_sky, emit_depth=emit_depth,
+                     rr_start=rr_start, sample_offset=sample_offset,
+                     finalize_scale=finalize_scale)
+        for lanes in zip(ids.split(chunk), ii.split(chunk), jj.split(chunk),
+                         budget.split(chunk))
+    ]
+    return torch.cat(outs, dim=1)
+
+
+def _regen_lanes(ids, fi, fj, budget, scene, cam, *, samples, max_depth, seed,
+                 legacy_sky, emit_depth, rr_start, sample_offset,
+                 finalize_scale):
+    """The JAX ``_regen_body`` recurrence (K=1) over one chunk of lanes."""
+    key = rtrng.key_from_seed(seed)
+    pid = ids.to(torch.int64)
+    shape, dev = pid.shape, pid.device
+    zero_row = torch.zeros(shape, dtype=torch.float32, device=dev)
+    zero3 = Vec3(zero_row, zero_row, zero_row)
+    one3 = Vec3.full(shape, 1.0, 1.0, 1.0, device=dev)
+
+    sample_f = torch.full(shape, float(sample_offset), device=dev)
+    bounce_f = zero_row
+    o, d = primary_rays_from_ij(cam, fi, fj, pid, sample_offset, key)
+    prim_d, atten, acc, seg = d, one3, zero3, zero_row
+
+    for _ in range(samples * max_depth):
+        active = sample_f < budget
+        if not bool(active.any()):
+            break
+        s_u = sample_f.to(torch.int64)
+        b_u = bounce_f.to(torch.int64)
+        hit, p, sc = shade_hit(scene, o, d, pid, s_u, b_u, key)
+
+        survived = active & hit & sc.scattered
+        # scattering at the depth cap exits black
+        continues = survived & ~(bounce_f >= (max_depth - 1))
+        atten_upd = atten * sc.attenuation
+        if rr_start is not None:
+            p_surv = torch.clamp(
+                torch.maximum(torch.maximum(atten_upd.x, atten_upd.y),
+                              atten_upd.z),
+                0.05, 1.0,
+            )
+            u_rr, _ = rtrng.uniform2(key, pid, s_u, b_u, rtrng.DRAW_RR)
+            rr_zone = bounce_f >= float(rr_start)
+            continues = continues & ~(rr_zone & (u_rr >= p_surv))
+            atten_upd = atten_upd * torch.where(rr_zone, 1.0 / p_surv,
+                                                torch.ones_like(p_surv))
+        dies = active & ~continues
+
+        if emit_depth:
+            seg = seg + torch.where(dies, bounce_f + 1.0, zero_row)
+        else:
+            sky = _sky_color(prim_d if legacy_sky else d)
+            acc = acc + vec.where(active & ~hit, atten * sky, zero3)
+
+        o = vec.where(continues, p, o)
+        d = vec.where(continues, sc.direction, d)
+        atten = vec.where(continues, atten_upd, atten)
+        bounce_f = torch.where(continues, bounce_f + 1.0, bounce_f)
+
+        # dying lanes regenerate with the pixel's next sample
+        sample_next = sample_f + torch.where(dies, 1.0, 0.0)
+        o_new, d_new = primary_rays_from_ij(cam, fi, fj, pid,
+                                            sample_next.to(torch.int64), key)
+        regen = dies & (sample_next < budget)
+        o = vec.where(regen, o_new, o)
+        d = vec.where(regen, d_new, d)
+        atten = vec.where(regen, one3, atten)
+        bounce_f = torch.where(regen, zero_row, bounce_f)
+        if legacy_sky:
+            prim_d = vec.where(regen, d_new, prim_d)
+        sample_f = torch.where(dies, sample_next, sample_f)
+
+    if emit_depth:
+        return seg[None]
+    rad = acc.stack(0)
+    if finalize_scale is not None:
+        rad = _linear_to_gamma(rad * finalize_scale)
+    return rad
+
+
+_C_ARGTYPES = [
+    ctypes.c_void_p,   # ids (int32)
+    ctypes.c_void_p,   # ii
+    ctypes.c_void_p,   # jj
+    ctypes.c_void_p,   # budget
+    ctypes.c_void_p,   # scene, SoA (11, N)
+    ctypes.c_int,      # N
+    ctypes.c_void_p,   # cam row
+    ctypes.c_void_p,   # out (C, padded)
+    ctypes.c_int,      # padded
+    ctypes.c_int,      # max_depth
+    ctypes.c_uint32,   # key word 0
+    ctypes.c_uint32,   # key word 1
+    ctypes.c_int,      # sample_offset
+    ctypes.c_int,      # rr_start (-1 = off)
+    ctypes.c_int,      # legacy_sky
+    ctypes.c_int,      # emit_depth
+    ctypes.c_int,      # fused finalize
+    ctypes.c_float,    # finalize scale
+    ctypes.c_int,      # hbm layout
+    ctypes.c_void_p,   # cudaStream_t
+]
+
+
+def regen_kernel(ids, ii, jj, budget, scene_mat, cam_row, *, samples: int,
+                 max_depth: int, seed: int = rtrng.DEFAULT_SEED,
+                 legacy_sky: bool = False, emit_depth: bool = False,
+                 rr_start=None, sample_offset: int = 0,
+                 finalize_scale: Optional[float] = None,
+                 layout: str = "vmem") -> torch.Tensor:
+    """Launch the CUDA regeneration kernel; same contract as
+    ``regen_reference``. Launches on the current stream without
+    synchronising; the kernel traces each lane's whole budget."""
+    global LAUNCHES
+    if ids.device.type != "cuda":
+        raise ValueError(f"regen_kernel takes CUDA tensors, got {ids.device}")
+    rr_start = _check_args(ids, ii, jj, budget, scene_mat, cam_row,
+                           samples=samples, max_depth=max_depth,
+                           rr_start=rr_start, sample_offset=sample_offset,
+                           layout=layout)
+    from . import _build
+
+    launch = _build.function("regen_render", _C_ARGTYPES)
+    padded = ids.shape[0]
+    n = scene_mat.shape[0]
+    soa = scene_mat[:, :USED_COLS].t().contiguous()
+    out = torch.empty((1 if emit_depth else 3, padded), dtype=torch.float32,
+                      device=ids.device)
+    k0, k1 = rtrng.key_from_seed(seed)
+    stream = torch.cuda.current_stream(ids.device).cuda_stream
+    err = launch(
+        ids.data_ptr(), ii.data_ptr(), jj.data_ptr(), budget.data_ptr(),
+        soa.data_ptr(), n, cam_row.data_ptr(), out.data_ptr(), padded,
+        max_depth, k0, k1, sample_offset,
+        -1 if rr_start is None else rr_start, int(legacy_sky),
+        int(emit_depth), int(finalize_scale is not None),
+        0.0 if finalize_scale is None else finalize_scale,
+        int(layout == "hbm"), stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"regen_render launch failed: CUDA error {err}")
+    LAUNCHES += 1
+    return out
+
+
+def _regen(ids, *args, **kw) -> torch.Tensor:
+    """The kernel for CUDA tensors, the plain version for CPU tensors."""
+    if ids.device.type == "cuda":
+        return regen_kernel(ids, *args, **kw)
+    if ids.device.type == "cpu":
+        return regen_reference(ids, *args, **kw)
+    raise ValueError(f"no regen implementation for device {ids.device}")
+
+
+def _lane_setup(img_width, img_height, pixel_order, samples_per_pixel,
+                sample_offset, sample_budgets, device):
+    """Lane -> pixel plumbing: padding to ``PAD``, the optional pixel
+    order, f32 pixel coordinates, and per-lane ABSOLUTE budgets
+    (exclusive end sample ids). Returns (ids, ii, jj, budget)."""
+    num_pixels = img_width * img_height
+    padded = _round_up(num_pixels, PAD)
+    if padded >= MAX_PIXELS:
+        raise ValueError(f"images must have fewer than {MAX_PIXELS} pixels")
+    if pixel_order is not None:
+        if tuple(pixel_order.shape) != (padded,):
+            raise ValueError(f"pixel_order must have shape ({padded},), "
+                             f"got {tuple(pixel_order.shape)}")
+        ids = pixel_order.to(device=device, dtype=torch.int32).contiguous()
+    else:
+        ids = torch.arange(padded, dtype=torch.int32, device=device)
+    ii = (ids % img_width).to(torch.float32)
+    jj = torch.div(ids, img_width, rounding_mode="floor").to(torch.float32)
+
+    if sample_budgets is not None:
+        nb = torch.as_tensor(sample_budgets).reshape(-1)
+        if tuple(nb.shape) != (num_pixels,):
+            raise ValueError(f"sample_budgets must have shape ({num_pixels},)")
+        if int(nb.min()) < 0 or int(nb.max()) > samples_per_pixel:
+            raise ValueError(
+                f"sample_budgets must lie in [0, {samples_per_pixel}]")
+        nb_pad = torch.zeros(padded, dtype=torch.float32, device=device)
+        nb_pad[:num_pixels] = nb.to(device=device, dtype=torch.float32)
+        budget = float(sample_offset) + nb_pad[ids.long()]
+    else:
+        budget = torch.full((padded,), float(sample_offset + samples_per_pixel),
+                            dtype=torch.float32, device=device)
+    return ids, ii, jj, budget
+
+
+def regen_inputs(scene: Scene, cam_cfg: CameraConfig, img_width: int,
+                 img_height: int, samples_per_pixel: int, *,
+                 pixel_order=None, sample_offset: int = 0,
+                 sample_budgets=None) -> tuple:
+    """The six tensors both regen implementations take, on the scene's
+    device: (ids, ii, jj, budget, scene_mat, cam_row). The camera is
+    derived from ``cam_cfg`` where that lives (the host, by default)."""
+    scene_mat = pack_scene_matrix(scene)
+    dev = scene_mat.device
+    cam_row = pack_camera(initialize(cam_cfg, img_width, img_height)).to(dev)
+    lanes = _lane_setup(img_width, img_height, pixel_order, samples_per_pixel,
+                        sample_offset, sample_budgets, dev)
+    return (*lanes, scene_mat, cam_row)
+
+
+def _finalize_output(acc, ids, use_sort, img_width, img_height,
+                     samples_per_pixel, gamma, accumulate_only,
+                     already_finalized):
+    """Un-permute sorted lanes; then the raw sum (``accumulate_only``),
+    the kernel's fused finalize, or 1/spp and gamma here."""
+    acc = acc.t()                                        # (padded, 3)
+    if use_sort:
+        out = torch.zeros_like(acc)
+        out[ids.long()] = acc
+        acc = out
+    img = acc[:img_width * img_height]
+    if not (already_finalized or accumulate_only):
+        img = img * (1.0 / samples_per_pixel)
+        if gamma:
+            img = _linear_to_gamma(img)
+    return img.reshape(img_height, img_width, 3)
+
+
+def render_kernel(
+    scene: Scene,
+    cam_cfg: CameraConfig,
+    img_width: int,
+    img_height: int,
+    samples_per_pixel: int,
+    max_depth: int,
+    *,
+    seed: int = rtrng.DEFAULT_SEED,
+    layout: str = "vmem",
+    legacy_sky: bool = False,
+    gamma: bool = True,
+    pixel_order: Optional[torch.Tensor] = None,
+    return_depth: bool = False,
+    rr_start=None,
+    sample_offset: int = 0,
+    sample_budgets=None,
+    accumulate_only: bool = False,
+) -> torch.Tensor:
+    """Render on the scene's device; (H, W, 3) f32, or with
+    ``return_depth`` the (padded,) per-lane traced-segment totals.
+
+    ``pixel_order``: optional (padded,) permutation of pixel ids; lanes
+    take pixels in this order and the output is un-permuted, so it
+    changes speed only. ``sample_offset`` / ``sample_budgets`` /
+    ``accumulate_only`` render samples ``[offset, offset + budget)`` per
+    pixel and return raw sums, which add up exactly across passes.
+    Uniform-budget gamma renders finish 1/spp and gamma in the kernel."""
+    inputs = regen_inputs(scene, cam_cfg, img_width, img_height,
+                          samples_per_pixel, pixel_order=pixel_order,
+                          sample_offset=sample_offset,
+                          sample_budgets=sample_budgets)
+    fuse = (gamma and not accumulate_only and not return_depth
+            and sample_budgets is None)
+    out = _regen(
+        *inputs, samples=samples_per_pixel,
+        max_depth=max_depth, seed=seed, legacy_sky=legacy_sky,
+        emit_depth=return_depth, rr_start=rr_start,
+        sample_offset=sample_offset,
+        finalize_scale=1.0 / samples_per_pixel if fuse else None,
+        layout=layout,
+    )
+    if return_depth:
+        return out[0]
+    return _finalize_output(out, inputs[0], pixel_order is not None,
+                            img_width, img_height, samples_per_pixel, gamma,
+                            accumulate_only, already_finalized=fuse)
+
+
+def measure_difficulty(scene: Scene, cam_cfg: CameraConfig, img_width: int,
+                       img_height: int, probe_depth: int = 8,
+                       probe_samples: int = 4, *,
+                       seed: int = rtrng.DEFAULT_SEED,
+                       layout: str = "vmem") -> torch.Tensor:
+    """Shallow prepass: per-pixel traced-segment TOTAL over
+    ``probe_samples`` samples at depth ``probe_depth``, in pixel order,
+    padded to ``PAD``."""
+    return render_kernel(scene, cam_cfg, img_width, img_height, probe_samples,
+                         probe_depth, seed=seed, layout=layout, gamma=False,
+                         return_depth=True)
+
+
+def difficulty_order(seg: torch.Tensor, probe_depth: int = 8,
+                     probe_samples: int = 4) -> torch.Tensor:
+    """Pixel order grouped by integer difficulty bucket: a stable sort,
+    equal to the JAX package's counting sort (``_bucket_order``)."""
+    buckets = seg.reshape(-1).to(torch.int32).clamp(0, probe_depth * probe_samples)
+    return torch.argsort(buckets, stable=True).to(torch.int32)

@@ -40,6 +40,21 @@ class CameraConfig(NamedTuple):
         )
 
 
+def config_leaves(cfg: CameraConfig) -> list:
+    """The 12 scalars of a CameraConfig in the JAX pytree's leaf order:
+    vfov, lookfrom x/y/z, lookat x/y/z, vup x/y/z, defocus_angle,
+    focus_dist."""
+    return [cfg.vfov, *cfg.lookfrom, *cfg.lookat, *cfg.vup,
+            cfg.defocus_angle, cfg.focus_dist]
+
+
+def config_from_leaves(leaves) -> CameraConfig:
+    """Inverse of ``config_leaves``."""
+    t = list(leaves)
+    return CameraConfig(t[0], Vec3(*t[1:4]), Vec3(*t[4:7]), Vec3(*t[7:10]),
+                        t[10], t[11])
+
+
 class Camera(NamedTuple):
     center: Vec3
     pixel00_loc: Vec3

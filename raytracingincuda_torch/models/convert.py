@@ -13,7 +13,7 @@ import torch
 
 from ..ops.vec import Vec3
 from .camera import CameraConfig
-from .scene import Scene, SceneParams
+from .scene import Scene, SceneParams, param_leaves, params_from_leaves
 
 
 def _t(a, device, dtype=None) -> torch.Tensor:
@@ -64,3 +64,36 @@ def camera_row_from_numpy(row: np.ndarray, device="cpu") -> torch.Tensor:
     if row.shape != (1, 24):
         raise ValueError(f"camera row must have shape (1, 24), got {row.shape}")
     return _t(row, device)
+
+
+def train_state_from_numpy(arrays: Sequence[np.ndarray], trainable=None,
+                           device="cpu"):
+    """The port's ``ops.grad.TrainState`` from the leaves of a JAX
+    ``TrainState`` built by ``make_train_step`` with ``optax.adam``: the
+    9 SceneParams leaves, optax's ``count``, ``mu`` and ``nu``, and
+    ``step``. With a ``trainable`` mask (a SceneParams of bools, as the
+    JAX step was given) optax keeps moments for the trainable leaves
+    only; the frozen leaves' moments are zeros here, and stay so."""
+    from ..ops.grad import AdamState, TrainState
+
+    mask = ([True] * 9 if trainable is None
+            else [bool(t) for t in param_leaves(trainable)])
+    k = sum(mask)
+    if len(arrays) != 9 + 1 + 2 * k + 1:
+        raise ValueError(f"a TrainState with {k} trainable leaves has "
+                         f"{12 + 2 * k - 1} leaves, got {len(arrays)}")
+    params = [_t(a, device) for a in arrays[:9]]
+
+    def moments(flat):
+        it = iter(flat)
+        return params_from_leaves([_t(next(it), device) if m
+                                   else torch.zeros_like(p)
+                                   for m, p in zip(mask, params)])
+
+    return TrainState(
+        params=params_from_leaves(params),
+        opt_state=AdamState(_t(arrays[9], device, torch.int32),
+                            moments(arrays[10:10 + k]),
+                            moments(arrays[10 + k:10 + 2 * k])),
+        step=_t(arrays[-1], device, torch.int32),
+    )

@@ -60,8 +60,8 @@ def scatter(
 
     ri = torch.where(front_face, 1.0 / ior, ior)
     ud = vec.unit(d_in)
-    cos_theta = torch.clamp(vec.dot(-ud, normal), max=1.0)
-    sin_theta = f32math.sqrt(torch.clamp(1.0 - cos_theta * cos_theta, min=0.0))
+    cos_theta = vec.minimum(vec.dot(-ud, normal), 1.0)
+    sin_theta = f32math.sqrt(vec.maximum(1.0 - cos_theta * cos_theta, 0.0))
     cannot_refract = ri * sin_theta > 1.0
     reflect_coin = schlick_reflectance(cos_theta, ri) > coin_u
     diel_dir = vec.where(

@@ -32,6 +32,18 @@ class SceneParams(NamedTuple):
     ior: torch.Tensor       # (N,)
 
 
+def param_leaves(p: SceneParams) -> list:
+    """The 9 tensors of a SceneParams in the JAX pytree's leaf order:
+    center x/y/z, radius, albedo x/y/z, fuzz, ior."""
+    return [*p.center, p.radius, *p.albedo, p.fuzz, p.ior]
+
+
+def params_from_leaves(leaves) -> SceneParams:
+    """Inverse of ``param_leaves``."""
+    cx, cy, cz, radius, ar, ag, ab, fuzz, ior = leaves
+    return SceneParams(Vec3(cx, cy, cz), radius, Vec3(ar, ag, ab), fuzz, ior)
+
+
 class Scene(NamedTuple):
     params: SceneParams
     mat_type: torch.Tensor  # (N,) int32

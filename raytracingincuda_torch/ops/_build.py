@@ -2,7 +2,8 @@
 
 ``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a
 plain C interface, named after a hash of the sources and flags, under
-``raytracingincuda_torch/_build/``. Nothing is built when the package is
+``raytracingincuda_torch/_build/``: one ``nvcc -c`` per source, all
+started together, then one link. Nothing is built when the package is
 imported, so machines without ``nvcc`` import it fine; the first CUDA
 launch builds (seconds, since no PyTorch header is included).
 
@@ -62,17 +63,32 @@ def load() -> ctypes.CDLL:
     so = library_path()
     if not so.exists():
         BUILD_DIR.mkdir(exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cus = [str(p) for p in sources() if p.suffix == ".cu"]
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *cus]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n"
-                f"{res.stdout}{res.stderr}"
-            )
+        tag = f"{so.stem}.{os.getpid()}"
+        cus = [p for p in sources() if p.suffix == ".cu"]
+        objs = [BUILD_DIR / f"{tag}.{p.stem}.o" for p in cus]
+        compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+        jobs = [[nvcc_path(), *compile_flags, "-c", str(p), "-o", str(o)]
+                for p, o in zip(cus, objs)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for cmd in jobs]
+        for cmd, proc in zip(jobs, procs):
+            out, _ = proc.communicate()
+            _check(cmd, proc.returncode, out)
+        tmp = so.with_name(f"{tag}.tmp")
+        link = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *map(str, objs)]
+        res = subprocess.run(link, capture_output=True, text=True)
+        _check(link, res.returncode, res.stdout + res.stderr)
+        for o in objs:
+            o.unlink()
         os.replace(tmp, so)  # atomic: a concurrent loader sees all or none
     return ctypes.CDLL(str(so))
+
+
+def _check(cmd, returncode: int, output: str) -> None:
+    if returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({returncode}): {' '.join(cmd)}\n{output}")
 
 
 def function(name: str, argtypes: Sequence) -> ctypes._CFuncPtr:

@@ -1,0 +1,283 @@
+"""Differentiable rendering: gradients and the inverse-rendering train step.
+
+The counterpart of ``raytracingincuda_tpu/ops/grad.py``. The image is
+differentiable with respect to every continuous scene parameter (sphere
+centres, radii, albedo, fuzz, IOR) and the camera, under the detached-
+sampler convention: the random draws and every discrete decision (the
+closest-hit winner, the material, the Schlick coin, metal absorption,
+the Russian-roulette kill, liveness) are constants, and gradients flow
+through the continuous quantities those decisions select.
+
+"Training" is inverse rendering: fit scene parameters to a target image.
+``make_train_step`` builds the step for three implementations:
+
+  * ``'oracle'``: autograd through the plain PyTorch tracer;
+  * ``'kernel'``: the regen kernel forward and the gradient kernel
+    backward (``render_kernel.make_diff_render``; the JAX ``'pallas'``);
+  * ``'fused'``: the fused step kernel, render, loss and gradients in
+    one launch (``train_kernel.fused_train``).
+
+The optimizer is ``torch.optim.Adam`` (``optax.adam``'s counterpart, with
+the same defaults); a ``trainable`` mask freezes parameter groups as
+``optax.multi_transform`` with ``set_to_zero`` does: a frozen leaf takes
+no update and its moments do not change.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from ..models.camera import CameraConfig, config_from_leaves, config_leaves
+from ..models.scene import Scene, SceneParams, param_leaves, params_from_leaves
+from . import tracer
+from .render_kernel import make_diff_render
+from .train_kernel import chain_to_params, fused_train, refuse_unported
+
+_STREAM = ("streamed scenes are not ported yet (ROADMAP queue 1 item 2)")
+
+
+def image_mse(img: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    d = img - target
+    return torch.mean(d * d)
+
+
+def image_loss(img: torch.Tensor, target: torch.Tensor, loss: str = "mse",
+               huber_delta: float = 1.0) -> torch.Tensor:
+    """The per-pixel loss family of the fused kernel: 'mse' | 'l1' |
+    'huber' | 'relmse', each a mean over pixels and channels."""
+    d = img - target
+    if loss == "mse":
+        return torch.mean(d * d)
+    if loss == "l1":
+        return torch.mean(d.abs())
+    if loss == "huber":
+        a = d.abs()
+        return torch.mean(torch.where(a <= huber_delta, 0.5 * d * d,
+                                      huber_delta * (a - 0.5 * huber_delta)))
+    if loss == "relmse":
+        return torch.mean(d * d / (target * target + 1e-2))
+    raise ValueError(f"unknown loss {loss!r}")
+
+
+def make_loss_fn(img_width: int, img_height: int, samples_per_pixel: int,
+                 max_depth: int, *, seed: int = 1227, dtype=torch.float32,
+                 chunk_pixels: Optional[int] = None, gamma: bool = False,
+                 impl: str = "oracle", pixel_order=None, mesh=None,
+                 rr_start=None, layout: str = "vmem",
+                 ray_tile: Optional[int] = None,
+                 bwd_ray_tile: Optional[int] = None,
+                 sweep: Optional[str] = None, window: int = 0,
+                 pixels_per_lane: Optional[int] = None, loss: str = "mse",
+                 huber_delta: float = 1.0):
+    """``loss(params, cam_cfg, mat_type, active, target) -> scalar``,
+    differentiable by autograd.
+
+    The loss is taken in linear radiance by default (``gamma=False``):
+    sqrt-gamma has an unbounded slope at black, and absorbed paths are
+    black. ``impl='kernel'`` renders with ``make_diff_render`` (the regen
+    kernel forward, the gradient kernel backward); ``impl='oracle'``
+    with ``tracer.render``. ``rr_start`` selects the Russian-roulette
+    estimator for both. ``ray_tile``, ``bwd_ray_tile``, ``sweep``,
+    ``window`` and ``pixels_per_lane`` tuned the TPU kernels: ignored
+    under ``impl='kernel'``, refused under ``impl='oracle'`` as the JAX
+    package refuses them. The JAX package's ``pixel_sharding`` and
+    ``remat`` have no counterpart here and are dropped."""
+    refuse_unported(mesh, dtype, layout)
+    if impl == "stream":
+        raise NotImplementedError(f"impl='stream': {_STREAM}")
+    if impl not in ("oracle", "kernel"):
+        raise ValueError(f"impl must be 'oracle' or 'kernel', got {impl!r}")
+    if impl != "kernel":
+        unsupported = {
+            "ray_tile": ray_tile, "bwd_ray_tile": bwd_ray_tile,
+            "sweep": sweep, "window": window or None,
+            "pixels_per_lane": pixels_per_lane,
+        }
+        named = [k for k, v in unsupported.items() if v is not None]
+        if named:
+            raise ValueError(
+                f"impl={impl!r} does not support {named}: these tune the "
+                "kernels; use impl='kernel' or impl='fused'")
+
+    def loss_fn(params: SceneParams, cam_cfg: CameraConfig, mat_type,
+                active, target):
+        if impl == "kernel":
+            img = make_diff_render(
+                mat_type, active, img_width, img_height, samples_per_pixel,
+                max_depth, seed=seed, gamma=gamma, pixel_order=pixel_order,
+                rr_start=rr_start, layout=layout)(params, cam_cfg)
+        else:
+            img = tracer.render(
+                Scene(params=params, mat_type=mat_type, active=active),
+                cam_cfg, img_width, img_height, samples_per_pixel, max_depth,
+                seed=seed, chunk_pixels=chunk_pixels, gamma=gamma,
+                rr_start=rr_start)
+        return image_loss(img, target, loss, huber_delta)
+
+    return loss_fn
+
+
+def _value_and_grad(loss_fn, params, cam_cfg, mat_type, active, target):
+    p_leaves = [t.detach().requires_grad_(True) for t in param_leaves(params)]
+    c_leaves = [t.detach().requires_grad_(True)
+                for t in config_leaves(cam_cfg)]
+    loss = loss_fn(params_from_leaves(p_leaves), config_from_leaves(c_leaves),
+                   mat_type, active, target)
+    grads = torch.autograd.grad(loss, p_leaves + c_leaves, allow_unused=True)
+    grads = [torch.zeros_like(t) if g is None else g
+             for g, t in zip(grads, p_leaves + c_leaves)]
+    return loss.detach(), (params_from_leaves(grads[:9]),
+                           config_from_leaves(grads[9:]))
+
+
+def render_grads(scene: Scene, cam_cfg: CameraConfig, target,
+                 img_width: int, img_height: int, samples_per_pixel: int,
+                 max_depth: int, **kw):
+    """(loss, (scene-param grads, camera grads)) for one target image."""
+    loss_fn = make_loss_fn(img_width, img_height, samples_per_pixel,
+                           max_depth, **kw)
+    return _value_and_grad(loss_fn, scene.params, cam_cfg, scene.mat_type,
+                           scene.active, target)
+
+
+def front_to_back_border(stream, cam_cfg, img_width, img_height):
+    """The stream walk's block order: not ported yet."""
+    raise NotImplementedError(f"front_to_back_border: {_STREAM}")
+
+
+class AdamState(NamedTuple):
+    """optax.adam's state: the step count and both moments, one leaf per
+    SceneParams leaf (frozen leaves keep zero moments)."""
+    count: torch.Tensor     # int32 scalar
+    mu: SceneParams
+    nu: SceneParams
+
+
+class TrainState(NamedTuple):
+    params: SceneParams
+    opt_state: AdamState
+    step: torch.Tensor      # int32 scalar
+
+
+def train_state_leaves(state: TrainState) -> list:
+    """The 29 tensors of a TrainState: 9 params, count, 9 mu, 9 nu,
+    step."""
+    return [*param_leaves(state.params), state.opt_state.count,
+            *param_leaves(state.opt_state.mu),
+            *param_leaves(state.opt_state.nu), state.step]
+
+
+def train_state_from_leaves(leaves) -> TrainState:
+    """Inverse of ``train_state_leaves``."""
+    leaves = list(leaves)
+    if len(leaves) != 29:
+        raise ValueError(f"a TrainState has 29 leaves, got {len(leaves)}")
+    return TrainState(
+        params=params_from_leaves(leaves[:9]),
+        opt_state=AdamState(leaves[9], params_from_leaves(leaves[10:19]),
+                            params_from_leaves(leaves[19:28])),
+        step=leaves[28],
+    )
+
+
+def make_train_step(img_width: int, img_height: int, samples_per_pixel: int,
+                    max_depth: int, learning_rate: float = 1e-2,
+                    trainable=None, **kw):
+    """Build ``(init_fn, step_fn)`` for inverse rendering;
+    ``step_fn(state, cam_cfg, mat_type, active, target) -> (state,
+    loss)``.
+
+    ``impl`` (in ``kw``): 'oracle' (default), 'kernel' or 'fused'; the
+    other keywords go to ``make_loss_fn`` or, for 'fused', to
+    ``fused_train`` (``gamma``, ``seed``, ``pixel_order``, ``rr_start``,
+    ``loss``, ``huber_delta``, ``layout``; the TPU knobs are ignored).
+    ``trainable``: a SceneParams of bools selecting the leaves Adam
+    updates. Adam is ``torch.optim.Adam(lr=learning_rate)``, optax's
+    defaults (betas 0.9/0.999, eps 1e-8); the JAX package's
+    ``optimizer`` argument has no counterpart."""
+    impl = kw.get("impl", "oracle")
+    if impl == "stream":
+        raise NotImplementedError(f"impl='stream': {_STREAM}")
+    if impl not in ("oracle", "kernel", "fused"):
+        raise ValueError(f"impl must be 'oracle', 'kernel' or 'fused', got "
+                         f"{impl!r}")
+    mask = ([True] * 9 if trainable is None
+            else [bool(t) for t in param_leaves(trainable)])
+
+    def init_fn(params: SceneParams) -> TrainState:
+        leaves = [t.detach().clone() for t in param_leaves(params)]
+        zeros = params_from_leaves([torch.zeros_like(t) for t in leaves])
+        dev = leaves[0].device
+        return TrainState(
+            params=params_from_leaves(leaves),
+            opt_state=AdamState(torch.zeros((), dtype=torch.int32,
+                                            device=dev), zeros, zeros),
+            step=torch.zeros((), dtype=torch.int32, device=dev),
+        )
+
+    def apply(state: TrainState, d_params: SceneParams):
+        leaves = [t.detach().clone() for t in param_leaves(state.params)]
+        mu = [t.clone() for t in param_leaves(state.opt_state.mu)]
+        nu = [t.clone() for t in param_leaves(state.opt_state.nu)]
+        grads = param_leaves(d_params)
+        train = [i for i in range(9) if mask[i]]
+        if train:
+            opt = torch.optim.Adam([leaves[i] for i in train],
+                                   lr=learning_rate)
+            count = float(state.opt_state.count)
+            for i in train:
+                leaves[i].grad = grads[i].detach().to(leaves[i].dtype)
+                opt.state[leaves[i]] = {
+                    "step": torch.tensor(count, dtype=torch.float32),
+                    "exp_avg": mu[i], "exp_avg_sq": nu[i],
+                }
+            opt.step()
+            for i in train:
+                leaves[i].grad = None
+        opt_state = AdamState(state.opt_state.count + 1,
+                              params_from_leaves(mu), params_from_leaves(nu))
+        return params_from_leaves(leaves), opt_state
+
+    if impl == "fused":
+        fused_kw = {k: kw[k] for k in ("seed", "pixel_order", "rr_start",
+                                       "loss", "huber_delta", "layout",
+                                       "mesh", "dtype")
+                    if k in kw}
+        gamma = kw.get("gamma", False)
+
+        def fused_step(state: TrainState, cam_cfg: CameraConfig, mat_type,
+                       active, target):
+            scene = Scene(params=state.params, mat_type=mat_type,
+                          active=active)
+            loss, _img, d_sm, d_cr = fused_train(
+                scene, cam_cfg, target, img_width, img_height,
+                samples_per_pixel, max_depth, gamma=gamma, **fused_kw)
+            d_params, _ = chain_to_params(d_sm, d_cr, state.params, cam_cfg,
+                                          mat_type, active, img_width,
+                                          img_height)
+            params, opt_state = apply(state, d_params)
+            return TrainState(params, opt_state, state.step + 1), loss
+
+        return init_fn, fused_step
+
+    if kw.pop("park_residuals", None) is not None:
+        raise ValueError("park_residuals tunes the fused kernel only: use "
+                         "impl='fused'")
+    loss_fn = make_loss_fn(img_width, img_height, samples_per_pixel,
+                           max_depth, **kw)
+
+    def step_fn(state: TrainState, cam_cfg: CameraConfig, mat_type, active,
+                target):
+        loss, (d_params, _) = _value_and_grad(loss_fn, state.params, cam_cfg,
+                                              mat_type, active, target)
+        params, opt_state = apply(state, d_params)
+        return TrainState(params, opt_state, state.step + 1), loss
+
+    return init_fn, step_fn
+
+
+def make_stream_train(stream, img_width, img_height, samples_per_pixel,
+                      max_depth, **kw):
+    """Inverse rendering for streamed scenes: not ported yet."""
+    raise NotImplementedError(f"make_stream_train: {_STREAM}")

@@ -19,7 +19,7 @@ from typing import NamedTuple
 import torch
 
 from ..models.scene import Scene
-from . import f32math
+from . import f32math, vec
 from .vec import Vec3
 
 # Sentinel "no hit" distance: finite, so dead lanes never make inf - inf.
@@ -46,7 +46,7 @@ def hit_world(scene: Scene, origin: Vec3, direction: Vec3,
     ox, oy, oz = origin.x[None, :], origin.y[None, :], origin.z[None, :]
     dx, dy, dz = direction.x[None, :], direction.y[None, :], direction.z[None, :]
 
-    a = torch.clamp(dx * dx + dy * dy + dz * dz, min=1e-12)       # (1, R)
+    a = vec.maximum(dx * dx + dy * dy + dz * dz, 1e-12)          # (1, R)
     c_dot_d = cx * dx + cy * dy + cz * dz                         # (N, R)
     d_dot_o = dx * ox + dy * oy + dz * oz                         # (1, R)
     h = c_dot_d - d_dot_o

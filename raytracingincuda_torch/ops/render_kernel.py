@@ -17,9 +17,11 @@ Two implementations share one signature:
 for CPU tensors; nothing falls back from one to the other.
 
 Around them sit the host plumbing (``_lane_setup``, ``_finalize_output``),
-``render_kernel`` (the ``render_pallas`` counterpart) and the difficulty
+``render_kernel`` (the ``render_pallas`` counterpart), the difficulty
 prepass (``measure_difficulty``, ``difficulty_order``), which sorts pixels
-by traced depth so that each warp holds pixels of similar path length.
+by traced depth so that each warp holds pixels of similar path length,
+and ``make_diff_render``, the render as a ``torch.autograd.Function``
+whose backward is the gradient kernel (``ops/train_kernel.py``).
 """
 from __future__ import annotations
 
@@ -28,10 +30,12 @@ from typing import Optional
 
 import torch
 
-from ..models.camera import Camera, CameraConfig, initialize
-from ..models.scene import Scene, SceneParams, _round_up
+from ..models.camera import (Camera, CameraConfig, config_from_leaves,
+                             config_leaves, initialize)
+from ..models.scene import (Scene, SceneParams, _round_up, param_leaves,
+                            params_from_leaves)
 from . import rng as rtrng
-from . import vec
+from . import tracer, vec
 from .tracer import _linear_to_gamma, _sky_color, primary_rays_from_ij, shade_hit
 from .vec import Vec3
 
@@ -120,13 +124,17 @@ def unpack_camera(cam_row: torch.Tensor) -> Camera:
 
 def _check_args(ids, ii, jj, budget, scene_mat, cam_row, *, samples,
                 max_depth, rr_start, sample_offset, layout):
-    """What both implementations take; raises on anything else."""
+    """What both implementations take; raises on anything else. The
+    gradient kernels pass their (3, padded) cotangent or target rows as
+    ``budget``."""
     dev = ids.device
+    budget_shape = ids.shape if budget.dim() == 1 else (3, ids.shape[0])
     for name, t, dtype, shape in (
         ("ids", ids, torch.int32, None),
         ("ii", ii, torch.float32, ids.shape),
         ("jj", jj, torch.float32, ids.shape),
-        ("budget", budget, torch.float32, ids.shape),
+        ("budget" if budget.dim() == 1 else "rows", budget, torch.float32,
+         budget_shape),
         ("scene_mat", scene_mat, torch.float32, None),
         ("cam_row", cam_row, torch.float32, (1, 24)),
     ):
@@ -221,7 +229,7 @@ def _regen_lanes(ids, fi, fj, budget, scene, cam, *, samples, max_depth, seed,
         continues = survived & ~(bounce_f >= (max_depth - 1))
         atten_upd = atten * sc.attenuation
         if rr_start is not None:
-            p_surv = torch.clamp(
+            p_surv = vec.clip(
                 torch.maximum(torch.maximum(atten_upd.x, atten_upd.y),
                               atten_upd.z),
                 0.05, 1.0,
@@ -475,3 +483,95 @@ def difficulty_order(seg: torch.Tensor, probe_depth: int = 8,
     equal to the JAX package's counting sort (``_bucket_order``)."""
     buckets = seg.reshape(-1).to(torch.int32).clamp(0, probe_depth * probe_samples)
     return torch.argsort(buckets, stable=True).to(torch.int32)
+
+
+def make_diff_render(mat_type, active, img_width: int, img_height: int,
+                     samples_per_pixel: int, max_depth: int, *,
+                     seed: int = rtrng.DEFAULT_SEED, gamma: bool = False,
+                     legacy_sky: bool = False, pixel_order=None, mesh=None,
+                     backward: str = "kernel", rr_start=None,
+                     layout: str = "vmem", ray_tile=None, bwd_ray_tile=None,
+                     bwd_sweep=None, bwd_window: int = 0,
+                     bwd_pixels_per_lane=None):
+    """Differentiable render: ``f(params, cam_cfg) -> (H, W, 3)`` whose
+    forward is ``render_kernel`` (the regen kernel on a card) and whose
+    gradient reaches every float leaf of ``params`` and ``cam_cfg``.
+
+    The counterpart of ``pallas_kernel.make_diff_render``, as a
+    ``torch.autograd.Function``. ``backward='kernel'`` chains gamma and
+    1/spp on the host, then runs the gradient kernel
+    (``train_kernel.render_kernel_grads``) and ``chain_to_params``;
+    ``backward='oracle'`` is autograd through ``tracer.render``. The
+    gradient kernel has the current-bounce sky only, so ``legacy_sky``
+    with ``backward='kernel'`` raises (the JAX package switches to the
+    oracle silently). ``pixel_order`` orders both passes' lanes and
+    changes speed only. ``ray_tile``, ``bwd_ray_tile``, ``bwd_sweep``,
+    ``bwd_window`` and ``bwd_pixels_per_lane`` shaped the TPU schedule
+    and are ignored."""
+    from . import train_kernel
+
+    train_kernel.refuse_unported(mesh, layout=layout)
+    del ray_tile, bwd_ray_tile, bwd_sweep, bwd_window, bwd_pixels_per_lane
+    if backward not in ("kernel", "oracle"):
+        raise ValueError(f"backward must be 'kernel' or 'oracle', got "
+                         f"{backward!r}")
+    if backward == "kernel" and legacy_sky:
+        raise ValueError(
+            "legacy_sky has no gradient kernel (it differentiates the "
+            "current-bounce sky only); use backward='oracle'")
+    n_params = 9
+
+    def split(leaves):
+        return (params_from_leaves(leaves[:n_params]),
+                config_from_leaves(leaves[n_params:]))
+
+    class _DiffRender(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, *leaves):
+            params, cfg = split(leaves)
+            img = render_kernel(
+                Scene(params, mat_type, active), cfg, img_width, img_height,
+                samples_per_pixel, max_depth, seed=seed, layout=layout,
+                legacy_sky=legacy_sky, gamma=gamma, pixel_order=pixel_order,
+                rr_start=rr_start)
+            ctx.save_for_backward(*leaves, img)
+            return img
+
+        @staticmethod
+        def backward(ctx, g):
+            *leaves, img = ctx.saved_tensors
+            if backward == "oracle":
+                return _oracle_vjp(leaves, g)
+            params, cfg = split(leaves)
+            if gamma:
+                # d sqrt(x) = 0.5 / sqrt(x) = 0.5 / img, 0 at black
+                pos = img > 0
+                g = torch.where(pos, 0.5 * g / torch.where(pos, img, 1.0),
+                                torch.zeros_like(g))
+            g_acc = g * (1.0 / samples_per_pixel)
+            d_sm, d_cr = train_kernel.render_kernel_grads(
+                Scene(params, mat_type, active), cfg, g_acc, img_width,
+                img_height, samples_per_pixel, max_depth, seed=seed,
+                pixel_order=pixel_order, rr_start=rr_start, layout=layout)
+            d_params, d_cfg = train_kernel.chain_to_params(
+                d_sm, d_cr, params, cfg, mat_type, active, img_width,
+                img_height)
+            return (*param_leaves(d_params), *config_leaves(d_cfg))
+
+    def _oracle_vjp(leaves, g):
+        leaves = [t.detach().requires_grad_(True) for t in leaves]
+        params, cfg = split(leaves)
+        with torch.enable_grad():
+            img = tracer.render(
+                Scene(params, mat_type, active), cfg, img_width, img_height,
+                samples_per_pixel, max_depth, seed=seed, gamma=gamma,
+                legacy_sky=legacy_sky, rr_start=rr_start)
+            grads = torch.autograd.grad(img, leaves, g, allow_unused=True)
+        return tuple(torch.zeros_like(t) if d is None else d
+                     for d, t in zip(grads, leaves))
+
+    def f(params: SceneParams, cam_cfg: CameraConfig) -> torch.Tensor:
+        return _DiffRender.apply(*param_leaves(params),
+                                 *config_leaves(cam_cfg))
+
+    return f

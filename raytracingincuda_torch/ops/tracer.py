@@ -154,7 +154,7 @@ def trace_sample(
         if rr_start is not None and bounce >= rr_start:
             # Russian roulette: survive with p = max-channel throughput
             # (clipped to [0.05, 1]) and reweight survivors by 1/p
-            p_surv = torch.clamp(
+            p_surv = vec.clip(
                 torch.maximum(torch.maximum(atten_upd.x, atten_upd.y),
                               atten_upd.z),
                 0.05, 1.0,

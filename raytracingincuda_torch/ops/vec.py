@@ -8,7 +8,11 @@ PyTorch version are held to each other bit for bit on the card:
   * ``v / t`` multiplies by the reciprocal ``1.0 / t``;
   * ``unit`` scales by ``rsqrt(max(|v|^2, eps))``, with the device-exact
     ``f32math.rsqrt``;
-  * ``lerp`` is ``a * (1 - t) + b * t``.
+  * ``lerp`` is ``a * (1 - t) + b * t``;
+  * bounds go through ``minimum``/``maximum``/``clip`` with 0-d tensor
+    bounds, never ``torch.clamp``: at a tie ``torch.clamp`` passes the
+    whole gradient, while JAX's ``jnp.minimum``/``jnp.maximum``/``jnp.clip``
+    pass half, and gradients are held to JAX's.
 
 Reference parity map (the CUDA book code's ``vec3.h``): operators
 :18-91, dot/cross :93-103, unit_vector :105-107, near_zero :48-52,
@@ -70,6 +74,25 @@ class Vec3(NamedTuple):
         return Vec3(z, z, z)
 
 
+def _bound(x: torch.Tensor, v: float) -> torch.Tensor:
+    return torch.full((), v, dtype=x.dtype, device=x.device)
+
+
+def minimum(x: torch.Tensor, hi: float) -> torch.Tensor:
+    """``jnp.minimum(x, hi)``: half the gradient to ``x`` at a tie."""
+    return torch.minimum(x, _bound(x, hi))
+
+
+def maximum(x: torch.Tensor, lo: float) -> torch.Tensor:
+    """``jnp.maximum(x, lo)``: half the gradient to ``x`` at a tie."""
+    return torch.maximum(x, _bound(x, lo))
+
+
+def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """``jnp.clip(x, lo, hi)`` = ``minimum(maximum(x, lo), hi)``."""
+    return minimum(maximum(x, lo), hi)
+
+
 def dot(u: Vec3, v: Vec3) -> torch.Tensor:
     return u.x * v.x + u.y * v.y + u.z * v.z
 
@@ -88,7 +111,7 @@ def cross(u: Vec3, v: Vec3) -> Vec3:
 
 def unit(v: Vec3, eps: float = 1e-30) -> Vec3:
     """Normalize; a zero vector stays finite (returns ~0, not NaN)."""
-    inv = f32math.rsqrt(torch.clamp(length_sq(v), min=eps))
+    inv = f32math.rsqrt(maximum(length_sq(v), eps))
     return v * inv
 
 
@@ -103,10 +126,10 @@ def reflect(v: Vec3, n: Vec3) -> Vec3:
 
 def refract(uv: Vec3, n: Vec3, etai_over_etat: torch.Tensor) -> Vec3:
     """Snell refraction of unit vector uv about unit normal n."""
-    cos_theta = torch.clamp(dot(-uv, n), max=1.0)
+    cos_theta = minimum(dot(-uv, n), 1.0)
     r_out_perp = (uv + n * cos_theta) * etai_over_etat
     par_len = f32math.sqrt(
-        torch.clamp((1.0 - length_sq(r_out_perp)).abs(), min=1e-12)
+        maximum((1.0 - length_sq(r_out_perp)).abs(), 1e-12)
     )
     r_out_parallel = n * (-par_len)
     return r_out_perp + r_out_parallel

@@ -1,18 +1,19 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path once on one CUDA card and check it.
+"""Drive the PyTorch port's main paths once on one CUDA card and check them.
 
     python3 chip_smoke.py
 
-Phases (each prints one line; any failure raises and the exit code is
-not 0; there is no CPU path):
+Phases (each prints one line ending in the card's nvidia-smi name and
+power limit; any failure raises and the exit code is not 0; there is no
+CPU path):
 
   0 device   the card (nvidia-smi name and power limit), CUDA, driver
-  1 build    nvcc builds the kernel from raytracingincuda_torch/csrc
-  2 goldens  the kernel against the six committed goldens
-  3 compare  the kernel against its plain PyTorch version on the card:
-             scene 1 at 320x192x10spp/25b (parity and rr2, both scene
-             layouts, the prepass segments, run-to-run bit identity),
-             and at the headline's shapes (1280x768, 2 spp, 25b)
+  1 build    nvcc builds the kernels from raytracingincuda_torch/csrc
+  2 goldens  the regen kernel against the six committed goldens
+  3 compare  the regen kernel against its plain PyTorch version on the
+             card: scene 1 at 320x192x10spp/25b (parity and rr2, both
+             scene layouts, the prepass segments, run-to-run bit
+             identity), and at the headline's shapes (1280x768, 2 spp, 25b)
   4 headline make_renderer at scene 1, 1280x768, 100 spp, 25 bounces,
              parity and rr2: one warm-up and 3 timed renders each (CUDA
              events), the kernel's launch count over that run, and one
@@ -31,11 +32,48 @@ not 0; there is no CPU path):
   8 trainer  the package's inverse-rendering example (20 Adam steps,
              impl fused) with a falling loss, then one make_train_step
              (impl kernel) step from gray albedos through make_diff_render
+  9 stream   the stream kernel against its plain version, bit for bit
+             and from run to run, with equal work counts: 10k random
+             spheres (seed 3) at 64x40x2spp/6b, parity and rr2, and scene
+             1 as one block; Morton against front-to-back order (share of
+             equal components); 100k spheres at 160x96x2spp/10b against
+             the regen kernel's hbm image (share)
+  10 stream headline  make_renderer(impl='stream') at 100k spheres,
+             640x384, 10 spp, 10 bounces: a warm-up and 3 timed renders,
+             launches, peak memory, the walk's work counts and bound; one
+             brute-force hbm render of the same scene at 2 spp
+  11 stream grads  the stream train kernel against its plain versions:
+             gradients at 1000 spheres (block 64), 64x40x4spp/6b, parity
+             and rr2; the fused step for four losses, gamma on and off,
+             its image bit-equal to the stream kernel's
+  12 stream train  make_stream_train (fused) at 100k spheres, 640x384,
+             4 spp, 10 bounces, MSE: a warm-up and 3 timed steps, finite
+             gradients, the loss equal to the image's MSE, peak memory;
+             one fused=False step (the same loss to GRAD_RTOL); the
+             segmented sum on this step's records against its plain
+             version (bit for bit) and index_add_; on the step's own
+             stream (100k spheres, blocks of 256 front to back) at
+             640x384x1spp/3b, the stream kernel (bit for bit) and both
+             modes of the stream train kernel against their plain versions
+  13 stream scale  1M spheres: the block after _auto_block, one forward
+             at 640x384x1spp/10b and one fused step at 1spp/6b, finite
+             gradients, peak memory; the stream kernel and the fused mode
+             against their plain versions on its blocks of 1024 at
+             64x40x1spp/6b
+  14 stream cli  the CLI with --impl stream and --layout packed at scene
+             1, 320x192x10spp (the file names, images against the regen
+             kernel's), and the example with --impl stream --n_spheres
+             2000 --steps 20 (a falling loss)
 
-Then the kernels line (JSON), the nvidia-smi line, and last
-{"ok": true, "device": {...}}. Everything measured also goes to
-chiprun_out/chip_smoke.json. Launch counts are set to 0 just before each
-main path (phases 4, 7, 8) and read just after it.
+Then the kernels line (JSON, with each kernel's bound), the nvidia-smi
+line, and last {"ok": true, "device": {...}}. Everything measured is
+also written to chip_smoke.json in the output directory. Launch counts
+are set to 0 just before each main path (phases 4, 7, 8, 10, 12, 13, 14)
+and read just after it: each path's own counts are in chip_smoke.json
+(launches_by_phase) and their sums are the kernels line's launches.
+stream_segment_sum counts its two kernels (chunk_sums_kernel, then
+segment_sums_kernel), two per call. The stream rows' times and bounds
+are those of the 100k comparisons in phase 12.
 """
 from __future__ import annotations
 
@@ -66,10 +104,34 @@ GRAD_ATOL_FRAC = 1e-4
 # kernel vs plain version on the card: share of quantized components and
 # of prepass segments that must be equal
 MIN_EXACT = 0.999
+STREAM_SOURCE = "raytracingincuda_torch/csrc/stream_render.cu"
+STREAM_REPLACES = "raytracingincuda_tpu/ops/pallas_stream.py:504"
+STREAM_TRAIN_SOURCE = "raytracingincuda_torch/csrc/stream_train.cu"
+STREAM_TRAIN_REPLACES = "raytracingincuda_tpu/ops/pallas_stream_backward.py:92"
+SEGMENT_REPLACES = "raytracingincuda_tpu/ops/pallas_stream_backward.py:360"
+# The bound: the larger of the operations over the H100's FP32 rate
+# outside the tensor cores and the bytes over its memory rate (NVIDIA's
+# data sheet, SXM, 700 W). Operations counted from path_common.cuh: a
+# sphere test is 18 FP32 operations with |C|^2 - r^2 staged (layout
+# vmem) and 25 where it is computed per test (hbm, the stream walk), a
+# block's bound test 25. Shading, the f64 recipes and the reverse are
+# left out, so each bound is a floor.
+FP32_PER_S = 67e12
+BYTES_PER_S = 3.35e12
+OPS_TEST_STAGED = 18
+OPS_TEST = 25
+CARD = ""
 
 
 def say(phase: str, msg: str) -> None:
-    print(f"[{phase}] {msg}", flush=True)
+    print(f"[{phase}] {msg}" + (f" | {CARD}" if CARD else ""), flush=True)
+
+
+def bound(ops: float, nbytes: float) -> tuple:
+    """(bound_ms, bound_by) for this much work."""
+    t_ops, t_bytes = ops / FP32_PER_S, nbytes / BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
 
 
 def main() -> int:
@@ -88,14 +150,42 @@ def main() -> int:
     from raytracingincuda_torch.models.scene import build_scene, param_leaves
     from raytracingincuda_torch.ops import _build
     from raytracingincuda_torch.ops import render_kernel as rk
+    from raytracingincuda_torch.ops import stream_kernel as sk
+    from raytracingincuda_torch.ops import stream_train_kernel as stk
     from raytracingincuda_torch.ops import train_kernel as tk
     from raytracingincuda_torch.render_api import make_renderer
     from raytracingincuda_torch.utils import ppm
     from raytracingincuda_torch.utils.timing import RenderTimer, device_record
 
+    global CARD
     dev = torch.device("cuda")
     record: dict = {}
     cam = CameraConfig.reference_default()
+    counters = {"regen_render": (rk, "LAUNCHES"),
+                "grad_render": (tk, "GRAD_LAUNCHES"),
+                "fused_train_render": (tk, "FUSED_LAUNCHES"),
+                "stream_render": (sk, "LAUNCHES"),
+                "stream_train": (stk, "LAUNCHES"),
+                "stream_segment_sum": (stk, "SEGMENT_LAUNCHES")}
+    main_launches = {name: 0 for name in counters}
+    record["launches_by_phase"] = {}
+
+    def reset_counts():
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+
+    def read_counts(path: str) -> dict:
+        """The counts since the last reset, kept under this main path's
+        name and added to the kernels line's sums."""
+        got = {name: getattr(mod, attr)
+               for name, (mod, attr) in counters.items()}
+        for name, n in got.items():
+            main_launches[name] += n
+        record["launches_by_phase"][path] = nonzero(got)
+        return got
+
+    def nonzero(counts: dict) -> dict:
+        return {k: v for k, v in counts.items() if v}
 
     # -- 0 device ------------------------------------------------------------
     rec = device_record()
@@ -103,6 +193,7 @@ def main() -> int:
     say("0 device", f"{rec['name_power_limit']} | torch {torch.__version__} "
         f"cuda {rec['torch_cuda']} | driver {rec['driver']} | "
         f"{rec['count']} device(s)")
+    CARD = rec["name_power_limit"]
 
     # -- 1 build -------------------------------------------------------------
     t0 = time.perf_counter()
@@ -207,13 +298,12 @@ def main() -> int:
 
     # -- 4 the main path at full width ----------------------------------------
     record["headline"] = {}
-    launches = 0
     for rr in (None, 2):
         cfg = RenderConfig(scene_id=1, width=1280, height=768, samples=100,
                            bounces=25, rr_start=rr)
         renderer = make_renderer(cfg, dev)
         scene = build_scene(1, device=dev)
-        rk.LAUNCHES = 0
+        reset_counts()
         with RenderTimer(dev) as warm:
             img = renderer(scene, cam)          # prepass + render
         times = []
@@ -221,9 +311,9 @@ def main() -> int:
             with RenderTimer(dev) as t:
                 img = renderer(scene, cam)
             times.append(t.ms)
-        if rk.LAUNCHES < 4:
+        if read_counts("4 headline " + ("parity" if rr is None else
+                                        f"rr{rr}"))["regen_render"] < 4:
             raise AssertionError(f"{rk.LAUNCHES} kernel launches for 4 renders")
-        launches += rk.LAUNCHES
         arr = img.cpu().numpy()
         if not (arr.shape == (768, 1280, 3) and np.isfinite(arr).all()
                 and arr.min() >= 0.0 and arr.max() <= 1.0):
@@ -359,7 +449,7 @@ def main() -> int:
     # -- 7 the train step at full width -------------------------------------
     width, height, spp, bounces = 1280, 768, 100, 25
     scene = build_scene(1, device=dev)
-    rk.LAUNCHES = tk.GRAD_LAUNCHES = tk.FUSED_LAUNCHES = 0
+    reset_counts()
     seg = rk.measure_difficulty(scene, cam, width, height, 8, 6)
     order = rk.difficulty_order(seg, 8, 6)
     gen = torch.Generator().manual_seed(0)
@@ -373,9 +463,7 @@ def main() -> int:
         with RenderTimer(dev) as t:
             loss_v, img, (d_params, d_cam) = step(scene.params, cam, target)
         times.append(t.ms)
-    train_launches = {"regen_render": rk.LAUNCHES,
-                      "fused_train_render": tk.FUSED_LAUNCHES,
-                      "grad_render": tk.GRAD_LAUNCHES}
+    train_launches = read_counts("7 train")
     if tk.FUSED_LAUNCHES < 4 or rk.LAUNCHES < 1:
         raise AssertionError(f"train headline launches {train_launches}")
     grads = param_leaves(d_params) + config_leaves(d_cam)
@@ -404,7 +492,7 @@ def main() -> int:
     from raytracingincuda_torch.ops import grad as gradlib
     from raytracingincuda_torch.ops.vec import Vec3
 
-    rk.LAUNCHES = tk.GRAD_LAUNCHES = tk.FUSED_LAUNCHES = 0
+    reset_counts()
     with tempfile.TemporaryDirectory() as tmp:
         args = inverse_rendering.build_parser().parse_args(
             ["--device", "cuda", "--impl", "fused", "--steps", "20",
@@ -420,9 +508,7 @@ def main() -> int:
     start = scene2.params._replace(albedo=Vec3(gray, gray, gray))
     state, k_loss = step_fn(init_fn(start), cam, scene2.mat_type,
                             scene2.active, tgt2)
-    trainer_launches = {"regen_render": rk.LAUNCHES,
-                        "fused_train_render": tk.FUSED_LAUNCHES,
-                        "grad_render": tk.GRAD_LAUNCHES}
+    trainer_launches = read_counts("8 trainer")
     record["trainer"] = {"losses": losses, "kernel_step_loss": float(k_loss),
                          "launches": trainer_launches}
     if not (losses[-1] < losses[0] and all(np.isfinite(losses))
@@ -435,37 +521,542 @@ def main() -> int:
         f"{losses[-1]:.6f}; make_train_step(impl='kernel') step loss "
         f"{float(k_loss):.6f}; launches {trainer_launches}")
 
-    # -- result lines ---------------------------------------------------------
-    worst_err = max(r["max_abs_err"] for r in record["compare"] + [head])
-    main_launches = {
-        "regen_render": launches + train_launches["regen_render"]
-        + trainer_launches["regen_render"],
-        "grad_render": train_launches["grad_render"]
-        + trainer_launches["grad_render"],
-        "fused_train_render": train_launches["fused_train_render"]
-        + trainer_launches["fused_train_render"],
-    }
-    record["main_path_launches"] = main_launches
+    # -- 9 the stream kernel against its plain version ---------------------
+    from raytracingincuda_torch.models.camera import initialize
+    from raytracingincuda_torch.models.scene import Scene, build_random_scene
 
-    def worst(kernel):
-        return max(v["max_abs_err"] for r in record["grads"]
-                   if r["kernel"] == kernel for v in r.values()
-                   if isinstance(v, dict))
+    def lanes(width, height, spp):
+        ids, ii, jj, bud = rk._lane_setup(width, height, None, spp, 0, None,
+                                          dev)
+        row = rk.pack_camera(initialize(cam, width, height)).to(dev)
+        return ids, ii, jj, bud, row
+
+    def walk_stats(st, width, height, spp, bounces, rr):
+        """(traced segments, opened blocks) of the walk at these inputs,
+        from the kernel's own counts."""
+        ids, ii, jj, bud, row = lanes(width, height, spp)
+        c = sk.stream_kernel(ids, ii, jj, bud, st.scene_mat, st.bounds, row,
+                             block=st.block, samples=spp, max_depth=bounces,
+                             rr_start=rr, emit_stats=True).double().sum(1)
+        return float(c[0]), float(c[1])
+
+    def walk_ops(st, segs, opened):
+        return (segs * st.bounds.shape[0] + opened * st.block) * OPS_TEST
+
+    def stream_compare(st, width, height, spp, bounces, rr, reps=5):
+        ids, ii, jj, bud, row = lanes(width, height, spp)
+        args = (ids, ii, jj, bud, st.scene_mat, st.bounds, row)
+        kw = dict(block=st.block, samples=spp, max_depth=bounces,
+                  rr_start=rr, finalize_scale=1.0 / spp)
+        k_out, k_ms = timed(lambda: sk.stream_kernel(*args, **kw), reps)
+        again = sk.stream_kernel(*args, **kw)
+        p_out, p_ms = timed(lambda: sk.stream_reference(*args, **kw), 1,
+                            warm=False)
+        k_stats = sk.stream_kernel(*args, emit_stats=True,
+                                   **kw).double().sum(1).cpu()
+        p_stats = sk.stream_reference(*args, emit_stats=True, **kw)
+        segs, opened = (float(v) for v in k_stats)
+        padded = ids.shape[0]
+        res = {"shape": f"{width}x{height}x{spp}spp/{bounces}b",
+               "rows": st.scene_mat.shape[0], "block": st.block,
+               "blocks": st.bounds.shape[0], "rr_start": rr,
+               "bit_equal": bool(torch.equal(k_out, p_out)),
+               "run_to_run_identical": bool(torch.equal(k_out, again)),
+               "max_abs_err": float((k_out - p_out).abs().max()),
+               "stats_equal": bool(torch.equal(k_stats, p_stats)),
+               "segments": segs, "opened_blocks": opened,
+               "opened_per_segment": opened / max(segs, 1.0),
+               "kernel_ms": k_ms, "plain_ms": p_ms}
+        res["bound_ms"], res["bound_by"] = bound(
+            walk_ops(st, segs, opened),
+            padded * 28 + st.scene_mat.shape[0] * rk.USED_COLS * 4
+            + st.bounds.numel() * 4 + 96)
+        if not (res["bit_equal"] and res["run_to_run_identical"]
+                and res["stats_equal"]):
+            raise AssertionError(f"stream kernel vs plain failed: {res}")
+        return res, k_out
+
+    def share_equal(a, b) -> float:
+        return float((ppm.quantize(a.cpu().numpy())
+                      == ppm.quantize(b.cpu().numpy())).mean())
+
+    record["stream_compare"] = []
+    s10k = build_random_scene(10_000, seed=3, device=dev)
+    morton = sk.prepare_stream_scene(s10k)
+    front = sk.reorder_front_to_back(morton,
+                                     initialize(cam, 64, 40).center)
+    for rr in (None, 2):
+        res, img_front = stream_compare(front, 64, 40, 2, 6, rr)
+        record["stream_compare"].append(res)
+        say("9 stream", f"10k spheres {res['shape']} rr={rr}: bit-equal to "
+            f"plain, run-to-run identical, work counts equal ({res['segments']:.0f}"
+            f" segments, {res['opened_per_segment']:.2f} of {res['blocks']} "
+            f"blocks opened a segment); kernel {res['kernel_ms']:.3f} ms, plain "
+            f"{res['plain_ms']:.1f} ms, bound {res['bound_ms']:.4f} ms")
+        if rr is None:
+            _, img_morton = stream_compare(morton, 64, 40, 2, 6, rr, reps=1)
+            order_share = share_equal(img_front, img_morton)
+    s1 = build_scene(1, device=dev)
+    one = sk.prepare_stream_scene(s1, block=512, pad_pairs=False)
+    res_one, _ = stream_compare(one, 64, 40, 2, 6, None)
+    record["stream_compare"].append(res_one)
+    s100k = build_random_scene(100_000, seed=3, device=dev)
+    st100k = sk.reorder_front_to_back(sk.prepare_stream_scene(s100k),
+                                      initialize(cam, 160, 96).center)
+    img_s = sk.render_stream(st100k, cam, 160, 96, 2, 10)
+    img_h = rk.render_kernel(s100k, cam, 160, 96, 2, 10, layout="hbm")
+    hbm_share = share_equal(img_s, img_h)
+    record["stream_order_share"] = order_share
+    record["stream_vs_hbm_share_100k"] = hbm_share
+    if not (order_share >= MIN_EXACT and hbm_share >= MIN_EXACT):
+        raise AssertionError(f"stream shares: Morton vs front-to-back "
+                             f"{order_share}, vs hbm at 100k {hbm_share}")
+    say("9 stream", f"scene 1 as one block of 512: bit-equal to plain; "
+        f"Morton vs front-to-back order equal on {order_share:.6f} of "
+        f"components; 100k spheres 160x96x2spp/10b equal to the hbm regen "
+        f"kernel on {hbm_share:.6f}")
+
+    # -- 10 the stream render at full width --------------------------------
+    w, h = 640, 384
+    cfg = RenderConfig(scene_id=0, width=w, height=h, samples=10, bounces=10,
+                       impl="stream")
+    renderer = make_renderer(cfg, dev)
+    renderer.prepare(s100k)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with RenderTimer(dev) as warm:
+        img = renderer(s100k, cam)
+    times = []
+    for _ in range(3):
+        with RenderTimer(dev) as t:
+            img = renderer(s100k, cam)
+        times.append(t.ms)
+    head_counts = read_counts("10 stream headline")
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    arr = img.cpu().numpy()
+    if not (head_counts["stream_render"] >= 4 and arr.shape == (h, w, 3)
+            and np.isfinite(arr).all()):
+        raise AssertionError(f"stream headline: {head_counts}, {arr.shape}")
+    with RenderTimer(dev) as brute:
+        rk.render_kernel(s100k, cam, w, h, 2, 10, layout="hbm")
+    st_head = sk.reorder_front_to_back(sk.prepare_stream_scene(s100k),
+                                       initialize(cam, w, h).center)
+    segs, opened = walk_stats(st_head, w, h, 10, 10, None)
+    head_bound, _ = bound(walk_ops(st_head, segs, opened), 0)
+    segs2 = float(rk.regen_kernel(*rk.regen_inputs(s100k, cam, w, h, 2),
+                                  samples=2, max_depth=10, emit_depth=True,
+                                  layout="hbm").double().sum())
+    brute_bound, _ = bound(segs2 * s100k.num_slots * OPS_TEST, 0)
+    best = min(times)
+    record["stream_headline"] = {
+        "render_ms": times, "warmup_ms": warm.ms, "launches": head_counts,
+        "brute_force_hbm_2spp_ms": brute.ms, "peak_mib": peak,
+        "segments": segs, "opened_blocks": opened,
+        "opened_per_segment": opened / segs, "bound_ms": head_bound,
+        "brute_force_2spp_bound_ms": brute_bound,
+        "mrays_per_s": w * h * 10 / best / 1e3}
+    say("10 stream headline", f"100k spheres {w}x{h}x10spp/10b: render_ms "
+        f"{', '.join(f'{t:.2f}' for t in times)} (warm-up {warm.ms:.2f}); "
+        f"{opened / segs:.2f} of {st_head.bounds.shape[0]} blocks opened a "
+        f"segment, bound {head_bound:.3f} ms; brute-force hbm at 2 spp "
+        f"{brute.ms:.2f} ms (bound {brute_bound:.3f}); peak {peak:.1f} MiB;"
+        f" launches {nonzero(head_counts)}")
+
+    # -- 11 the stream train kernel against its plain versions --------------
+    def spheres(st) -> int:
+        return int(st.perm.shape[0])
+
+    def stream_grads_compare(st, width, height, spp, bounces, rr, g_rows,
+                             reps=3):
+        """The gradient mode against its plain version on the same inputs."""
+        ids, ii, jj, _, row = lanes(width, height, spp)
+        args = (ids, ii, jj, g_rows, st.scene_mat, st.bounds, row)
+        kw = dict(block=st.block, samples=spp, max_depth=bounces, rr_start=rr)
+        k_out, k_ms = timed(lambda: stk.stream_grads_kernel(*args, **kw), reps)
+        again = stk.stream_grads_kernel(*args, **kw)
+        p_out, p_ms = timed(lambda: stk.stream_grads_reference(*args, **kw),
+                            1, warm=False)
+        res = {"kernel": "stream_train", "mode": "grads",
+               "spheres": spheres(st), "block": st.block,
+               "shape": f"{width}x{height}x{spp}spp/{bounces}b",
+               "rr_start": rr, "kernel_ms": k_ms, "plain_ms": p_ms,
+               "run_to_run_identical": all(
+                   torch.equal(a, b) for a, b in zip(k_out, again)),
+               **grad_compare(k_out, p_out, ("d_stream", "d_cam"))}
+        record["stream_grads"].append(res)
+        if not (res["run_to_run_identical"] and res["d_stream"]["ok"]
+                and res["d_cam"]["ok"]):
+            raise AssertionError(f"stream gradients vs plain failed: {res}")
+        say(phase, f"grads {res['spheres']} spheres block {st.block} "
+            f"{res['shape']} rr={rr}: d_stream max|d|/max "
+            f"{res['d_stream']['max_rel_to_largest']:.3g}, d_cam "
+            f"{res['d_cam']['max_rel_to_largest']:.3g}; run-to-run "
+            f"identical; kernel {k_ms:.3f} ms, plain {p_ms:.1f} ms")
+        return res
+
+    def stream_fused_compare(st, width, height, spp, bounces, rr, tgt_rows,
+                             loss, gamma, reps=3):
+        """The fused mode against its plain version on the same inputs; its
+        image bit-equal to the stream kernel's and the plain version's."""
+        ids, ii, jj, bud, row = lanes(width, height, spp)
+        args = (ids, ii, jj, tgt_rows, st.scene_mat, st.bounds, row)
+        kw = dict(block=st.block, samples=spp, max_depth=bounces,
+                  rr_start=rr, num_pixels=width * height, gamma=gamma,
+                  loss=loss, huber_delta=0.25)
+        k_out, k_ms = timed(lambda: stk.fused_stream_kernel(*args, **kw),
+                            reps)
+        again = stk.fused_stream_kernel(*args, **kw)
+        p_out, p_ms = timed(lambda: stk.fused_stream_reference(*args, **kw),
+                            1, warm=False)
+        img4 = sk.stream_kernel(ids, ii, jj, bud, st.scene_mat, st.bounds,
+                                row, block=st.block, samples=spp,
+                                max_depth=bounces, rr_start=rr,
+                                finalize_scale=1.0 / spp if gamma else None)
+        if not gamma:
+            img4 = img4 * tk.loss_constants(spp, width * height,
+                                            0.25)["inv_spp"]
+        res = {"kernel": "stream_train", "mode": "fused",
+               "spheres": spheres(st), "block": st.block,
+               "shape": f"{width}x{height}x{spp}spp/{bounces}b",
+               "rr_start": rr, "loss": loss, "gamma": gamma,
+               "kernel_ms": k_ms, "plain_ms": p_ms,
+               "image_equals_stream_render": bool(torch.equal(k_out[1], img4)),
+               "image_equals_plain": bool(torch.equal(k_out[1], p_out[1])),
+               "run_to_run_identical": all(torch.equal(a, b)
+                                           for a, b in zip(k_out, again)),
+               **grad_compare((k_out[0].reshape(1), k_out[2], k_out[3]),
+                              (p_out[0].reshape(1), p_out[2], p_out[3]),
+                              ("loss", "d_stream", "d_cam"))}
+        record["stream_grads"].append(res)
+        if not (res["image_equals_stream_render"] and res["image_equals_plain"]
+                and res["run_to_run_identical"] and res["loss"]["ok"]
+                and res["d_stream"]["ok"] and res["d_cam"]["ok"]):
+            raise AssertionError(f"fused stream kernel vs plain failed: {res}")
+        say(phase, f"fused {res['spheres']} spheres block {st.block} "
+            f"{res['shape']} rr={rr} {loss} gamma={gamma}: image bit-equal "
+            f"to the stream kernel's and the plain version's; loss rel "
+            f"{res['loss']['max_rel_to_largest']:.3g}, d_stream "
+            f"{res['d_stream']['max_rel_to_largest']:.3g}, d_cam "
+            f"{res['d_cam']['max_rel_to_largest']:.3g}; run-to-run "
+            f"identical; kernel {k_ms:.3f} ms, plain {p_ms:.1f} ms")
+        return res
+
+    def stream_train_bound(st, width, height, spp, bounces, rr):
+        """The fused step's bound: the walk twice (render, then re-trace),
+        its inputs read and its outputs written once."""
+        segs, opened = walk_stats(st, width, height, spp, bounces, rr)
+        padded = lanes(width, height, spp)[0].shape[0]
+        return bound(2 * walk_ops(st, segs, opened),
+                     padded * 36 + st.scene_mat.shape[0]
+                     * (rk.USED_COLS + 16) * 4 + st.bounds.numel() * 4 + 192)
+
+    phase = "11 stream grads"
+    s1k = build_random_scene(1000, seed=3, device=dev)
+    st1k = sk.prepare_stream_scene(s1k, block=64)
+    ids = lanes(64, 40, 4)[0]
+    gen = torch.Generator().manual_seed(3)
+    g_rows = (torch.randn((3, ids.shape[0]), generator=gen) * 1e-3).to(dev)
+    record["stream_grads"] = []
+    for rr in (None, 2):
+        stream_grads_compare(st1k, 64, 40, 4, 6, rr, g_rows)
+    tgt_rows = torch.rand((3, ids.shape[0]), generator=gen).to(dev)
+    for loss in tk.LOSSES:
+        for gamma in (False, True):
+            stream_fused_compare(st1k, 64, 40, 4, 6, 2, tgt_rows, loss, gamma)
+
+    # -- 12 the stream train step at full width -----------------------------
+    from raytracingincuda_torch.ops import grad as gradlib
+    from raytracingincuda_torch.ops.rng import DEFAULT_SEED
+    from raytracingincuda_torch.ops.stream_kernel import StreamScene
+
+    spp, bounces = 4, 10
+    gen = torch.Generator().manual_seed(5)
+    target = torch.rand((h, w, 3), generator=gen).to(dev)
+    stream = sk.prepare_stream_scene(s100k)
+    init_fn, step_fn = gradlib.make_stream_train(stream, w, h, spp, bounces)
+    state0 = init_fn(s100k.params)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with RenderTimer(dev) as warm:
+        state, loss0 = step_fn(state0, cam, s100k.mat_type, s100k.active,
+                               target)
+    times = []
+    for _ in range(3):
+        with RenderTimer(dev) as t:
+            state, loss_v = step_fn(state, cam, s100k.mat_type,
+                                    s100k.active, target)
+        times.append(t.ms)
+    step_counts = read_counts("12 stream train (fused)")
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    # the step's first loss against the image of the same parameters
+    border = gradlib.front_to_back_border(stream, cam, w, h)
+    st0 = StreamScene(*sk.build_stream_arrays(
+        Scene(state0.params, s100k.mat_type, s100k.active), stream.perm,
+        stream.block, stream.scene_mat.shape[0], border=border),
+        stream.block, stream.perm)
+    img0 = sk.render_stream(st0, cam, w, h, spp, bounces, gamma=False)
+    mse = float(((img0.double() - target.double()) ** 2).mean())
+    chk_loss, d_stream, d_cam = stk.mse_train_stream(st0, cam, target, w, h,
+                                                     spp, bounces)
+    finite = (bool(torch.isfinite(d_stream).all())
+              and bool(torch.isfinite(d_cam).all())
+              and all(bool(torch.isfinite(x).all())
+                      for x in param_leaves(state.params)))
+    if not (finite and step_counts["stream_train"] >= 4
+            and step_counts["stream_segment_sum"] >= 4
+            and float(chk_loss) == float(loss0)
+            and abs(float(loss0) - mse) <= 1e-6 * abs(mse)):
+        raise AssertionError(f"stream train step: finite {finite}, launches "
+                             f"{step_counts}, loss {float(loss0)} vs "
+                             f"{float(chk_loss)} vs image MSE {mse}")
+    init2, step2 = gradlib.make_stream_train(stream, w, h, spp, bounces,
+                                             fused=False)
+    reset_counts()
+    with RenderTimer(dev) as two:
+        _, loss_two = step2(state0, cam, s100k.mat_type, s100k.active,
+                            target)
+    two_counts = read_counts("12 stream train (fused=False)")
+    two_rel = abs(float(loss_two) - float(loss0)) / float(loss0)
+    if two_rel > GRAD_RTOL or two_counts["stream_render"] < 1:
+        raise AssertionError(f"two-program step loss {float(loss_two)} vs "
+                             f"{float(loss0)}, launches {two_counts}")
+    segs, opened = walk_stats(st0, w, h, spp, bounces, None)
+    step_bound, _ = bound(2 * walk_ops(st0, segs, opened), 0)
+    # the scatter's kernel on this step's records
+    ids, ii, jj, _, row = lanes(w, h, spp)
+    rows = tk._lane_rows(target, ids, w * h)
+    _, rec_row, rec_val, _, _ = stk.train_records(
+        ids, ii, jj, rows, st0.scene_mat, st0.bounds, row, block=st0.block,
+        samples=spp, max_depth=bounces, seed=DEFAULT_SEED, rr_start=None,
+        sample_offset=0, fused=True, num_pixels=w * h)
+    keys, src = stk.record_order(rec_row)
+    n_rows = st0.scene_mat.shape[0]
+    seg_out, seg_ms = timed(lambda: stk.segment_sum_kernel(keys, src, rec_val,
+                                                           n_rows), 5)
+    seg_plain, seg_plain_ms = timed(lambda: stk.segment_sum_reference(
+        keys, src, rec_val, n_rows), 1, warm=False)
+    lib_keys, lib_vals = keys.long(), rec_val[src]
+    lib_out = torch.zeros((n_rows, tk.GRAD_COLS), device=dev)
+    _, lib_ms = timed(lambda: lib_out.zero_().index_add_(0, lib_keys,
+                                                         lib_vals), 5)
+    m = keys.shape[0]
+    seg_bound, seg_by = bound(m * tk.GRAD_COLS, m * 48 + n_rows * 36)
+    segment_main = {"records": m, "kernel_ms": seg_ms,
+                    "plain_ms": seg_plain_ms, "library_ms": lib_ms,
+                    "bound_ms": seg_bound, "bound_by": seg_by,
+                    "bit_equal": bool(torch.equal(seg_out, seg_plain)),
+                    "max_abs_err": float((seg_out - seg_plain).abs().max())}
+    if not segment_main["bit_equal"]:
+        raise AssertionError(f"segment sum vs plain: {segment_main}")
+    # kernels 4 and 5 against their plain versions on this step's stream
+    # (100k spheres, blocks of 256 front to back) at its width, with the
+    # samples and depth cut for the plain versions' time
+    phase = "12 stream train"
+    cspp, cb = 1, 3
+    render_100k, _ = stream_compare(st0, w, h, cspp, cb, None, reps=3)
+    record["stream_compare"].append(render_100k)
+    say(phase, f"stream kernel 100k spheres block {st0.block} "
+        f"{render_100k['shape']}: bit-equal to plain, run-to-run identical, "
+        f"work counts equal ({render_100k['opened_per_segment']:.2f} of "
+        f"{render_100k['blocks']} blocks opened a segment); kernel "
+        f"{render_100k['kernel_ms']:.3f} ms, plain "
+        f"{render_100k['plain_ms']:.1f} ms, bound "
+        f"{render_100k['bound_ms']:.4f} ms")
+    ids = lanes(w, h, cspp)[0]
+    gen = torch.Generator().manual_seed(6)
+    stream_grads_compare(st0, w, h, cspp, cb, None, (torch.randn(
+        (3, ids.shape[0]), generator=gen) * 1e-3).to(dev))
+    train_100k = stream_fused_compare(st0, w, h, cspp, cb, None,
+                                      tk._lane_rows(target, ids, w * h),
+                                      "mse", False)
+    train_100k["bound_ms"], train_100k["bound_by"] = stream_train_bound(
+        st0, w, h, cspp, cb, None)
+    best = min(times)
+    record["stream_train"] = {
+        "fused_step_ms": times, "warmup_ms": warm.ms, "launches": step_counts,
+        "loss": float(loss0), "image_mse": mse, "peak_mib": peak,
+        "two_program_step_ms": two.ms, "two_program_loss_rel": two_rel,
+        "two_program_launches": two_counts, "segments": segs,
+        "opened_blocks": opened, "bound_ms": step_bound,
+        "segment_sum": segment_main,
+        "vs_stream_render": best / min(record["stream_headline"]["render_ms"])}
+    say(phase, f"make_stream_train 100k spheres {w}x{h}x{spp}spp/"
+        f"{bounces}b mse: fused_step_ms {', '.join(f'{t:.2f}' for t in times)}"
+        f" (warm-up {warm.ms:.2f}); walk bound {step_bound:.3f} ms; loss "
+        f"{float(loss0):.6g} = image MSE {mse:.6g}; gradients finite; peak "
+        f"{peak:.1f} MiB; fused=False step {two.ms:.2f} ms, loss rel "
+        f"{two_rel:.2g}; segment sum of {m} records {seg_ms:.3f} ms (plain "
+        f"{seg_plain_ms:.1f}, index_add_ {lib_ms:.3f}, bound "
+        f"{seg_bound:.4f}), bit-equal to plain; launches fused "
+        f"{nonzero(step_counts)}, fused=False {nonzero(two_counts)}")
+
+    # -- 13 the 1M-sphere scale check ---------------------------------------
+    del s10k, st100k, stream, st0, rec_row, rec_val, keys, src, lib_vals
+    phase = "13 stream scale"
+    s1m = build_random_scene(1_000_000, seed=3, half_extent=60.0, device=dev)
+    t0 = time.perf_counter()
+    st1m = sk.prepare_stream_scene(s1m)
+    prep_s = time.perf_counter() - t0
+    cfg = RenderConfig(scene_id=0, width=w, height=h, samples=1, bounces=10,
+                       impl="stream")
+    renderer = make_renderer(cfg, dev)
+    renderer.prepare(s1m)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with RenderTimer(dev) as fwd:
+        img = renderer(s1m, cam)
+    fwd_counts = read_counts("13 stream scale (forward)")
+    fwd_peak = torch.cuda.max_memory_allocated() / 2**20
+    init_fn, step_fn = gradlib.make_stream_train(st1m, w, h, 1, 6)
+    state0 = init_fn(s1m.params)
+    tgt1m = torch.rand((h, w, 3), generator=gen).to(dev)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with RenderTimer(dev) as step1m:
+        state, loss1m = step_fn(state0, cam, s1m.mat_type, s1m.active, tgt1m)
+    step1m_counts = read_counts("13 stream scale (step)")
+    step_peak = torch.cuda.max_memory_allocated() / 2**20
+    _, d_stream, d_cam = stk.mse_train_stream(
+        StreamScene(*sk.build_stream_arrays(
+            s1m, st1m.perm, st1m.block, st1m.scene_mat.shape[0],
+            border=gradlib.front_to_back_border(st1m, cam, w, h)),
+            st1m.block, st1m.perm), cam, tgt1m, w, h, 1, 6)
+    finite = (bool(torch.isfinite(d_stream).all())
+              and bool(torch.isfinite(d_cam).all())
+              and bool(np.isfinite(img.cpu().numpy()).all())
+              and all(bool(torch.isfinite(x).all())
+                      for x in param_leaves(state.params)))
+    # blocks of 1024 against the plain walk, front to back, few pixels
+    st1m_front = sk.reorder_front_to_back(st1m, initialize(cam, w, h).center)
+    render_1m, _ = stream_compare(st1m_front, 64, 40, 1, 6, None, reps=3)
+    record["stream_compare"].append(render_1m)
+    say(phase, f"stream kernel 1M spheres block {st1m.block} "
+        f"{render_1m['shape']}: bit-equal to plain, run-to-run identical, "
+        f"work counts equal; kernel {render_1m['kernel_ms']:.3f} ms, plain "
+        f"{render_1m['plain_ms']:.1f} ms")
+    ids = lanes(64, 40, 1)[0]
+    stream_fused_compare(st1m_front, 64, 40, 1, 6, None, torch.rand(
+        (3, ids.shape[0]), generator=gen).to(dev), "mse", False)
+    record["stream_scale"] = {
+        "block": st1m.block, "blocks": st1m.n_blocks, "prepare_s": prep_s,
+        "forward_ms": fwd.ms, "forward_peak_mib": fwd_peak,
+        "forward_launches": fwd_counts, "fused_step_ms": step1m.ms,
+        "fused_step_peak_mib": step_peak, "step_launches": step1m_counts,
+        "loss": float(loss1m)}
+    if not (finite and st1m.block == 1024 and fwd_counts["stream_render"] >= 1
+            and step1m_counts["stream_train"] >= 1):
+        raise AssertionError(f"1M scale check: finite {finite}, "
+                             f"{record['stream_scale']}")
+    say(phase, f"1M spheres: block {st1m.block}, {st1m.n_blocks} "
+        f"blocks (prepare {prep_s:.2f} s); forward {w}x{h}x1spp/10b "
+        f"{fwd.ms:.2f} ms (peak {fwd_peak:.1f} MiB); fused step 1spp/6b "
+        f"{step1m.ms:.2f} ms (peak {step_peak:.1f} MiB); gradients finite; "
+        f"launches forward {nonzero(fwd_counts)}, step "
+        f"{nonzero(step1m_counts)}")
+    del s1m, st1m, st1m_front, state0, state, d_stream
+
+    # -- 14 the stream CLI and the example ----------------------------------
+    want = rk.render_kernel(build_scene(1, device=dev), cam, 320, 192, 10, 25)
+    cli_shares = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        env = dict(os.environ, PYTHONPATH=str(ROOT))
+        for flags, cfg in (
+                (["--impl", "stream"], RenderConfig(scene_id=1,
+                                                    impl="stream")),
+                (["--layout", "packed"], RenderConfig(scene_id=1,
+                                                      layout="packed"))):
+            res = subprocess.run(
+                [sys.executable, "-m", "raytracingincuda_torch.cli",
+                 "--scene_id", "1", "--width", "320", "--height", "192",
+                 "--samples", "10", *flags],
+                cwd=tmp, env=env, capture_output=True, text=True, timeout=600)
+            if res.returncode != 0:
+                raise AssertionError(f"cli {flags} failed: "
+                                     f"{res.stderr[-2000:]}")
+            line = res.stdout.strip().splitlines()[-1]
+            name = cfg.output_filename()
+            got, _ = ppm.read_ppm(str(Path(tmp) / name))
+            cli_shares[name] = float((got == ppm.quantize(
+                want.cpu().numpy())).mean())
+            if not (re.fullmatch(r"\s*[0-9.]+,\s*[0-9.]+", line)
+                    and cli_shares[name] >= MIN_EXACT):
+                raise AssertionError(f"cli {flags}: {line!r}, {cli_shares}")
+    reset_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        args = inverse_rendering.build_parser().parse_args(
+            ["--device", "cuda", "--impl", "stream", "--n_spheres", "2000",
+             "--steps", "20", "--out", str(Path(tmp) / "recovered.ppm")])
+        stream_losses = inverse_rendering.run(args)
+    example_counts = read_counts("14 stream example")
+    record["stream_cli"] = cli_shares
+    record["stream_trainer"] = {"losses": stream_losses,
+                                "launches": example_counts}
+    if not (stream_losses[-1] < stream_losses[0]
+            and all(np.isfinite(stream_losses))
+            and example_counts["stream_train"] >= 20):
+        raise AssertionError(f"stream example: {record['stream_trainer']}")
+    say("14 stream cli", f"--impl stream and --layout packed at scene 1 "
+        f"320x192x10spp: {', '.join(f'{k} equal to the regen kernel on {v:.6f}' for k, v in cli_shares.items())}; "
+        f"example --impl stream --n_spheres 2000, 20 steps: loss "
+        f"{stream_losses[0]:.6g} -> {stream_losses[-1]:.6g}")
+
+    # -- result lines ---------------------------------------------------------
+    record["main_path_launches"] = main_launches
+    worst_err = max(r["max_abs_err"] for r in record["compare"] + [head])
+
+    def worst(kernel, runs):
+        return max(v["max_abs_err"] for r in runs if r["kernel"] == kernel
+                   for v in r.values() if isinstance(v, dict))
+
+    def segments(width, height, spp, bounces, rr):
+        inputs = rk.regen_inputs(build_scene(1, device=dev), cam, width,
+                                 height, spp)
+        return float(rk.regen_kernel(*inputs, samples=spp, max_depth=bounces,
+                                     rr_start=rr, emit_depth=True)
+                     .double().sum())
+
+    n1 = build_scene(1).num_slots
+    scene_bytes = n1 * rk.USED_COLS * 4 + 96
+    px_head = 1280 * 768
+    px_small = 320 * 192
+    regen_bound = bound(segments(1280, 768, 2, 25, None) * n1
+                        * OPS_TEST_STAGED, px_head * 28 + scene_bytes)
+    grad_bound = bound(segments(320, 192, 4, 8, 2) * n1 * OPS_TEST_STAGED,
+                       px_small * 24 + scene_bytes + n1 * 64)
+    fused_bound = bound(2 * segments(1280, 768, 2, 25, 2) * n1
+                        * OPS_TEST_STAGED,
+                        px_head * 36 + scene_bytes + n1 * 64)
+
+    def kernel_row(name, source, replaces, max_abs_err, ms, plain_ms, bnd,
+            library_ms=None):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": main_launches[name],
+                "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bnd[0], "bound_by": bnd[1],
+                "library_ms": library_ms}
 
     kernels = {"kernels": [
-        {"name": "regen_render", "route": "cuda", "source": KERNEL_SOURCE,
-         "replaces": KERNEL_REPLACES,
-         "launches": main_launches["regen_render"], "max_abs_err": worst_err,
-         "ms": head["kernel_ms"], "plain_ms": head["plain_ms"]},
-        {"name": "grad_render", "route": "cuda", "source": TRAIN_SOURCE,
-         "replaces": GRAD_REPLACES, "launches": main_launches["grad_render"],
-         "max_abs_err": worst("grad_render"), "ms": grad_main["kernel_ms"],
-         "plain_ms": grad_main["plain_ms"]},
-        {"name": "fused_train_render", "route": "cuda", "source": TRAIN_SOURCE,
-         "replaces": FUSED_REPLACES,
-         "launches": main_launches["fused_train_render"],
-         "max_abs_err": worst("fused_train_render"),
-         "ms": fused_head["kernel_ms"], "plain_ms": fused_head["plain_ms"]},
+        kernel_row("regen_render", KERNEL_SOURCE, KERNEL_REPLACES, worst_err,
+            head["kernel_ms"], head["plain_ms"], regen_bound),
+        kernel_row("grad_render", TRAIN_SOURCE, GRAD_REPLACES,
+            worst("grad_render", record["grads"]), grad_main["kernel_ms"],
+            grad_main["plain_ms"], grad_bound),
+        kernel_row("fused_train_render", TRAIN_SOURCE, FUSED_REPLACES,
+            worst("fused_train_render", record["grads"]),
+            fused_head["kernel_ms"], fused_head["plain_ms"], fused_bound),
+        kernel_row("stream_render", STREAM_SOURCE, STREAM_REPLACES,
+            max(r["max_abs_err"] for r in record["stream_compare"]),
+            render_100k["kernel_ms"], render_100k["plain_ms"],
+            (render_100k["bound_ms"], render_100k["bound_by"])),
+        kernel_row("stream_train", STREAM_TRAIN_SOURCE, STREAM_TRAIN_REPLACES,
+            worst("stream_train", record["stream_grads"]),
+            train_100k["kernel_ms"], train_100k["plain_ms"],
+            (train_100k["bound_ms"], train_100k["bound_by"])),
+        kernel_row("stream_segment_sum", STREAM_TRAIN_SOURCE, SEGMENT_REPLACES,
+            segment_main["max_abs_err"], segment_main["kernel_ms"],
+            segment_main["plain_ms"],
+            (segment_main["bound_ms"], segment_main["bound_by"]),
+            segment_main["library_ms"]),
     ]}
     if min(k["launches"] for k in kernels["kernels"]) < 1:
         raise AssertionError(f"a kernel did not launch on the main path: "

@@ -8,9 +8,12 @@ scene construction to the written file. A warm-up render (the kernel
 build, the prepass and its order cache) runs first unless
 ``--no-warmup``.
 
-``--threads`` and ``--pixels_per_lane`` are accepted for parity with the
-reference and the JAX package; they shaped the TPU schedule and the CUDA
-kernel ignores them (one thread per pixel, 128-thread blocks).
+``--threads``, ``--pixels_per_lane`` and ``--stream_lane_group`` are
+accepted for parity with the reference and the JAX package; they shaped
+the TPU schedule and the CUDA kernels ignore them (one thread per pixel,
+128-thread blocks). A renderer's ``prepare`` (the stream scene's Morton
+sort and block bounds) runs after the scene is built and before the
+render bracket, like the reference's upload.
 """
 from __future__ import annotations
 
@@ -44,11 +47,20 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--legacy_sky", action="store_true",
                    help="shade the sky by the primary ray (the reference "
                         "CUDA variants' quirk)")
-    p.add_argument("--layout", choices=["vmem", "hbm"], default="vmem",
-                   help="scene in shared memory (vmem, 'const') or read "
-                        "from device memory (hbm, 'global')")
-    p.add_argument("--impl", choices=["kernel", "oracle"], default="kernel",
-                   help="the CUDA kernel or the plain PyTorch tracer")
+    p.add_argument("--layout", choices=["vmem", "hbm", "packed"],
+                   default="vmem",
+                   help="scene in shared memory (vmem, 'const'), read from "
+                        "device memory (hbm, 'global'), or the texture-path "
+                        "analog (packed, 'tex': the stream kernel)")
+    p.add_argument("--impl", choices=["kernel", "stream", "oracle"],
+                   default="kernel",
+                   help="the CUDA regeneration kernel, the stream kernel "
+                        "(culled sphere blocks, any scene size) or the "
+                        "plain PyTorch tracer")
+    p.add_argument("--stream_block", type=int, default=256,
+                   help="impl=stream: spheres per block (a minimum)")
+    p.add_argument("--stream_lane_group", type=int, default=None,
+                   help="TPU culling granularity; ignored by the kernel")
     p.add_argument("--pixels_per_lane", type=int, default=None,
                    help="TPU schedule hint; ignored by the kernel")
     p.add_argument("--outdir", type=str, default=".")
@@ -85,6 +97,8 @@ def main(argv=None) -> int:
         layout=args.layout, impl=args.impl, seed=args.seed,
         legacy_sky=args.legacy_sky, rr_start=args.rr_start,
         pixels_per_lane=args.pixels_per_lane,
+        stream_block=args.stream_block,
+        stream_lane_group=args.stream_lane_group,
     )
     device = torch.device(args.device)
     renderer = make_renderer(cfg, device)
@@ -96,6 +110,9 @@ def main(argv=None) -> int:
 
     t_e2e0 = time.perf_counter()
     scene = build_scene(cfg.scene_id, seed=cfg.seed, device=device)
+    prepare = getattr(renderer, "prepare", None)
+    if prepare is not None:
+        prepare(scene)
     with RenderTimer(device) as timer:
         img = renderer(scene, cam)
     print(f"{timer.ms:15.8f}", end=",")

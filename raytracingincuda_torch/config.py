@@ -6,13 +6,18 @@ carry over unchanged. What this port serves:
 
   dtype:  float32 only ('float' in the file name)
   layout: vmem ('const': the scene staged in shared memory) |
-          hbm ('global': the scene read from device memory)
+          hbm ('global': the scene read from device memory) |
+          packed ('tex': the texture-path analog, served by the stream
+          kernel, as in JAX)
   impl:   kernel (the CUDA regeneration kernel; the JAX 'pallas') |
+          stream (the stream kernel: scenes of any size, walked in culled
+          sphere blocks of ``stream_block`` rows) |
           oracle (the plain PyTorch tracer)
 
-``threads``, ``chunk_pixels``, ``pixels_per_lane`` and ``ray_tile`` shaped
-the TPU schedule; here they are hints the CUDA kernel ignores
-(``chunk_pixels`` still sizes the oracle's pixel chunks).
+``threads``, ``chunk_pixels``, ``pixels_per_lane``, ``ray_tile`` and
+``stream_lane_group`` shaped the TPU schedule; here they are hints the
+CUDA kernels ignore (``chunk_pixels`` still sizes the oracle's pixel
+chunks).
 """
 from __future__ import annotations
 
@@ -22,12 +27,11 @@ from typing import Optional
 from .ops.rng import DEFAULT_SEED
 
 DTYPE_NAMES = {"float32": "float"}
-LAYOUT_NAMES = {"hbm": "global", "vmem": "const"}
-IMPLS = ("kernel", "oracle")
+LAYOUT_NAMES = {"hbm": "global", "vmem": "const", "packed": "tex"}
+IMPLS = ("kernel", "stream", "oracle")
 # impls of the JAX package that later slices port (ROADMAP queue 1)
 _NOT_YET = {
     "adaptive": "adaptive sampling, ROADMAP queue 1 item 3",
-    "stream": "streamed scenes, ROADMAP queue 1 item 2",
 }
 
 
@@ -47,13 +51,15 @@ class RenderConfig:
     chunk_pixels: Optional[int] = None
     # Russian-roulette start depth (None = off = the reference estimator)
     rr_start: Optional[int] = None
-    # the adaptive and stream fields keep the JAX field names; their
-    # impls are not ported yet and raise
+    # the adaptive fields keep the JAX field names; that impl is not
+    # ported yet and raises
     max_samples: Optional[int] = None
     adaptive_tol: float = 0.05
     adaptive_rounds: int = 1
     pixels_per_lane: Optional[int] = None   # TPU schedule hint, ignored
     ray_tile: Optional[int] = None          # TPU schedule hint, ignored
+    # impl='stream': the minimum sphere block (doubled for huge scenes);
+    # the lane group was the TPU's culling granularity, a hint here
     stream_block: int = 256
     stream_lane_group: Optional[int] = None
     mxu_dots: bool = False
@@ -66,10 +72,6 @@ class RenderConfig:
         if self.dtype not in DTYPE_NAMES:
             raise ValueError(f"dtype must be one of {list(DTYPE_NAMES)}, "
                              f"got {self.dtype!r}")
-        if self.layout == "packed":
-            raise NotImplementedError(
-                "layout=packed is not ported yet (the texture-path analog "
-                "of streamed scenes, ROADMAP queue 1 item 2)")
         if self.layout not in LAYOUT_NAMES:
             raise ValueError(f"layout must be one of {list(LAYOUT_NAMES)}")
         if self.impl in _NOT_YET:
@@ -88,6 +90,11 @@ class RenderConfig:
             v = getattr(self, f)
             if v is not None and v <= 0:
                 raise ValueError(f"{f} must be positive (or None = auto)")
+        if self.stream_block <= 0:
+            raise ValueError("stream_block must be positive")
+        if self.stream_lane_group is not None and self.stream_lane_group < 0:
+            raise ValueError("stream_lane_group must be >= 0 (or None = "
+                             "auto)")
 
     @property
     def effective_chunk_pixels(self) -> int:

@@ -1,13 +1,16 @@
-// Device code shared by the render kernel (regen_render.cu) and the train
-// kernels (train_render.cu): vector math, the device-exact f32 functions,
-// the Threefry streams, the camera, the scene as a kernel sees it, and the
-// trace of one sample's path. One copy, so that the train kernels' forward
-// is the render kernel's arithmetic bit for bit.
+// Device code shared by the render kernels (regen_render.cu,
+// stream_render.cu) and the train kernels (train_render.cu,
+// stream_train.cu): vector math, the device-exact f32 functions, the
+// Threefry streams, the camera, the scene as a kernel sees it, the two
+// closest-hit tests (the brute-force scan and the stream block walk) and
+// the trace of one sample's path. One copy, so that a train kernel's
+// forward is its render kernel's arithmetic bit for bit.
 //
 // Exactness. Every expression keeps the association of the plain PyTorch
-// versions (ops/tracer.py, ops/render_kernel.py:regen_reference) and of
-// the JAX kernels. The build uses --fmad=false and no fast math, and sqrt,
-// rsqrt, sin and cos are the fixed IEEE sequences of ops/f32math.py.
+// versions (ops/tracer.py, ops/render_kernel.py:regen_reference,
+// ops/stream_kernel.py:stream_reference) and of the JAX kernels. The build
+// uses --fmad=false and no fast math, and sqrt, rsqrt, sin and cos are the
+// fixed IEEE sequences of ops/f32math.py.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -223,6 +226,117 @@ __device__ __forceinline__ V3 slot_center(const SceneView& sc, int k) {
   return {e.x, e.y, e.z};
 }
 
+// One slot's hit test in the numerator domain (ops/intersect.py): keeps
+// the smallest root numerator with a strict '<', so the first slot wins an
+// exact tie.
+__device__ __forceinline__ void test_slot(const float4 e, V3 o, V3 d, float a,
+                                          float d_dot_o, float o2, float tmin_a, int k,
+                                          float& best, int& win) {
+  const float h = (e.x * d.x + e.y * d.y + e.z * d.z) - d_dot_o;
+  const float cc = (e.w + o2) - 2.0f * (e.x * o.x + e.y * o.y + e.z * o.z);
+  const float disc = h * h - a * cc;
+  if (disc > 0.0f) {
+    const float sq = sqrtf(disc);
+    const float near = h - sq;
+    const float root = near > tmin_a ? near : h + sq;
+    if (root > tmin_a && root < best) {
+      best = root;
+      win = k;
+    }
+  }
+}
+
+// The closest hit over every slot of a SceneView (the regen and train
+// kernels): true on a hit, with the winning slot and t = numerator / a.
+template <bool kHbm_>
+struct ScanHit {
+  static constexpr bool kHbm = kHbm_;
+  SceneView sc;
+  __device__ __forceinline__ bool operator()(V3 o, V3 d, int& win, float& t) const {
+    const float a = fmaxf(dot(d, d), 1e-12f);
+    const float d_dot_o = dot(d, o);
+    const float o2 = dot(o, o);
+    const float tmin_a = kTMin * a;
+    float best = kTMiss;
+    win = 0;
+    for (int k = 0; k < sc.n; ++k)
+      test_slot(slot_entry<kHbm>(sc, k), o, d, a, d_dot_o, o2, tmin_a, k, best, win);
+    if (!(best < kTMiss)) return false;
+    t = best * (1.0f / a);
+    return true;
+  }
+};
+
+// Can the ray improve on t_cur inside a block's bound sphere b = (centre,
+// radius)? The half-b quadratic against the bound, as
+// pallas_stream.py:_block_bound_any_hit tests it for one lane:
+// [t_near, t_far] must overlap (T_MIN, t_cur). Conservative: the bounds
+// carry slack (prepare_stream_scene), so a block that could improve is
+// never skipped.
+__device__ __forceinline__ bool bound_can_improve(const float4 b, V3 o, V3 d, float a,
+                                                  float d_dot_o, float o2, float t_cur) {
+  const float cdx = b.x * d.x + b.y * d.y + b.z * d.z;
+  const float cdo = b.x * o.x + b.y * o.y + b.z * o.z;
+  const float h = cdx - d_dot_o;
+  const float c2r2 = b.x * b.x + b.y * b.y + b.z * b.z - b.w * b.w;
+  const float c = (c2r2 + o2) - 2.0f * cdo;
+  const float disc = h * h - a * c;
+  if (!(disc > 0.0f)) return false;
+  const float sq = sqrtf(disc);
+  return h + sq > kTMin * a && h - sq < t_cur * a && b.w > 0.0f;
+}
+
+// The stream walk's closest hit (stream_render.cu, stream_train.cu): the
+// bounds rows in their order (Morton, or front to back from the camera);
+// each row gives its block's bound sphere and first matrix row. A block is
+// opened only if this thread's ray can improve inside the bound; within a
+// block the smallest root numerator wins (first row on a tie); across
+// blocks a block's hit replaces the best only when t_b < t_cur, so a tie
+// between blocks goes to the block visited first. The gate is per thread:
+// a warp runs a block's loop once if any lane opens it either way, and a
+// per-lane gate makes the merge decisions the plain version's lane by lane.
+// With kCount, `opened` counts the blocks the thread opened.
+template <bool kCount>
+struct WalkHit {
+  static constexpr bool kHbm = true;
+  SceneView sc;         // the stream matrix as SoA (kNumCols, rows)
+  const float* bounds;  // (nb, 8): cx, cy, cz, r_bound, first row, unused
+  int nb, block;
+  mutable int opened = 0;
+  __device__ __forceinline__ bool operator()(V3 o, V3 d, int& win, float& t) const {
+    const float a = fmaxf(dot(d, d), 1e-12f);
+    const float d_dot_o = dot(d, o);
+    const float o2 = dot(o, o);
+    const float tmin_a = kTMin * a;
+    const float4* rows = reinterpret_cast<const float4*>(bounds);
+    float t_cur = kTMiss;
+    win = 0;
+    for (int j = 0; j < nb; ++j) {
+      if (!bound_can_improve(__ldg(rows + 2 * j), o, d, a, d_dot_o, o2, t_cur)) continue;
+      if (kCount) ++opened;
+      const int k0 = (int)__ldg(bounds + 8 * j + 4);
+      float best = kTMiss;
+      int wb = 0;
+      for (int k = k0; k < k0 + block; ++k)
+        test_slot(scan_entry(sc.soa, sc.n, k), o, d, a, d_dot_o, o2, tmin_a, k, best, wb);
+      const float t_b = best * (1.0f / a);
+      if (best < kTMiss && t_b < t_cur) {
+        t_cur = t_b;
+        win = wb;
+      }
+    }
+    if (!(t_cur < kTMiss)) return false;
+    t = t_cur;
+    return true;
+  }
+};
+
+// Gamma 2 of a finished pixel: sqrt of positive values, 0 at black.
+__device__ __forceinline__ V3 gamma2(V3 v) {
+  return {v.x > 0.0f ? sqrtf(v.x) : 0.0f, v.y > 0.0f ? sqrtf(v.y) : 0.0f,
+          v.z > 0.0f ? sqrtf(v.z) : 0.0f};
+}
+
 // The state entering one bounce and its winning slot (-1 on a miss): one
 // entry of the train kernels' per-thread residual stack.
 struct Entry {
@@ -239,47 +353,28 @@ struct PathEnd {
   V3 contrib;
 };
 
-// Trace sample s of one pixel. A scatter at bounce max_depth-1 exits
-// black; from rr_start on (>= 0), Russian roulette keeps a path with
-// p = clip(max channel, 0.05, 1) and weights survivors by 1/p. With
-// kPush, the state entering every bounce goes onto `stack`.
-template <bool kHbm, bool kPush>
-__device__ __forceinline__ PathEnd trace_sample(const SceneView& sc, const Cam& cam,
+// Trace sample s of one pixel, with `hit` (ScanHit or WalkHit) as the
+// closest hit. A scatter at bounce max_depth-1 exits black; from rr_start
+// on (>= 0), Russian roulette keeps a path with p = clip(max channel,
+// 0.05, 1) and weights survivors by 1/p. With kPush, the state entering
+// every bounce goes onto `stack`.
+template <class Hit, bool kPush>
+__device__ __forceinline__ PathEnd trace_sample(const Hit& hit, const Cam& cam,
                                                 const Stream& st, float fi, float fj,
                                                 uint32_t s, int max_depth, int rr_start,
                                                 bool legacy_sky, Entry* stack) {
-  const int n = sc.n;
+  constexpr bool kHbm = Hit::kHbm;
+  const SceneView& sc = hit.sc;
   V3 o, d;
   primary_ray(cam, fi, fj, st, s, o, d);
   const V3 prim_d = d;
   V3 atten = {1.0f, 1.0f, 1.0f};
   for (int b = 0;; ++b) {
-    // closest hit over all slots, minimum taken over root numerators
-    const float a = fmaxf(dot(d, d), 1e-12f);
-    const float d_dot_o = dot(d, o);
-    const float o2 = dot(o, o);
-    const float tmin_a = kTMin * a;
-    float best = kTMiss;
-    int win = 0;
-    for (int k = 0; k < n; ++k) {
-      const float4 e = slot_entry<kHbm>(sc, k);
-      const float h = (e.x * d.x + e.y * d.y + e.z * d.z) - d_dot_o;
-      const float cc = (e.w + o2) - 2.0f * (e.x * o.x + e.y * o.y + e.z * o.z);
-      const float disc = h * h - a * cc;
-      if (disc > 0.0f) {
-        const float sq = sqrtf(disc);
-        const float near = h - sq;
-        const float root = near > tmin_a ? near : h + sq;
-        if (root > tmin_a && root < best) {
-          best = root;
-          win = k;
-        }
-      }
-    }
-    const bool missed = !(best < kTMiss);
+    int win;
+    float t;
+    const bool missed = !hit(o, d, win, t);
     if (kPush) stack[b] = Entry{o, d, atten, missed ? -1 : win};
     if (missed) return {b, true, atten * sky(legacy_sky ? prim_d : d)};
-    const float t = best * (1.0f / a);
     const V3 hp = o + d * t;
     const V3 center = slot_center<kHbm>(sc, win);
     const float radius = sc.col(0, win);

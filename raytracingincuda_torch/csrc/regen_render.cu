@@ -72,7 +72,7 @@ __global__ void __launch_bounds__(kBlock) regen_kernel(Params p) {
   }
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= p.padded) return;
-  const SceneView sc{p.scene, smem, kHbm ? p.scene + kRadius * n : gath, n};
+  const ScanHit<kHbm> hit{SceneView{p.scene, smem, kHbm ? p.scene + kRadius * n : gath, n}};
   const Cam cam = load_cam(p.cam);
   const Stream st{p.k0, p.k1, (uint32_t)p.ids[i]};
   const float fi = p.ii[i], fj = p.jj[i], budget = p.budget[i];
@@ -80,8 +80,8 @@ __global__ void __launch_bounds__(kBlock) regen_kernel(Params p) {
   float seg = 0.0f;
 
   for (uint32_t s = (uint32_t)p.sample_offset; (float)s < budget; ++s) {
-    const PathEnd e = trace_sample<kHbm, false>(sc, cam, st, fi, fj, s, p.max_depth,
-                                                p.rr_start, p.legacy_sky, nullptr);
+    const PathEnd e = trace_sample<ScanHit<kHbm>, false>(hit, cam, st, fi, fj, s, p.max_depth,
+                                                         p.rr_start, p.legacy_sky, nullptr);
     if (e.missed && !p.emit_depth) acc = acc + e.contrib;
     seg += (float)e.bounce + 1.0f;
   }
@@ -90,11 +90,7 @@ __global__ void __launch_bounds__(kBlock) regen_kernel(Params p) {
     p.out[i] = seg;
     return;
   }
-  if (p.finalize) {  // 1/spp, then gamma 2 (sqrt of positive values)
-    acc = acc * p.scale;
-    acc = {acc.x > 0.0f ? sqrtf(acc.x) : 0.0f, acc.y > 0.0f ? sqrtf(acc.y) : 0.0f,
-           acc.z > 0.0f ? sqrtf(acc.z) : 0.0f};
-  }
+  if (p.finalize) acc = gamma2(acc * p.scale);  // 1/spp, then gamma 2
   p.out[i] = acc.x;
   p.out[p.padded + i] = acc.y;
   p.out[2 * p.padded + i] = acc.z;

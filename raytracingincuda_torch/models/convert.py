@@ -97,3 +97,19 @@ def train_state_from_numpy(arrays: Sequence[np.ndarray], trainable=None,
                             moments(arrays[10 + k:10 + 2 * k])),
         step=_t(arrays[-1], device, torch.int32),
     )
+
+
+def stream_scene_from_numpy(scene_mat, bounds, block: int, perm,
+                            device="cpu"):
+    """The port's ``StreamScene`` from a JAX ``StreamScene``'s arrays:
+    the matrix's columns 0-15 (the JAX matrix pads its rows to 128 lanes),
+    the (nb, 8) bounds, the block size and ``perm``."""
+    from ..ops.stream_kernel import StreamScene
+
+    mat = np.asarray(scene_mat, np.float32)
+    if mat.ndim != 2 or mat.shape[1] < 16 or mat.shape[0] % block:
+        raise ValueError(f"stream matrix {mat.shape} is not whole blocks of "
+                         f"{block} rows with at least 16 columns")
+    return StreamScene(_t(np.ascontiguousarray(mat[:, :16]), device),
+                       _t(np.asarray(bounds, np.float32), device), int(block),
+                       _t(np.asarray(perm), device, torch.int32))

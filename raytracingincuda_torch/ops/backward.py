@@ -69,10 +69,12 @@ class Winner(NamedTuple):
     sid: torch.Tensor       # int64 slot id (meaningless on a miss)
 
 
-def hit_winner(scene, o: Vec3, d: Vec3) -> Winner:
+def hit_winner(scene, o: Vec3, d: Vec3, closest=None) -> Winner:
     """Full, detached closest-hit scan; the reverse replays the winner
-    only (``winner_bounce``)."""
-    hit, _t, idx = hit_world(scene, o, d)
+    only (``winner_bounce``). ``closest``: a precomputed ``HitResult``
+    over ``scene``'s slots (the stream walk's); by default
+    ``hit_world``'s."""
+    hit, _t, idx = hit_world(scene, o, d) if closest is None else closest
     p = scene.params
 
     def take(col):

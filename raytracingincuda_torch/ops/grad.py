@@ -9,7 +9,8 @@ the Russian-roulette kill, liveness) are constants, and gradients flow
 through the continuous quantities those decisions select.
 
 "Training" is inverse rendering: fit scene parameters to a target image.
-``make_train_step`` builds the step for three implementations:
+``make_train_step`` builds the step for three implementations, and
+``make_stream_train`` for streamed scenes (``ops/stream_kernel.py``):
 
   * ``'oracle'``: autograd through the plain PyTorch tracer;
   * ``'kernel'``: the regen kernel forward and the gradient kernel
@@ -26,15 +27,18 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
-from ..models.camera import CameraConfig, config_from_leaves, config_leaves
+from ..models.camera import (CameraConfig, config_from_leaves, config_leaves,
+                             initialize)
 from ..models.scene import Scene, SceneParams, param_leaves, params_from_leaves
 from . import tracer
 from .render_kernel import make_diff_render
 from .train_kernel import chain_to_params, fused_train, refuse_unported
 
-_STREAM = ("streamed scenes are not ported yet (ROADMAP queue 1 item 2)")
+_STREAM = ("impl='stream' trains streamed scenes through make_stream_train "
+           "(the JAX make_loss_fn falls back to its oracle here)")
 
 
 def image_mse(img: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
@@ -85,7 +89,7 @@ def make_loss_fn(img_width: int, img_height: int, samples_per_pixel: int,
     ``remat`` have no counterpart here and are dropped."""
     refuse_unported(mesh, dtype, layout)
     if impl == "stream":
-        raise NotImplementedError(f"impl='stream': {_STREAM}")
+        raise ValueError(_STREAM)
     if impl not in ("oracle", "kernel"):
         raise ValueError(f"impl must be 'oracle' or 'kernel', got {impl!r}")
     if impl != "kernel":
@@ -141,9 +145,25 @@ def render_grads(scene: Scene, cam_cfg: CameraConfig, target,
                            scene.active, target)
 
 
-def front_to_back_border(stream, cam_cfg, img_width, img_height):
-    """The stream walk's block order: not ported yet."""
-    raise NotImplementedError(f"front_to_back_border: {_STREAM}")
+def front_to_back_border(stream, cam_cfg: CameraConfig, img_width: int,
+                         img_height: int) -> torch.Tensor:
+    """The walk's block visit order for ``build_stream_arrays``: the
+    canonical (Morton) block indices sorted by the camera distance of their
+    bounds (distance - bound radius, empty blocks last), on the bounds'
+    device. The prepared bounds rows may already be in camera order
+    (``camdist_from``), so each row's canonical index comes from its
+    first-row column. Speed only: the image and gradients are the same
+    but for exact ties between blocks."""
+    bn = stream.bounds.detach().cpu().numpy()
+    dev = stream.bounds.device
+    if bn.shape[0] <= 1:
+        return torch.arange(bn.shape[0], dtype=torch.int32, device=dev)
+    from .stream_kernel import front_to_back
+
+    order = front_to_back(bn, initialize(cam_cfg, img_width,
+                                         img_height).center)
+    canon = np.rint(bn[:, 4] / stream.block).astype(np.int64)
+    return torch.from_numpy(canon[order].astype(np.int32)).to(dev)
 
 
 class AdamState(NamedTuple):
@@ -181,27 +201,11 @@ def train_state_from_leaves(leaves) -> TrainState:
     )
 
 
-def make_train_step(img_width: int, img_height: int, samples_per_pixel: int,
-                    max_depth: int, learning_rate: float = 1e-2,
-                    trainable=None, **kw):
-    """Build ``(init_fn, step_fn)`` for inverse rendering;
-    ``step_fn(state, cam_cfg, mat_type, active, target) -> (state,
-    loss)``.
-
-    ``impl`` (in ``kw``): 'oracle' (default), 'kernel' or 'fused'; the
-    other keywords go to ``make_loss_fn`` or, for 'fused', to
-    ``fused_train`` (``gamma``, ``seed``, ``pixel_order``, ``rr_start``,
-    ``loss``, ``huber_delta``, ``layout``; the TPU knobs are ignored).
-    ``trainable``: a SceneParams of bools selecting the leaves Adam
-    updates. Adam is ``torch.optim.Adam(lr=learning_rate)``, optax's
-    defaults (betas 0.9/0.999, eps 1e-8); the JAX package's
-    ``optimizer`` argument has no counterpart."""
-    impl = kw.get("impl", "oracle")
-    if impl == "stream":
-        raise NotImplementedError(f"impl='stream': {_STREAM}")
-    if impl not in ("oracle", "kernel", "fused"):
-        raise ValueError(f"impl must be 'oracle', 'kernel' or 'fused', got "
-                         f"{impl!r}")
+def _adam(learning_rate: float, trainable):
+    """``(init_fn, apply)`` for Adam over the SceneParams leaves:
+    ``torch.optim.Adam(lr=learning_rate)`` with optax's defaults (betas
+    0.9/0.999, eps 1e-8); ``trainable``, a SceneParams of bools, selects
+    the leaves it updates."""
     mask = ([True] * 9 if trainable is None
             else [bool(t) for t in param_leaves(trainable)])
 
@@ -238,6 +242,32 @@ def make_train_step(img_width: int, img_height: int, samples_per_pixel: int,
         opt_state = AdamState(state.opt_state.count + 1,
                               params_from_leaves(mu), params_from_leaves(nu))
         return params_from_leaves(leaves), opt_state
+
+    return init_fn, apply
+
+
+def make_train_step(img_width: int, img_height: int, samples_per_pixel: int,
+                    max_depth: int, learning_rate: float = 1e-2,
+                    trainable=None, **kw):
+    """Build ``(init_fn, step_fn)`` for inverse rendering;
+    ``step_fn(state, cam_cfg, mat_type, active, target) -> (state,
+    loss)``.
+
+    ``impl`` (in ``kw``): 'oracle' (default), 'kernel' or 'fused'; the
+    other keywords go to ``make_loss_fn`` or, for 'fused', to
+    ``fused_train`` (``gamma``, ``seed``, ``pixel_order``, ``rr_start``,
+    ``loss``, ``huber_delta``, ``layout``; the TPU knobs are ignored).
+    ``trainable``: a SceneParams of bools selecting the leaves Adam
+    updates. Adam is ``torch.optim.Adam(lr=learning_rate)``, optax's
+    defaults (betas 0.9/0.999, eps 1e-8); the JAX package's
+    ``optimizer`` argument has no counterpart."""
+    impl = kw.get("impl", "oracle")
+    if impl == "stream":
+        raise ValueError(_STREAM)
+    if impl not in ("oracle", "kernel", "fused"):
+        raise ValueError(f"impl must be 'oracle', 'kernel' or 'fused', got "
+                         f"{impl!r}")
+    init_fn, apply = _adam(learning_rate, trainable)
 
     if impl == "fused":
         fused_kw = {k: kw[k] for k in ("seed", "pixel_order", "rr_start",
@@ -277,7 +307,69 @@ def make_train_step(img_width: int, img_height: int, samples_per_pixel: int,
     return init_fn, step_fn
 
 
-def make_stream_train(stream, img_width, img_height, samples_per_pixel,
-                      max_depth, **kw):
-    """Inverse rendering for streamed scenes: not ported yet."""
-    raise NotImplementedError(f"make_stream_train: {_STREAM}")
+def make_stream_train(stream, img_width: int, img_height: int,
+                      samples_per_pixel: int, max_depth: int,
+                      learning_rate: float = 1e-2, trainable=None,
+                      seed: int = 1227, fused: bool = True, mesh=None,
+                      loss: str = "mse",
+                      huber_delta: float = 1.0):
+    """Inverse rendering for streamed scenes: ``(init_fn, step_fn)`` with
+    ``step_fn(state, cam_cfg, mat_type, active, target) -> (state,
+    loss)``, as ``make_train_step``.
+
+    ``fused=True`` runs render, loss and gradients in one launch
+    (``stream_train_kernel.mse_train_stream``); ``fused=False`` renders
+    (``render_stream``), takes the loss's gradient on the host and runs the
+    kernel's gradient mode; the two agree up to summation order. The
+    Morton permutation and block assignment are frozen from ``stream``
+    (``prepare_stream_scene``); each step rebuilds the matrix and bounds
+    from the current parameters on their device (``build_stream_arrays``),
+    with the blocks visited front to back from the first step's camera.
+    The loss is taken in linear radiance. Adam as in ``make_train_step``;
+    the JAX ``optimizer``, ``interpret`` and ``lane_group`` (the TPU
+    schedule) arguments have no counterpart, ``mesh`` raises."""
+    from .stream_kernel import StreamScene, build_stream_arrays, render_stream
+    from .stream_train_kernel import (mse_train_stream, render_stream_grads,
+                                      stream_grads_to_scene_mat)
+
+    refuse_unported(mesh)
+    init_fn, apply = _adam(learning_rate, trainable)
+    block, n_pad, perm = stream.block, stream.scene_mat.shape[0], stream.perm
+    border: dict = {}
+
+    def stream_of(params, mat_type, active, cam_cfg) -> StreamScene:
+        if "b" not in border:
+            border["b"] = front_to_back_border(stream, cam_cfg, img_width,
+                                               img_height)
+        sm, bounds = build_stream_arrays(Scene(params, mat_type, active),
+                                         perm, block, n_pad,
+                                         border=border["b"])
+        return StreamScene(sm, bounds, block, perm)
+
+    def step_fn(state: TrainState, cam_cfg: CameraConfig, mat_type, active,
+                target):
+        st = stream_of(state.params, mat_type, active, cam_cfg)
+        kw = dict(seed=seed)
+        if fused:
+            loss_v, d_stream, d_cr = mse_train_stream(
+                st, cam_cfg, target, img_width, img_height, samples_per_pixel,
+                max_depth, loss=loss, huber_delta=huber_delta, **kw)
+        else:
+            img = render_stream(st, cam_cfg, img_width, img_height,
+                                samples_per_pixel, max_depth, gamma=False,
+                                **kw).requires_grad_(True)
+            with torch.enable_grad():
+                loss_v = image_loss(img, torch.as_tensor(target).to(img),
+                                    loss, huber_delta)
+                (g_img,) = torch.autograd.grad(loss_v, img)
+            d_stream, d_cr = render_stream_grads(
+                st, cam_cfg, g_img / samples_per_pixel, img_width,
+                img_height, samples_per_pixel, max_depth, **kw)
+            loss_v = loss_v.detach()
+        d_sm = stream_grads_to_scene_mat(d_stream, st, mat_type.shape[0])
+        d_params, _ = chain_to_params(d_sm, d_cr, state.params, cam_cfg,
+                                      mat_type, active, img_width, img_height)
+        params, opt_state = apply(state, d_params)
+        return TrainState(params, opt_state, state.step + 1), loss_v
+
+    return init_fn, step_fn

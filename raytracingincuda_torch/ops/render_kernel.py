@@ -202,8 +202,10 @@ def regen_reference(ids, ii, jj, budget, scene_mat, cam_row, *, samples: int,
 
 def _regen_lanes(ids, fi, fj, budget, scene, cam, *, samples, max_depth, seed,
                  legacy_sky, emit_depth, rr_start, sample_offset,
-                 finalize_scale):
-    """The JAX ``_regen_body`` recurrence (K=1) over one chunk of lanes."""
+                 finalize_scale, hit_fn=None):
+    """The JAX ``_regen_body`` recurrence (K=1) over one chunk of lanes.
+    ``hit_fn(o, d, active) -> HitResult`` replaces the all-slot hit test
+    (the stream walk); ``active`` marks the lanes that trace this wave."""
     key = rtrng.key_from_seed(seed)
     pid = ids.to(torch.int64)
     shape, dev = pid.shape, pid.device
@@ -222,7 +224,8 @@ def _regen_lanes(ids, fi, fj, budget, scene, cam, *, samples, max_depth, seed,
             break
         s_u = sample_f.to(torch.int64)
         b_u = bounce_f.to(torch.int64)
-        hit, p, sc = shade_hit(scene, o, d, pid, s_u, b_u, key)
+        closest = None if hit_fn is None else hit_fn(o, d, active)
+        hit, p, sc = shade_hit(scene, o, d, pid, s_u, b_u, key, closest)
 
         survived = active & hit & sc.scattered
         # scattering at the depth cap exits black

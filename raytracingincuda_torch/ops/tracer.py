@@ -94,10 +94,12 @@ def _linear_to_gamma(x: torch.Tensor) -> torch.Tensor:
 
 
 def shade_hit(scene: Scene, o: Vec3, d: Vec3, pixel_ids, sample_idx,
-              bounce, key):
+              bounce, key, closest=None):
     """Closest hit -> hit point -> oriented normal (signed radius) -> RNG
-    draws -> material scatter. Returns (hit, p, scatter result)."""
-    hit, t, idx = hit_world(scene, o, d)
+    draws -> material scatter. Returns (hit, p, scatter result).
+    ``closest``: a precomputed ``HitResult`` over ``scene``'s slots (the
+    stream walk's); by default ``hit_world``'s."""
+    hit, t, idx = hit_world(scene, o, d) if closest is None else closest
     hp = gather_hit_params(scene, idx)
 
     t_safe = torch.where(hit, t, torch.ones_like(t))

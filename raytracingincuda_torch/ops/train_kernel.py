@@ -24,9 +24,10 @@ version for CPU tensors; neither falls back to the other.
 The TPU kernels' schedule knobs (``ray_tile``, ``bwd_ray_tile``,
 ``sweep``, ``window``, ``park_residuals``, ``park``, ``pixels_per_lane``)
 fitted VMEM and the 128-lane rows; the entry points here accept them and
-ignore them. ``mesh`` (multiple devices, ROADMAP queue 1 item 6),
-``dtype=float64`` (queue 1 item 4) and ``layout='packed'`` (queue 1 item
-2) raise.
+ignore them. ``mesh`` (multiple devices, ROADMAP queue 1 item 6) and
+``dtype=float64`` (queue 1 item 4) raise; so does ``layout='packed'``,
+the streamed-scene layout, which ``grad.make_stream_train`` trains
+(``ops/stream_train_kernel.py``).
 """
 from __future__ import annotations
 
@@ -64,11 +65,12 @@ FUSED_LAUNCHES = 0
 
 def refuse_unported(mesh=None, dtype=torch.float32,
                     layout: str = "vmem") -> None:
-    """Raise for the axes a later slice ports."""
+    """Raise for the axes a later slice ports, and for ``layout='packed'``,
+    which the stream path trains."""
     if layout == "packed":
-        raise NotImplementedError(
-            "layout='packed' is not ported yet (streamed scenes, ROADMAP "
-            "queue 1 item 2)")
+        raise ValueError(
+            "layout='packed' is the streamed-scene layout; train it with "
+            "grad.make_stream_train")
     if mesh is not None:
         raise NotImplementedError(
             "mesh is not ported yet (multiple devices, ROADMAP queue 1 "
@@ -144,7 +146,13 @@ def _outputs(d9, dcam):
 
 
 def _grad_lanes(ids, fi, fj, rows, scene, cam, key, d9, dcam, *, samples,
-                max_depth, rr_start, sample_offset):
+                max_depth, rr_start, sample_offset, hit_fn=None, record=None):
+    """Kernel A's recurrence over one chunk of lanes, adding into ``d9``
+    and ``dcam``. ``hit_fn(o, d, alive) -> HitResult`` replaces the
+    all-slot scan (the stream walk). ``record(sample - sample_offset,
+    bounce, slot, rows9)`` replaces the add into ``d9``: it receives each
+    reverse step's nine cotangents and the winning slot, -1 where the
+    lane has no record (no winner, or a path that banked no radiance)."""
     pid = ids.to(torch.int64)
     g = Vec3(rows[0], rows[1], rows[2])
     shape, dev = pid.shape, pid.device
@@ -156,10 +164,13 @@ def _grad_lanes(ids, fi, fj, rows, scene, cam, key, d9, dcam, *, samples,
         atten = Vec3.full(shape, 1.0, 1.0, 1.0, device=dev)
         alive = torch.ones(shape, dtype=torch.bool, device=dev)
         parked = []
+        banked = torch.zeros(shape, dtype=torch.bool, device=dev)
         for b in range(max_depth):
             if not bool(alive.any()):
                 break
-            w = hit_winner(scene, o, d)
+            w = hit_winner(scene, o, d,
+                           None if hit_fn is None else hit_fn(o, d, alive))
+            banked = banked | (alive & ~w.hit)
             draws = bounce_draws(pid, s, b, key, rr)
             parked.append((b, w, o, d, atten, alive, draws))
             (o, d, atten, alive), _ = winner_bounce(
@@ -176,7 +187,11 @@ def _grad_lanes(ids, fi, fj, rows, scene, cam, key, d9, dcam, *, samples,
             valid = w.hit & alive
             rows9 = torch.stack([*ct.wc, ct.wr, *ct.walb, ct.wfuzz, ct.wior],
                                 dim=1)
-            d9.index_add_(0, w.sid[valid], rows9[valid])
+            if record is None:
+                d9.index_add_(0, w.sid[valid], rows9[valid])
+            else:
+                record(s - sample_offset, b,
+                       torch.where(valid & banked, w.sid, -1), rows9)
             ct_o, ct_d, ct_at = ct.o, ct.d, ct.atten
         dcam += primary_ray_vjp(cam.use_defocus, fi, fj, cam_draws, ct_o,
                                 ct_d).sum(dim=1)

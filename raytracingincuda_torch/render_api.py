@@ -4,7 +4,10 @@
 ``make_renderer(impl='pallas')``: a difficulty prepass (the same kernel
 with ``return_depth``) orders the pixels so that each warp holds pixels
 of similar traced depth, then the regeneration kernel renders in that
-order. ``impl='oracle'`` runs the plain PyTorch tracer.
+order. ``impl='stream'`` (and ``layout='packed'``, the texture-path
+analog, which routes there as in JAX) renders through the stream kernel
+(``ops/stream_kernel.py``): a prepared scene of any size, walked in
+culled sphere blocks. ``impl='oracle'`` runs the plain PyTorch tracer.
 
 Nothing falls back: a CUDA device without CUDA raises, and the kernel
 path on a CPU device runs the kernel's plain version by design (the
@@ -17,9 +20,9 @@ from typing import Callable
 import torch
 
 from .config import RenderConfig
-from .models.camera import CameraConfig
-from .models.scene import Scene
-from .ops import render_kernel, tracer
+from .models.camera import CameraConfig, initialize
+from .models.scene import Scene, _round_up, param_leaves
+from .ops import render_kernel, stream_kernel, tracer
 
 
 def _leaf_key(scene: Scene, cam_cfg: CameraConfig) -> tuple:
@@ -29,6 +32,82 @@ def _leaf_key(scene: Scene, cam_cfg: CameraConfig) -> tuple:
               cam_cfg.vfov, *cam_cfg.lookfrom, *cam_cfg.lookat, *cam_cfg.vup,
               cam_cfg.defocus_angle, cam_cfg.focus_dist]
     return tuple((tuple(x.shape), str(x.dtype)) for x in leaves)
+
+
+def _identity_cache():
+    """One entry keyed by the IDENTITY of a scene's tensors, holding them
+    (a bare id() could be reused by a new object): ``get(scene, build)``
+    returns the cached value iff every tensor is the same object as last
+    time, else builds anew."""
+    slot = {"leaves": None, "value": None}
+
+    def get(scene: Scene, build):
+        leaves = [*param_leaves(scene.params), scene.mat_type, scene.active]
+        old = slot["leaves"]
+        if old is None or any(a is not b for a, b in zip(old, leaves)):
+            slot["value"] = build()
+            slot["leaves"] = leaves
+        return slot["value"]
+
+    return get
+
+
+# Scenes up to this many slots ride one block (the whole scene), and get
+# the difficulty order from the regen kernel's prepass (layout 'vmem').
+_ONE_BLOCK_SLOTS = 4096
+
+
+def _stream_renderer(cfg: RenderConfig, check) -> Callable:
+    """``impl='stream'``: the JAX package's rules. A scene of at most 4096
+    slots is one block of round_up(slots, 256) rows, unpaired; a larger
+    one is blocked by ``cfg.stream_block``. The preparation is cached by
+    the scene's identity (``renderer.prepare`` runs it ahead); the bounds
+    are reordered front to back at the first render; one-block scenes get
+    the difficulty order at >= 8 spp and > 4 bounces."""
+    if cfg.legacy_sky:
+        raise ValueError("impl=stream has no legacy_sky variant")
+    prepared = _identity_cache()
+    order_cache: dict = {}
+
+    def build(scene):
+        if scene.num_slots <= _ONE_BLOCK_SLOTS:
+            return {"stream": stream_kernel.prepare_stream_scene(
+                scene, block=_round_up(scene.num_slots, 256),
+                pad_pairs=False)}
+        return {"stream": stream_kernel.prepare_stream_scene(
+            scene, block=cfg.stream_block)}
+
+    def renderer(scene, cam_cfg):
+        check(scene)
+        ent = prepared(scene, lambda: build(scene))
+        if "camdist" not in ent:
+            ent["camdist"] = True
+            ent["stream"] = stream_kernel.reorder_front_to_back(
+                ent["stream"], initialize(cam_cfg, cfg.width,
+                                          cfg.height).center)
+        order = None
+        if (scene.num_slots <= _ONE_BLOCK_SLOTS and cfg.samples >= 8
+                and cfg.bounces > 4):
+            key = _leaf_key(scene, cam_cfg)
+            order = order_cache.get(key)
+            if order is None:
+                pd, ps = min(8, cfg.bounces), min(6, cfg.samples)
+                seg = render_kernel.measure_difficulty(
+                    scene, cam_cfg, cfg.width, cfg.height, pd, ps,
+                    seed=cfg.seed)
+                order = render_kernel.difficulty_order(seg, pd, ps)
+                order_cache.clear()
+                order_cache[key] = order
+        return stream_kernel.render_stream(
+            ent["stream"], cam_cfg, cfg.width, cfg.height, cfg.samples,
+            cfg.bounces, seed=cfg.seed, rr_start=cfg.rr_start,
+            pixel_order=order)
+
+    def prepare(scene):
+        prepared(scene, lambda: build(scene))
+
+    renderer.prepare = prepare
+    return renderer
 
 
 def make_renderer(cfg: RenderConfig, device) -> Callable:
@@ -58,6 +137,9 @@ def make_renderer(cfg: RenderConfig, device) -> Callable:
             )
 
         return oracle_renderer
+
+    if cfg.impl == "stream" or cfg.layout == "packed":
+        return _stream_renderer(cfg, check)
 
     def main(scene, cam_cfg, pixel_order=None):
         return render_kernel.render_kernel(

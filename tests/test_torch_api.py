@@ -63,15 +63,54 @@ def test_make_renderer_order_cache_by_shape(monkeypatch):
     (dict(dtype="float64"), NotImplementedError),
     (dict(dtype="bfloat16"), ValueError),
     (dict(impl="adaptive"), NotImplementedError),
-    (dict(impl="stream"), NotImplementedError),
+    (dict(impl="stream", dtype="float64"), NotImplementedError),
     (dict(impl="pallas"), ValueError),
-    (dict(layout="packed"), NotImplementedError),
+    (dict(layout="packed", dtype="float64"), NotImplementedError),
     (dict(mxu_dots=True), ValueError),
     (dict(samples=0), ValueError),
+    (dict(impl="stream", stream_block=0), ValueError),
+    (dict(layout="packed", stream_lane_group=-1), ValueError),
 ])
 def test_config_rejects(kw, exc):
     with pytest.raises(exc):
         RenderConfig(scene_id=1, **kw)
+
+
+@pytest.mark.parametrize("kw, block", [
+    (dict(impl="stream"), 128),
+    (dict(layout="packed", rr_start=2), 128),
+    (dict(impl="stream", samples=2), 128),
+])
+def test_stream_configs_render_on_cpu(kw, block):
+    """impl='stream' and layout='packed' (which routes to the stream path,
+    as in JAX) build and render: one block for a small scene, the image
+    equal to the brute-force plain render; the difficulty order at >= 8
+    spp changes nothing; ``prepare`` runs the preparation ahead; the
+    file name says 'tex' for packed."""
+    cfg = RenderConfig(scene_id=2, width=20, height=12,
+                       **{"samples": 8, "bounces": 5, **kw})
+    scene, cam = build_scene(2), CameraConfig.reference_default()
+    r = make_renderer(cfg, "cpu")
+    r.prepare(scene)
+    img = r(scene, cam)
+    want = rk.render_kernel(scene, cam, 20, 12, cfg.samples, 5, layout="hbm",
+                            rr_start=cfg.rr_start)
+    assert torch.equal(img, want)
+    assert cfg.output_filename().startswith(
+        "tex_" if cfg.layout == "packed" else "const_")
+    with pytest.raises(ValueError, match="legacy_sky"):
+        make_renderer(RenderConfig(scene_id=2, legacy_sky=True, **kw), "cpu")
+
+
+def test_cli_stream_writes_tex_file(tmp_path, capsys):
+    rc = cli.main(["--scene_id", "2", "--width", "16", "--height", "8",
+                   "--samples", "2", "--bounces", "3", "--device", "cpu",
+                   "--layout", "packed", "--stream_block", "64",
+                   "--outdir", str(tmp_path)])
+    assert rc == 0
+    assert len(capsys.readouterr().out.strip().split(",")) == 2
+    assert os.listdir(tmp_path) == [
+        "tex_float_scene2_16x8_2samples_3bounces_8threadsPerBlockRow.ppm"]
 
 
 def test_output_filename_matches_jax_package():

@@ -122,8 +122,10 @@ def test_load_train_state_refuses_dtype_drift(tmp_path):
         ck.load_train_state(path, count64)
 
 
-@pytest.mark.parametrize("impl", ["fused", "kernel"])
+@pytest.mark.parametrize("impl", ["fused", "kernel", "stream"])
 def test_example_runs_three_steps(tmp_path, impl):
+    """The example's fit lowers the loss; ``--impl stream`` fits the same
+    scene through make_stream_train."""
     out = str(tmp_path / "recovered.ppm")
     args = inverse_rendering.build_parser().parse_args(
         ["--device", "cpu", "--impl", impl, "--steps", "3", "--width", "24",
@@ -131,6 +133,3 @@ def test_example_runs_three_steps(tmp_path, impl):
     losses = inverse_rendering.run(args)
     assert len(losses) == 3 and losses[-1] < losses[0]
     assert os.path.getsize(out) > 0
-    with pytest.raises(NotImplementedError, match="item 2"):
-        inverse_rendering.run(inverse_rendering.build_parser().parse_args(
-            ["--device", "cpu", "--impl", "stream"]))

@@ -287,19 +287,24 @@ def test_unported_axes_and_misuse_raise():
         tgrad.make_loss_fn(W, H, SPP, DEPTH, mesh=object())
     with pytest.raises(NotImplementedError, match="item 4"):
         tgrad.make_loss_fn(W, H, SPP, DEPTH, dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="item 2"):
+    # streamed scenes train through make_stream_train, which the refusals
+    # name (the JAX make_loss_fn runs its oracle for impl='stream')
+    with pytest.raises(ValueError, match="make_stream_train"):
         tgrad.make_loss_fn(W, H, SPP, DEPTH, impl="stream")
-    with pytest.raises(NotImplementedError, match="item 2"):
+    with pytest.raises(ValueError, match="make_stream_train"):
         tgrad.make_loss_fn(W, H, SPP, DEPTH, impl="kernel", layout="packed")
-    with pytest.raises(NotImplementedError, match="item 2"):
+    with pytest.raises(ValueError, match="make_stream_train"):
         tk.fused_train(s, cam, torch.zeros((H, W, 3)), W, H, SPP, DEPTH,
                        layout="packed")
-    with pytest.raises(NotImplementedError, match="item 2"):
+    with pytest.raises(ValueError, match="make_stream_train"):
         tgrad.make_train_step(W, H, SPP, DEPTH, impl="stream")
-    with pytest.raises(NotImplementedError, match="item 2"):
-        tgrad.make_stream_train(None, W, H, SPP, DEPTH)
-    with pytest.raises(NotImplementedError, match="item 2"):
-        tgrad.front_to_back_border(None, cam, W, H)
+    from raytracingincuda_torch.ops.stream_kernel import prepare_stream_scene
+
+    stream = prepare_stream_scene(s, block=2)
+    with pytest.raises(NotImplementedError, match="item 6"):
+        tgrad.make_stream_train(stream, W, H, SPP, DEPTH, mesh=object())
+    border = tgrad.front_to_back_border(stream, cam, W, H)
+    assert sorted(border.tolist()) == list(range(stream.n_blocks))
     with pytest.raises(ValueError, match="ray_tile"):
         tgrad.make_loss_fn(W, H, SPP, DEPTH, ray_tile=128)
     with pytest.raises(ValueError, match="backward='oracle'"):

@@ -64,16 +64,37 @@ CPU path):
              1, 320x192x10spp (the file names, images against the regen
              kernel's), and the example with --impl stream --n_spheres
              2000 --steps 20 (a falling loss)
+  15 f64 compare  the f64 kernel against its plain version, bit for bit
+             and from run to run: scene 1 at 320x192x4spp/8b (both
+             layouts) and at the headline's width (1280x768, 2 spp, 25b)
+  16 f64 headline  make_renderer(dtype='float64') at scene 1, 1280x768,
+             100 spp, 25 bounces, parity, vmem, the f32 difficulty order:
+             one warm-up and 3 timed renders, launches, and the image's
+             gap to phase 4's f32 parity image (mean |d| in 8-bit levels,
+             share of components >= 1 level); the CLI with --dtype
+             float64 at 320x192x10spp (its file equal to the renderer's
+             image)
+  17 compact the compact kernel against its plain version and the regen
+             kernel at 320x192x10spp/25b (both layouts) and at the
+             headline's width (2 spp, 25b), bit for bit; mode='simple'
+             with legacy_sky equal to the regen kernel's legacy image;
+             render_kernel(mode='compact') at the headline (100 spp, 25b,
+             parity): a warm-up and 3 timed renders beside 3 of the regen
+             kernel unsorted, the images bit-equal; one mode='simple'
+             render at the headline (kernel 1's launches) equal to them
 
-Then the kernels line (JSON, with each kernel's bound), the nvidia-smi
-line, and last {"ok": true, "device": {...}}. Everything measured is
+Then the kernels line (JSON, with each kernel's bound: regen_render,
+grad_render, fused_train_render, stream_render, stream_train,
+stream_segment_sum, f64_render and compact_render), the nvidia-smi line,
+and last {"ok": true, "device": {...}}. Everything measured is
 also written to chip_smoke.json in the output directory. Launch counts
-are set to 0 just before each main path (phases 4, 7, 8, 10, 12, 13, 14)
-and read just after it: each path's own counts are in chip_smoke.json
+are set to 0 just before each main path (phases 4, 7, 8, 10, 12, 13, 14,
+16, 17) and read just after it: each path's own counts are in chip_smoke.json
 (launches_by_phase) and their sums are the kernels line's launches.
 stream_segment_sum counts its two kernels (chunk_sums_kernel, then
 segment_sums_kernel), two per call. The stream rows' times and bounds
-are those of the 100k comparisons in phase 12.
+are those of the 100k comparisons in phase 12; the f64 and compact rows'
+those of the headline-width comparisons in phases 15 and 17.
 """
 from __future__ import annotations
 
@@ -109,14 +130,23 @@ STREAM_REPLACES = "raytracingincuda_tpu/ops/pallas_stream.py:504"
 STREAM_TRAIN_SOURCE = "raytracingincuda_torch/csrc/stream_train.cu"
 STREAM_TRAIN_REPLACES = "raytracingincuda_tpu/ops/pallas_stream_backward.py:92"
 SEGMENT_REPLACES = "raytracingincuda_tpu/ops/pallas_stream_backward.py:360"
+F64_SOURCE = "raytracingincuda_torch/csrc/f64_render.cu"
+F64_REPLACES = "raytracingincuda_tpu/ops/pallas_df64.py:48"
+COMPACT_SOURCE = "raytracingincuda_torch/csrc/compact_render.cu"
+COMPACT_REPLACES = "raytracingincuda_tpu/ops/pallas_kernel.py:488"
+# The reference's own CUDA figure for its double variant at the headline
+# (RTX 3070 Laptop, README.md's fp64 table)
+REFERENCE_F64_HEADLINE_MS = 40270.4
 # The bound: the larger of the operations over the H100's FP32 rate
 # outside the tensor cores and the bytes over its memory rate (NVIDIA's
 # data sheet, SXM, 700 W). Operations counted from path_common.cuh: a
 # sphere test is 18 FP32 operations with |C|^2 - r^2 staged (layout
 # vmem) and 25 where it is computed per test (hbm, the stream walk), a
 # block's bound test 25. Shading, the f64 recipes and the reverse are
-# left out, so each bound is a floor.
+# left out, so each bound is a floor. The f64 kernel's sphere tests (18
+# double operations with the scan table staged) count at the FP64 rate.
 FP32_PER_S = 67e12
+FP64_PER_S = 34e12
 BYTES_PER_S = 3.35e12
 OPS_TEST_STAGED = 18
 OPS_TEST = 25
@@ -127,9 +157,9 @@ def say(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}" + (f" | {CARD}" if CARD else ""), flush=True)
 
 
-def bound(ops: float, nbytes: float) -> tuple:
-    """(bound_ms, bound_by) for this much work."""
-    t_ops, t_bytes = ops / FP32_PER_S, nbytes / BYTES_PER_S
+def bound(ops: float, nbytes: float, rate: float = FP32_PER_S) -> tuple:
+    """(bound_ms, bound_by) for this much work, operations at ``rate``."""
+    t_ops, t_bytes = ops / rate, nbytes / BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -149,6 +179,8 @@ def main() -> int:
                                                       config_leaves)
     from raytracingincuda_torch.models.scene import build_scene, param_leaves
     from raytracingincuda_torch.ops import _build
+    from raytracingincuda_torch.ops import compact_kernel as ck
+    from raytracingincuda_torch.ops import f64_kernel as fk
     from raytracingincuda_torch.ops import render_kernel as rk
     from raytracingincuda_torch.ops import stream_kernel as sk
     from raytracingincuda_torch.ops import stream_train_kernel as stk
@@ -166,7 +198,9 @@ def main() -> int:
                 "fused_train_render": (tk, "FUSED_LAUNCHES"),
                 "stream_render": (sk, "LAUNCHES"),
                 "stream_train": (stk, "LAUNCHES"),
-                "stream_segment_sum": (stk, "SEGMENT_LAUNCHES")}
+                "stream_segment_sum": (stk, "SEGMENT_LAUNCHES"),
+                "f64_render": (fk, "LAUNCHES"),
+                "compact_render": (ck, "LAUNCHES")}
     main_launches = {name: 0 for name in counters}
     record["launches_by_phase"] = {}
 
@@ -323,6 +357,8 @@ def main() -> int:
             rk.render_kernel(scene, cam, 1280, 768, 100, 25, rr_start=rr)
         best = min(times)
         name = "parity" if rr is None else f"rr{rr}"
+        if rr is None:
+            f32_headline = img
         record["headline"][name] = {
             "render_ms": times, "warmup_with_prepass_ms": warm.ms,
             "unsorted_ms": unsorted.ms,
@@ -1000,6 +1036,181 @@ def main() -> int:
         f"example --impl stream --n_spheres 2000, 20 steps: loss "
         f"{stream_losses[0]:.6g} -> {stream_losses[-1]:.6g}")
 
+    # -- 15 the f64 kernel against its plain version -------------------------
+    def bit_compare(kernel, plain, reps, plain_out=None):
+        """A kernel and its plain version on the same inputs: bit for bit
+        and from run to run, with both times."""
+        k_out, k_ms = timed(kernel, reps)
+        again = kernel()
+        if plain_out is None:
+            plain_out = timed(plain, 1, warm=False)
+        p_out, p_ms = plain_out
+        res = {"bit_equal": bool(torch.equal(k_out, p_out)),
+               "run_to_run_identical": bool(torch.equal(k_out, again)),
+               "max_abs_err": float((k_out - p_out).abs().max()),
+               "kernel_ms": k_ms, "plain_ms": p_ms}
+        if not (bool(torch.isfinite(k_out).all()) and res["bit_equal"]
+                and res["run_to_run_identical"]):
+            raise AssertionError(f"kernel vs plain failed: {res}")
+        return res, k_out, plain_out
+
+    def f64_compare(width, height, spp, bounces, layout, reps, plain=None):
+        inputs = fk.f64_inputs(build_scene(1, device=dev), cam, width, height)
+        kw = dict(samples=spp, max_depth=bounces, layout=layout)
+        res, _, plain = bit_compare(lambda: fk.f64_kernel(*inputs, **kw),
+                                    lambda: fk.f64_reference(*inputs, **kw),
+                                    reps, plain)
+        res.update(shape=f"{width}x{height}x{spp}spp/{bounces}b",
+                   layout=layout)
+        record["f64_compare"].append(res)
+        say("15 f64 compare", f"{res['shape']} {layout}: bit-equal to plain, "
+            f"run-to-run identical; kernel {res['kernel_ms']:.3f} ms, plain "
+            f"{res['plain_ms']:.1f} ms")
+        return res, plain
+
+    record["f64_compare"] = []
+    plain = None
+    for layout in ("vmem", "hbm"):
+        _, plain = f64_compare(320, 192, 4, 8, layout, 5, plain)
+    f64_head, _ = f64_compare(1280, 768, 2, 25, "vmem", 3)
+    del plain
+
+    # -- 16 the f64 render at full width -------------------------------------
+    cfg = RenderConfig(scene_id=1, width=1280, height=768, samples=100,
+                       bounces=25, dtype="float64")
+    renderer = make_renderer(cfg, dev)
+    scene = build_scene(1, device=dev)
+    reset_counts()
+    with RenderTimer(dev) as warm:
+        img64 = renderer(scene, cam)            # f32 prepass + render
+    times = []
+    for _ in range(3):
+        with RenderTimer(dev) as t:
+            img64 = renderer(scene, cam)
+        times.append(t.ms)
+    f64_counts = read_counts("16 f64 headline")
+    arr = img64.cpu().numpy()
+    if not (f64_counts["f64_render"] >= 4 and f64_counts["regen_render"] >= 1
+            and img64.dtype == torch.float64 and arr.shape == (768, 1280, 3)
+            and np.isfinite(arr).all() and arr.min() >= 0.0
+            and arr.max() <= 1.0):
+        raise AssertionError(f"f64 headline: {f64_counts}, {img64.dtype}, "
+                             f"{arr.shape}, [{arr.min()}, {arr.max()}]")
+    levels = np.abs(ppm.quantize(arr) - ppm.quantize(
+        f32_headline.cpu().numpy()))
+    best = min(times)
+    record["f64_headline"] = {
+        "render_ms": times, "warmup_with_prepass_ms": warm.ms,
+        "launches": f64_counts,
+        "vs_f32_parity": best / min(record["headline"]["parity"]["render_ms"]),
+        "vs_reference_f64": REFERENCE_F64_HEADLINE_MS / best,
+        "gap_to_f32_mean_levels": float(levels.mean()),
+        "gap_to_f32_share_ge1": float((levels >= 1).mean()),
+        "gap_to_f32_max_levels": int(levels.max())}
+    del img64
+    with tempfile.TemporaryDirectory() as tmp:
+        env = dict(os.environ, PYTHONPATH=str(ROOT))
+        res = subprocess.run(
+            [sys.executable, "-m", "raytracingincuda_torch.cli", "--scene_id",
+             "1", "--width", "320", "--height", "192", "--samples", "10",
+             "--dtype", "float64"],
+            cwd=tmp, env=env, capture_output=True, text=True, timeout=600)
+        if res.returncode != 0:
+            raise AssertionError(f"cli --dtype float64 failed: "
+                                 f"{res.stderr[-2000:]}")
+        line = res.stdout.strip().splitlines()[-1]
+        name = RenderConfig(scene_id=1, dtype="float64").output_filename()
+        got, _ = ppm.read_ppm(str(Path(tmp) / name))
+    want = make_renderer(RenderConfig(scene_id=1, dtype="float64"), dev)(
+        scene, cam)
+    if not (re.fullmatch(r"\s*[0-9.]+,\s*[0-9.]+", line)
+            and np.array_equal(got, ppm.quantize(want.cpu().numpy()))):
+        raise AssertionError(f"cli --dtype float64: {line!r}, {name}")
+    record["f64_cli_line"] = line
+    h64 = record["f64_headline"]
+    say("16 f64 headline", f"render_ms {', '.join(f'{t:.2f}' for t in times)}"
+        f" | {h64['vs_f32_parity']:.3f}x the f32 parity render | "
+        f"{h64['vs_reference_f64']:.2f}x the reference's double "
+        f"{REFERENCE_F64_HEADLINE_MS} ms | gap to the f32 image: mean "
+        f"{h64['gap_to_f32_mean_levels']:.4f} levels, "
+        f"{100 * h64['gap_to_f32_share_ge1']:.3f}% of components >= 1 level,"
+        f" max {h64['gap_to_f32_max_levels']} | warm-up {warm.ms:.2f} ms | "
+        f"launches {nonzero(f64_counts)} | cli --dtype float64 {line.strip()}"
+        f", wrote {name}")
+
+    # -- 17 the compact kernel ---------------------------------------------
+    def compact_compare(width, height, spp, bounces, layout, reps,
+                        plain=None):
+        ids, ii, jj, bud, sm, row = rk.regen_inputs(
+            build_scene(1, device=dev), cam, width, height, spp)
+        kw = dict(samples=spp, max_depth=bounces, layout=layout,
+                  finalize_scale=1.0 / spp)
+        res, k_out, plain = bit_compare(
+            lambda: ck.compact_kernel(ids, ii, jj, sm, row, **kw),
+            lambda: ck.compact_reference(ids, ii, jj, sm, row, **kw), reps,
+            plain)
+        res.update(shape=f"{width}x{height}x{spp}spp/{bounces}b",
+                   layout=layout, equals_regen_kernel=bool(torch.equal(
+                       k_out, rk.regen_kernel(ids, ii, jj, bud, sm, row,
+                                              **kw))))
+        record["compact_compare"].append(res)
+        if not res["equals_regen_kernel"]:
+            raise AssertionError(f"compact kernel vs regen kernel: {res}")
+        say("17 compact", f"{res['shape']} {layout}: bit-equal to plain and "
+            f"to the regen kernel, run-to-run identical; kernel "
+            f"{res['kernel_ms']:.3f} ms, plain {res['plain_ms']:.1f} ms")
+        return res, plain
+
+    record["compact_compare"] = []
+    plain = None
+    for layout in ("vmem", "hbm"):
+        _, plain = compact_compare(320, 192, 10, 25, layout, 5, plain)
+    compact_head, _ = compact_compare(1280, 768, 2, 25, "vmem", 3)
+    del plain
+    legacy = rk.render_kernel(scene, cam, 320, 192, 10, 25, legacy_sky=True)
+    if not torch.equal(rk.render_kernel(scene, cam, 320, 192, 10, 25,
+                                        mode="simple", legacy_sky=True),
+                       legacy):
+        raise AssertionError("mode='simple' legacy_sky differs from regen")
+    reset_counts()
+    with RenderTimer(dev) as warm:
+        img_c = rk.render_kernel(scene, cam, 1280, 768, 100, 25,
+                                 mode="compact")
+    times = []
+    for _ in range(3):
+        with RenderTimer(dev) as t:
+            img_c = rk.render_kernel(scene, cam, 1280, 768, 100, 25,
+                                     mode="compact")
+        times.append(t.ms)
+    compact_counts = read_counts("17 compact headline")
+    regen_times = []
+    for _ in range(3):
+        with RenderTimer(dev) as t:
+            img_r = rk.render_kernel(scene, cam, 1280, 768, 100, 25)
+        regen_times.append(t.ms)
+    reset_counts()
+    img_s = rk.render_kernel(scene, cam, 1280, 768, 100, 25, mode="simple")
+    simple_counts = read_counts("17 simple headline")
+    if not (compact_counts["compact_render"] >= 4
+            and simple_counts["regen_render"] >= 1
+            and torch.equal(img_c, img_r) and torch.equal(img_s, img_r)):
+        raise AssertionError(f"compact headline: launches {compact_counts}, "
+                             f"simple {simple_counts}, images equal "
+                             f"{torch.equal(img_c, img_r)}, "
+                             f"{torch.equal(img_s, img_r)}")
+    record["compact_headline"] = {
+        "render_ms": times, "warmup_ms": warm.ms, "launches": compact_counts,
+        "regen_unsorted_ms": regen_times, "simple_launches": simple_counts,
+        "vs_regen_unsorted": min(times) / min(regen_times)}
+    say("17 compact", f"headline render_kernel(mode='compact') render_ms "
+        f"{', '.join(f'{t:.2f}' for t in times)} (warm-up {warm.ms:.2f}) "
+        f"beside the regen kernel unsorted "
+        f"{', '.join(f'{t:.2f}' for t in regen_times)}: "
+        f"{min(times) / min(regen_times):.3f}x; images bit-equal, and "
+        f"mode='simple' too; launches compact {nonzero(compact_counts)}, "
+        f"simple {nonzero(simple_counts)}")
+    del img_c, img_r, img_s
+
     # -- result lines ---------------------------------------------------------
     record["main_path_launches"] = main_launches
     worst_err = max(r["max_abs_err"] for r in record["compare"] + [head])
@@ -1019,8 +1230,16 @@ def main() -> int:
     scene_bytes = n1 * rk.USED_COLS * 4 + 96
     px_head = 1280 * 768
     px_small = 320 * 192
-    regen_bound = bound(segments(1280, 768, 2, 25, None) * n1
-                        * OPS_TEST_STAGED, px_head * 28 + scene_bytes)
+    head_tests = segments(1280, 768, 2, 25, None) * n1
+    regen_bound = bound(head_tests * OPS_TEST_STAGED,
+                        px_head * 28 + scene_bytes)
+    # the f64 and compact kernels at the same shape: kernel 1's count of
+    # sphere tests (the f64 paths part from the f32 ones only at knife
+    # edges); ids, ii and jj read, the image written (double for f64)
+    f64_bound = bound(head_tests * OPS_TEST_STAGED,
+                      px_head * (12 + 24) + scene_bytes + 24 * 8, FP64_PER_S)
+    compact_bound = bound(head_tests * OPS_TEST_STAGED,
+                          px_head * (12 + 12) + scene_bytes)
     grad_bound = bound(segments(320, 192, 4, 8, 2) * n1 * OPS_TEST_STAGED,
                        px_small * 24 + scene_bytes + n1 * 64)
     fused_bound = bound(2 * segments(1280, 768, 2, 25, 2) * n1
@@ -1057,6 +1276,13 @@ def main() -> int:
             segment_main["plain_ms"],
             (segment_main["bound_ms"], segment_main["bound_by"]),
             segment_main["library_ms"]),
+        kernel_row("f64_render", F64_SOURCE, F64_REPLACES,
+            max(r["max_abs_err"] for r in record["f64_compare"]),
+            f64_head["kernel_ms"], f64_head["plain_ms"], f64_bound),
+        kernel_row("compact_render", COMPACT_SOURCE, COMPACT_REPLACES,
+            max(r["max_abs_err"] for r in record["compact_compare"]),
+            compact_head["kernel_ms"], compact_head["plain_ms"],
+            compact_bound),
     ]}
     if min(k["launches"] for k in kernels["kernels"]) < 1:
         raise AssertionError(f"a kernel did not launch on the main path: "

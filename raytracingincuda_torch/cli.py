@@ -13,7 +13,9 @@ accepted for parity with the reference and the JAX package; they shaped
 the TPU schedule and the CUDA kernels ignore them (one thread per pixel,
 128-thread blocks). A renderer's ``prepare`` (the stream scene's Morton
 sort and block bounds) runs after the scene is built and before the
-render bracket, like the reference's upload.
+render bracket, like the reference's upload. ``--dtype float64``
+renders in double and writes the PPM from the double image, as the
+reference's double variants do.
 """
 from __future__ import annotations
 
@@ -47,6 +49,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--legacy_sky", action="store_true",
                    help="shade the sky by the primary ray (the reference "
                         "CUDA variants' quirk)")
+    p.add_argument("--dtype", choices=["float32", "float64"],
+                   default="float32",
+                   help="float64 renders in double on the f64 kernel "
+                        "(parity estimator, layout vmem or hbm)")
     p.add_argument("--layout", choices=["vmem", "hbm", "packed"],
                    default="vmem",
                    help="scene in shared memory (vmem, 'const'), read from "
@@ -94,7 +100,7 @@ def main(argv=None) -> int:
     cfg = RenderConfig(
         scene_id=args.scene_id, width=args.width, height=args.height,
         samples=args.samples, bounces=args.bounces, threads=args.threads,
-        layout=args.layout, impl=args.impl, seed=args.seed,
+        dtype=args.dtype, layout=args.layout, impl=args.impl, seed=args.seed,
         legacy_sky=args.legacy_sky, rr_start=args.rr_start,
         pixels_per_lane=args.pixels_per_lane,
         stream_block=args.stream_block,

@@ -4,7 +4,10 @@ Field names and ``output_filename()`` are the JAX package's
 (``raytracingincuda_tpu/config.py``), so a config and the file it names
 carry over unchanged. What this port serves:
 
-  dtype:  float32 only ('float' in the file name)
+  dtype:  float32 ('float' in the file name) |
+          float64 ('double': the render in double on the f64 kernel,
+          ``impl='kernel'`` with ``layout`` vmem or hbm, the parity
+          estimator and the current-bounce sky, as the JAX df64 path)
   layout: vmem ('const': the scene staged in shared memory) |
           hbm ('global': the scene read from device memory) |
           packed ('tex': the texture-path analog, served by the stream
@@ -26,7 +29,7 @@ from typing import Optional
 
 from .ops.rng import DEFAULT_SEED
 
-DTYPE_NAMES = {"float32": "float"}
+DTYPE_NAMES = {"float32": "float", "float64": "double"}
 LAYOUT_NAMES = {"hbm": "global", "vmem": "const", "packed": "tex"}
 IMPLS = ("kernel", "stream", "oracle")
 # impls of the JAX package that later slices port (ROADMAP queue 1)
@@ -65,10 +68,6 @@ class RenderConfig:
     mxu_dots: bool = False
 
     def __post_init__(self):
-        if self.dtype == "float64":
-            raise NotImplementedError(
-                "dtype=float64 is not ported yet (the kernel instantiated "
-                "in double, ROADMAP queue 1 item 4)")
         if self.dtype not in DTYPE_NAMES:
             raise ValueError(f"dtype must be one of {list(DTYPE_NAMES)}, "
                              f"got {self.dtype!r}")
@@ -82,6 +81,8 @@ class RenderConfig:
         if self.mxu_dots:
             raise ValueError("mxu_dots is a TPU matrix-unit option; the "
                              "CUDA kernel has none")
+        if self.dtype == "float64":
+            self._check_f64_scope()
         for f in ("width", "height", "samples", "bounces", "threads"):
             if getattr(self, f) <= 0:
                 raise ValueError(f"{f} must be positive")
@@ -95,6 +96,22 @@ class RenderConfig:
         if self.stream_lane_group is not None and self.stream_lane_group < 0:
             raise ValueError("stream_lane_group must be >= 0 (or None = "
                              "auto)")
+
+    def _check_f64_scope(self):
+        """dtype=float64 is the JAX df64 path's precision comparison:
+        the f64 kernel, parity estimator, current-bounce sky."""
+        if self.legacy_sky or self.rr_start is not None:
+            raise ValueError(
+                "dtype=float64 is a precision-comparison config: parity "
+                "estimator only (no legacy_sky / rr_start)")
+        if self.layout == "packed":
+            raise ValueError(
+                "dtype=float64 has no packed/stream path; the f64 kernel "
+                "reads the scene in layout vmem or hbm")
+        if self.impl != "kernel":
+            raise ValueError(
+                f"dtype=float64 runs on the f64 kernel (impl='kernel'); "
+                f"impl={self.impl} has no f64 path")
 
     @property
     def effective_chunk_pixels(self) -> int:

@@ -1,0 +1,256 @@
+// Forward path-tracing render in double precision, for Hopper (sm_90a).
+//
+// Replaces the TPU kernels raytracingincuda_tpu/ops/pallas_df64.py:
+// _df64_tile_kernel and _df64_tile_kernel_multi (body
+// ops/df64_trace.py:regen_trace_df64). The TPU has no FP64 units and
+// carries each value as a pair of f32 (about 48 significand bits); the
+// H100 has FP64 units, so this kernel computes in native double. One
+// kernel serves both TPU kernels: their K pixels per lane are a schedule
+// and change no image.
+//
+// What it computes. Kernel 1's loop (regen_render.cu), one thread per
+// pixel, samples back to back, under the df64 path's scope: the parity
+// estimator, the current-bounce sky, uniform budgets. The camera row, the
+// geometry (primary rays, the hit-test quadratic, roots, hit points,
+// normals, scatter directions), attenuation, the sky and the radiance sums
+// are double. The random draws stay the f32 Threefry values of
+// path_common.cuh, promoted exactly: the jitter, the defocus disk (f32
+// sqrt, sin, cos), the unit vector and the coin, as df64_trace.py draws
+// them. Output: the per-lane radiance sums, (3, padded) double.
+//
+// Association. Every expression keeps df64_trace.py's, which the plain
+// version (ops/f64_kernel.py:f64_reference) repeats in torch.float64:
+// the sample position fi + (u0 - 0.5) in double (not the f32 rounding of
+// kernel 1); t = t_num / a, a division; dot products left to right;
+// c = (c2r2 + |O|^2) - 2 C.O; Schlick's (1-cos)^5 as (om2 * om2) * om;
+// unit(v) = v * (1 / sqrt(max(|v|^2, 1e-30))). Double + - * / and sqrt
+// are correctly rounded here and in eager PyTorch, and the build keeps
+// --fmad=false, so the kernel equals its plain version bit for bit. The
+// closest hit keeps the first slot at an exact tie (df64 blends tied
+// slots through its one-hot gather).
+//
+// What bounds it. The FP64 hit loop: about 18 double operations a sphere
+// test, at half the card's FP32 rate (34 TFLOP/s). Shared memory decides
+// the layout: kernel 1's f32 staging (44 B a slot) doubled would need
+// 360 KB at 4096 slots. So layout 'vmem' stages only the scan table, as
+// double (cx, cy, cz, |C|^2 - r^2: 32 B a slot, 128 KB at 4096 slots,
+// converted once per block and not once per test), and the seven gather
+// columns, read once per bounce for the winning slot, come from device
+// memory in both layouts. Layout 'hbm' reads the f32 SoA per test and
+// converts there.
+
+#include "path_common.cuh"
+
+namespace {
+
+constexpr double kTMin64 = 1.0e-3;
+constexpr double kTMiss64 = 1.0e30;
+
+struct D3 {
+  double x, y, z;
+};
+__device__ __forceinline__ D3 operator+(D3 a, D3 b) { return {a.x + b.x, a.y + b.y, a.z + b.z}; }
+__device__ __forceinline__ D3 operator-(D3 a, D3 b) { return {a.x - b.x, a.y - b.y, a.z - b.z}; }
+__device__ __forceinline__ D3 operator-(D3 a) { return {-a.x, -a.y, -a.z}; }
+__device__ __forceinline__ D3 operator*(D3 a, D3 b) { return {a.x * b.x, a.y * b.y, a.z * b.z}; }
+__device__ __forceinline__ D3 operator*(D3 a, double s) { return {a.x * s, a.y * s, a.z * s}; }
+__device__ __forceinline__ double dot(D3 a, D3 b) { return a.x * b.x + a.y * b.y + a.z * b.z; }
+// torch.maximum / torch.minimum against a bound
+__device__ __forceinline__ double max_d(double x, double lo) { return x < lo ? lo : x; }
+__device__ __forceinline__ double min_d(double x, double hi) { return x > hi ? hi : x; }
+__device__ __forceinline__ D3 unit(D3 v) { return v * (1.0 / sqrt(max_d(dot(v, v), 1e-30))); }
+__device__ __forceinline__ D3 reflect(D3 v, D3 n) { return v - n * (2.0 * dot(v, n)); }
+__device__ __forceinline__ D3 promote(V3 v) { return {(double)v.x, (double)v.y, (double)v.z}; }
+
+struct CamD {
+  D3 pixel00, du, dv, center, disk_u, disk_v;
+  bool defocus;
+};
+
+__device__ __forceinline__ CamD load_cam_d(const double* c) {
+  return {{c[0], c[1], c[2]},    {c[3], c[4], c[5]},    {c[6], c[7], c[8]},
+          {c[9], c[10], c[11]},  {c[12], c[13], c[14]}, {c[15], c[16], c[17]},
+          c[18] > 0.5};
+}
+
+// One slot's scan entry in double; c2r2 = NaN when inactive, so that its
+// discriminant is NaN and the slot never hits.
+struct alignas(16) Slot {
+  double cx, cy, cz, c2r2;
+};
+
+__device__ __forceinline__ Slot slot_of(const float* scene, int n, int k) {
+  const double cx = scene[kCx * n + k], cy = scene[kCy * n + k], cz = scene[kCz * n + k];
+  const double r = scene[kRadius * n + k];
+  const double c2r2 = ((cx * cx + cy * cy) + cz * cz) - r * r;
+  return {cx, cy, cz,
+          scene[kActive * n + k] > 0.5f ? c2r2 : __longlong_as_double(0x7ff8000000000000ll)};
+}
+
+struct Params {
+  const int32_t* ids;
+  const float* ii;
+  const float* jj;
+  const float* scene;  // SoA (kNumCols, n), f32
+  int n;
+  const double* cam;   // (24,) double
+  double* out;         // (3, padded)
+  int padded;
+  int samples, max_depth;
+  uint32_t k0, k1;
+};
+
+// The closest hit over every slot: true on a hit, with the winning slot
+// and t = t_num / a; the smallest root numerator wins with a strict '<'.
+template <bool kHbm>
+__device__ __forceinline__ bool hit_d(const Params& p, const Slot* scan, D3 o, D3 d, int& win,
+                                      double& t) {
+  const double a = max_d(dot(d, d), 1e-12);
+  const double d_dot_o = dot(d, o);
+  const double o2 = dot(o, o);
+  const double tmin_a = kTMin64 * a;
+  double best = kTMiss64;
+  win = 0;
+  for (int k = 0; k < p.n; ++k) {
+    const Slot e = kHbm ? slot_of(p.scene, p.n, k) : scan[k];
+    const double h = ((e.cx * d.x + e.cy * d.y) + e.cz * d.z) - d_dot_o;
+    const double c = (e.c2r2 + o2) - 2.0 * ((e.cx * o.x + e.cy * o.y) + e.cz * o.z);
+    const double disc = h * h - a * c;
+    if (disc > 0.0) {
+      const double sq = sqrt(disc);
+      const double near = h - sq;
+      const double root = near > tmin_a ? near : h + sq;
+      if (root > tmin_a && root < best) {
+        best = root;
+        win = k;
+      }
+    }
+  }
+  if (!(best < kTMiss64)) return false;
+  t = best / a;
+  return true;
+}
+
+// Blue-to-white gradient: (1 - a) * white + a * blue, a = 0.5 (unit(d).y + 1).
+__device__ __forceinline__ D3 sky_d(D3 d) {
+  const double uy = d.y * (1.0 / sqrt(max_d(dot(d, d), 1e-30)));
+  const double a = 0.5 * (uy + 1.0);
+  const double w = 1.0 - a;
+  return {w * 1.0 + a * 0.5, w * 1.0 + a * 0.7, w * 1.0 + a * 1.0};
+}
+
+template <bool kHbm>
+__global__ void __launch_bounds__(kBlock) f64_kernel(Params p) {
+  extern __shared__ Slot scan[];
+  if (!kHbm) {
+    for (int k = threadIdx.x; k < p.n; k += blockDim.x) scan[k] = slot_of(p.scene, p.n, k);
+    __syncthreads();
+  }
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= p.padded) return;
+  const int n = p.n;
+  const float* col = p.scene + kRadius * n;  // radius, albedo rgb, fuzz, ior, mat
+  const CamD cam = load_cam_d(p.cam);
+  const Stream st{p.k0, p.k1, (uint32_t)p.ids[i]};
+  const double fi = p.ii[i], fj = p.jj[i];
+  D3 acc = {0.0, 0.0, 0.0};
+
+  for (int s = 0; s < p.samples; ++s) {
+    // the primary ray: f32 draws, double geometry
+    float u0, u1, px, py;
+    primary_draws(st, (uint32_t)s, u0, u1, px, py);
+    const double ix = fi + (double)(u0 - 0.5f), jy = fj + (double)(u1 - 0.5f);
+    const D3 sample_pt = (cam.pixel00 + cam.du * ix) + cam.dv * jy;
+    D3 o = cam.defocus ? (cam.center + cam.disk_u * (double)px) + cam.disk_v * (double)py
+                       : cam.center;
+    D3 d = sample_pt - o;
+    D3 atten = {1.0, 1.0, 1.0};
+    for (int b = 0;; ++b) {
+      int win;
+      double t;
+      if (!hit_d<kHbm>(p, scan, o, d, win, t)) {
+        acc = acc + atten * sky_d(d);
+        break;
+      }
+      const D3 hp = o + d * t;
+      const D3 center = {(double)p.scene[kCx * n + win], (double)p.scene[kCy * n + win],
+                         (double)p.scene[kCz * n + win]};
+      const double radius = col[win];
+      const double rs = fabs(radius) > 1e-12 ? radius : 1e-12;
+      const D3 outward = (hp - center) * (1.0 / rs);
+      const bool front = dot(d, outward) < 0.0;
+      const D3 normal = front ? outward : -outward;
+      const int mat = (int)col[6 * n + win];
+      const D3 albedo = {(double)col[n + win], (double)col[2 * n + win],
+                         (double)col[3 * n + win]};
+
+      D3 dir, att;
+      bool scattered = true;
+      if (mat == 0 || mat == 1) {
+        const D3 ur = promote(st.unit_vector((uint32_t)s, (uint32_t)b));
+        if (mat == 0) {  // lambertian
+          dir = normal + ur;
+          if (fabs(dir.x) < 1e-6 && fabs(dir.y) < 1e-6 && fabs(dir.z) < 1e-6) dir = normal;
+        } else {  // metal
+          dir = unit(reflect(d, normal)) + ur * (double)col[4 * n + win];
+          scattered = dot(dir, normal) > 0.0;
+        }
+        att = albedo;
+      } else {  // dielectric (any other id takes this direction, as in JAX)
+        float coin, unused;
+        st.uniform2((uint32_t)s, (uint32_t)b, kDrawCoin, coin, unused);
+        const double ior = col[5 * n + win];
+        const double ri = front ? 1.0 / ior : ior;
+        const D3 ud = unit(d);
+        const double cos_t = min_d(dot(-ud, normal), 1.0);
+        const double sin_t = sqrt(max_d(1.0 - cos_t * cos_t, 0.0));
+        double r0 = (1.0 - ri) / (1.0 + ri);
+        r0 = r0 * r0;
+        const double om = 1.0 - cos_t;
+        const double om2 = om * om;
+        const double refl = r0 + (1.0 - r0) * ((om2 * om2) * om);
+        if (ri * sin_t > 1.0 || refl > (double)coin) {
+          dir = reflect(ud, normal);
+        } else {  // refract
+          const double ct = min_d(dot(-ud, normal), 1.0);
+          const D3 perp = (ud + normal * ct) * ri;
+          const double par = sqrt(max_d(fabs(1.0 - dot(perp, perp)), 1e-12));
+          dir = perp + normal * (-par);
+        }
+        att = mat == 2 ? D3{1.0, 1.0, 1.0} : albedo;
+      }
+      // absorbed, or scattering at the depth cap: the path ends black
+      if (!scattered || b >= p.max_depth - 1) break;
+      atten = atten * att;
+      o = hp;
+      d = dir;
+    }
+  }
+  p.out[i] = acc.x;
+  p.out[p.padded + i] = acc.y;
+  p.out[2 * p.padded + i] = acc.z;
+}
+
+}  // namespace
+
+// C entry: launches on `stream` and returns cudaGetLastError().
+extern "C" int f64_render(const int32_t* ids, const float* ii, const float* jj,
+                          const float* scene, int n, const double* cam, double* out, int padded,
+                          int samples, int max_depth, uint32_t k0, uint32_t k1, int hbm,
+                          void* stream) {
+  const Params p{ids, ii, jj, scene, n, cam, out, padded, samples, max_depth, k0, k1};
+  const dim3 grid((padded + kBlock - 1) / kBlock);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (hbm) {
+    f64_kernel<true><<<grid, kBlock, 0, st>>>(p);
+  } else {
+    const size_t smem = (size_t)n * sizeof(Slot);
+    if (smem > 48 * 1024) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          f64_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (e != cudaSuccess) return (int)e;
+    }
+    f64_kernel<false><<<grid, kBlock, smem, st>>>(p);
+  }
+  return (int)cudaGetLastError();
+}

@@ -1,10 +1,12 @@
 // Device code shared by the render kernels (regen_render.cu,
-// stream_render.cu) and the train kernels (train_render.cu,
-// stream_train.cu): vector math, the device-exact f32 functions, the
-// Threefry streams, the camera, the scene as a kernel sees it, the two
-// closest-hit tests (the brute-force scan and the stream block walk) and
-// the trace of one sample's path. One copy, so that a train kernel's
-// forward is its render kernel's arithmetic bit for bit.
+// compact_render.cu, stream_render.cu) and the train kernels
+// (train_render.cu, stream_train.cu): vector math, the device-exact f32
+// functions, the Threefry streams, the camera, the scene as a kernel sees
+// it, the two closest-hit tests (the brute-force scan and the stream block
+// walk), one bounce's scatter and the trace of one sample's path. One
+// copy, so that a train kernel's forward and the compact kernel's bounces
+// are the regen kernel's arithmetic bit for bit. The f64 kernel
+// (f64_render.cu) takes only the f32 draws from here.
 //
 // Exactness. Every expression keeps the association of the plain PyTorch
 // versions (ops/tracer.py, ops/render_kernel.py:regen_reference,
@@ -353,18 +355,83 @@ struct PathEnd {
   V3 contrib;
 };
 
+// Bounce b of sample s after a hit on slot `win` at t: the hit point, the
+// oriented normal and the material's scatter from this bounce's draws. A
+// scatter at bounce max_depth-1 exits black; from rr_start on (>= 0),
+// Russian roulette keeps a path with p = clip(max channel, 0.05, 1) and
+// weights survivors by 1/p. Returns false when the path ends black here;
+// else moves (o, d, atten) to the scattered ray.
+template <bool kHbm>
+__device__ __forceinline__ bool scatter_bounce(const SceneView& sc, const Stream& st,
+                                               uint32_t s, int b, int max_depth,
+                                               int rr_start, int win, float t, V3& o,
+                                               V3& d, V3& atten) {
+  const V3 hp = o + d * t;
+  const V3 center = slot_center<kHbm>(sc, win);
+  const float radius = sc.col(0, win);
+  const float rs = fabsf(radius) > 1e-12f ? radius : 1e-12f;
+  const V3 outward = (hp - center) * (1.0f / rs);
+  const bool front = dot(d, outward) < 0.0f;
+  const V3 normal = front ? outward : -outward;
+  const int mat = (int)sc.col(6, win);
+
+  V3 dir, att;
+  bool scattered = true;
+  if (mat == 0 || mat == 1) {
+    const V3 ur = st.unit_vector(s, (uint32_t)b);
+    if (mat == 0) {  // lambertian
+      dir = normal + ur;
+      if (fabsf(dir.x) < 1e-6f && fabsf(dir.y) < 1e-6f && fabsf(dir.z) < 1e-6f)
+        dir = normal;
+    } else {  // metal
+      dir = unit(reflect(d, normal)) + ur * sc.col(4, win);
+      scattered = dot(dir, normal) > 0.0f;
+    }
+    att = {sc.col(1, win), sc.col(2, win), sc.col(3, win)};
+  } else {  // dielectric (any other id takes this direction, as in JAX)
+    float coin, unused;
+    st.uniform2(s, (uint32_t)b, kDrawCoin, coin, unused);
+    const float ior = sc.col(5, win);
+    const float ri = front ? 1.0f / ior : ior;
+    const V3 ud = unit(d);
+    const float cos_t = fminf(dot(-ud, normal), 1.0f);
+    const float sin_t = sqrtf(fmaxf(1.0f - cos_t * cos_t, 0.0f));
+    if (ri * sin_t > 1.0f || schlick(cos_t, ri) > coin) {
+      dir = reflect(ud, normal);
+    } else {  // refract
+      const float ct = fminf(dot(-ud, normal), 1.0f);
+      const V3 perp = (ud + normal * ct) * ri;
+      const float par = sqrtf(fmaxf(fabsf(1.0f - dot(perp, perp)), 1e-12f));
+      dir = perp + normal * (-par);
+    }
+    att = mat == 2 ? V3{1.0f, 1.0f, 1.0f}
+                   : V3{sc.col(1, win), sc.col(2, win), sc.col(3, win)};
+  }
+  // absorbed, or scattering at the depth cap: the path ends black
+  if (!scattered || b >= max_depth - 1) return false;
+  V3 next = atten * att;
+  if (rr_start >= 0) {
+    const float ps = fminf(fmaxf(fmaxf(fmaxf(next.x, next.y), next.z), 0.05f), 1.0f);
+    float u_rr, unused;
+    st.uniform2(s, (uint32_t)b, kDrawRR, u_rr, unused);
+    const bool zone = b >= rr_start;
+    if (zone && u_rr >= ps) return false;
+    next = next * (zone ? 1.0f / ps : 1.0f);
+  }
+  atten = next;
+  o = hp;
+  d = dir;
+  return true;
+}
+
 // Trace sample s of one pixel, with `hit` (ScanHit or WalkHit) as the
-// closest hit. A scatter at bounce max_depth-1 exits black; from rr_start
-// on (>= 0), Russian roulette keeps a path with p = clip(max channel,
-// 0.05, 1) and weights survivors by 1/p. With kPush, the state entering
-// every bounce goes onto `stack`.
+// closest hit and scatter_bounce after each hit. With kPush, the state
+// entering every bounce goes onto `stack`.
 template <class Hit, bool kPush>
 __device__ __forceinline__ PathEnd trace_sample(const Hit& hit, const Cam& cam,
                                                 const Stream& st, float fi, float fj,
                                                 uint32_t s, int max_depth, int rr_start,
                                                 bool legacy_sky, Entry* stack) {
-  constexpr bool kHbm = Hit::kHbm;
-  const SceneView& sc = hit.sc;
   V3 o, d;
   primary_ray(cam, fi, fj, st, s, o, d);
   const V3 prim_d = d;
@@ -375,61 +442,9 @@ __device__ __forceinline__ PathEnd trace_sample(const Hit& hit, const Cam& cam,
     const bool missed = !hit(o, d, win, t);
     if (kPush) stack[b] = Entry{o, d, atten, missed ? -1 : win};
     if (missed) return {b, true, atten * sky(legacy_sky ? prim_d : d)};
-    const V3 hp = o + d * t;
-    const V3 center = slot_center<kHbm>(sc, win);
-    const float radius = sc.col(0, win);
-    const float rs = fabsf(radius) > 1e-12f ? radius : 1e-12f;
-    const V3 outward = (hp - center) * (1.0f / rs);
-    const bool front = dot(d, outward) < 0.0f;
-    const V3 normal = front ? outward : -outward;
-    const int mat = (int)sc.col(6, win);
-
-    V3 dir, att;
-    bool scattered = true;
-    if (mat == 0 || mat == 1) {
-      const V3 ur = st.unit_vector(s, (uint32_t)b);
-      if (mat == 0) {  // lambertian
-        dir = normal + ur;
-        if (fabsf(dir.x) < 1e-6f && fabsf(dir.y) < 1e-6f && fabsf(dir.z) < 1e-6f)
-          dir = normal;
-      } else {  // metal
-        dir = unit(reflect(d, normal)) + ur * sc.col(4, win);
-        scattered = dot(dir, normal) > 0.0f;
-      }
-      att = {sc.col(1, win), sc.col(2, win), sc.col(3, win)};
-    } else {  // dielectric (any other id takes this direction, as in JAX)
-      float coin, unused;
-      st.uniform2(s, (uint32_t)b, kDrawCoin, coin, unused);
-      const float ior = sc.col(5, win);
-      const float ri = front ? 1.0f / ior : ior;
-      const V3 ud = unit(d);
-      const float cos_t = fminf(dot(-ud, normal), 1.0f);
-      const float sin_t = sqrtf(fmaxf(1.0f - cos_t * cos_t, 0.0f));
-      if (ri * sin_t > 1.0f || schlick(cos_t, ri) > coin) {
-        dir = reflect(ud, normal);
-      } else {  // refract
-        const float ct = fminf(dot(-ud, normal), 1.0f);
-        const V3 perp = (ud + normal * ct) * ri;
-        const float par = sqrtf(fmaxf(fabsf(1.0f - dot(perp, perp)), 1e-12f));
-        dir = perp + normal * (-par);
-      }
-      att = mat == 2 ? V3{1.0f, 1.0f, 1.0f}
-                     : V3{sc.col(1, win), sc.col(2, win), sc.col(3, win)};
-    }
-    // absorbed, or scattering at the depth cap: the path ends black
-    if (!scattered || b >= max_depth - 1) return {b, false, {0.0f, 0.0f, 0.0f}};
-    V3 next = atten * att;
-    if (rr_start >= 0) {
-      const float ps = fminf(fmaxf(fmaxf(fmaxf(next.x, next.y), next.z), 0.05f), 1.0f);
-      float u_rr, unused;
-      st.uniform2(s, (uint32_t)b, kDrawRR, u_rr, unused);
-      const bool zone = b >= rr_start;
-      if (zone && u_rr >= ps) return {b, false, {0.0f, 0.0f, 0.0f}};
-      next = next * (zone ? 1.0f / ps : 1.0f);
-    }
-    atten = next;
-    o = hp;
-    d = dir;
+    if (!scatter_bounce<Hit::kHbm>(hit.sc, st, s, b, max_depth, rr_start, win, t, o, d,
+                                   atten))
+      return {b, false, {0.0f, 0.0f, 0.0f}};
   }
 }
 

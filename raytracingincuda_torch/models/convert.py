@@ -66,6 +66,29 @@ def camera_row_from_numpy(row: np.ndarray, device="cpu") -> torch.Tensor:
     return _t(row, device)
 
 
+def f64_inputs_from_numpy(sm_hi, sm_lo, cam_rows, device="cpu") -> tuple:
+    """The f64 render's scene and camera from the JAX df64 inputs:
+    ``pack_scene_matrix_df64``'s (N, 16) f32 (hi, lo) matrices and
+    ``initialize_f64``'s (2, 24) hi/lo camera rows. Returns (scene_mat
+    (N, 16) f32, cam_row (24,) float64), each the hi + lo of its pair in
+    float64. The port's scene matrix is f32, so ``sm_lo`` must be 0 (it
+    is for every scene the JAX package builds: its params are f32)."""
+    hi = np.asarray(sm_hi, np.float32)
+    lo = np.asarray(sm_lo, np.float32)
+    rows = np.asarray(cam_rows, np.float32)
+    if hi.shape != lo.shape or hi.ndim != 2 or hi.shape[1] != 16:
+        raise ValueError(f"scene hi/lo must be two (N, 16) matrices, got "
+                         f"{hi.shape} and {lo.shape}")
+    if rows.shape != (2, 24):
+        raise ValueError(f"camera rows must have shape (2, 24), got "
+                         f"{rows.shape}")
+    if lo.any():
+        raise ValueError("the scene's lo words are not 0: the port's scene "
+                         "matrix is f32")
+    cam = rows[0].astype(np.float64) + rows[1].astype(np.float64)
+    return _t(hi, device), _t(cam, device)
+
+
 def train_state_from_numpy(arrays: Sequence[np.ndarray], trainable=None,
                            device="cpu"):
     """The port's ``ops.grad.TrainState`` from the leaves of a JAX

@@ -22,6 +22,9 @@ prepass (``measure_difficulty``, ``difficulty_order``), which sorts pixels
 by traced depth so that each warp holds pixels of similar path length,
 and ``make_diff_render``, the render as a ``torch.autograd.Function``
 whose backward is the gradient kernel (``ops/train_kernel.py``).
+``render_kernel(mode=...)`` also takes the JAX package's older schedules:
+``'simple'`` runs this kernel, ``'compact'`` the compact kernel
+(``ops/compact_kernel.py``).
 """
 from __future__ import annotations
 
@@ -122,21 +125,18 @@ def unpack_camera(cam_row: torch.Tensor) -> Camera:
     )
 
 
-def _check_args(ids, ii, jj, budget, scene_mat, cam_row, *, samples,
-                max_depth, rr_start, sample_offset, layout):
-    """What both implementations take; raises on anything else. The
-    gradient kernels pass their (3, padded) cotangent or target rows as
-    ``budget``."""
+def _check_tensors(ids, ii, jj, scene_mat, others, *, layout):
+    """Device, dtype, shape and contiguity of the lane rows, the scene
+    matrix and ``others`` ((name, tensor, dtype, shape) entries); then the
+    lane count, the matrix's width and the layout. Raises on anything
+    else."""
     dev = ids.device
-    budget_shape = ids.shape if budget.dim() == 1 else (3, ids.shape[0])
     for name, t, dtype, shape in (
         ("ids", ids, torch.int32, None),
         ("ii", ii, torch.float32, ids.shape),
         ("jj", jj, torch.float32, ids.shape),
-        ("budget" if budget.dim() == 1 else "rows", budget, torch.float32,
-         budget_shape),
         ("scene_mat", scene_mat, torch.float32, None),
-        ("cam_row", cam_row, torch.float32, (1, 24)),
+        *others,
     ):
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, ids on {dev}")
@@ -160,6 +160,19 @@ def _check_args(ids, ii, jj, budget, scene_mat, cam_row, *, samples,
             f"layout='vmem' stages at most {MAX_VMEM_SLOTS} slots in shared "
             f"memory, the scene has {scene_mat.shape[0]}; use layout='hbm'"
         )
+
+
+def _check_args(ids, ii, jj, budget, scene_mat, cam_row, *, samples,
+                max_depth, rr_start, sample_offset, layout):
+    """What both implementations take; raises on anything else. The
+    gradient kernels pass their (3, padded) cotangent or target rows as
+    ``budget``."""
+    budget_shape = ids.shape if budget.dim() == 1 else (3, ids.shape[0])
+    _check_tensors(ids, ii, jj, scene_mat, (
+        ("budget" if budget.dim() == 1 else "rows", budget, torch.float32,
+         budget_shape),
+        ("cam_row", cam_row, torch.float32, (1, 24)),
+    ), layout=layout)
     if max_depth < 1 or samples < 1 or sample_offset < 0:
         raise ValueError("samples and max_depth must be positive and "
                          "sample_offset non-negative")
@@ -436,6 +449,7 @@ def render_kernel(
     sample_offset: int = 0,
     sample_budgets=None,
     accumulate_only: bool = False,
+    mode: str = "regen",
 ) -> torch.Tensor:
     """Render on the scene's device; (H, W, 3) f32, or with
     ``return_depth`` the (padded,) per-lane traced-segment totals.
@@ -445,13 +459,49 @@ def render_kernel(
     changes speed only. ``sample_offset`` / ``sample_budgets`` /
     ``accumulate_only`` render samples ``[offset, offset + budget)`` per
     pixel and return raw sums, which add up exactly across passes.
-    Uniform-budget gamma renders finish 1/spp and gamma in the kernel."""
+    Uniform-budget gamma renders finish 1/spp and gamma in the kernel.
+
+    ``mode`` picks the schedule, as ``render_pallas``'s does; every mode
+    gives the same image. ``'regen'``: the regeneration kernel.
+    ``'simple'`` (the JAX per-sample waves with a whole-tile early exit)
+    runs the regeneration kernel too: one thread per pixel tracing each
+    sample's bounces in turn is that schedule on a GPU. ``'compact'``:
+    live-ray compaction (``ops/compact_kernel.py``); with ``legacy_sky``,
+    or at 2^24 pixels or more, it runs ``'simple'``, as in JAX.
+    ``return_depth``, ``sample_offset`` and ``sample_budgets`` need
+    ``'regen'``. ``rr_start`` with ``'simple'`` or ``'compact'`` raises,
+    where JAX silently renders the parity estimator."""
+    if mode not in ("regen", "compact", "simple"):
+        raise ValueError(f"mode must be 'regen', 'compact' or 'simple', got "
+                         f"{mode!r}")
+    if mode != "regen":
+        if return_depth:
+            raise ValueError("return_depth requires mode='regen'")
+        if sample_offset or sample_budgets is not None:
+            raise ValueError("sample offset/budgets require mode='regen'")
+        if rr_start is not None:
+            raise ValueError(
+                f"mode={mode!r} has no Russian-roulette estimator (JAX renders"
+                " parity there); rr_start requires mode='regen'")
+    if mode == "compact" and (legacy_sky
+                              or img_width * img_height >= MAX_PIXELS):
+        mode = "simple"
     inputs = regen_inputs(scene, cam_cfg, img_width, img_height,
                           samples_per_pixel, pixel_order=pixel_order,
                           sample_offset=sample_offset,
                           sample_budgets=sample_budgets)
     fuse = (gamma and not accumulate_only and not return_depth
             and sample_budgets is None)
+    if mode == "compact":
+        from .compact_kernel import _compact
+
+        out = _compact(*inputs[:3], *inputs[4:], samples=samples_per_pixel,
+                       max_depth=max_depth, seed=seed,
+                       finalize_scale=1.0 / samples_per_pixel if fuse else None,
+                       layout=layout)
+        return _finalize_output(out, inputs[0], pixel_order is not None,
+                                img_width, img_height, samples_per_pixel,
+                                gamma, accumulate_only, already_finalized=fuse)
     out = _regen(
         *inputs, samples=samples_per_pixel,
         max_depth=max_depth, seed=seed, legacy_sky=legacy_sky,

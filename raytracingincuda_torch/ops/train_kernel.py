@@ -25,7 +25,8 @@ The TPU kernels' schedule knobs (``ray_tile``, ``bwd_ray_tile``,
 ``sweep``, ``window``, ``park_residuals``, ``park``, ``pixels_per_lane``)
 fitted VMEM and the 128-lane rows; the entry points here accept them and
 ignore them. ``mesh`` (multiple devices, ROADMAP queue 1 item 6) and
-``dtype=float64`` (queue 1 item 4) raise; so does ``layout='packed'``,
+``dtype=float64`` (f64 gradients through the oracle, queue 1 item 10)
+raise; so does ``layout='packed'``,
 the streamed-scene layout, which ``grad.make_stream_train`` trains
 (``ops/stream_train_kernel.py``).
 """
@@ -77,8 +78,9 @@ def refuse_unported(mesh=None, dtype=torch.float32,
             "item 6)")
     if dtype in (torch.float64, "float64", np.float64):
         raise NotImplementedError(
-            "dtype=float64 is not ported yet (the kernels instantiated in "
-            "double, ROADMAP queue 1 item 4)")
+            "dtype=float64 has no gradient here: JAX differentiates f64 "
+            "through its oracle only, not through a kernel (f64 gradients "
+            "through the oracle, ROADMAP queue 1 item 10)")
     if dtype not in (torch.float32, "float32", np.float32):
         raise ValueError(f"dtype must be float32, got {dtype!r}")
 

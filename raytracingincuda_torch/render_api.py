@@ -8,6 +8,8 @@ order. ``impl='stream'`` (and ``layout='packed'``, the texture-path
 analog, which routes there as in JAX) renders through the stream kernel
 (``ops/stream_kernel.py``): a prepared scene of any size, walked in
 culled sphere blocks. ``impl='oracle'`` runs the plain PyTorch tracer.
+``dtype='float64'`` (``impl='kernel'`` only) renders in double through
+the f64 kernel (``ops/f64_kernel.py``), ordered by the f32 prepass.
 
 Nothing falls back: a CUDA device without CUDA raises, and the kernel
 path on a CPU device runs the kernel's plain version by design (the
@@ -22,7 +24,7 @@ import torch
 from .config import RenderConfig
 from .models.camera import CameraConfig, initialize
 from .models.scene import Scene, _round_up, param_leaves
-from .ops import render_kernel, stream_kernel, tracer
+from .ops import f64_kernel, render_kernel, stream_kernel, tracer
 
 
 def _leaf_key(scene: Scene, cam_cfg: CameraConfig) -> tuple:
@@ -86,18 +88,8 @@ def _stream_renderer(cfg: RenderConfig, check) -> Callable:
                 ent["stream"], initialize(cam_cfg, cfg.width,
                                           cfg.height).center)
         order = None
-        if (scene.num_slots <= _ONE_BLOCK_SLOTS and cfg.samples >= 8
-                and cfg.bounces > 4):
-            key = _leaf_key(scene, cam_cfg)
-            order = order_cache.get(key)
-            if order is None:
-                pd, ps = min(8, cfg.bounces), min(6, cfg.samples)
-                seg = render_kernel.measure_difficulty(
-                    scene, cam_cfg, cfg.width, cfg.height, pd, ps,
-                    seed=cfg.seed)
-                order = render_kernel.difficulty_order(seg, pd, ps)
-                order_cache.clear()
-                order_cache[key] = order
+        if scene.num_slots <= _ONE_BLOCK_SLOTS:
+            order = _prepass_order(cfg, scene, cam_cfg, order_cache, "vmem")
         return stream_kernel.render_stream(
             ent["stream"], cam_cfg, cfg.width, cfg.height, cfg.samples,
             cfg.bounces, seed=cfg.seed, rr_start=cfg.rr_start,
@@ -110,8 +102,61 @@ def _stream_renderer(cfg: RenderConfig, check) -> Callable:
     return renderer
 
 
+def _prepass_order(cfg: RenderConfig, scene: Scene, cam_cfg: CameraConfig,
+                   order_cache: dict, layout=None):
+    """The f32 difficulty order at >= 8 spp and > 4 bounces (else None),
+    from the regen kernel's prepass in ``layout`` (``cfg.layout`` by
+    default), cached by leaf shapes: any permutation gives the same
+    image, so a different same-shaped scene gets a stale but valid order,
+    which changes speed only."""
+    if not (cfg.samples >= 8 and cfg.bounces > 4):
+        return None
+    key = _leaf_key(scene, cam_cfg)
+    order = order_cache.get(key)
+    if order is None:
+        pd, ps = min(8, cfg.bounces), min(6, cfg.samples)
+        seg = render_kernel.measure_difficulty(
+            scene, cam_cfg, cfg.width, cfg.height, pd, ps, seed=cfg.seed,
+            layout=layout or cfg.layout)
+        order = render_kernel.difficulty_order(seg, pd, ps)
+        order_cache.clear()
+        order_cache[key] = order
+    return order
+
+
+def make_f64_renderer(cfg: RenderConfig, check) -> Callable:
+    """``dtype='float64'``: the counterpart of the JAX
+    ``make_df64_renderer``. Returns ``renderer(scene, cam_cfg) -> (H, W,
+    3)`` float64 (JAX returns (H, W, 3, 2) f32 hi/lo pairs). At >= 8 spp
+    and > 4 bounces the lanes take the difficulty order of the f32
+    prepass (kernel 1, ``cfg.layout``), cached as the f32 renderer's:
+    the order changes speed only. The packed scene matrix is cached by
+    the scene's identity; ``prepare`` packs it ahead."""
+    if cfg.dtype != "float64":
+        raise ValueError(f"make_f64_renderer renders dtype float64, the "
+                         f"config says {cfg.dtype}")
+    packed = _identity_cache()
+    order_cache: dict = {}
+
+    def renderer(scene, cam_cfg):
+        check(scene)
+        return f64_kernel.render_f64(
+            scene, cam_cfg, cfg.width, cfg.height, cfg.samples, cfg.bounces,
+            seed=cfg.seed, layout=cfg.layout,
+            pixel_order=_prepass_order(cfg, scene, cam_cfg, order_cache),
+            scene_mat=prepare(scene))
+
+    def prepare(scene):
+        check(scene)
+        return packed(scene, lambda: render_kernel.pack_scene_matrix(scene))
+
+    renderer.prepare = prepare
+    return renderer
+
+
 def make_renderer(cfg: RenderConfig, device) -> Callable:
-    """Return ``renderer(scene, cam_cfg) -> (H, W, 3)`` f32 on ``device``.
+    """Return ``renderer(scene, cam_cfg) -> (H, W, 3)`` on ``device``: f32,
+    or float64 for ``dtype='float64'`` (``make_f64_renderer``).
 
     The scene must already be on ``device`` (``build_scene(...,
     device=...)``); the camera config is host data."""
@@ -125,6 +170,10 @@ def make_renderer(cfg: RenderConfig, device) -> Callable:
         if scene.mat_type.device.type != device.type:
             raise ValueError(f"scene is on {scene.mat_type.device}, the "
                              f"renderer on {device}")
+
+    if cfg.dtype == "float64":
+        # RenderConfig allows float64 with impl='kernel' only
+        return make_f64_renderer(cfg, check)
 
     if cfg.impl == "oracle":
         def oracle_renderer(scene, cam_cfg):
@@ -141,41 +190,14 @@ def make_renderer(cfg: RenderConfig, device) -> Callable:
     if cfg.impl == "stream" or cfg.layout == "packed":
         return _stream_renderer(cfg, check)
 
-    def main(scene, cam_cfg, pixel_order=None):
+    order_cache: dict = {}
+
+    def renderer(scene, cam_cfg):
+        check(scene)
         return render_kernel.render_kernel(
             scene, cam_cfg, cfg.width, cfg.height, cfg.samples, cfg.bounces,
             seed=cfg.seed, layout=cfg.layout, legacy_sky=cfg.legacy_sky,
-            rr_start=cfg.rr_start, pixel_order=pixel_order,
-        )
+            rr_start=cfg.rr_start,
+            pixel_order=_prepass_order(cfg, scene, cam_cfg, order_cache))
 
-    if not (cfg.samples >= 8 and cfg.bounces > 4):
-        def renderer(scene, cam_cfg):
-            check(scene)
-            return main(scene, cam_cfg)
-
-        return renderer
-
-    # Difficulty-sorted lanes. Any permutation gives the same image, so the
-    # order is cached by leaf shapes: steady-state renders of a same-shaped
-    # scene skip the prepass (a different same-shaped scene gets a stale
-    # but valid order, which changes speed only).
-    probe_depth = min(8, cfg.bounces)
-    probe_samples = min(6, cfg.samples)
-    order_cache: dict = {}
-
-    def sorted_renderer(scene, cam_cfg):
-        check(scene)
-        key = _leaf_key(scene, cam_cfg)
-        order = order_cache.get(key)
-        if order is None:
-            seg = render_kernel.measure_difficulty(
-                scene, cam_cfg, cfg.width, cfg.height, probe_depth,
-                probe_samples, seed=cfg.seed, layout=cfg.layout,
-            )
-            order = render_kernel.difficulty_order(seg, probe_depth,
-                                                   probe_samples)
-            order_cache.clear()
-            order_cache[key] = order
-        return main(scene, cam_cfg, pixel_order=order)
-
-    return sorted_renderer
+    return renderer

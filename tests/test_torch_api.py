@@ -60,12 +60,12 @@ def test_make_renderer_order_cache_by_shape(monkeypatch):
 
 
 @pytest.mark.parametrize("kw, exc", [
-    (dict(dtype="float64"), NotImplementedError),
+    (dict(dtype="float64", rr_start=2), ValueError),
     (dict(dtype="bfloat16"), ValueError),
     (dict(impl="adaptive"), NotImplementedError),
-    (dict(impl="stream", dtype="float64"), NotImplementedError),
+    (dict(impl="stream", dtype="float64"), ValueError),
     (dict(impl="pallas"), ValueError),
-    (dict(layout="packed", dtype="float64"), NotImplementedError),
+    (dict(layout="packed", dtype="float64"), ValueError),
     (dict(mxu_dots=True), ValueError),
     (dict(samples=0), ValueError),
     (dict(impl="stream", stream_block=0), ValueError),

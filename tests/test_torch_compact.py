@@ -1,0 +1,147 @@
+"""The older render schedules: ``render_kernel(mode='compact' | 'simple')``.
+
+``'compact'`` is live-ray compaction (``ops/compact_kernel.py``); on the
+CPU it runs the kernel's plain version (``compact_reference``).
+``'simple'`` runs the regeneration kernel. The tests hold both to the JAX
+Pallas kernels in interpret mode under the cross-framework gate of
+``utils/ppm.py`` (XLA fuses multiply-adds there), to the port's
+``mode='regen'`` bit for bit, and to JAX's mode rules. The scene is JAX
+scene 2 (``tiny_scene``'s build) carried across with ``models/convert.py``.
+The ``cuda`` test holds the CUDA kernel to its plain version and to
+kernel 1 on the card; it skips without a card.
+"""
+import numpy as np
+import pytest
+import torch
+
+from raytracingincuda_torch.models.camera import CameraConfig as TCam
+from raytracingincuda_torch.models.convert import (camera_config_from_numpy,
+                                                   scene_from_numpy)
+from raytracingincuda_torch.models.scene import build_scene as t_build
+from raytracingincuda_torch.ops import compact_kernel as ck
+from raytracingincuda_torch.ops import render_kernel as rk
+from raytracingincuda_torch.utils import ppm
+
+# One intra-op thread: the suite runs in several worker processes, and
+# torch's default of one thread per core oversubscribes the CPU.
+torch.set_num_threads(1)
+
+W, H, SPP, DEPTH = 32, 16, 2, 5  # four 128-lane tiles on the JAX side
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: run `pytest -m cuda` on the GPU")
+    return torch.device("cuda")
+
+
+def _carried(tiny_scene, default_camera):
+    import jax
+
+    leaves = lambda t: [np.asarray(x)  # noqa: E731
+                        for x in jax.tree_util.tree_leaves(t)]
+    return (scene_from_numpy(leaves(tiny_scene)),
+            camera_config_from_numpy(leaves(default_camera)))
+
+
+@pytest.mark.parametrize("mode", ["compact", "simple"])
+def test_plain_version_vs_pallas(mode, tiny_scene, default_camera):
+    from raytracingincuda_tpu.ops.pallas_kernel import render_pallas
+
+    want = np.asarray(render_pallas(tiny_scene, default_camera, W, H, SPP,
+                                    DEPTH, ray_tile=128, interpret=True,
+                                    mode=mode))
+    got = rk.render_kernel(*_carried(tiny_scene, default_camera), W, H, SPP,
+                           DEPTH, mode=mode).numpy()
+    st = ppm.diff_stats(got, ppm.quantize(want))
+    assert ppm.passes_cross_framework_gate(st), st
+
+
+@pytest.mark.parametrize("mode, kw", [
+    ("compact", {}),
+    ("simple", {}),
+    ("simple", dict(legacy_sky=True)),
+    ("compact", dict(layout="hbm", gamma=False)),
+    ("compact", dict(accumulate_only=True)),
+])
+def test_modes_equal_regen_bit_for_bit(mode, kw, tiny_scene, default_camera):
+    scene, cam = _carried(tiny_scene, default_camera)
+    want = rk.render_kernel(scene, cam, W, H, SPP, DEPTH, **kw)
+    assert torch.equal(rk.render_kernel(scene, cam, W, H, SPP, DEPTH,
+                                        mode=mode, **kw), want)
+
+
+def test_compact_pixel_order_changes_nothing():
+    s, cam = t_build(1), TCam.reference_default()
+    base = rk.render_kernel(s, cam, 24, 16, 2, 8)
+    perm = torch.from_numpy(np.random.default_rng(2).permutation(384))
+    assert torch.equal(base, rk.render_kernel(s, cam, 24, 16, 2, 8,
+                                              mode="compact",
+                                              pixel_order=perm))
+
+
+def test_compact_reference_equals_regen_reference():
+    """The plain versions on the same lanes, raw sums and the fused
+    finalize, with lanes split over several pools."""
+    s, cam = t_build(3), TCam.reference_default()
+    ids, ii, jj, bud, sm, row = rk.regen_inputs(s, cam, 40, 16, 3)
+    for scale in (None, 1.0 / 3):
+        want = rk.regen_reference(ids, ii, jj, bud, sm, row, samples=3,
+                                  max_depth=6, finalize_scale=scale)
+        got = ck.compact_reference(ids, ii, jj, sm, row, samples=3,
+                                   max_depth=6, finalize_scale=scale)
+        assert torch.equal(got, want)
+
+
+def test_compact_with_legacy_sky_runs_simple(monkeypatch):
+    """As in JAX: compact has no legacy-sky rows, so it runs 'simple'."""
+    s, cam = t_build(2), TCam.reference_default()
+    monkeypatch.setattr(ck, "_compact", lambda *a, **k: pytest.fail(
+        "compact ran with legacy_sky"))
+    got = rk.render_kernel(s, cam, 16, 8, 2, 5, mode="compact",
+                           legacy_sky=True)
+    assert torch.equal(got, rk.render_kernel(s, cam, 16, 8, 2, 5,
+                                             legacy_sky=True))
+
+
+@pytest.mark.parametrize("mode", ["compact", "simple"])
+@pytest.mark.parametrize("kw, match", [
+    (dict(return_depth=True), "return_depth requires mode='regen'"),
+    (dict(sample_offset=2), "require mode='regen'"),
+    (dict(sample_budgets=torch.ones(128, dtype=torch.int32)),
+     "require mode='regen'"),
+    (dict(rr_start=2), "rr_start requires mode='regen'"),
+])
+def test_mode_rules_raise(mode, kw, match):
+    s, cam = t_build(2), TCam.reference_default()
+    with pytest.raises(ValueError, match=match):
+        rk.render_kernel(s, cam, 16, 8, 2, 4, mode=mode, **kw)
+
+
+def test_wrapper_checks_raise():
+    s, cam = t_build(2), TCam.reference_default()
+    with pytest.raises(ValueError, match="mode"):
+        rk.render_kernel(s, cam, 16, 8, 2, 4, mode="wavefront")
+    ids, ii, jj, _, sm, row = rk.regen_inputs(s, cam, 16, 8, 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        ck.compact_kernel(ids, ii, jj, sm, row, samples=2, max_depth=4)
+    with pytest.raises(ValueError):
+        ck.compact_reference(ids, ii, jj, sm, row, samples=2, max_depth=4,
+                             layout="packed")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["vmem", "hbm"])
+def test_kernel_equals_plain_version_and_kernel_1_on_card(cuda, layout):
+    s = t_build(1, device=cuda)
+    ids, ii, jj, bud, sm, row = rk.regen_inputs(s, TCam.reference_default(),
+                                                72, 40, 3)
+    kw = dict(samples=3, max_depth=12, layout=layout, finalize_scale=1 / 3)
+    before = ck.LAUNCHES
+    got = ck.compact_kernel(ids, ii, jj, sm, row, **kw)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES == before + 1
+    assert torch.equal(got, ck.compact_reference(ids, ii, jj, sm, row, **kw))
+    assert torch.equal(got, rk.regen_kernel(ids, ii, jj, bud, sm, row, **kw))
+    assert torch.equal(got, ck.compact_kernel(ids, ii, jj, sm, row, **kw))

@@ -285,7 +285,7 @@ def test_unported_axes_and_misuse_raise():
     cam = TCam.reference_default()
     with pytest.raises(NotImplementedError, match="item 6"):
         tgrad.make_loss_fn(W, H, SPP, DEPTH, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 4"):
+    with pytest.raises(NotImplementedError, match="item 10"):
         tgrad.make_loss_fn(W, H, SPP, DEPTH, dtype=torch.float64)
     # streamed scenes train through make_stream_train, which the refusals
     # name (the JAX make_loss_fn runs its oracle for impl='stream')
@@ -313,7 +313,7 @@ def test_unported_axes_and_misuse_raise():
     with pytest.raises(NotImplementedError, match="item 6"):
         tk.render_kernel_grads(s, cam, torch.zeros((H, W, 3)), W, H, SPP,
                                DEPTH, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 4"):
+    with pytest.raises(NotImplementedError, match="item 10"):
         tk.fused_train(s, cam, torch.zeros((H, W, 3)), W, H, SPP, DEPTH,
                        dtype=torch.float64)
     ids, ii, jj, _, sm, row = rk.regen_inputs(s, cam, W, H, SPP)

@@ -48,13 +48,18 @@ CPU path):
              its image bit-equal to the stream kernel's
   12 stream train  make_stream_train (fused) at 100k spheres, 640x384,
              4 spp, 10 bounces, MSE: a warm-up and 3 timed steps, finite
-             gradients, the loss equal to the image's MSE, peak memory;
-             one fused=False step (the same loss to GRAD_RTOL); the
-             segmented sum on this step's records against its plain
-             version (bit for bit) and index_add_; on the step's own
-             stream (100k spheres, blocks of 256 front to back) at
-             640x384x1spp/3b, the stream kernel (bit for bit) and both
-             modes of the stream train kernel against their plain versions
+             gradients, the loss equal to the image's MSE, peak memory,
+             and one more step in a torch.profiler window (device time
+             over wall time: the idle share); one fused=False step (the
+             same loss to GRAD_RTOL); on this step's records,
+             record_order's time, and the segmented sum against its plain
+             version (bit for bit) and index_add_; the warp-union count of
+             the step's walk (stream_train_kernel.walk_counts: blocks
+             opened per lane, equal to the stream kernel's count, and
+             blocks tested per warp); on the step's own stream (100k
+             spheres, blocks of 256 front to back) at 640x384x1spp/3b,
+             the stream kernel (bit for bit) and both modes of the stream
+             train kernel against their plain versions
   13 stream scale  1M spheres: the block after _auto_block, one forward
              at 640x384x1spp/10b and one fused step at 1spp/6b, finite
              gradients, peak memory; the stream kernel and the fused mode
@@ -91,8 +96,9 @@ also written to chip_smoke.json in the output directory. Launch counts
 are set to 0 just before each main path (phases 4, 7, 8, 10, 12, 13, 14,
 16, 17) and read just after it: each path's own counts are in chip_smoke.json
 (launches_by_phase) and their sums are the kernels line's launches.
-stream_segment_sum counts its two kernels (chunk_sums_kernel, then
-segment_sums_kernel), two per call. The stream rows' times and bounds
+stream_segment_sum counts its two kernels (tile_sums_kernel, then
+cross_sums_kernel), two per call; stream_train counts walk_counts'
+launch too (outside the main paths). The stream rows' times and bounds
 are those of the 100k comparisons in phase 12; the f64 and compact rows'
 those of the headline-width comparisons in phases 15 and 17.
 """
@@ -139,12 +145,13 @@ COMPACT_REPLACES = "raytracingincuda_tpu/ops/pallas_kernel.py:488"
 REFERENCE_F64_HEADLINE_MS = 40270.4
 # The bound: the larger of the operations over the H100's FP32 rate
 # outside the tensor cores and the bytes over its memory rate (NVIDIA's
-# data sheet, SXM, 700 W). Operations counted from path_common.cuh: a
-# sphere test is 18 FP32 operations with |C|^2 - r^2 staged (layout
-# vmem) and 25 where it is computed per test (hbm, the stream walk), a
-# block's bound test 25. Shading, the f64 recipes and the reverse are
-# left out, so each bound is a floor. The f64 kernel's sphere tests (18
-# double operations with the scan table staged) count at the FP64 rate.
+# data sheet, SXM, 700 W). Operations count the function's work once,
+# from path_common.cuh: a sphere test is 18 FP32 operations (|C|^2 - r^2
+# belongs to the scene, not to the test), and so is a block's bound test;
+# each sample is traced once. Only the brute-force hbm render's bound
+# (phase 10) counts 25, the test as that kernel computes it. Shading, the
+# f64 recipes and the reverse are left out, so each bound is a floor. The
+# f64 kernel's sphere tests (18 double operations) count at the FP64 rate.
 FP32_PER_S = 67e12
 FP64_PER_S = 34e12
 BYTES_PER_S = 3.35e12
@@ -162,6 +169,54 @@ def bound(ops: float, nbytes: float, rate: float = FP32_PER_S) -> tuple:
     t_ops, t_bytes = ops / rate, nbytes / BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+def profiled_idle(step) -> dict:
+    """One call of ``step`` in a torch.profiler window: wall time (CUDA
+    events), the device's busy time (the union of the CUDA activity the
+    profiler saw), the idle share, and the five names with the most device
+    time; busy None when it saw none."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        step()
+        end.record()
+        end.synchronize()
+    wall_ms = start.elapsed_time(end)
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    by_name: dict = {}
+    for e in events:
+        by_name[e.name] = (by_name.get(e.name, 0.0)
+                           + (e.time_range.end - e.time_range.start) / 1e3)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    busy_us, reach = 0.0, float("-inf")
+    for a, b in spans:
+        if b > reach:
+            busy_us += b - max(a, reach)
+            reach = b
+    busy_ms = busy_us / 1e3 if spans else None
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_events": len(spans),
+            "top_device_ms": {name[:60]: ms for name, ms in top},
+            "idle_share": None if busy_ms is None
+            else max(0.0, 1.0 - busy_ms / wall_ms)}
+
+
+def fmt_idle(idle: dict) -> str:
+    if idle["idle_share"] is None:
+        return "not measured (the profiler saw no device activity)"
+    top = ", ".join(f"{name[:40]} {ms:.3f}"
+                    for name, ms in idle["top_device_ms"].items())
+    return (f"{100 * idle['idle_share']:.2f}% ({idle['device_busy_ms']:.2f}"
+            f" ms busy of {idle['wall_ms']:.2f} ms; most device ms: {top})")
 
 
 def main() -> int:
@@ -577,7 +632,7 @@ def main() -> int:
         return float(c[0]), float(c[1])
 
     def walk_ops(st, segs, opened):
-        return (segs * st.bounds.shape[0] + opened * st.block) * OPS_TEST
+        return (segs * st.bounds.shape[0] + opened * st.block) * OPS_TEST_STAGED
 
     def stream_compare(st, width, height, spp, bounces, rr, reps=5):
         ids, ii, jj, bud, row = lanes(width, height, spp)
@@ -778,11 +833,11 @@ def main() -> int:
         return res
 
     def stream_train_bound(st, width, height, spp, bounces, rr):
-        """The fused step's bound: the walk twice (render, then re-trace),
-        its inputs read and its outputs written once."""
+        """The fused step's bound: one walk per sample, its inputs read and
+        its outputs written once."""
         segs, opened = walk_stats(st, width, height, spp, bounces, rr)
         padded = lanes(width, height, spp)[0].shape[0]
-        return bound(2 * walk_ops(st, segs, opened),
+        return bound(walk_ops(st, segs, opened),
                      padded * 36 + st.scene_mat.shape[0]
                      * (rk.USED_COLS + 16) * 4 + st.bounds.numel() * 4 + 192)
 
@@ -856,16 +911,31 @@ def main() -> int:
     if two_rel > GRAD_RTOL or two_counts["stream_render"] < 1:
         raise AssertionError(f"two-program step loss {float(loss_two)} vs "
                              f"{float(loss0)}, launches {two_counts}")
+    # one more fused step in a profiler window: device time over wall time
+    idle = profiled_idle(lambda: step_fn(state, cam, s100k.mat_type,
+                                         s100k.active, target))
     segs, opened = walk_stats(st0, w, h, spp, bounces, None)
-    step_bound, _ = bound(2 * walk_ops(st0, segs, opened), 0)
-    # the scatter's kernel on this step's records
+    step_bound, _ = bound(walk_ops(st0, segs, opened), 0)
+    # the warp union of the step's walk: blocks tested per warp against the
+    # blocks each lane opened (kernel 4's count)
     ids, ii, jj, _, row = lanes(w, h, spp)
+    lane_open, warp_tested = stk.walk_counts(
+        ids, ii, jj, st0.scene_mat, st0.bounds, row, block=st0.block,
+        samples=spp, max_depth=bounces)
+    union = {"opened_per_lane": int(lane_open.long().sum()),
+             "tested_per_warp": int(warp_tested.long().sum())}
+    union["lane_tests_over_opened"] = (32 * union["tested_per_warp"]
+                                       / max(union["opened_per_lane"], 1))
+    if union["opened_per_lane"] != int(opened):
+        raise AssertionError(f"kernel 5's walk opened {union} blocks, the "
+                             f"stream kernel's {opened}")
+    # the scatter's kernels on this step's records
     rows = tk._lane_rows(target, ids, w * h)
     _, rec_row, rec_val, _, _ = stk.train_records(
         ids, ii, jj, rows, st0.scene_mat, st0.bounds, row, block=st0.block,
         samples=spp, max_depth=bounces, seed=DEFAULT_SEED, rr_start=None,
         sample_offset=0, fused=True, num_pixels=w * h)
-    keys, src = stk.record_order(rec_row)
+    (keys, src), order_ms = timed(lambda: stk.record_order(rec_row), 5)
     n_rows = st0.scene_mat.shape[0]
     seg_out, seg_ms = timed(lambda: stk.segment_sum_kernel(keys, src, rec_val,
                                                            n_rows), 5)
@@ -878,6 +948,7 @@ def main() -> int:
     m = keys.shape[0]
     seg_bound, seg_by = bound(m * tk.GRAD_COLS, m * 48 + n_rows * 36)
     segment_main = {"records": m, "kernel_ms": seg_ms,
+                    "record_order_ms": order_ms,
                     "plain_ms": seg_plain_ms, "library_ms": lib_ms,
                     "bound_ms": seg_bound, "bound_by": seg_by,
                     "bit_equal": bool(torch.equal(seg_out, seg_plain)),
@@ -914,17 +985,24 @@ def main() -> int:
         "two_program_step_ms": two.ms, "two_program_loss_rel": two_rel,
         "two_program_launches": two_counts, "segments": segs,
         "opened_blocks": opened, "bound_ms": step_bound,
+        "idle_share": idle, "warp_union": union,
         "segment_sum": segment_main,
         "vs_stream_render": best / min(record["stream_headline"]["render_ms"])}
     say(phase, f"make_stream_train 100k spheres {w}x{h}x{spp}spp/"
         f"{bounces}b mse: fused_step_ms {', '.join(f'{t:.2f}' for t in times)}"
         f" (warm-up {warm.ms:.2f}); walk bound {step_bound:.3f} ms; loss "
         f"{float(loss0):.6g} = image MSE {mse:.6g}; gradients finite; peak "
-        f"{peak:.1f} MiB; fused=False step {two.ms:.2f} ms, loss rel "
-        f"{two_rel:.2g}; segment sum of {m} records {seg_ms:.3f} ms (plain "
-        f"{seg_plain_ms:.1f}, index_add_ {lib_ms:.3f}, bound "
-        f"{seg_bound:.4f}), bit-equal to plain; launches fused "
-        f"{nonzero(step_counts)}, fused=False {nonzero(two_counts)}")
+        f"{peak:.1f} MiB; idle share {fmt_idle(idle)}; fused=False step "
+        f"{two.ms:.2f} ms, loss rel {two_rel:.2g}; record_order "
+        f"{order_ms:.3f} ms; segment sum of {m} records {seg_ms:.4f} ms "
+        f"(plain {seg_plain_ms:.1f}, index_add_ {lib_ms:.4f}, bound "
+        f"{seg_bound:.4f}), bit-equal to plain; warp union: "
+        f"{union['tested_per_warp']} blocks tested by warps, "
+        f"{union['opened_per_lane']} opened by lanes (= the stream "
+        f"kernel's), each lane tests "
+        f"{union['lane_tests_over_opened']:.3f}x the blocks it opened; "
+        f"launches fused {nonzero(step_counts)}, fused=False "
+        f"{nonzero(two_counts)}")
 
     # -- 13 the 1M-sphere scale check ---------------------------------------
     del s10k, st100k, stream, st0, rec_row, rec_val, keys, src, lib_vals
@@ -1242,8 +1320,7 @@ def main() -> int:
                           px_head * (12 + 12) + scene_bytes)
     grad_bound = bound(segments(320, 192, 4, 8, 2) * n1 * OPS_TEST_STAGED,
                        px_small * 24 + scene_bytes + n1 * 64)
-    fused_bound = bound(2 * segments(1280, 768, 2, 25, 2) * n1
-                        * OPS_TEST_STAGED,
+    fused_bound = bound(segments(1280, 768, 2, 25, 2) * n1 * OPS_TEST_STAGED,
                         px_head * 36 + scene_bytes + n1 * 64)
 
     def kernel_row(name, source, replaces, max_abs_err, ms, plain_ms, bnd,

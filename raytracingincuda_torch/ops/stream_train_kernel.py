@@ -17,15 +17,18 @@ Both replace ``_stream_grad_kernel`` (``mse=False`` and ``mse=True``).
 Their image and walk are ``stream_kernel``'s; their reverse is
 ``train_kernel``'s, keyed by stream row.
 
-The sphere cotangents leave the kernel as records: each reverse step
-writes (stream row, nine cotangents) at a fixed index (lane, sample,
-bounce), and ``scatter_records`` adds each row's records in record
-order: a stable sort of the rows (``record_order``), then the
-segmented sum (``segment_sum_kernel`` / ``segment_sum_reference``, the
-same adds in the same order). Memory is O(pixels x samples x depth), no
+The sphere cotangents leave the kernel as records: the kernel parks the
+state entering each bounce in the record buffers, and each reverse step
+overwrites its entry with (stream row, nine cotangents), at the fixed
+index ((sample, bounce), lane). ``scatter_records`` adds each row's
+records in record order: a stable sort of the rows (``record_order``),
+then the segmented sum (``segment_sum_kernel`` /
+``segment_sum_reference``, the same adds in the same association: tiles
+of ``TILE`` sorted records). Memory is O(pixels x samples x depth), no
 float atomics, and the gradients are the same bits from run to run. The
 camera's scalars and the loss keep the train kernels' block partials and
-``train_kernel._reduce_rows``.
+``train_kernel._reduce_rows``. ``walk_counts`` runs the fused mode's walk
+alone and counts its work.
 
 ``_grads``, ``_fused`` and ``_segment_sum`` pick the kernel for CUDA
 tensors and the plain version for CPU tensors; nothing falls back.
@@ -46,15 +49,16 @@ from . import train_kernel as tk
 from .backward import N_CAM
 from .stream_kernel import StreamScene
 
-# sorted records per thread in the segmented sum's first pass
-# (csrc/stream_train.cu:kChunk)
-CHUNK = 256
+# sorted records per tile of the segmented sum (csrc/stream_train.cu:kTile,
+# 32 warps of 32, one record a thread); the association depends on it alone
+TILE = 1024
+_WARP = 32
 # The record buffers hold padded x samples x max_depth records of 40
 # bytes; above this count (10.7 GB) the wrappers raise.
 MAX_RECORDS = 1 << 28
 
 # Launches of the CUDA kernels (the wrappers add one per launch).
-LAUNCHES = 0            # stream_train_render, both modes
+LAUNCHES = 0            # stream_train_render (both modes), stream_walk_counts
 SEGMENT_LAUNCHES = 0    # segment_sum's two kernels, two per call
 
 
@@ -86,50 +90,98 @@ def record_order(rec_row: torch.Tensor):
     return keys[order].contiguous(), src[order].contiguous()
 
 
+def _warp_scan(f, v):
+    """The kernel's segmented inclusive scan over warps of 32 lanes: (rows,
+    32) head flags and (rows, 32, 9) values; in steps of 1, 2, 4, 8, 16
+    lanes, lane l takes (f, v) of lane l - step on the left: (f_l-step |
+    f_l, f_l ? v_l : v_l-step + v_l)."""
+    lane = torch.arange(_WARP, device=f.device)
+    step = 1
+    while step < _WARP:
+        fp = torch.zeros_like(f)
+        fp[:, step:] = f[:, :-step]
+        vp = torch.zeros_like(v)
+        vp[:, step:] = v[:, :-step]
+        on = lane >= step
+        v = torch.where((on & ~f)[..., None], vp + v, v)
+        f = f | (on & fp)
+        step *= 2
+    return f, v
+
+
 def segment_sum_reference(keys, src, vals, n_rows: int) -> torch.Tensor:
     """Plain version of the segmented sum: (n_rows, 9) with row ``k`` the
     sum of ``vals[src[p]]`` over the sorted positions ``p`` whose key is
-    ``k``, added as the kernel adds them. Pass 1: within each chunk of
-    ``CHUNK`` positions, each run of equal keys in position order; pass
-    2: a row's run sums, the one where its span starts and then one at
-    each chunk start inside the span, in order."""
-    m = keys.shape[0]
-    out = torch.zeros((n_rows, tk.GRAD_COLS), dtype=torch.float32,
-                      device=keys.device)
+    ``k``, added as the kernels add them. Per tile of ``TILE`` positions,
+    a segmented inclusive scan (head flags at run starts and the tile's
+    first position) in each warp of 32, then over the tile's 32 warp
+    totals, each position adding its warp's exclusive prefix on the left;
+    a run inside a tile is its last position's sum. A run that crosses
+    tile edges adds its partials (its sum in each tile, in tile order)
+    lane by lane over 32 lanes (partial i to lane i % 32), then in a
+    halving tree (lanes l and l + 16, then l + 8, ...)."""
+    m, dev = keys.shape[0], keys.device
+    out = torch.zeros((n_rows, tk.GRAD_COLS), dtype=torch.float32, device=dev)
     if m == 0:
         return out
-    x = vals[src]
-    keys = keys.long()
-    nc = -(-m // CHUNK)
-    starts = torch.arange(nc, device=keys.device) * CHUNK
-    part = torch.zeros_like(x)
-    acc = run0 = None
-    for j in range(CHUNK):
-        pos = starts + j
-        live = pos < m
-        if not bool(live.any()):
-            break
-        at = pos.clamp(max=m - 1)
-        new_run = (torch.ones_like(live) if j == 0
-                   else keys[at] != keys[(at - 1).clamp(min=0)])
-        acc = x[at] if j == 0 else torch.where(new_run[:, None], x[at],
-                                               acc + x[at])
-        run0 = at if j == 0 else torch.where(new_run, at, run0)
-        nxt = (at + 1).clamp(max=m - 1)
-        ends = live & ((j == CHUNK - 1) | (pos + 1 >= m)
-                       | (keys[nxt] != keys[at]))
-        part[run0[ends]] = acc[ends]
-    first = torch.ones(m, dtype=torch.bool, device=keys.device)
-    first[1:] = keys[1:] != keys[:-1]
-    q = torch.nonzero(first).squeeze(1)
-    end = torch.cat([q[1:], torch.tensor([m], device=q.device)])
-    v = part[q]
-    r = (q // CHUNK + 1) * CHUNK
-    while bool((r < end).any()):
-        inside = r < end
-        v = torch.where(inside[:, None], v + part[r.clamp(max=m - 1)], v)
-        r = r + CHUNK
-    out[keys[q]] = v
+    tiles = -(-m // TILE)
+    size = tiles * TILE
+    k = torch.full((size,), -1, dtype=torch.int64, device=dev)
+    k[:m] = keys
+    x = torch.zeros((size, tk.GRAD_COLS), dtype=torch.float32, device=dev)
+    x[:m] = vals[src]
+    pos = torch.arange(size, device=dev)
+    tid = pos % TILE
+    valid = pos < m
+    prev = torch.cat([k.new_full((1,), -1), k[:-1]])
+    f, v = _warp_scan((valid & ((tid == 0) | (k != prev))).view(-1, _WARP),
+                      x.view(-1, _WARP, tk.GRAD_COLS))
+    _, tot = _warp_scan(f[:, -1].reshape(tiles, _WARP),
+                        v[:, -1].reshape(tiles, _WARP, tk.GRAD_COLS))
+    carry = torch.zeros_like(tot)           # warp w adds warps < w's scan
+    carry[:, 1:] = tot[:, :-1]
+    later = (torch.arange(_WARP, device=dev) > 0)[:, None]
+    f = f.view(tiles, _WARP, _WARP)
+    v = v.view(tiles, _WARP, _WARP, tk.GRAD_COLS)
+    v = torch.where((later & ~f)[..., None], carry[:, :, None] + v, v)
+    v = v.reshape(size, tk.GRAD_COLS)
+    nxt = torch.cat([k[1:], k.new_full((1,), -1)])
+    last = valid & ((tid == TILE - 1) | (nxt != k))
+    base = pos - tid
+    before = (base > 0) & (k[base] == k) & (k[(base - 1).clamp(min=0)] == k)
+    after = (tid == TILE - 1) & (pos + 1 < m) & (nxt == k)
+    inner = last & ~before & ~after
+    out[k[inner]] = v[inner]
+    head = torch.zeros((tiles, tk.GRAD_COLS), dtype=torch.float32, device=dev)
+    tail = torch.zeros_like(head)
+    head[pos[last & before] // TILE] = v[last & before]
+    tail[pos[after] // TILE] = v[after]
+    # runs that cross out of tile t and start in it
+    t = torch.arange(tiles, device=dev)
+    end = torch.clamp((t + 1) * TILE, max=m) - 1
+    key_t = k[end]
+    cross = (end + 1 < m) & (k[(end + 1).clamp(max=m - 1)] == key_t)
+    starts = ~((t > 0) & (k[(t * TILE - 1).clamp(min=0)] == key_t))
+    own = cross & starts
+    if bool(own.any()):
+        ot, okey = t[own], key_t[own]
+        tb = (torch.searchsorted(k[:m], okey, right=True) - 1) // TILE
+        n = tb - ot + 1
+        width = -(-int(n.max()) // _WARP) * _WARP
+        j = torch.arange(width, device=dev)
+        parts = torch.where((j == 0)[None, :, None], tail[ot][:, None],
+                            head[(ot[:, None] + j).clamp(max=tiles - 1)])
+        live = j[None, :] < n[:, None]
+        acc = torch.zeros((ot.shape[0], _WARP, tk.GRAD_COLS),
+                          dtype=torch.float32, device=dev)
+        for r in range(0, width, _WARP):
+            sl = slice(r, r + _WARP)
+            acc = torch.where(live[:, sl, None], acc + parts[:, sl], acc)
+        off = _WARP // 2
+        while off:
+            acc[:, :off] = acc[:, :off] + acc[:, off:2 * off]
+            off //= 2
+        out[okey] = acc[:, 0]
     return out
 
 
@@ -154,12 +206,13 @@ def segment_sum_kernel(keys, src, vals, n_rows: int) -> torch.Tensor:
     m = keys.shape[0]
     out = torch.zeros((n_rows, tk.GRAD_COLS), dtype=torch.float32,
                       device=keys.device)
-    part = torch.empty((max(m, 1), tk.GRAD_COLS), dtype=torch.float32,
-                       device=keys.device)
+    # the head, then the tail partials of each tile
+    part = torch.empty((2 * max(-(-m // TILE), 1), tk.GRAD_COLS),
+                       dtype=torch.float32, device=keys.device)
     tk._raise_on(launch(keys.data_ptr(), src.data_ptr(), vals.data_ptr(), m,
                         part.data_ptr(), out.data_ptr(), tk._stream(keys)),
                  "segment_sum")
-    if m:   # chunk_sums_kernel, then segment_sums_kernel
+    if m:   # tile_sums_kernel, then cross_sums_kernel
         SEGMENT_LAUNCHES += 2
     return out
 
@@ -195,9 +248,9 @@ def stream_grads_reference(ids, ii, jj, g_rows, scene_mat, bounds, cam_row, *,
                       block=block, samples=samples, max_depth=max_depth,
                       rr_start=rr_start, sample_offset=sample_offset)
     dev, padded = ids.device, ids.shape[0]
-    rec_row = torch.full((padded, samples, max_depth), -1, dtype=torch.int32,
+    rec_row = torch.full((samples, max_depth, padded), -1, dtype=torch.int32,
                          device=dev)
-    rec_val = torch.zeros((padded, samples, max_depth, tk.GRAD_COLS),
+    rec_val = torch.zeros((samples, max_depth, padded, tk.GRAD_COLS),
                           dtype=torch.float32, device=dev)
     dcam = torch.zeros(N_CAM, dtype=torch.float32, device=dev)
     walk = sk._Walk(scene_mat, bounds, block)
@@ -209,8 +262,8 @@ def stream_grads_reference(ids, ii, jj, g_rows, scene_mat, bounds, cam_row, *,
         sl = slice(lo, lo + chunk)
 
         def record(si, b, slot, rows9, sl=sl):
-            rec_row[sl, si, b] = slot.to(torch.int32)
-            rec_val[sl, si, b] = rows9
+            rec_row[si, b, sl] = slot.to(torch.int32)
+            rec_val[si, b, sl] = rows9
 
         tk._grad_lanes(ids[sl], ii[sl], jj[sl], g_rows[:, sl], scene, cam,
                        key, None, dcam, samples=samples, max_depth=max_depth,
@@ -258,6 +311,7 @@ _C_ARGTYPES = [
     _P, _P, _P,         # ids, ii, jj
     _P,                 # g or target rows (3, padded)
     _P, _I,             # stream matrix SoA (11, rows), rows
+    _P,                 # scan table (rows, 4), written by the launch
     _P, _I, _I,         # bounds (nb, 8), nb, block
     _P,                 # cam row
     _I, _I, _I,         # padded, samples, max_depth
@@ -270,6 +324,24 @@ _C_ARGTYPES = [
     _P, _P,             # camera and loss partials
     _P,                 # cudaStream_t
 ]
+_COUNT_ARGTYPES = [
+    _P, _P, _P,         # ids, ii, jj
+    _P, _I, _P,         # stream matrix SoA, rows, scan table
+    _P, _I, _I,         # bounds, nb, block
+    _P,                 # cam row
+    _I, _I, _I,         # padded, samples, max_depth
+    _U, _U,             # key words
+    _P, _P,             # opened per lane, tested per warp
+    _P,                 # cudaStream_t
+]
+
+
+def _scan_table(scene_mat):
+    """The kernels' inputs from a stream matrix: its SoA, and room for the
+    (rows, 4) scan table that each launch builds from it."""
+    return sk.soa(scene_mat), torch.empty((scene_mat.shape[0], 4),
+                                          dtype=torch.float32,
+                                          device=scene_mat.device)
 
 
 def train_records(ids, ii, jj, rows, scene_mat, bounds, cam_row, *, block,
@@ -278,7 +350,9 @@ def train_records(ids, ii, jj, rows, scene_mat, bounds, cam_row, *, block,
     """One launch of ``stream_train_render`` on checked arguments: returns
     (image (3, padded) or a dummy, record rows (records,) int32, record
     values (records, 9), camera partials (blocks, 18), loss partials
-    (blocks, 1)). ``scatter_records`` and ``_reduce_rows`` finish them."""
+    (blocks, 1)). Record ((sample, bounce), lane) is at index (sample *
+    max_depth + bounce) * padded + lane. ``scatter_records`` and
+    ``_reduce_rows`` finish them."""
     global LAUNCHES
     from . import _build
 
@@ -293,12 +367,12 @@ def train_records(ids, ii, jj, rows, scene_mat, bounds, cam_row, *, block,
                         device=dev)
     cam_part = torch.empty((blocks, N_CAM), dtype=torch.float32, device=dev)
     loss_part = torch.empty((blocks, 1), dtype=torch.float32, device=dev)
-    scene = sk.soa(scene_mat)
+    scene, scan = _scan_table(scene_mat)
     k = tk.loss_constants(samples, max(num_pixels, 1), huber_delta)
     k0, k1 = rtrng.key_from_seed(seed)
     err = launch(ids.data_ptr(), ii.data_ptr(), jj.data_ptr(),
-                 rows.data_ptr(), scene.data_ptr(),
-                 scene_mat.shape[0], bounds.data_ptr(), bounds.shape[0],
+                 rows.data_ptr(), scene.data_ptr(), scene_mat.shape[0],
+                 scan.data_ptr(), bounds.data_ptr(), bounds.shape[0],
                  block, cam_row.data_ptr(), padded, samples, max_depth, k0,
                  k1, sample_offset, -1 if rr_start is None else rr_start,
                  int(fused), int(gamma), tk.LOSSES.index(loss), num_pixels,
@@ -308,6 +382,40 @@ def train_records(ids, ii, jj, rows, scene_mat, bounds, cam_row, *, block,
     tk._raise_on(err, "stream_train_render")
     LAUNCHES += 1
     return image, rec_row, rec_val, cam_part, loss_part
+
+
+def walk_counts(ids, ii, jj, scene_mat, bounds, cam_row, *, block: int,
+                samples: int, max_depth: int):
+    """The fused mode's walk alone on the card (``stream_walk_counts``),
+    with the train step's seed and estimator (``DEFAULT_SEED``, no
+    Russian roulette), counting its work: (blocks opened per lane
+    (padded,) int32, equal to the stream kernel's count; blocks tested per
+    warp (padded // 32,) int32, the union of its 32 lanes' opened
+    blocks)."""
+    global LAUNCHES
+    tk._cuda_only(ids, "walk_counts")
+    budget = torch.full(ids.shape, float(samples), dtype=torch.float32,
+                        device=ids.device)
+    sk._check(ids, ii, jj, budget, scene_mat, bounds, cam_row, block=block,
+              samples=samples, max_depth=max_depth, rr_start=None,
+              sample_offset=0)
+    from . import _build
+
+    launch = _build.function("stream_walk_counts", _COUNT_ARGTYPES)
+    padded = ids.shape[0]
+    opened = torch.empty((padded,), dtype=torch.int32, device=ids.device)
+    fetched = torch.empty((padded // 32,), dtype=torch.int32,
+                          device=ids.device)
+    scene, scan = _scan_table(scene_mat)
+    k0, k1 = rtrng.key_from_seed(rtrng.DEFAULT_SEED)
+    tk._raise_on(launch(ids.data_ptr(), ii.data_ptr(), jj.data_ptr(),
+                        scene.data_ptr(), scene_mat.shape[0], scan.data_ptr(),
+                        bounds.data_ptr(), bounds.shape[0], block,
+                        cam_row.data_ptr(), padded, samples, max_depth, k0,
+                        k1, opened.data_ptr(), fetched.data_ptr(),
+                        tk._stream(ids)), "stream_walk_counts")
+    LAUNCHES += 1
+    return opened, fetched
 
 
 def _launch(ids, ii, jj, rows, scene_mat, bounds, cam_row, **kw):

@@ -8,7 +8,7 @@ run op by op (1e-4 of each leaf's largest entry), to the JAX stream
 gradient kernel in interpret mode (XLA compiles it and fuses
 multiply-adds, so a few knife-edge paths go elsewhere: a share-of-entries
 bound), to the port's brute-force plain gradients (1e-5: summation order
-only), and the scatter to a sequential sum in the same order (bit for
+only), and the scatter to its association written out as loops (bit for
 bit). The ``cuda`` tests hold the kernel to its plain
 version on the card and skip without one; JAX is imported inside the
 tests that use it, so that ``pytest --noconftest -m cuda`` runs this file
@@ -174,40 +174,81 @@ def test_stream_grads_to_scene_mat_matches_jax(spread):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+def _scan(f, v):
+    """One warp's segmented inclusive scan, lane by lane: in steps of 1, 2,
+    4, 8 and 16 lanes, lane l without a head takes lane l - step's value
+    on the left."""
+    for step in (1, 2, 4, 8, 16):
+        f0, v0 = list(f), list(v)
+        for lane in range(step, 32):
+            if not f0[lane]:
+                v[lane] = v0[lane - step] + v0[lane]
+            f[lane] = f0[lane] or f0[lane - step]
+
+
 def _sequential_segment_sum(keys, src, vals, n_rows):
-    """The scatter's order written out as loops: per chunk, runs summed in
-    position order; per row, its run sums in chunk order."""
+    """The scatter's association written out as loops: per tile of
+    ``stk.TILE`` sorted records, a segmented scan in each warp of 32, then
+    over the warps' totals, each record adding the total of the warps
+    before it on the left; a run inside a tile is its last record's sum; a
+    run across tile edges adds its tile sums lane by lane over 32 lanes,
+    then in a halving tree."""
     keys, src, vals = keys.tolist(), src.tolist(), vals.numpy()
-    m, chunk = len(keys), stk.CHUNK
-    part = {}
-    for c0 in range(0, m, chunk):
-        start, v = c0, vals[src[c0]].copy()
-        for q in range(c0 + 1, min(c0 + chunk, m)):
-            if keys[q] != keys[start]:
-                part[start], start, v = v, q, vals[src[q]].copy()
-            else:
-                v = (v + vals[src[q]]).astype(np.float32)
-        part[start] = v
+    m, tile = len(keys), stk.TILE
     out = np.zeros((n_rows, 9), np.float32)
-    for q in range(m):
-        if q and keys[q - 1] == keys[q]:
+    head, tail = {}, {}
+    for t in range(-(-m // tile)):
+        base = t * tile
+        f = [base + u < m and (u == 0 or keys[base + u - 1] != keys[base + u])
+             for u in range(tile)]
+        v = [vals[src[base + u]] if base + u < m else np.zeros(9, np.float32)
+             for u in range(tile)]
+        warps = [(f[w:w + 32], v[w:w + 32]) for w in range(0, tile, 32)]
+        for fw, vw in warps:
+            _scan(fw, vw)
+        tot_f, tot_v = [fw[-1] for fw, _ in warps], [vw[-1] for _, vw in warps]
+        _scan(tot_f, tot_v)
+        for w, (fw, vw) in enumerate(warps):
+            for lane in range(32):
+                u, q = w * 32 + lane, base + w * 32 + lane
+                if w and not fw[lane]:
+                    vw[lane] = tot_v[w - 1] + vw[lane]
+                if q >= m or not (u == tile - 1 or q + 1 >= m
+                                  or keys[q + 1] != keys[q]):
+                    continue
+                before = base > 0 and keys[base] == keys[base - 1] == keys[q]
+                after = u == tile - 1 and q + 1 < m and keys[q + 1] == keys[q]
+                if after:
+                    tail[t] = vw[lane]
+                if before:
+                    head[t] = vw[lane]
+                if not (before or after):
+                    out[keys[q]] = vw[lane]
+    for t, part in tail.items():        # runs leaving the tile they start in
+        key = keys[t * tile + tile - 1]
+        if t and keys[t * tile - 1] == key:
             continue
-        v, r = part[q].copy(), (q // chunk + 1) * chunk
-        while r < m and keys[r] == keys[q]:
-            v = (v + part[r]).astype(np.float32)
-            r += chunk
-        out[keys[q]] = v
+        last = max(q for q in range(m) if keys[q] == key) // tile
+        lanes = [np.zeros(9, np.float32) for _ in range(32)]
+        for i, p in enumerate([part] + [head[u] for u in range(t + 1, last + 1)]):
+            lanes[i % 32] = lanes[i % 32] + p
+        off = 16
+        while off:
+            for lane in range(off):
+                lanes[lane] = lanes[lane] + lanes[lane + off]
+            off //= 2
+        out[key] = lanes[0]
     return out
 
 
 def test_record_scatter_order():
     """``record_order`` keeps each row's records in record order;
-    ``segment_sum_reference`` adds them in the kernel's order, bit for bit,
-    with rows spanning many chunks; the sums agree with index_add_ to
-    1e-5."""
+    ``segment_sum_reference`` adds them in the kernels' association, bit
+    for bit, with a row across two tiles; the sums agree with index_add_
+    to 1e-5."""
     rng = np.random.default_rng(2)
     rows = rng.integers(-1, 40, 3000).astype(np.int32)
-    rows[100:1400] = 5                      # one row across six chunks
+    rows[100:1400] = 5                      # one row across two tiles
     vals = torch.from_numpy(rng.standard_normal((3000, 9)).astype(np.float32))
     keys, src = stk.record_order(torch.from_numpy(rows))
     assert keys.dtype == torch.int32 and src.dtype == torch.int64
@@ -221,6 +262,44 @@ def test_record_scatter_order():
     _close(got, want.numpy(), 1e-5, "segment sums")
     assert not stk.scatter_records(torch.full((10,), -1, dtype=torch.int32),
                                    torch.zeros((10, 9)), 4).any()
+
+
+def _case_rows(case, rng):
+    """(record rows, n_rows) of one scatter case."""
+    if case == "row_across_many_tiles":
+        rows = rng.integers(-1, 50, 12_000)
+        rows[500:9000] = 7                  # 8500 records of row 7
+        return rows, 50
+    if case == "runs_crossing_tile_edges":
+        return rng.integers(0, 12, 5000), 12   # runs of ~400 records
+    if case == "single_record_rows":
+        return rng.permutation(3000), 3000
+    if case == "all_minus_one":
+        return np.full(500, -1), 8
+    return np.zeros(0, np.int64), 8        # empty
+
+
+@pytest.mark.parametrize("case", [
+    "row_across_many_tiles", "runs_crossing_tile_edges",
+    "single_record_rows", "all_minus_one", "empty"])
+def test_segment_sum_cases(case):
+    """The plain segmented sum equals the loops above bit for bit and a
+    float64 index_add_ within 1e-5 of the largest entry."""
+    rng = np.random.default_rng(4)
+    rows, n_rows = _case_rows(case, rng)
+    vals = torch.from_numpy(rng.standard_normal((rows.shape[0], 9)).astype(
+        np.float32))
+    keys, src = stk.record_order(torch.from_numpy(rows.astype(np.int32)))
+    got = stk.segment_sum_reference(keys, src, vals, n_rows)
+    assert got.shape == (n_rows, 9) and got.dtype == torch.float32
+    np.testing.assert_array_equal(
+        got.numpy(), _sequential_segment_sum(keys, src, vals, n_rows))
+    want = torch.zeros((n_rows, 9), dtype=torch.float64).index_add_(
+        0, keys.long(), vals[src].double()).numpy()
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=1e-5 * max(np.abs(want).max(), 1e-6))
+    if case in ("all_minus_one", "empty"):
+        assert not got.any()
 
 
 def test_stream_gradient_arguments_raise(spread):
@@ -241,6 +320,9 @@ def test_stream_gradient_arguments_raise(spread):
     with pytest.raises(ValueError, match="records"):
         stk._check(*args, block=32, samples=1 << 20, max_depth=64,
                    rr_start=None, sample_offset=0)
+    with pytest.raises(ValueError, match="CUDA"):
+        stk.walk_counts(ids, ii, jj, st.scene_mat, st.bounds, row, block=32,
+                        samples=SPP, max_depth=DEPTH)
     with pytest.raises(ValueError, match="CUDA"):
         stk.segment_sum_kernel(torch.zeros(1, dtype=torch.int32),
                                torch.zeros(1, dtype=torch.int64),
@@ -276,7 +358,7 @@ def test_stream_grads_kernel_equals_plain_version_on_card(cuda, rr):
 def test_segment_sum_kernel_equals_plain_version_on_card(cuda):
     rng = np.random.default_rng(3)
     rows = torch.from_numpy(rng.integers(-1, 500, 100_000).astype(np.int32))
-    rows[:30_000] = 7
+    rows[:30_000] = 7                      # one row across 30 tiles
     vals = torch.from_numpy(rng.standard_normal((100_000, 9)).astype(
         np.float32))
     keys, src = stk.record_order(rows)
@@ -286,3 +368,43 @@ def test_segment_sum_kernel_equals_plain_version_on_card(cuda):
     assert stk.SEGMENT_LAUNCHES == before + 2      # its two kernels
     assert torch.equal(got.cpu(), stk.segment_sum_reference(keys, src, vals,
                                                             500))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [True, False])
+def test_stream_train_kernel_blocks_of_1024_rr2_on_card(cuda, fused):
+    """Kernel 5 with blocks of 1024 rows (staged in pieces) and rr_start=2
+    against its plain version on the card: the fused image bit for bit
+    (and the stream kernel's), the gradients within 1e-4 of the largest
+    entry and the same bits from run to run."""
+    s = build_random_scene(3000, seed=5, device=cuda)
+    cam = TCam.reference_default()
+    st = sk.reorder_front_to_back(sk.prepare_stream_scene(s, block=1024),
+                                  initialize(cam, 64, 40).center)
+    ids, ii, jj, bud, _, row = rk.regen_inputs(s, cam, 64, 40, 2)
+    rows = torch.rand((3, ids.shape[0]), generator=torch.Generator()
+                      .manual_seed(2)).to(cuda)
+    args = (ids, ii, jj, rows if fused else rows * 1e-3, st.scene_mat,
+            st.bounds, row)
+    kw = dict(block=1024, samples=2, max_depth=6, rr_start=2)
+    if fused:
+        kw.update(num_pixels=64 * 40, loss="mse", gamma=False)
+        kernel, plain = stk.fused_stream_kernel, stk.fused_stream_reference
+    else:
+        kernel, plain = stk.stream_grads_kernel, stk.stream_grads_reference
+    got, again = kernel(*args, **kw), kernel(*args, **kw)
+    torch.cuda.synchronize()
+    want = plain(*args, **kw)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    if fused:
+        assert torch.equal(got[1], want[1])
+        img4 = sk.stream_kernel(ids, ii, jj, bud, st.scene_mat, st.bounds,
+                                row, block=1024, samples=2, max_depth=6,
+                                rr_start=2)
+        assert torch.equal(got[1], img4 * tk.loss_constants(
+            2, 64 * 40, 1.0)["inv_spp"])
+        got, want = (got[0].reshape(1), got[2], got[3]), (
+            want[0].reshape(1), want[2], want[3])
+    for a, c in zip(got, want):
+        _close(a, c.cpu().numpy(), 1e-4, "stream gradients")

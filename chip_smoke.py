@@ -24,11 +24,21 @@ CPU path):
              bit identity); the fused step kernel against its plain
              version (64x40x8spp/6b rr2, four losses, gamma on and off;
              its image bit-equal to the regen kernel's) and at the
-             headline's shapes with 2 spp
+             headline's shapes with 2 spp; at those shapes (parity and
+             rr2) the fused kernel's outputs bit-equal with nothing
+             parked, with a capacity that overflows mid-lane, with the
+             default, in two window sizes and with the warps'
+             accumulators in shared memory, and the gradient kernel fed
+             the fused kernel's own g equal to its gradients bit for bit
   7 train    make_mse_train (the fused step) at scene 1, 1280x768,
              100 spp, 25 bounces, rr2, gamma, MSE, the difficulty order:
              one warm-up and 3 timed steps (CUDA events), finite
-             gradients, the loss equal to the image's MSE
+             gradients, the loss equal to the image's MSE, peak memory
+             beside the park's budget; one more step in a torch.profiler
+             window (its device time split between the park render, the
+             reverse and reduce_rows); the park's plan at the step's
+             inputs, entries a lane (mean, max) and the share of samples
+             re-traced
   8 trainer  the package's inverse-rendering example (20 Adam steps,
              impl fused) with a falling loss, then one make_train_step
              (impl kernel) step from gray albedos through make_diff_render
@@ -96,8 +106,10 @@ also written to chip_smoke.json in the output directory. Launch counts
 are set to 0 just before each main path (phases 4, 7, 8, 10, 12, 13, 14,
 16, 17) and read just after it: each path's own counts are in chip_smoke.json
 (launches_by_phase) and their sums are the kernels line's launches.
-stream_segment_sum counts its two kernels (tile_sums_kernel, then
-cross_sums_kernel), two per call; stream_train counts walk_counts'
+fused_train_render counts its two launches a window (the park render,
+then the reverse; one window at the headline), grad_render its reverse,
+one a window; stream_segment_sum counts its two kernels (tile_sums_kernel,
+then cross_sums_kernel), two per call; stream_train counts walk_counts'
 launch too (outside the main paths). The stream rows' times and bounds
 are those of the 100k comparisons in phase 12; the f64 and compact rows'
 those of the headline-width comparisons in phases 15 and 17.
@@ -534,6 +546,57 @@ def main() -> int:
         for gamma in (True, False):
             fused_compare(64, 40, 8, 6, loss, gamma, 3)
     fused_head = fused_compare(1280, 768, 2, 25, "mse", True, 3)
+
+    def park_gates(width, height, spp, bounces, rr):
+        """Kernel 2's outputs the same bits at any park capacity, window
+        and accumulator route; kernel 3 on kernel 2's own g gives its
+        gradients bit for bit."""
+        inputs = rk.regen_inputs(build_scene(1, device=dev), cam, width,
+                                 height, spp)
+        gen = torch.Generator().manual_seed(8)
+        tgt = torch.rand((3, inputs[0].shape[0]), generator=gen).to(dev)
+        f_in = (*inputs[:3], tgt, *inputs[4:])
+        kw = dict(samples=spp, max_depth=bounces, rr_start=rr,
+                  num_pixels=width * height)
+        parts = tk.fused_train_parts(*f_in, **kw)
+        want = tk.fused_train_kernel(*f_in, **kw)
+        lanes, n = inputs[0].shape[0], inputs[4].shape[0]
+        block = (rk.PAD * 4 * spp * tk.PARK_ENTRIES_PER_SAMPLE
+                 + 4 * n * tk.GRAD_COLS * 4)
+        variants = {"capacity 0": dict(capacity=0),
+                    f"capacity {spp}": dict(capacity=spp),
+                    "2 windows": dict(budget=block * (lanes // rk.PAD + 1) // 2),
+                    "5 windows": dict(budget=block * (lanes // rk.PAD + 4) // 5),
+                    "shared accumulators": dict(acc="shared")}
+        equal, windows = {}, {}
+        for name, extra in variants.items():
+            windows[name] = len(tk.plan_park(lanes, spp, bounces, n,
+                                             **extra).windows)
+            got = tk.fused_train_kernel(*f_in, **extra, **kw)
+            equal[name] = all(torch.equal(a, b) for a, b in zip(got, want))
+        small = tk.fused_train_parts(*f_in, capacity=spp, **kw).parked[0]
+        overflowed = float((small < spp).double().mean())
+        g_out = tk.grad_kernel(*inputs[:3], parts.g, *inputs[4:],
+                               samples=spp, max_depth=bounces, rr_start=rr)
+        res = {"shape": f"{width}x{height}x{spp}spp/{bounces}b",
+               "rr_start": rr, "default_capacity": parts.plan.capacity,
+               "bit_equal": equal, "windows": windows,
+               "lanes_overflowed_at_capacity_spp": overflowed,
+               "grad_kernel_on_fused_g_equal": bool(
+                   torch.equal(g_out[0], want[2])
+                   and torch.equal(g_out[1], want[3]))}
+        record.setdefault("park_gates", []).append(res)
+        if not (all(equal.values()) and res["grad_kernel_on_fused_g_equal"]
+                and windows["2 windows"] == 2 and windows["5 windows"] == 5
+                and 0.0 < overflowed < 1.0):
+            raise AssertionError(f"park gates failed: {res}")
+        say("6 grads", f"B {res['shape']} rr={rr}: outputs bit-equal at "
+            f"capacity 0, {spp} ({100 * overflowed:.1f}% of lanes overflow) "
+            f"and {parts.plan.capacity}, in 2 and 5 windows, with shared "
+            f"accumulators; A on B's g equals B's gradients bit for bit")
+
+    for rr in (None, 2):
+        park_gates(1280, 768, 2, 25, rr)
     grad_main = next(r for r in record["grads"] if r["kernel"] == "grad_render"
                      and r["rr_start"] == 2 and r["layout"] == "vmem")
 
@@ -549,13 +612,16 @@ def main() -> int:
                              bounces, gamma=True, pixel_order=order, rr_start=2)
     with RenderTimer(dev) as warm:
         step(scene.params, cam, target)
+    torch.cuda.reset_peak_memory_stats()
     times = []
     for _ in range(3):
         with RenderTimer(dev) as t:
             loss_v, img, (d_params, d_cam) = step(scene.params, cam, target)
         times.append(t.ms)
     train_launches = read_counts("7 train")
-    if tk.FUSED_LAUNCHES < 4 or rk.LAUNCHES < 1:
+    train_peak = torch.cuda.max_memory_allocated() / 2**20
+    # 4 steps, each a park render and a reverse in one window
+    if tk.FUSED_LAUNCHES < 8 or rk.LAUNCHES < 1:
         raise AssertionError(f"train headline launches {train_launches}")
     grads = param_leaves(d_params) + config_leaves(d_cam)
     finite = all(bool(torch.isfinite(x).all()) for x in grads)
@@ -567,15 +633,50 @@ def main() -> int:
                              f"{tuple(img.shape)}, loss {loss_f} vs MSE {mse}")
     best = min(times)
     rr2_best = min(record["headline"]["rr2"]["render_ms"])
+    # the step's device time by kernel, in one profiler window
+    idle = profiled_idle(lambda: step(scene.params, cam, target))
+    split = {}
+    for name, ms in idle["top_device_ms"].items():
+        for part in ("park_render_kernel", "reverse_kernel",
+                     "reduce_rows_kernel"):
+            if part in name:
+                split[part] = split.get(part, 0.0) + ms
+    # the park at the step's inputs: entries a lane, samples re-traced
+    ids, ii, jj, _, sm, row = rk.regen_inputs(scene, cam, width, height, spp,
+                                              pixel_order=order)
+    parts = tk.fused_train_parts(
+        ids, ii, jj, tk._lane_rows(target, ids, width * height), sm, row,
+        samples=spp, max_depth=bounces, rr_start=2,
+        num_pixels=width * height)
+    pk = parts.parked[:, :width * height].double()
+    park = {"budget_mib": tk.PARK_BUDGET / 2**20,
+            "capacity": parts.plan.capacity,
+            "windows": len(parts.plan.windows),
+            "acc_in_smem": parts.plan.acc_in_smem,
+            "entries_per_lane_mean": float(pk[1].mean()),
+            "entries_per_lane_max": float(pk[1].max()),
+            "samples_retraced_share": float(
+                1.0 - pk[0].sum() / (spp * width * height))}
+    del parts, pk
     record["train"] = {
         "fused_train_step_ms": times, "warmup_ms": warm.ms,
         "loss": loss_f, "image_mse": mse, "vs_rr2_render": best / rr2_best,
-        "launches": train_launches,
+        "launches": train_launches, "peak_mib": train_peak,
+        "profile": idle, "device_ms_split": split, "park": park,
     }
+    if not (split.get("park_render_kernel") and split.get("reverse_kernel")):
+        raise AssertionError(f"train step's device time: {idle}")
     say("7 train", f"fused_train_step_ms {', '.join(f'{t:.2f}' for t in times)}"
         f" | {best / rr2_best:.3f}x the rr2 render ({rr2_best:.2f} ms) | "
         f"loss {loss_f:.6g} = image MSE {mse:.6g} | gradients finite | "
-        f"warm-up {warm.ms:.2f} ms")
+        f"warm-up {warm.ms:.2f} ms | peak {train_peak:.1f} MiB (park budget "
+        f"{park['budget_mib']:.0f} MiB) | device ms: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+        + f" (idle {fmt_idle(idle)}) | park: capacity {park['capacity']} in "
+        f"{park['windows']} window(s), entries a lane mean "
+        f"{park['entries_per_lane_mean']:.2f} max "
+        f"{park['entries_per_lane_max']:.0f}, samples re-traced "
+        f"{100 * park['samples_retraced_share']:.4f}%")
 
     # -- 8 the trainer --------------------------------------------------------
     from raytracingincuda_torch.examples import inverse_rendering
@@ -603,7 +704,7 @@ def main() -> int:
     record["trainer"] = {"losses": losses, "kernel_step_loss": float(k_loss),
                          "launches": trainer_launches}
     if not (losses[-1] < losses[0] and all(np.isfinite(losses))
-            and tk.FUSED_LAUNCHES >= 20 and tk.GRAD_LAUNCHES >= 1
+            and tk.FUSED_LAUNCHES >= 40 and tk.GRAD_LAUNCHES >= 1
             and float(k_loss) > 0.0 and np.isfinite(float(k_loss))
             and all(bool(torch.isfinite(x).all())
                     for x in state.params.albedo)):

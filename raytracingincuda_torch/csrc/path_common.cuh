@@ -424,14 +424,20 @@ __device__ __forceinline__ bool scatter_bounce(const SceneView& sc, const Stream
   return true;
 }
 
+// Where trace_sample sends the entry of each bounce: nowhere (the
+// renders), or a train kernel's stack or park (train_render.cu).
+struct NoSink {
+  __device__ __forceinline__ void operator()(int, const Entry&) const {}
+};
+
 // Trace sample s of one pixel, with `hit` (ScanHit or WalkHit) as the
-// closest hit and scatter_bounce after each hit. With kPush, the state
-// entering every bounce goes onto `stack`.
-template <class Hit, bool kPush>
+// closest hit and scatter_bounce after each hit; `sink` receives the state
+// entering every bounce and its winning slot.
+template <class Hit, class Sink = NoSink>
 __device__ __forceinline__ PathEnd trace_sample(const Hit& hit, const Cam& cam,
                                                 const Stream& st, float fi, float fj,
                                                 uint32_t s, int max_depth, int rr_start,
-                                                bool legacy_sky, Entry* stack) {
+                                                bool legacy_sky, const Sink& sink = {}) {
   V3 o, d;
   primary_ray(cam, fi, fj, st, s, o, d);
   const V3 prim_d = d;
@@ -440,7 +446,7 @@ __device__ __forceinline__ PathEnd trace_sample(const Hit& hit, const Cam& cam,
     int win;
     float t;
     const bool missed = !hit(o, d, win, t);
-    if (kPush) stack[b] = Entry{o, d, atten, missed ? -1 : win};
+    sink(b, Entry{o, d, atten, missed ? -1 : win});
     if (missed) return {b, true, atten * sky(legacy_sky ? prim_d : d)};
     if (!scatter_bounce<Hit::kHbm>(hit.sc, st, s, b, max_depth, rr_start, win, t, o, d,
                                    atten))

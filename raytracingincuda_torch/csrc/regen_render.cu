@@ -80,8 +80,8 @@ __global__ void __launch_bounds__(kBlock) regen_kernel(Params p) {
   float seg = 0.0f;
 
   for (uint32_t s = (uint32_t)p.sample_offset; (float)s < budget; ++s) {
-    const PathEnd e = trace_sample<ScanHit<kHbm>, false>(hit, cam, st, fi, fj, s, p.max_depth,
-                                                         p.rr_start, p.legacy_sky, nullptr);
+    const PathEnd e = trace_sample(hit, cam, st, fi, fj, s, p.max_depth, p.rr_start,
+                                   p.legacy_sky);
     if (e.missed && !p.emit_depth) acc = acc + e.contrib;
     seg += (float)e.bounce + 1.0f;
   }

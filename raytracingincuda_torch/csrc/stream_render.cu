@@ -76,9 +76,7 @@ __global__ void __launch_bounds__(kBlock) stream_kernel(StreamParams p) {
   V3 acc = {0.0f, 0.0f, 0.0f};
   float seg = 0.0f;
   for (uint32_t s = (uint32_t)p.sample_offset; (float)s < budget; ++s) {
-    const PathEnd e = trace_sample<WalkHit<kStats>, false>(hit, cam, st, fi, fj, s,
-                                                           p.max_depth, p.rr_start, false,
-                                                           nullptr);
+    const PathEnd e = trace_sample(hit, cam, st, fi, fj, s, p.max_depth, p.rr_start, false);
     if (e.missed) acc = acc + e.contrib;
     seg += (float)e.bounce + 1.0f;
   }

@@ -18,6 +18,17 @@ version beside it, and one signature per pair:
     that cotangent (``fused_train_kernel`` / ``fused_train_reference``).
     It replaces ``_fused_tile_kernel`` (``park='hbm'``).
 
+Kernel B is two launches per window of lanes: the park render (the
+render at the regen kernel's resources, parking each sample's winning
+slots) and the reverse (``reverse_render``), which rebuilds each parked
+sample from its slots and re-traces the samples that did not fit.
+Kernel A is that reverse with nothing parked. ``plan_park`` picks the
+park's capacity (entries a lane) and the windows, so that the park stays
+within ``PARK_BUDGET``; a sample's cotangents enter the sums in the same
+order whether it was parked or re-traced, so the gradients are the same
+bits at any capacity and window. ``capacity``, ``budget`` and ``acc``
+are for tests, not a user's knobs.
+
 ``_grad`` and ``_fused`` pick the kernel for CUDA tensors and the plain
 version for CPU tensors; neither falls back to the other.
 
@@ -33,7 +44,7 @@ the streamed-scene layout, which ``grad.make_stream_train`` trains
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -58,8 +69,32 @@ LOSSES = ("mse", "l1", "huber", "relmse")
 GRAD_COLS = 9
 # rows summed per thread in each pass of the fixed-order block reduction
 _REDUCE_CHUNK = 64
+# The fused step's park: at most this many bytes at once (the park and,
+# where the warps' accumulators live in device memory, theirs), and at
+# least this many entries a lane per sample unless the budget forbids it.
+# At the headline (1280x768, 100 spp, rr2) a lane parks 193 entries on
+# average and 482 at most (PERF.md §6), so the whole image parks in one
+# window.
+PARK_BUDGET = 2 << 30
+PARK_ENTRIES_PER_SAMPLE = 4
+_PARK_ENTRY_BYTES = 4
+# The reverse runs 4 blocks an SM (128 registers a thread). Its four
+# warps' (N, 9) accumulators go to shared memory, beside the staged scene
+# and the staging columns (csrc/train_render.cu: kReverseStatic,
+# stage_scene's 44 bytes a slot), only where that keeps those 4 blocks:
+# at most a quarter of the SM's 228 KB less the 1 KB it reserves a block
+# (about 270 slots, layout vmem). Else they live in device memory, which
+# at scene 1's 512 slots measured faster (PERF.md §6).
+_MAX_SMEM = 232448
+_SMEM_PER_SM = 233472
+_REVERSE_BLOCKS_PER_SM = 4
+_WARPS = 4
+_REVERSE_STATIC_SMEM = 4 * GRAD_COLS * 128
+_STAGE_BYTES_PER_SLOT = 44
 
-# Launches of the CUDA train kernels (the wrappers add one per launch).
+# Launches of the CUDA train kernels (the wrappers add one per launch):
+# kernel A one reverse a window, kernel B a park render and a reverse a
+# window (one window unless the park's budget needs more).
 GRAD_LAUNCHES = 0
 FUSED_LAUNCHES = 0
 
@@ -279,32 +314,96 @@ def fused_train_reference(ids, ii, jj, target_rows, scene_mat, cam_row, *,
 # -- the CUDA launchers -------------------------------------------------------
 
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
-_GRAD_ARGTYPES = [
-    _P, _P, _P,     # ids, ii, jj
-    _P,             # g rows (3, padded)
+_PARK_ARGTYPES = [
+    _P, _P, _P,     # ids, ii, jj (at the window's first lane)
+    _P, _I,         # target rows (3, padded), row stride
     _P, _I,         # scene SoA (11, N), N
-    _P, _I,         # cam row, padded
-    _I, _I,         # samples, max_depth
-    _U, _U,         # key words
-    _I, _I, _I,     # sample_offset, rr_start (-1 = off), hbm layout
-    _P, _P,         # scene partials (blocks, N * 9), camera partials (blocks, 18)
-    _P,             # cudaStream_t
-]
-_FUSED_ARGTYPES = [
-    _P, _P, _P,     # ids, ii, jj
-    _P,             # target rows (3, padded)
-    _P, _I,         # scene SoA, N
-    _P, _I,         # cam row, padded
+    _P, _I,         # cam row, the window's lanes
     _I, _I,         # samples, max_depth
     _U, _U,         # key words
     _I, _I,         # rr_start (-1 = off), hbm layout
     _I, _I, _I,     # gamma, loss kind, num_pixels
     _F, _F, _F, _F, _F,  # inv_spp, w, two_w, hd, half_hd
-    _P,             # image (3, padded)
-    _P, _P, _P,     # scene, camera and loss partials
+    _P, _P, _P,     # image, g (3, padded), loss partials (blocks, 1)
+    _P, _I,         # park (capacity, window lanes) int32, capacity
+    _P,             # parked (2, padded) int32
+    _P,             # cudaStream_t
+]
+_REVERSE_ARGTYPES = [
+    _P, _P, _P,     # ids, ii, jj (at the window's first lane)
+    _P, _I,         # g rows (3, padded), row stride
+    _P, _I,         # scene SoA, N
+    _P, _I,         # cam row, the window's lanes
+    _I, _I,         # samples, max_depth
+    _U, _U,         # key words
+    _I, _I, _I,     # sample_offset, rr_start (-1 = off), hbm layout
+    _P, _P,         # park, parked (null: nothing parked)
+    _P,             # the warps' accumulators (null: shared memory)
+    _P, _P,         # scene partials (blocks, N * 9), camera partials (blocks, 18)
     _P,             # cudaStream_t
 ]
 _REDUCE_ARGTYPES = [_P, _I, _I, _I, _P, _P]
+
+
+class ParkPlan(NamedTuple):
+    """The fused step's park: ``capacity`` entries a lane, the reverse's
+    warp accumulators in shared memory (``acc_in_smem``) or in device
+    memory, and the windows as (first lane, lanes)."""
+    capacity: int
+    acc_in_smem: bool
+    windows: list
+
+
+def _acc_smem_bytes(n: int, layout: str) -> int:
+    """A reverse block's shared memory with its warps' accumulators there."""
+    stage = 0 if layout == "hbm" else n * _STAGE_BYTES_PER_SLOT
+    return stage + _WARPS * n * GRAD_COLS * 4 + _REVERSE_STATIC_SMEM
+
+
+def plan_park(lanes: int, samples: int, max_depth: int, n: int,
+              layout: str = "vmem", *, capacity: Optional[int] = None,
+              budget: int = PARK_BUDGET, acc: Optional[str] = None) -> ParkPlan:
+    """Capacity and windows for ``lanes`` lanes (a multiple of ``PAD``) of
+    kernel B, or of kernel A with ``capacity=0``.
+
+    Every lane falls in exactly one window, each a multiple of ``PAD``
+    lanes, and one window's park (``capacity`` int32 entries a lane) and,
+    where the reverse's four warp accumulators do not fit in shared memory
+    (or ``acc='device'``), its device-memory accumulators (N * 36 bytes a
+    warp) take at most ``budget`` bytes. By default the capacity is what
+    one window of all lanes allows, at least ``PARK_ENTRIES_PER_SAMPLE`` a
+    sample (windows, if the budget needs them) and at most ``samples *
+    max_depth`` (no sample parks more than ``max_depth`` entries)."""
+    if lanes <= 0 or lanes % rk.PAD:
+        raise ValueError(f"lanes must be a positive multiple of {rk.PAD}")
+    if acc not in (None, "shared", "device"):
+        raise ValueError(f"acc must be None, 'shared' or 'device', got {acc!r}")
+    smem = _acc_smem_bytes(n, layout)
+    if acc is None:
+        in_smem = smem <= _SMEM_PER_SM // _REVERSE_BLOCKS_PER_SM - 1024
+    else:
+        in_smem = acc == "shared"
+    if in_smem and smem > _MAX_SMEM:
+        raise ValueError(f"{n} slots' warp accumulators do not fit in shared "
+                         f"memory")
+    scratch = 0 if in_smem else _WARPS * n * GRAD_COLS * 4  # bytes a block
+    blocks = lanes // rk.PAD
+    per_entry = rk.PAD * _PARK_ENTRY_BYTES                  # bytes a block
+    if capacity is None:
+        one_window = (budget // blocks - scratch) // per_entry
+        capacity = min(samples * max_depth,
+                       max(PARK_ENTRIES_PER_SAMPLE * samples, one_window))
+        capacity = max(0, min(capacity, (budget - scratch) // per_entry))
+    if capacity < 0:
+        raise ValueError(f"capacity must be >= 0, got {capacity}")
+    block_bytes = capacity * per_entry + scratch
+    if block_bytes > budget:
+        raise ValueError(f"one block of {rk.PAD} lanes needs {block_bytes} "
+                         f"bytes, above the budget of {budget}")
+    per = min(blocks, budget // block_bytes) if block_bytes else blocks
+    windows = [(b * rk.PAD, min(per, blocks - b) * rk.PAD)
+               for b in range(0, blocks, per)]
+    return ParkPlan(int(capacity), in_smem, windows)
 
 
 def _cuda_only(ids, name):
@@ -319,6 +418,14 @@ def _stream(t):
 def _raise_on(err, name):
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+
+
+def _at(t: Optional[torch.Tensor], row: int = 0, col: int = 0) -> int:
+    """The address of t[row, col] (t[col] for a vector); 0 for None."""
+    if t is None:
+        return 0
+    stride = t.stride(0) if t.dim() > 1 else 0
+    return t.data_ptr() + (row * stride + col) * t.element_size()
 
 
 def _reduce_rows(partials: torch.Tensor) -> torch.Tensor:
@@ -339,45 +446,91 @@ def _reduce_rows(partials: torch.Tensor) -> torch.Tensor:
     return x[0]
 
 
+def _reverse(ids, ii, jj, g_rows, soa, cam_row, window, *, samples,
+             max_depth, key, sample_offset, rr_start, layout, park, parked,
+             warp_acc, scene_part, cam_part):
+    """One launch of the reverse over one window of lanes."""
+    from . import _build
+
+    launch = _build.function("reverse_render", _REVERSE_ARGTYPES)
+    w0, lanes = window
+    err = launch(_at(ids, col=w0), _at(ii, col=w0), _at(jj, col=w0),
+                 _at(g_rows, col=w0), g_rows.shape[1], soa.data_ptr(),
+                 soa.shape[1], cam_row.data_ptr(), lanes, samples, max_depth,
+                 *key, sample_offset, -1 if rr_start is None else rr_start,
+                 int(layout == "hbm"), _at(park), _at(parked, col=w0),
+                 _at(warp_acc), _at(scene_part, w0 // rk.PAD),
+                 _at(cam_part, w0 // rk.PAD), _stream(ids))
+    _raise_on(err, "reverse_render")
+
+
+def _soa(scene_mat):
+    return scene_mat[:, :rk.USED_COLS].t().contiguous()
+
+
+def _warp_acc(plan: ParkPlan, n: int, dev):
+    if plan.acc_in_smem:
+        return None
+    widest = max(c for _, c in plan.windows)
+    return torch.empty((widest // 32, n * GRAD_COLS), dtype=torch.float32,
+                       device=dev)
+
+
 def grad_kernel(ids, ii, jj, g_rows, scene_mat, cam_row, *, samples: int,
                 max_depth: int, seed: int = rtrng.DEFAULT_SEED,
                 rr_start=None, sample_offset: int = 0,
-                layout: str = "vmem"):
-    """Launch kernel A; same contract as ``grad_reference``. Launches on
-    the current stream without synchronising."""
+                layout: str = "vmem", budget: int = PARK_BUDGET,
+                acc: Optional[str] = None):
+    """Launch kernel A (the reverse with nothing parked: every sample
+    re-traced); same contract as ``grad_reference``. Launches on the
+    current stream without synchronising."""
     global GRAD_LAUNCHES
     _cuda_only(ids, "grad_kernel")
     rr_start = _check(ids, ii, jj, g_rows, scene_mat, cam_row,
                       samples=samples, max_depth=max_depth, rr_start=rr_start,
                       sample_offset=sample_offset, layout=layout)
-    from . import _build
-
-    launch = _build.function("grad_render", _GRAD_ARGTYPES)
     padded, n = ids.shape[0], scene_mat.shape[0]
+    plan = plan_park(padded, samples, max_depth, n, layout, capacity=0,
+                     budget=budget, acc=acc)
     blocks = padded // rk.PAD
-    soa = scene_mat[:, :rk.USED_COLS].t().contiguous()
     scene_part = torch.empty((blocks, n * GRAD_COLS), dtype=torch.float32,
                              device=ids.device)
     cam_part = torch.empty((blocks, N_CAM), dtype=torch.float32,
                            device=ids.device)
-    k0, k1 = rtrng.key_from_seed(seed)
-    err = launch(ids.data_ptr(), ii.data_ptr(), jj.data_ptr(),
-                 g_rows.data_ptr(), soa.data_ptr(), n, cam_row.data_ptr(),
-                 padded, samples, max_depth, k0, k1, sample_offset,
-                 -1 if rr_start is None else rr_start, int(layout == "hbm"),
-                 scene_part.data_ptr(), cam_part.data_ptr(), _stream(ids))
-    _raise_on(err, "grad_render")
-    GRAD_LAUNCHES += 1
+    soa, warp_acc = _soa(scene_mat), _warp_acc(plan, n, ids.device)
+    g_rows, key = g_rows.contiguous(), rtrng.key_from_seed(seed)
+    for window in plan.windows:
+        _reverse(ids, ii, jj, g_rows, soa, cam_row, window, samples=samples,
+                 max_depth=max_depth, key=key,
+                 sample_offset=sample_offset, rr_start=rr_start,
+                 layout=layout, park=None, parked=None, warp_acc=warp_acc,
+                 scene_part=scene_part, cam_part=cam_part)
+        GRAD_LAUNCHES += 1
     return _outputs(_reduce_rows(scene_part).view(n, GRAD_COLS),
                     _reduce_rows(cam_part))
 
 
-def fused_train_kernel(ids, ii, jj, target_rows, scene_mat, cam_row, *,
-                       samples: int, max_depth: int, num_pixels: int,
-                       seed: int = rtrng.DEFAULT_SEED, rr_start=None,
-                       gamma: bool = True, loss: str = "mse",
-                       huber_delta: float = 1.0, layout: str = "vmem"):
-    """Launch kernel B; same contract as ``fused_train_reference``."""
+class FusedParts(NamedTuple):
+    """Kernel B's outputs before the block partials are summed."""
+    loss_part: torch.Tensor   # (blocks, 1)
+    image: torch.Tensor       # (3, padded)
+    g: torch.Tensor           # (3, padded): the cotangent of each radiance sum
+    scene_part: torch.Tensor  # (blocks, N * 9)
+    cam_part: torch.Tensor    # (blocks, 18)
+    parked: torch.Tensor      # (2, padded) int32: samples parked, entries used
+    plan: ParkPlan
+
+
+def fused_train_parts(ids, ii, jj, target_rows, scene_mat, cam_row, *,
+                      samples: int, max_depth: int, num_pixels: int,
+                      seed: int = rtrng.DEFAULT_SEED, rr_start=None,
+                      gamma: bool = True, loss: str = "mse",
+                      huber_delta: float = 1.0, layout: str = "vmem",
+                      capacity: Optional[int] = None,
+                      budget: int = PARK_BUDGET,
+                      acc: Optional[str] = None) -> FusedParts:
+    """Kernel B's launches (per window of ``plan_park``: the park render,
+    then the reverse), before the block partials are summed."""
     global FUSED_LAUNCHES
     _cuda_only(ids, "fused_train_kernel")
     if loss not in LOSSES:
@@ -387,31 +540,65 @@ def fused_train_kernel(ids, ii, jj, target_rows, scene_mat, cam_row, *,
                       sample_offset=0, layout=layout)
     from . import _build
 
-    launch = _build.function("fused_train_render", _FUSED_ARGTYPES)
+    render = _build.function("fused_park_render", _PARK_ARGTYPES)
     padded, n = ids.shape[0], scene_mat.shape[0]
-    blocks = padded // rk.PAD
-    dev = ids.device
-    soa = scene_mat[:, :rk.USED_COLS].t().contiguous()
-    image = torch.empty((3, padded), dtype=torch.float32, device=dev)
-    scene_part = torch.empty((blocks, n * GRAD_COLS), dtype=torch.float32,
-                             device=dev)
-    cam_part = torch.empty((blocks, N_CAM), dtype=torch.float32, device=dev)
-    loss_part = torch.empty((blocks, 1), dtype=torch.float32, device=dev)
+    plan = plan_park(padded, samples, max_depth, n, layout, capacity=capacity,
+                     budget=budget, acc=acc)
+    blocks, dev = padded // rk.PAD, ids.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    image = torch.empty((3, padded), **f32)
+    g = torch.empty((3, padded), **f32)
+    loss_part = torch.empty((blocks, 1), **f32)
+    scene_part = torch.empty((blocks, n * GRAD_COLS), **f32)
+    cam_part = torch.empty((blocks, N_CAM), **f32)
+    parked = torch.empty((2, padded), dtype=torch.int32, device=dev)
+    widest = max(c for _, c in plan.windows)
+    park = (torch.empty((plan.capacity * widest,), dtype=torch.int32,
+                        device=dev) if plan.capacity else None)
+    soa, warp_acc = _soa(scene_mat), _warp_acc(plan, n, dev)
+    target_rows = target_rows.contiguous()
     k = loss_constants(samples, num_pixels, huber_delta)
-    k0, k1 = rtrng.key_from_seed(seed)
-    err = launch(ids.data_ptr(), ii.data_ptr(), jj.data_ptr(),
-                 target_rows.data_ptr(), soa.data_ptr(), n,
-                 cam_row.data_ptr(), padded, samples, max_depth, k0, k1,
-                 -1 if rr_start is None else rr_start, int(layout == "hbm"),
-                 int(gamma), LOSSES.index(loss), num_pixels, k["inv_spp"],
-                 k["w"], k["two_w"], k["hd"], k["half_hd"], image.data_ptr(),
-                 scene_part.data_ptr(), cam_part.data_ptr(),
-                 loss_part.data_ptr(), _stream(ids))
-    _raise_on(err, "fused_train_render")
-    FUSED_LAUNCHES += 1
-    d_scene, d_cam = _outputs(_reduce_rows(scene_part).view(n, GRAD_COLS),
-                              _reduce_rows(cam_part))
-    return _reduce_rows(loss_part)[0], image, d_scene, d_cam
+    key = rtrng.key_from_seed(seed)
+    rr = -1 if rr_start is None else rr_start
+    for window in plan.windows:
+        w0, lanes = window
+        err = render(_at(ids, col=w0), _at(ii, col=w0), _at(jj, col=w0),
+                     _at(target_rows, col=w0), padded, soa.data_ptr(), n,
+                     cam_row.data_ptr(), lanes, samples, max_depth, *key, rr,
+                     int(layout == "hbm"), int(gamma), LOSSES.index(loss),
+                     num_pixels, k["inv_spp"], k["w"], k["two_w"], k["hd"],
+                     k["half_hd"], _at(image, col=w0), _at(g, col=w0),
+                     _at(loss_part, w0 // rk.PAD), _at(park), plan.capacity,
+                     _at(parked, col=w0), _stream(ids))
+        _raise_on(err, "fused_park_render")
+        FUSED_LAUNCHES += 1
+        _reverse(ids, ii, jj, g, soa, cam_row, window, samples=samples,
+                 max_depth=max_depth, key=key, sample_offset=0,
+                 rr_start=rr_start, layout=layout, park=park,
+                 parked=None if park is None else parked, warp_acc=warp_acc,
+                 scene_part=scene_part, cam_part=cam_part)
+        FUSED_LAUNCHES += 1
+    return FusedParts(loss_part, image, g, scene_part, cam_part, parked, plan)
+
+
+def fused_train_kernel(ids, ii, jj, target_rows, scene_mat, cam_row, *,
+                       samples: int, max_depth: int, num_pixels: int,
+                       seed: int = rtrng.DEFAULT_SEED, rr_start=None,
+                       gamma: bool = True, loss: str = "mse",
+                       huber_delta: float = 1.0, layout: str = "vmem",
+                       capacity: Optional[int] = None,
+                       budget: int = PARK_BUDGET, acc: Optional[str] = None):
+    """Launch kernel B; same contract as ``fused_train_reference``."""
+    parts = fused_train_parts(
+        ids, ii, jj, target_rows, scene_mat, cam_row, samples=samples,
+        max_depth=max_depth, num_pixels=num_pixels, seed=seed,
+        rr_start=rr_start, gamma=gamma, loss=loss, huber_delta=huber_delta,
+        layout=layout, capacity=capacity, budget=budget, acc=acc)
+    n = scene_mat.shape[0]
+    d_scene, d_cam = _outputs(
+        _reduce_rows(parts.scene_part).view(n, GRAD_COLS),
+        _reduce_rows(parts.cam_part))
+    return _reduce_rows(parts.loss_part)[0], parts.image, d_scene, d_cam
 
 
 def _grad(ids, *args, **kw):

@@ -263,6 +263,69 @@ def test_depth_cap_and_arguments_raise():
                       max_depth=50)
 
 
+def _window_bytes(plan, lanes, n):
+    """One window's park and device-memory warp accumulators, in bytes."""
+    acc = 0 if plan.acc_in_smem else lanes // 32 * n * tk.GRAD_COLS * 4
+    return lanes * plan.capacity * 4 + acc
+
+
+@pytest.mark.parametrize("lanes,samples,depth,n,layout,budget", [
+    (1280 * 768, 100, 25, 512, "vmem", tk.PARK_BUDGET),  # the headline
+    (1280 * 768, 100, 25, 512, "vmem", 1 << 28),
+    (1280 * 768, 2, 25, 512, "vmem", tk.PARK_BUDGET),
+    (64 * 40, 4, 6, 512, "vmem", 3 * (128 * 4 * 24 + 4 * 512 * 36)),
+    (24 * 128, 4, 8, 3000, "hbm", 1 << 22),              # warp accumulators
+    (7 * 128, 2, 3, 8, "vmem", 128 * 4 * 6 * 3),         # in device memory
+])
+def test_plan_park_windows_cover_lanes_within_budget(lanes, samples, depth, n,
+                                                     layout, budget):
+    """Every lane falls in exactly one window, windows are multiples of
+    128 lanes, and a window's park (and device-memory accumulators) stay
+    within the budget; the capacity never exceeds samples * depth."""
+    plan = tk.plan_park(lanes, samples, depth, n, layout, budget=budget)
+    covered = np.concatenate([np.arange(w0, w0 + c) for w0, c in plan.windows])
+    np.testing.assert_array_equal(covered, np.arange(lanes))
+    assert all(w0 % rk.PAD == 0 and c % rk.PAD == 0 and c > 0
+               for w0, c in plan.windows)
+    assert all(_window_bytes(plan, c, n) <= budget for _, c in plan.windows)
+    assert 0 < plan.capacity <= samples * depth
+    assert plan.acc_in_smem == (n < 100)
+
+
+def test_plan_park_capacity_and_refusals():
+    """The headline parks in one window, at least PARK_ENTRIES_PER_SAMPLE
+    entries a sample (400; 315 is the 99.9th percentile of a lane's entries
+    there, PERF.md); an explicit capacity is kept, with windows to fit it;
+    kernel A's plan parks nothing; impossible plans raise."""
+    head = tk.plan_park(1280 * 768, 100, 25, 512)
+    assert head.windows == [(0, 1280 * 768)] and head.capacity >= 400
+    plan = tk.plan_park(64 * 40, 4, 6, 512, capacity=3, budget=8 * 128 * 12,
+                        acc="shared")
+    assert plan.capacity == 3 and len(plan.windows) == 3
+    assert tk.plan_park(64 * 40, 4, 6, 512, capacity=0).windows == [(0, 2560)]
+    assert not tk.plan_park(64 * 40, 4, 6, 512).acc_in_smem
+    assert tk.plan_park(64 * 40, 4, 6, 512, acc="shared").acc_in_smem
+    assert tk.plan_park(64 * 40, 4, 6, 64).acc_in_smem
+    with pytest.raises(ValueError):
+        tk.plan_park(100, 4, 6, 512)
+    with pytest.raises(ValueError):
+        tk.plan_park(2560, 4, 6, 3000, "hbm", acc="shared")
+    with pytest.raises(ValueError):
+        tk.plan_park(2560, 4, 6, 512, capacity=10, budget=128 * 4 * 9)
+
+
+def test_plan_park_follows_tile_chunks():
+    """make_tiled_train's chunks keep their lanes: each chunk's plan covers
+    exactly its count * 128 lanes, from the chunk's first lane."""
+    w, h = 24, 16
+    tiles = w * h // rk.PAD
+    for t0, count in [(0, 1), (1, 1), (1, 2), (0, tiles)]:
+        plan = tk.plan_park(count * rk.PAD, SPP, DEPTH, 8,
+                            budget=count * rk.PAD * 4 * SPP * DEPTH // 2)
+        assert sum(c for _, c in plan.windows) == count * rk.PAD
+        assert plan.windows[0][0] == 0
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("rr", [None, 2])
 @pytest.mark.parametrize("layout", ["vmem", "hbm"])
@@ -291,7 +354,8 @@ def test_grad_kernel_equals_plain_version_on_card(cuda, rr, layout):
 def test_fused_kernel_equals_plain_version_on_card(cuda, loss):
     """Kernel B vs its plain version on the card: the image bit-equal (and
     to the regen kernel's), loss to 1e-6, cotangents to 1e-4 of the
-    largest entry."""
+    largest entry; two launches (the park render and the reverse) in one
+    window."""
     s = build_scene(1, device=cuda)
     ids, ii, jj, bud, sm, row = rk.regen_inputs(s, TCam.reference_default(),
                                                 64, 40, 4)
@@ -302,7 +366,7 @@ def test_fused_kernel_equals_plain_version_on_card(cuda, loss):
     before = tk.FUSED_LAUNCHES
     got = tk.fused_train_kernel(ids, ii, jj, tgt, sm, row, **kw)
     torch.cuda.synchronize()
-    assert tk.FUSED_LAUNCHES == before + 1
+    assert tk.FUSED_LAUNCHES == before + 2
     want = tk.fused_train_reference(ids, ii, jj, tgt, sm, row, **kw)
     assert torch.equal(got[1], want[1])
     assert torch.equal(got[1], rk.regen_kernel(ids, ii, jj, bud, sm, row,
@@ -312,3 +376,77 @@ def test_fused_kernel_equals_plain_version_on_card(cuda, loss):
     np.testing.assert_allclose(float(got[0]), float(want[0]), rtol=1e-6)
     _close(got[2], want[2].cpu().numpy(), 1e-4, "d_scene_mat")
     _close(got[3], want[3].cpu().numpy(), 1e-4, "d_cam_row")
+
+
+def _card_inputs(cuda, spp):
+    s = build_scene(1, device=cuda)
+    ids, ii, jj, _, sm, row = rk.regen_inputs(s, TCam.reference_default(),
+                                              64, 40, spp)
+    tgt = torch.rand((3, ids.shape[0]), generator=torch.Generator().manual_seed(
+        2)).to(cuda)
+    return ids, ii, jj, tgt, sm, row
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rr", [None, 2])
+def test_fused_gradients_bit_equal_across_capacities_and_windows_on_card(
+        cuda, rr):
+    """Kernel B's outputs are the same bits with nothing parked, with a
+    capacity that overflows mid-lane, with the default, in two window
+    sizes and with the warps' accumulators in shared memory: a sample's
+    cotangents enter the sums in the same order whether it was parked or
+    re-traced."""
+    args = _card_inputs(cuda, 4)
+    kw = dict(samples=4, max_depth=6, rr_start=rr, num_pixels=64 * 40)
+    want = tk.fused_train_kernel(*args, **kw)
+    small = tk.fused_train_parts(*args, capacity=5, **kw)
+    parked = small.parked[0].cpu()
+    assert bool((parked > 0).any()) and bool((parked < 4).any())
+    one_block = 128 * 4 * 4 * 6 + 4 * 512 * 36  # park and accumulators
+    for extra in (dict(capacity=0), dict(capacity=5),
+                  dict(budget=2 * one_block), dict(budget=7 * one_block),
+                  dict(acc="shared")):
+        plan = tk.fused_train_parts(*args, **extra, **kw).plan
+        if "budget" in extra:
+            assert len(plan.windows) > 1
+        got = tk.fused_train_kernel(*args, **extra, **kw)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), extra
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rr", [None, 2])
+def test_fused_gradients_equal_grad_kernel_on_its_g_on_card(cuda, rr):
+    """Kernel A fed kernel B's own g gives kernel B's gradients bit for
+    bit: one reverse."""
+    args = _card_inputs(cuda, 4)
+    kw = dict(samples=4, max_depth=6, rr_start=rr)
+    parts = tk.fused_train_parts(*args, num_pixels=64 * 40, **kw)
+    fused = tk.fused_train_kernel(*args, num_pixels=64 * 40, **kw)
+    ids, ii, jj, _, sm, row = args
+    got = tk.grad_kernel(ids, ii, jj, parts.g, sm, row, **kw)
+    assert torch.equal(got[0], fused[2]) and torch.equal(got[1], fused[3])
+
+
+@pytest.mark.cuda
+def test_grad_kernel_device_accumulators_on_card(cuda):
+    """Above about 1,500 slots (layout hbm) the warps' accumulators live in
+    device memory: kernel A against its plain version, 1e-4 of the largest
+    entry, and the same bits from run to run and with a small budget (more
+    windows)."""
+    from raytracingincuda_torch.models.scene import build_random_scene
+
+    s = build_random_scene(2000, seed=3, device=cuda)
+    ids, ii, jj, _, sm, row = rk.regen_inputs(s, TCam.reference_default(),
+                                              32, 24, 2)
+    g = torch.randn((3, ids.shape[0]), generator=torch.Generator().manual_seed(
+        3)).to(cuda)
+    kw = dict(samples=2, max_depth=5, rr_start=2, layout="hbm")
+    assert not tk.plan_park(ids.shape[0], 2, 5, 2000, "hbm").acc_in_smem
+    got = tk.grad_kernel(ids, ii, jj, g, sm, row, **kw)
+    windows = tk.grad_kernel(ids, ii, jj, g, sm, row, budget=4 * 2000 * 36 * 2,
+                             **kw)
+    want = tk.grad_reference(ids, ii, jj, g, sm, row, **kw)
+    for a, b, c in zip(got, windows, want):
+        assert torch.equal(a, b)
+        _close(a, c.cpu().numpy(), 1e-4, "kernel A, device accumulators")

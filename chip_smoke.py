@@ -13,11 +13,18 @@ CPU path):
   3 compare  the regen kernel against its plain PyTorch version on the
              card: scene 1 at 320x192x10spp/25b (parity and rr2, both
              scene layouts, the prepass segments, run-to-run bit
-             identity), and at the headline's shapes (1280x768, 2 spp, 25b)
+             identity), and at the headline's shapes (1280x768, 2 spp,
+             25b); there, the count mode (regen_counts): hit-test issues
+             per warp against the lanes' mean segments, equal to
+             warp_iterations of the kernel's per-sample segments, and
+             those segments' count under the nested loop kernel 1 ran
+             before it regenerated
   4 headline make_renderer at scene 1, 1280x768, 100 spp, 25 bounces,
-             parity and rr2: one warm-up and 3 timed renders each (CUDA
-             events), the kernel's launch count over that run, and one
-             render without the difficulty order
+             parity and rr2 (no difficulty order): one warm-up and 3 timed
+             renders each (CUDA events), the kernel's launch count over
+             that run; then 10 pairs of a render with the difficulty order
+             (render_kernel) and one through the renderer, and the count
+             mode at this shape with and without the order
   5 cli      python -m raytracingincuda_torch.cli at 320x192x10spp
   6 grads    the gradient kernel against its plain version (scene 1,
              320x192x4spp/8b, parity and rr2, both layouts, run-to-run
@@ -50,8 +57,9 @@ CPU path):
              the regen kernel's hbm image (share)
   10 stream headline  make_renderer(impl='stream') at 100k spheres,
              640x384, 10 spp, 10 bounces: a warm-up and 3 timed renders,
-             launches, peak memory, the walk's work counts and bound; one
-             brute-force hbm render of the same scene at 2 spp
+             launches, peak memory, the walk's work counts (segments,
+             opened blocks, the warps' union) and bound; one brute-force
+             hbm render of the same scene at 2 spp
   11 stream grads  the stream train kernel against its plain versions:
              gradients at 1000 spheres (block 64), 64x40x4spp/6b, parity
              and rr2; the fused step for four losses, gamma on and off,
@@ -66,7 +74,8 @@ CPU path):
              version (bit for bit) and index_add_; the warp-union count of
              the step's walk (stream_train_kernel.walk_counts: blocks
              opened per lane, equal to the stream kernel's count, and
-             blocks tested per warp); on the step's own stream (100k
+             blocks tested per warp) beside the stream kernel's own union
+             at the same shape; on the step's own stream (100k
              spheres, blocks of 256 front to back) at 640x384x1spp/3b,
              the stream kernel (bit for bit) and both modes of the stream
              train kernel against their plain versions
@@ -98,7 +107,9 @@ CPU path):
              kernel unsorted, the images bit-equal; one mode='simple'
              render at the headline (kernel 1's launches) equal to them
 
-Then the kernels line (JSON, with each kernel's bound: regen_render,
+Then the kernels line (JSON, with each kernel's bound and, as
+bound_fmad_off_ms, the same bound with the operations at half the rate,
+since --fmad=false issues each multiply and add alone: regen_render,
 grad_render, fused_train_render, stream_render, stream_train,
 stream_segment_sum, f64_render and compact_render), the nvidia-smi line,
 and last {"ok": true, "device": {...}}. Everything measured is
@@ -110,7 +121,9 @@ fused_train_render counts its two launches a window (the park render,
 then the reverse; one window at the headline), grad_render its reverse,
 one a window; stream_segment_sum counts its two kernels (tile_sums_kernel,
 then cross_sums_kernel), two per call; stream_train counts walk_counts'
-launch too (outside the main paths). The stream rows' times and bounds
+launch too (outside the main paths); stream_scan_table (no row of its own)
+counts the scan-table kernel that runs before each launch of kernels 4
+and 5. The stream rows' times and bounds
 are those of the 100k comparisons in phase 12; the f64 and compact rows'
 those of the headline-width comparisons in phases 15 and 17.
 """
@@ -169,6 +182,10 @@ FP64_PER_S = 34e12
 BYTES_PER_S = 3.35e12
 OPS_TEST_STAGED = 18
 OPS_TEST = 25
+# --fmad=false: a multiply and an add are two instructions, so counted
+# operations issue at half the FP32 rate (FP64 likewise)
+FMAD_OFF = 0.5
+SORT_PAIRS = 10
 CARD = ""
 
 
@@ -177,10 +194,12 @@ def say(phase: str, msg: str) -> None:
 
 
 def bound(ops: float, nbytes: float, rate: float = FP32_PER_S) -> tuple:
-    """(bound_ms, bound_by) for this much work, operations at ``rate``."""
+    """(bound_ms, bound_by, the bound with the operations at --fmad=false's
+    rate) for this much work, operations at ``rate``."""
     t_ops, t_bytes = ops / rate, nbytes / BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
+            "operations" if t_ops >= t_bytes else "bytes",
+            max(t_ops / FMAD_OFF, t_bytes) * 1e3)
 
 
 def profiled_idle(step) -> dict:
@@ -260,7 +279,8 @@ def main() -> int:
     dev = torch.device("cuda")
     record: dict = {}
     cam = CameraConfig.reference_default()
-    counters = {"regen_render": (rk, "LAUNCHES"),
+    counters = {"stream_scan_table": (sk, "SCAN_LAUNCHES"),
+                "regen_render": (rk, "LAUNCHES"),
                 "grad_render": (tk, "GRAD_LAUNCHES"),
                 "fused_train_render": (tk, "FUSED_LAUNCHES"),
                 "stream_render": (sk, "LAUNCHES"),
@@ -392,6 +412,38 @@ def main() -> int:
         raise AssertionError(f"prepass segments agree on {seg_agree}")
     head, _ = compare(1280, 768, 2, 25, None, "vmem", 3)
     record["compare_headline_shape"] = head
+
+    def warp_counts(inputs, spp, bounces, rr):
+        """The count mode: hit-test issues per warp, summed, against the
+        lanes' mean segments and against the warp iterations that the
+        kernel's per-sample segments give (rk.warp_iterations), and those
+        segments' iterations under the nested loop that kernel 1 ran
+        before it regenerated (each sample waits for its longest path)."""
+        per = rk.sample_segments(*inputs, samples=spp, max_depth=bounces,
+                                 rr_start=rr)
+        seg, issues = rk.regen_counts(*inputs, samples=spp, max_depth=bounces,
+                                      rr_start=rr)
+        mean = float(seg.double().view(-1, 32).mean(1).sum())
+        nested = float(rk.warp_iterations(per, "nested").sum())
+        out = {"warp_issues": int(issues.long().sum()),
+               "lane_mean_segments": mean,
+               "issues_over_mean": float(issues.double().sum()) / mean,
+               "nested_iterations": nested, "nested_over_mean": nested / mean}
+        if not (torch.equal(seg, per.sum(0))
+                and torch.equal(issues.double(), rk.warp_iterations(per))):
+            raise AssertionError(f"count mode against its segments: {out}")
+        return out
+
+    def fmt_counts(c):
+        return (f"issues {c['warp_issues']} = {c['issues_over_mean']:.3f}x the "
+                f"lanes' mean, equal to the per-sample count; the nested "
+                f"loop's per-sample wait would be {c['nested_over_mean']:.3f}x")
+
+    row1_counts = warp_counts(rk.regen_inputs(build_scene(1, device=dev), cam,
+                                              1280, 768, 2), 2, 25, None)
+    record["counts_row1"] = row1_counts
+    say("3 compare", f"count mode at 1280x768x2spp/25b parity: "
+        f"{fmt_counts(row1_counts)}")
     say("3 compare", f"prepass segments agree on {seg_agree:.6f}; "
         f"{head['shape']}: max|d| {head['max_abs_err']:.3g}, exact "
         f"{head['exact_quantized']:.6f}, kernel {head['kernel_ms']:.2f} ms, "
@@ -406,7 +458,7 @@ def main() -> int:
         scene = build_scene(1, device=dev)
         reset_counts()
         with RenderTimer(dev) as warm:
-            img = renderer(scene, cam)          # prepass + render
+            img = renderer(scene, cam)
         times = []
         for _ in range(3):
             with RenderTimer(dev) as t:
@@ -420,23 +472,45 @@ def main() -> int:
                 and arr.min() >= 0.0 and arr.max() <= 1.0):
             raise AssertionError(f"headline image bad: {arr.shape}, "
                                  f"[{arr.min()}, {arr.max()}]")
-        with RenderTimer(dev) as unsorted:
-            rk.render_kernel(scene, cam, 1280, 768, 100, 25, rr_start=rr)
+        # the difficulty order (which the renderer leaves out) against none,
+        # in alternating pairs
+        order = rk.difficulty_order(rk.measure_difficulty(
+            scene, cam, 1280, 768, 8, 6), 8, 6)
+        pairs = []
+        for _ in range(SORT_PAIRS):
+            with RenderTimer(dev) as ts:
+                ordered = rk.render_kernel(scene, cam, 1280, 768, 100, 25,
+                                           rr_start=rr, pixel_order=order)
+            with RenderTimer(dev) as tu:
+                renderer(scene, cam)
+            pairs.append((ts.ms, tu.ms))
+        if not torch.equal(ordered, img):
+            raise AssertionError("the difficulty order changed the image")
+        wins = sum(a < b for a, b in pairs)
+        head_counts = {
+            sort: warp_counts(rk.regen_inputs(scene, cam, 1280, 768, 100,
+                                              pixel_order=po), 100, 25, rr)
+            for sort, po in (("sorted", order), ("unsorted", None))}
         best = min(times)
         name = "parity" if rr is None else f"rr{rr}"
         if rr is None:
             f32_headline = img
         record["headline"][name] = {
-            "render_ms": times, "warmup_with_prepass_ms": warm.ms,
-            "unsorted_ms": unsorted.ms,
+            "render_ms": times, "warmup_ms": warm.ms,
+            "sorted_unsorted_pairs_ms": pairs, "sorted_wins": wins,
+            "counts": head_counts,
             "mrays_per_s": 1280 * 768 * 100 / best / 1e3,
             "vs_reference": REFERENCE_HEADLINE_MS / best,
         }
         say("4 headline", f"{name}: render_ms {', '.join(f'{t:.2f}' for t in times)}"
             f" | {1280 * 768 * 100 / best / 1e3:.1f} Mrays/s | "
             f"{REFERENCE_HEADLINE_MS / best:.3f}x the reference's "
-            f"{REFERENCE_HEADLINE_MS} ms | warm-up with prepass "
-            f"{warm.ms:.2f} ms | unsorted {unsorted.ms:.2f} ms")
+            f"{REFERENCE_HEADLINE_MS} ms | warm-up "
+            f"{warm.ms:.2f} ms | sorted won {wins} of {SORT_PAIRS} pairs "
+            f"(sorted {', '.join(f'{a:.2f}' for a, _ in pairs)}; unsorted "
+            f"{', '.join(f'{b:.2f}' for _, b in pairs)}); image unchanged")
+        for sort, c in head_counts.items():
+            say("4 headline", f"{name} {sort}: count mode {fmt_counts(c)}")
     # -- 5 the CLI ------------------------------------------------------------
     with tempfile.TemporaryDirectory() as tmp:
         env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -724,13 +798,13 @@ def main() -> int:
         return ids, ii, jj, bud, row
 
     def walk_stats(st, width, height, spp, bounces, rr):
-        """(traced segments, opened blocks) of the walk at these inputs,
-        from the kernel's own counts."""
+        """(traced segments, opened blocks, blocks the warps tested) of the
+        walk at these inputs, from the kernel's own counts."""
         ids, ii, jj, bud, row = lanes(width, height, spp)
         c = sk.stream_kernel(ids, ii, jj, bud, st.scene_mat, st.bounds, row,
                              block=st.block, samples=spp, max_depth=bounces,
                              rr_start=rr, emit_stats=True).double().sum(1)
-        return float(c[0]), float(c[1])
+        return float(c[0]), float(c[1]), float(c[2])
 
     def walk_ops(st, segs, opened):
         return (segs * st.bounds.shape[0] + opened * st.block) * OPS_TEST_STAGED
@@ -744,10 +818,9 @@ def main() -> int:
         again = sk.stream_kernel(*args, **kw)
         p_out, p_ms = timed(lambda: sk.stream_reference(*args, **kw), 1,
                             warm=False)
-        k_stats = sk.stream_kernel(*args, emit_stats=True,
-                                   **kw).double().sum(1).cpu()
+        k_stats = sk.stream_kernel(*args, emit_stats=True, **kw)
         p_stats = sk.stream_reference(*args, emit_stats=True, **kw)
-        segs, opened = (float(v) for v in k_stats)
+        segs, opened, fetched = (float(v) for v in k_stats.double().sum(1))
         padded = ids.shape[0]
         res = {"shape": f"{width}x{height}x{spp}spp/{bounces}b",
                "rows": st.scene_mat.shape[0], "block": st.block,
@@ -758,8 +831,10 @@ def main() -> int:
                "stats_equal": bool(torch.equal(k_stats, p_stats)),
                "segments": segs, "opened_blocks": opened,
                "opened_per_segment": opened / max(segs, 1.0),
+               "warp_tested_blocks": fetched,
+               "lane_tests_over_opened": 32 * fetched / max(opened, 1.0),
                "kernel_ms": k_ms, "plain_ms": p_ms}
-        res["bound_ms"], res["bound_by"] = bound(
+        res["bound_ms"], res["bound_by"], res["bound_fmad_off_ms"] = bound(
             walk_ops(st, segs, opened),
             padded * 28 + st.scene_mat.shape[0] * rk.USED_COLS * 4
             + st.bounds.numel() * 4 + 96)
@@ -833,24 +908,28 @@ def main() -> int:
         rk.render_kernel(s100k, cam, w, h, 2, 10, layout="hbm")
     st_head = sk.reorder_front_to_back(sk.prepare_stream_scene(s100k),
                                        initialize(cam, w, h).center)
-    segs, opened = walk_stats(st_head, w, h, 10, 10, None)
-    head_bound, _ = bound(walk_ops(st_head, segs, opened), 0)
+    segs, opened, fetched = walk_stats(st_head, w, h, 10, 10, None)
+    head_bound = bound(walk_ops(st_head, segs, opened), 0)[0]
     segs2 = float(rk.regen_kernel(*rk.regen_inputs(s100k, cam, w, h, 2),
                                   samples=2, max_depth=10, emit_depth=True,
                                   layout="hbm").double().sum())
-    brute_bound, _ = bound(segs2 * s100k.num_slots * OPS_TEST, 0)
+    brute_bound = bound(segs2 * s100k.num_slots * OPS_TEST, 0)[0]
     best = min(times)
     record["stream_headline"] = {
         "render_ms": times, "warmup_ms": warm.ms, "launches": head_counts,
         "brute_force_hbm_2spp_ms": brute.ms, "peak_mib": peak,
         "segments": segs, "opened_blocks": opened,
-        "opened_per_segment": opened / segs, "bound_ms": head_bound,
+        "opened_per_segment": opened / segs, "warp_tested_blocks": fetched,
+        "lane_tests_over_opened": 32 * fetched / opened,
+        "bound_ms": head_bound,
         "brute_force_2spp_bound_ms": brute_bound,
         "mrays_per_s": w * h * 10 / best / 1e3}
     say("10 stream headline", f"100k spheres {w}x{h}x10spp/10b: render_ms "
         f"{', '.join(f'{t:.2f}' for t in times)} (warm-up {warm.ms:.2f}); "
         f"{opened / segs:.2f} of {st_head.bounds.shape[0]} blocks opened a "
-        f"segment, bound {head_bound:.3f} ms; brute-force hbm at 2 spp "
+        f"segment, each lane tests {32 * fetched / opened:.3f}x the blocks "
+        f"it opened (its warp's union), bound {head_bound:.3f} ms; "
+        f"brute-force hbm at 2 spp "
         f"{brute.ms:.2f} ms (bound {brute_bound:.3f}); peak {peak:.1f} MiB;"
         f" launches {nonzero(head_counts)}")
 
@@ -936,7 +1015,7 @@ def main() -> int:
     def stream_train_bound(st, width, height, spp, bounces, rr):
         """The fused step's bound: one walk per sample, its inputs read and
         its outputs written once."""
-        segs, opened = walk_stats(st, width, height, spp, bounces, rr)
+        segs, opened, _ = walk_stats(st, width, height, spp, bounces, rr)
         padded = lanes(width, height, spp)[0].shape[0]
         return bound(walk_ops(st, segs, opened),
                      padded * 36 + st.scene_mat.shape[0]
@@ -1015,8 +1094,8 @@ def main() -> int:
     # one more fused step in a profiler window: device time over wall time
     idle = profiled_idle(lambda: step_fn(state, cam, s100k.mat_type,
                                          s100k.active, target))
-    segs, opened = walk_stats(st0, w, h, spp, bounces, None)
-    step_bound, _ = bound(walk_ops(st0, segs, opened), 0)
+    segs, opened, k4_fetched = walk_stats(st0, w, h, spp, bounces, None)
+    step_bound = bound(walk_ops(st0, segs, opened), 0)[0]
     # the warp union of the step's walk: blocks tested per warp against the
     # blocks each lane opened (kernel 4's count)
     ids, ii, jj, _, row = lanes(w, h, spp)
@@ -1027,6 +1106,8 @@ def main() -> int:
              "tested_per_warp": int(warp_tested.long().sum())}
     union["lane_tests_over_opened"] = (32 * union["tested_per_warp"]
                                        / max(union["opened_per_lane"], 1))
+    union["stream_kernel_tested_per_warp"] = int(k4_fetched)
+    union["stream_kernel_lane_tests_over_opened"] = 32 * k4_fetched / opened
     if union["opened_per_lane"] != int(opened):
         raise AssertionError(f"kernel 5's walk opened {union} blocks, the "
                              f"stream kernel's {opened}")
@@ -1047,11 +1128,13 @@ def main() -> int:
     _, lib_ms = timed(lambda: lib_out.zero_().index_add_(0, lib_keys,
                                                          lib_vals), 5)
     m = keys.shape[0]
-    seg_bound, seg_by = bound(m * tk.GRAD_COLS, m * 48 + n_rows * 36)
+    seg_bound, seg_by, seg_fmad_off = bound(m * tk.GRAD_COLS,
+                                            m * 48 + n_rows * 36)
     segment_main = {"records": m, "kernel_ms": seg_ms,
                     "record_order_ms": order_ms,
                     "plain_ms": seg_plain_ms, "library_ms": lib_ms,
                     "bound_ms": seg_bound, "bound_by": seg_by,
+                    "bound_fmad_off_ms": seg_fmad_off,
                     "bit_equal": bool(torch.equal(seg_out, seg_plain)),
                     "max_abs_err": float((seg_out - seg_plain).abs().max())}
     if not segment_main["bit_equal"]:
@@ -1077,8 +1160,9 @@ def main() -> int:
     train_100k = stream_fused_compare(st0, w, h, cspp, cb, None,
                                       tk._lane_rows(target, ids, w * h),
                                       "mse", False)
-    train_100k["bound_ms"], train_100k["bound_by"] = stream_train_bound(
-        st0, w, h, cspp, cb, None)
+    (train_100k["bound_ms"], train_100k["bound_by"],
+     train_100k["bound_fmad_off_ms"]) = stream_train_bound(st0, w, h, cspp, cb,
+                                                           None)
     best = min(times)
     record["stream_train"] = {
         "fused_step_ms": times, "warmup_ms": warm.ms, "launches": step_counts,
@@ -1101,7 +1185,10 @@ def main() -> int:
         f"{union['tested_per_warp']} blocks tested by warps, "
         f"{union['opened_per_lane']} opened by lanes (= the stream "
         f"kernel's), each lane tests "
-        f"{union['lane_tests_over_opened']:.3f}x the blocks it opened; "
+        f"{union['lane_tests_over_opened']:.3f}x the blocks it opened (the "
+        f"stream kernel's regenerating warps at the same shape: "
+        f"{union['stream_kernel_tested_per_warp']} blocks tested, "
+        f"{union['stream_kernel_lane_tests_over_opened']:.3f}x); "
         f"launches fused {nonzero(step_counts)}, fused=False "
         f"{nonzero(two_counts)}")
 
@@ -1430,6 +1517,7 @@ def main() -> int:
                 "replaces": replaces, "launches": main_launches[name],
                 "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bnd[0], "bound_by": bnd[1],
+                "bound_fmad_off_ms": bnd[2],
                 "library_ms": library_ms}
 
     kernels = {"kernels": [
@@ -1444,15 +1532,18 @@ def main() -> int:
         kernel_row("stream_render", STREAM_SOURCE, STREAM_REPLACES,
             max(r["max_abs_err"] for r in record["stream_compare"]),
             render_100k["kernel_ms"], render_100k["plain_ms"],
-            (render_100k["bound_ms"], render_100k["bound_by"])),
+            (render_100k["bound_ms"], render_100k["bound_by"],
+             render_100k["bound_fmad_off_ms"])),
         kernel_row("stream_train", STREAM_TRAIN_SOURCE, STREAM_TRAIN_REPLACES,
             worst("stream_train", record["stream_grads"]),
             train_100k["kernel_ms"], train_100k["plain_ms"],
-            (train_100k["bound_ms"], train_100k["bound_by"])),
+            (train_100k["bound_ms"], train_100k["bound_by"],
+             train_100k["bound_fmad_off_ms"])),
         kernel_row("stream_segment_sum", STREAM_TRAIN_SOURCE, SEGMENT_REPLACES,
             segment_main["max_abs_err"], segment_main["kernel_ms"],
             segment_main["plain_ms"],
-            (segment_main["bound_ms"], segment_main["bound_by"]),
+            (segment_main["bound_ms"], segment_main["bound_by"],
+             segment_main["bound_fmad_off_ms"]),
             segment_main["library_ms"]),
         kernel_row("f64_render", F64_SOURCE, F64_REPLACES,
             max(r["max_abs_err"] for r in record["f64_compare"]),

@@ -5,8 +5,8 @@ output file name, and the same stdout line, ``render_ms,e2e_ms`` as two
 fixed-point fields. ``render_ms`` is a CUDA-event bracket around the
 render (a host-clock bracket on ``--device cpu``); ``e2e_ms`` runs from
 scene construction to the written file. A warm-up render (the kernel
-build, the prepass and its order cache) runs first unless
-``--no-warmup``.
+build and, where the renderer orders its lanes, the prepass and its
+order cache) runs first unless ``--no-warmup``.
 
 ``--threads``, ``--pixels_per_lane`` and ``--stream_lane_group`` are
 accepted for parity with the reference and the JAX package; they shaped

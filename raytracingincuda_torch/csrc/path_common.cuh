@@ -2,11 +2,13 @@
 // compact_render.cu, stream_render.cu) and the train kernels
 // (train_render.cu, stream_train.cu): vector math, the device-exact f32
 // functions, the Threefry streams, the camera, the scene as a kernel sees
-// it, the two closest-hit tests (the brute-force scan and the stream block
-// walk), one bounce's scatter and the trace of one sample's path. One
-// copy, so that a train kernel's forward and the compact kernel's bounces
-// are the regen kernel's arithmetic bit for bit. The f64 kernel
-// (f64_render.cu) takes only the f32 draws from here.
+// it, the brute-force closest hit and the stream walk's bound test, one
+// bounce's scatter, the trace of one sample's path (trace_sample) and the
+// regenerating loop over a lane's samples (regen_lane). One copy, so that
+// a train kernel's forward and the compact kernel's bounces are the regen
+// kernel's arithmetic bit for bit. The stream walk itself is in
+// staged_walk.cuh. The f64 kernel (f64_render.cu) takes only the f32
+// draws from here.
 //
 // Exactness. Every expression keeps the association of the plain PyTorch
 // versions (ops/tracer.py, ops/render_kernel.py:regen_reference,
@@ -228,31 +230,48 @@ __device__ __forceinline__ V3 slot_center(const SceneView& sc, int k) {
   return {e.x, e.y, e.z};
 }
 
-// One slot's hit test in the numerator domain (ops/intersect.py): keeps
-// the smallest root numerator with a strict '<', so the first slot wins an
-// exact tie.
-__device__ __forceinline__ void test_slot(const float4 e, V3 o, V3 d, float a,
-                                          float d_dot_o, float o2, float tmin_a, int k,
-                                          float& best, int& win) {
+// One slot's hit test in the numerator domain (ops/intersect.py), in two
+// parts: the half-b numerator h and the discriminant, then the root, which
+// keeps the smallest root numerator with a strict '<', so the first slot
+// wins an exact tie.
+struct SlotDisc {
+  float h, disc;
+};
+__device__ __forceinline__ SlotDisc slot_disc(const float4 e, V3 o, V3 d, float a,
+                                              float d_dot_o, float o2) {
   const float h = (e.x * d.x + e.y * d.y + e.z * d.z) - d_dot_o;
   const float cc = (e.w + o2) - 2.0f * (e.x * o.x + e.y * o.y + e.z * o.z);
-  const float disc = h * h - a * cc;
-  if (disc > 0.0f) {
-    const float sq = sqrtf(disc);
-    const float near = h - sq;
-    const float root = near > tmin_a ? near : h + sq;
+  return {h, h * h - a * cc};
+}
+__device__ __forceinline__ void take_root(SlotDisc q, float tmin_a, int k, float& best,
+                                          int& win) {
+  if (q.disc > 0.0f) {
+    const float sq = sqrtf(q.disc);
+    const float near = q.h - sq;
+    const float root = near > tmin_a ? near : q.h + sq;
     if (root > tmin_a && root < best) {
       best = root;
       win = k;
     }
   }
 }
+__device__ __forceinline__ void test_slot(const float4 e, V3 o, V3 d, float a,
+                                          float d_dot_o, float o2, float tmin_a, int k,
+                                          float& best, int& win) {
+  take_root(slot_disc(e, o, d, a, d_dot_o, o2), tmin_a, k, best, win);
+}
 
 // The closest hit over every slot of a SceneView (the regen and train
 // kernels): true on a hit, with the winning slot and t = numerator / a.
+// Four slots a step: their entries are loaded and their discriminants
+// computed before any root, so the four tests' loads and arithmetic are
+// independent work for the scheduler, and one branch (taken where any of
+// the four discriminants is positive) guards the roots, which then run in
+// slot order: the same slot wins as in a one-slot loop.
 template <bool kHbm_>
 struct ScanHit {
   static constexpr bool kHbm = kHbm_;
+  static constexpr bool kLockstep = false;
   SceneView sc;
   __device__ __forceinline__ bool operator()(V3 o, V3 d, int& win, float& t) const {
     const float a = fmaxf(dot(d, d), 1e-12f);
@@ -261,7 +280,22 @@ struct ScanHit {
     const float tmin_a = kTMin * a;
     float best = kTMiss;
     win = 0;
-    for (int k = 0; k < sc.n; ++k)
+    int k = 0;
+    for (; k + 4 <= sc.n; k += 4) {
+      const float4 e0 = slot_entry<kHbm>(sc, k), e1 = slot_entry<kHbm>(sc, k + 1);
+      const float4 e2 = slot_entry<kHbm>(sc, k + 2), e3 = slot_entry<kHbm>(sc, k + 3);
+      const SlotDisc q0 = slot_disc(e0, o, d, a, d_dot_o, o2);
+      const SlotDisc q1 = slot_disc(e1, o, d, a, d_dot_o, o2);
+      const SlotDisc q2 = slot_disc(e2, o, d, a, d_dot_o, o2);
+      const SlotDisc q3 = slot_disc(e3, o, d, a, d_dot_o, o2);
+      if (q0.disc > 0.0f || q1.disc > 0.0f || q2.disc > 0.0f || q3.disc > 0.0f) {
+        take_root(q0, tmin_a, k, best, win);
+        take_root(q1, tmin_a, k + 1, best, win);
+        take_root(q2, tmin_a, k + 2, best, win);
+        take_root(q3, tmin_a, k + 3, best, win);
+      }
+    }
+    for (; k < sc.n; ++k)
       test_slot(slot_entry<kHbm>(sc, k), o, d, a, d_dot_o, o2, tmin_a, k, best, win);
     if (!(best < kTMiss)) return false;
     t = best * (1.0f / a);
@@ -287,51 +321,6 @@ __device__ __forceinline__ bool bound_can_improve(const float4 b, V3 o, V3 d, fl
   const float sq = sqrtf(disc);
   return h + sq > kTMin * a && h - sq < t_cur * a && b.w > 0.0f;
 }
-
-// The stream walk's closest hit (stream_render.cu, stream_train.cu): the
-// bounds rows in their order (Morton, or front to back from the camera);
-// each row gives its block's bound sphere and first matrix row. A block is
-// opened only if this thread's ray can improve inside the bound; within a
-// block the smallest root numerator wins (first row on a tie); across
-// blocks a block's hit replaces the best only when t_b < t_cur, so a tie
-// between blocks goes to the block visited first. The gate is per thread:
-// a warp runs a block's loop once if any lane opens it either way, and a
-// per-lane gate makes the merge decisions the plain version's lane by lane.
-// With kCount, `opened` counts the blocks the thread opened.
-template <bool kCount>
-struct WalkHit {
-  static constexpr bool kHbm = true;
-  SceneView sc;         // the stream matrix as SoA (kNumCols, rows)
-  const float* bounds;  // (nb, 8): cx, cy, cz, r_bound, first row, unused
-  int nb, block;
-  mutable int opened = 0;
-  __device__ __forceinline__ bool operator()(V3 o, V3 d, int& win, float& t) const {
-    const float a = fmaxf(dot(d, d), 1e-12f);
-    const float d_dot_o = dot(d, o);
-    const float o2 = dot(o, o);
-    const float tmin_a = kTMin * a;
-    const float4* rows = reinterpret_cast<const float4*>(bounds);
-    float t_cur = kTMiss;
-    win = 0;
-    for (int j = 0; j < nb; ++j) {
-      if (!bound_can_improve(__ldg(rows + 2 * j), o, d, a, d_dot_o, o2, t_cur)) continue;
-      if (kCount) ++opened;
-      const int k0 = (int)__ldg(bounds + 8 * j + 4);
-      float best = kTMiss;
-      int wb = 0;
-      for (int k = k0; k < k0 + block; ++k)
-        test_slot(scan_entry(sc.soa, sc.n, k), o, d, a, d_dot_o, o2, tmin_a, k, best, wb);
-      const float t_b = best * (1.0f / a);
-      if (best < kTMiss && t_b < t_cur) {
-        t_cur = t_b;
-        win = wb;
-      }
-    }
-    if (!(t_cur < kTMiss)) return false;
-    t = t_cur;
-    return true;
-  }
-};
 
 // Gamma 2 of a finished pixel: sqrt of positive values, 0 at black.
 __device__ __forceinline__ V3 gamma2(V3 v) {
@@ -430,7 +419,7 @@ struct NoSink {
   __device__ __forceinline__ void operator()(int, const Entry&) const {}
 };
 
-// Trace sample s of one pixel, with `hit` (ScanHit or WalkHit) as the
+// Trace sample s of one pixel, with `hit` (ScanHit) as the
 // closest hit and scatter_bounce after each hit; `sink` receives the state
 // entering every bounce and its winning slot.
 template <class Hit, class Sink = NoSink>
@@ -451,6 +440,66 @@ __device__ __forceinline__ PathEnd trace_sample(const Hit& hit, const Cam& cam,
     if (!scatter_bounce<Hit::kHbm>(hit.sc, st, s, b, max_depth, rr_start, win, t, o, d,
                                    atten))
       return {b, false, {0.0f, 0.0f, 0.0f}};
+  }
+}
+
+// The regenerating loop of one lane (kernel 1, kernel 2's park render,
+// kernel 4): samples [s, budget) of one pixel, one traced segment an
+// iteration. At bounce 0 the iteration starts the sample's primary ray;
+// then the closest hit; a miss banks atten * sky and a scatter that ends
+// the path ends it black; either way the lane moves to its next sample,
+// which starts at the next iteration. A lane thus pays its own segments
+// and not, sample by sample, the longest path of its warp, as a loop over
+// trace_sample would (a warp leaves a loop only when all its lanes have).
+// Each lane's arithmetic and the order of its samples are trace_sample's,
+// so sums over on_end are the same bits. on_bounce(b, entry) receives the
+// state entering each bounce and its winning slot (-1 at the miss);
+// on_end(PathEnd) each sample's end, in sample order.
+//
+// A Hit with kLockstep (StagedWalk) must be called by every lane of its
+// mask together: the loop then runs while any lane of the mask has
+// samples left, and a lane whose budget is spent calls the walk with
+// live = false.
+template <class Hit, class OnBounce, class OnEnd>
+__device__ __forceinline__ void regen_lane(const Hit& hit, const Cam& cam, const Stream& st,
+                                           float fi, float fj, uint32_t s, float budget,
+                                           int max_depth, int rr_start, bool legacy_sky,
+                                           OnBounce&& on_bounce, OnEnd&& on_end) {
+  V3 o = {0.0f, 0.0f, 0.0f}, d = o, prim_d = o, atten = o;
+  int b = 0;
+  for (;;) {
+    const bool live = (float)s < budget;
+    if constexpr (Hit::kLockstep) {
+      if (!__any_sync(hit.mask, live)) break;
+    } else if (!live) {
+      break;
+    }
+    if (live && b == 0) {
+      primary_ray(cam, fi, fj, st, s, o, d);
+      prim_d = d;
+      atten = {1.0f, 1.0f, 1.0f};
+    }
+    int win;
+    float t;
+    bool found;
+    if constexpr (Hit::kLockstep) {
+      found = hit(o, d, live, win, t);
+      if (!live) continue;
+    } else {
+      found = hit(o, d, win, t);
+    }
+    on_bounce(b, Entry{o, d, atten, found ? win : -1});
+    if (!found) {
+      on_end(PathEnd{b, true, atten * sky(legacy_sky ? prim_d : d)});
+    } else if (!scatter_bounce<Hit::kHbm>(hit.sc, st, s, b, max_depth, rr_start, win, t, o,
+                                          d, atten)) {
+      on_end(PathEnd{b, false, {0.0f, 0.0f, 0.0f}});
+    } else {
+      ++b;
+      continue;
+    }
+    ++s;
+    b = 0;
   }
 }
 

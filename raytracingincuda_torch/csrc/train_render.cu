@@ -13,15 +13,16 @@
 // radiance sum, the cotangents of the scene matrix's columns 0-8 (centre,
 // radius, albedo, fuzz, ior) and of the 18 camera scalars, under the
 // detached-sampler convention (ops/backward.py). Kernel 2: the regen render
-// of every lane's pixel (path_common.cuh's trace_sample, so the image equals
+// of every lane's pixel (path_common.cuh's regen_lane, so the image equals
 // regen_render's bit for bit), the pointwise image, loss term and g (mse,
 // l1, huber or relmse, through 1/spp and gamma), then kernel 3's reverse
 // with that g.
 //
 // Kernel 2 is two launches per window of lanes; kernel 3 is the second.
-//   1. park_render_kernel: regen_render's loop at regen_render's resources
-//      (the staged scene and nothing else in shared memory, no stack), so
-//      it runs at the regen kernel's occupancy. Each sample's winning slots
+//   1. park_render_kernel: regen_render's loop (path_common.cuh's
+//      regen_lane) at regen_render's resources (the staged scene and
+//      nothing else in shared memory, no stack), so it runs at the regen
+//      kernel's occupancy. Each sample's winning slots
 //      are appended to the lane's park column: one int32 per bounce, -1 at
 //      the miss, and a single -2 for a path that ends black (it passes
 //      nothing back). Entry j of lane i sits at j * lanes + i (64-bit
@@ -75,8 +76,9 @@ constexpr int kMaxSmem = 232448;  // bytes a Hopper block may take
 constexpr size_t kReverseStatic = sizeof(float) * kGradCols * kBlock;
 constexpr int32_t kParkedBlack = -2;
 
-// trace_sample's sinks: the reverse's per-thread stack, and the park
-// render's column, which takes the winning slot of each bounce.
+// Where the entry of each bounce goes: the reverse's per-thread stack
+// (trace_sample), and the park render's column (regen_lane), which takes
+// the winning slot of each bounce.
 struct StackSink {
   Entry* stack;
   __device__ __forceinline__ void operator()(int b, const Entry& e) const { stack[b] = e; }
@@ -129,21 +131,20 @@ __global__ void __launch_bounds__(kBlock) park_render_kernel(ParkParams p) {
   ParkSink sink{p.park ? p.park + i : nullptr, (size_t)p.lanes, p.capacity};
   int parked = 0, used = 0;
   V3 rad = {0.0f, 0.0f, 0.0f};
-  for (uint32_t s = 0; (int)s < p.samples; ++s) {
-    const PathEnd e = trace_sample(hit, cam, st, fi, fj, s, p.max_depth, p.rr_start, false,
-                                   sink);
-    if (e.missed) rad = rad + e.contrib;
-    const int entries = e.missed ? e.bounce + 1 : 1;
-    if (entries <= sink.room) {
-      if (!e.missed) sink.col[0] = kParkedBlack;
-      sink.col += (size_t)entries * sink.stride;
-      sink.room -= entries;
-      used += entries;
-      ++parked;
-    } else {
-      sink.room = 0;
-    }
-  }
+  regen_lane(hit, cam, st, fi, fj, 0u, (float)p.samples, p.max_depth, p.rr_start, false, sink,
+             [&](const PathEnd& e) {
+               if (e.missed) rad = rad + e.contrib;
+               const int entries = e.missed ? e.bounce + 1 : 1;
+               if (entries <= sink.room) {
+                 if (!e.missed) sink.col[0] = kParkedBlack;
+                 sink.col += (size_t)entries * sink.stride;
+                 sink.room -= entries;
+                 used += entries;
+                 ++parked;
+               } else {
+                 sink.room = 0;
+               }
+             });
   const V3 row = {p.target[i], p.target[p.stride + i], p.target[2 * p.stride + i]};
   V3 img;
   float loss_term;

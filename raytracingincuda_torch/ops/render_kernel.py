@@ -14,7 +14,10 @@ Two implementations share one signature:
     ``_regen_body`` recurrence, one wave at a time over all lanes.
 
 ``_regen`` picks the kernel for CUDA tensors and the plain version only
-for CPU tensors; nothing falls back from one to the other.
+for CPU tensors; nothing falls back from one to the other. The kernel's
+count mode (``regen_counts``, with ``regen_counts_reference``,
+``sample_segments`` and ``warp_iterations`` beside it) counts what each
+warp's loop runs instead of rendering.
 
 Around them sit the host plumbing (``_lane_setup``, ``_finalize_output``),
 ``render_kernel`` (the ``render_pallas`` counterpart), the difficulty
@@ -352,6 +355,113 @@ def regen_kernel(ids, ii, jj, budget, scene_mat, cam_row, *, samples: int,
         raise RuntimeError(f"regen_render launch failed: CUDA error {err}")
     LAUNCHES += 1
     return out
+
+
+_COUNT_ARGTYPES = [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # ids, ii, jj
+    ctypes.c_void_p,   # budget
+    ctypes.c_void_p,   # scene, SoA (11, N)
+    ctypes.c_int,      # N
+    ctypes.c_void_p,   # cam row
+    ctypes.c_void_p,   # segments per lane (padded,) f32
+    ctypes.c_void_p,   # hit-test issues per warp (padded // 32,) int32
+    ctypes.c_int,      # padded
+    ctypes.c_int,      # max_depth
+    ctypes.c_uint32, ctypes.c_uint32,   # key words
+    ctypes.c_int,      # sample_offset
+    ctypes.c_int,      # rr_start (-1 = off)
+    ctypes.c_int,      # legacy_sky
+    ctypes.c_int,      # hbm layout
+    ctypes.c_void_p,   # cudaStream_t
+]
+LOOPS = ("regen", "nested")
+WARP = 32
+
+
+def regen_counts(ids, ii, jj, budget, scene_mat, cam_row, *, samples: int,
+                 max_depth: int, seed: int = rtrng.DEFAULT_SEED,
+                 legacy_sky: bool = False, rr_start=None,
+                 sample_offset: int = 0, layout: str = "vmem"):
+    """The kernel's count mode on the card: the render's loop, counting
+    instead of rendering. Returns (segments per lane (padded,) f32,
+    hit-test issues per warp of 32 lanes (padded // 32,) int32): the times
+    the warp ran the closest-hit scan, as the leader of each group of lanes
+    that ran it together counted them. ``regen_counts_reference`` is its
+    plain version."""
+    if ids.device.type != "cuda":
+        raise ValueError(f"regen_counts takes CUDA tensors, got {ids.device}")
+    rr_start = _check_args(ids, ii, jj, budget, scene_mat, cam_row,
+                           samples=samples, max_depth=max_depth,
+                           rr_start=rr_start, sample_offset=sample_offset,
+                           layout=layout)
+    from . import _build
+
+    launch = _build.function("regen_counts", _COUNT_ARGTYPES)
+    padded = ids.shape[0]
+    soa = scene_mat[:, :USED_COLS].t().contiguous()
+    seg = torch.empty((padded,), dtype=torch.float32, device=ids.device)
+    issues = torch.empty((padded // WARP,), dtype=torch.int32,
+                         device=ids.device)
+    k0, k1 = rtrng.key_from_seed(seed)
+    err = launch(ids.data_ptr(), ii.data_ptr(), jj.data_ptr(),
+                 budget.data_ptr(), soa.data_ptr(), scene_mat.shape[0],
+                 cam_row.data_ptr(), seg.data_ptr(), issues.data_ptr(), padded,
+                 max_depth, k0, k1, sample_offset,
+                 -1 if rr_start is None else rr_start, int(legacy_sky),
+                 int(layout == "hbm"),
+                 torch.cuda.current_stream(ids.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"regen_counts launch failed: CUDA error {err}")
+    return seg, issues
+
+
+def sample_segments(ids, ii, jj, budget, scene_mat, cam_row, *, samples: int,
+                    sample_offset: int = 0, **kw) -> torch.Tensor:
+    """(samples, padded) f32: the segments each lane traces in each of its
+    samples, one render a sample (``emit_depth`` with a one-sample budget),
+    on the kernel for CUDA tensors and the plain version for CPU tensors.
+    A lane whose budget ends before a sample traces 0 segments in it."""
+    rows = []
+    for s in range(sample_offset, sample_offset + samples):
+        one = torch.clamp(budget, max=float(s + 1)).contiguous()
+        rows.append(_regen(ids, ii, jj, one, scene_mat, cam_row, samples=1,
+                           sample_offset=s, emit_depth=True, **kw)[0])
+    return torch.stack(rows)
+
+
+def warp_iterations(seg: torch.Tensor, loop: str = "regen") -> torch.Tensor:
+    """Iterations of the closest-hit loop that each warp of 32 lanes runs,
+    from per-sample segments ``seg`` (samples, padded): under the
+    regenerating loop (``'regen'``) its longest lane's total; under a loop
+    over samples around each sample's bounce loop (``'nested'``, kernel 1
+    before it regenerated, whose lanes wait at each sample's end for the
+    warp's longest path) the sum over samples of the sample's longest path
+    in the warp. float64 (padded // 32,)."""
+    if loop not in LOOPS:
+        raise ValueError(f"loop must be one of {LOOPS}, got {loop!r}")
+    per = seg.double().reshape(seg.shape[0], -1, WARP)
+    if loop == "regen":
+        return per.sum(0).amax(1)
+    return per.amax(2).sum(0)
+
+
+def regen_counts_reference(ids, ii, jj, budget, scene_mat, cam_row, *,
+                           samples: int, max_depth: int,
+                           seed: int = rtrng.DEFAULT_SEED,
+                           legacy_sky: bool = False, rr_start=None,
+                           sample_offset: int = 0, layout: str = "vmem"):
+    """Plain version of the count mode: (segments per lane (padded,) f32,
+    iterations per warp (padded // 32,) int32), the second from the lanes'
+    per-sample segments (``sample_segments``, ``warp_iterations``)."""
+    seg = sample_segments(ids, ii, jj, budget, scene_mat, cam_row,
+                          samples=samples, sample_offset=sample_offset,
+                          max_depth=max_depth, seed=seed,
+                          legacy_sky=legacy_sky, rr_start=rr_start,
+                          layout=layout)
+    total = seg[0]
+    for row in seg[1:]:     # in sample order, as the kernel adds them
+        total = total + row
+    return total, warp_iterations(seg).to(torch.int32)
 
 
 def _regen(ids, *args, **kw) -> torch.Tensor:

@@ -53,8 +53,11 @@ STREAM_COL_SID = 11
 # the cap stays so that block sizes (and so arrays) match the JAX package's.
 _MAX_BLOCKS = 1792
 
-# Launches of the CUDA kernel (``stream_kernel`` adds one per launch).
+# Launches of the CUDA kernel (``stream_kernel`` adds one per launch), and
+# of the scan-table kernel that builds the walk's input before each launch
+# of kernel 4 or kernel 5 (``stream_train_kernel``).
 LAUNCHES = 0
+SCAN_LAUNCHES = 0
 
 
 class StreamScene(NamedTuple):
@@ -240,8 +243,12 @@ class _Walk:
     """The stream walk's closest hit, plain version: ``hit_world``'s
     contract over the stream rows. Per bounds row in order, the bound test
     per lane; the lanes that pass (and trace this wave) merge the block's
-    hit (``hit_world`` on its rows) where ``t_b < t_cur``. ``opened``
-    counts the (lane, block) pairs opened: the kernel's work."""
+    hit (``hit_world`` on its rows) where ``t_b < t_cur``. After
+    ``count(lanes, device)`` it counts the kernel's work: the blocks each
+    lane opened, and per warp of 32 lanes the blocks any of its lanes opened at
+    each call, the union that the kernel's warp tests (a call is one wave,
+    one traced segment per tracing lane, as one iteration of the kernel's
+    regenerating loop)."""
 
     def __init__(self, scene_mat: torch.Tensor, bounds: torch.Tensor,
                  block: int):
@@ -249,7 +256,12 @@ class _Walk:
         self.first = [int(v) for v in bounds[:, 4].tolist()]
         self.blocks = [rk.scene_from_matrix(scene_mat[k:k + block])
                        for k in self.first]
-        self.opened = 0
+        self.opened = self.fetched = None
+
+    def count(self, lanes: int, device):
+        self.opened = torch.zeros(lanes, dtype=torch.int64, device=device)
+        self.fetched = torch.zeros(lanes // rk.WARP, dtype=torch.int64,
+                                   device=device)
 
     def __call__(self, o, d, active) -> HitResult:
         a = vec.maximum(vec.length_sq(d), 1e-12)
@@ -259,10 +271,11 @@ class _Walk:
         win = torch.zeros(a.shape, dtype=torch.int64, device=a.device)
         for b, k0, blk in zip(self.bounds, self.first, self.blocks):
             can = active & _block_bound_any_hit(b, o, d, a, d_dot_o, o2, t_cur)
-            n_can = int(can.sum())
-            if n_can == 0:
+            if not bool(can.any()):
                 continue
-            self.opened += n_can
+            if self.opened is not None:
+                self.opened += can
+                self.fetched += can.view(-1, rk.WARP).any(1)
             h = hit_world(blk, o, d)
             better = can & h.hit & (h.t < t_cur)
             t_cur = torch.where(better, h.t, t_cur)
@@ -306,9 +319,11 @@ def stream_reference(ids, ii, jj, budget, scene_mat, bounds, cam_row, *,
                      emit_stats: bool = False) -> torch.Tensor:
     """Plain PyTorch version of the stream kernel; ``regen_reference``'s
     contract with the stream matrix and its bounds in place of the scene.
-    With ``emit_stats`` it returns the work instead of the image: a (2,)
-    tensor of the traced segments and the (lane, block) pairs the walk
-    opened, over all lanes."""
+    With ``emit_stats`` it returns the work instead of the image, a (3,
+    padded) f32 tensor: each lane's traced segments, the blocks its walk
+    opened, and at each warp's first lane the blocks that the warp of 32
+    lanes tested (at each iteration of the regenerating loop, the union of
+    its lanes' opened blocks; 0 at the other lanes)."""
     rr_start = _check(ids, ii, jj, budget, scene_mat, bounds, cam_row,
                       block=block, samples=samples, max_depth=max_depth,
                       rr_start=rr_start, sample_offset=sample_offset)
@@ -316,20 +331,24 @@ def stream_reference(ids, ii, jj, budget, scene_mat, bounds, cam_row, *,
     walk = _Walk(scene_mat, bounds, block)
     scene = rk.scene_from_matrix(scene_mat)
     cam = rk.unpack_camera(cam_row)
-    outs = [
-        rk._regen_lanes(*lanes, scene, cam, samples=samples,
-                        max_depth=max_depth, seed=seed, legacy_sky=False,
-                        emit_depth=emit_stats, rr_start=rr_start,
-                        sample_offset=sample_offset,
-                        finalize_scale=finalize_scale, hit_fn=walk)
-        for lanes in zip(ids.split(chunk), ii.split(chunk), jj.split(chunk),
-                         budget.split(chunk))
-    ]
-    out = torch.cat(outs, dim=1)
-    if emit_stats:
-        return torch.tensor([float(out.sum()), float(walk.opened)],
-                            dtype=torch.float64)
-    return out
+    outs = []
+    for lanes in zip(ids.split(chunk), ii.split(chunk), jj.split(chunk),
+                     budget.split(chunk)):
+        if emit_stats:
+            walk.count(lanes[0].shape[0], lanes[0].device)
+        out = rk._regen_lanes(*lanes, scene, cam, samples=samples,
+                              max_depth=max_depth, seed=seed,
+                              legacy_sky=False, emit_depth=emit_stats,
+                              rr_start=rr_start, sample_offset=sample_offset,
+                              finalize_scale=finalize_scale, hit_fn=walk)
+        if emit_stats:
+            fetched = torch.zeros((walk.fetched.shape[0], rk.WARP),
+                                  device=out.device)
+            fetched[:, 0] = walk.fetched.float()
+            out = torch.cat([out, walk.opened.float()[None],
+                             fetched.reshape(1, -1)])
+        outs.append(out)
+    return torch.cat(outs, dim=1)
 
 
 # -- the CUDA launcher ----------------------------------------------------------
@@ -338,6 +357,7 @@ _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
 _C_ARGTYPES = [
     _P, _P, _P, _P,     # ids (int32), ii, jj, budget
     _P, _I,             # stream matrix SoA (11, rows), rows
+    _P,                 # scan table (rows, 4), written by the call
     _P, _I, _I,         # bounds (nb, 8), nb, block
     _P,                 # cam row
     _P, _I, _I,         # out, padded, max_depth
@@ -354,17 +374,23 @@ def soa(scene_mat: torch.Tensor) -> torch.Tensor:
     return scene_mat[:, :rk.USED_COLS].t().contiguous()
 
 
+def scan_buffer(scene_mat: torch.Tensor) -> torch.Tensor:
+    """Room for the (rows, 4) scan table that each kernel-4 or kernel-5
+    call builds from the stream matrix (cx, cy, cz, |C|^2 - r^2 or NaN)."""
+    return torch.empty((scene_mat.shape[0], 4), dtype=torch.float32,
+                       device=scene_mat.device)
+
+
 def stream_kernel(ids, ii, jj, budget, scene_mat, bounds, cam_row, *,
                   block: int, samples: int, max_depth: int,
                   seed: int = rtrng.DEFAULT_SEED, rr_start=None,
                   sample_offset: int = 0,
                   finalize_scale: Optional[float] = None,
                   emit_stats: bool = False) -> torch.Tensor:
-    """Launch the CUDA stream kernel; same contract as
-    ``stream_reference``, except that ``emit_stats`` returns the per-lane
-    counts, a (2, padded) f32 tensor (traced segments, opened blocks).
+    """Launch the CUDA stream kernel, after the scan-table kernel that
+    builds its walk's input; same contract as ``stream_reference``.
     Launches on the current stream without synchronising."""
-    global LAUNCHES
+    global LAUNCHES, SCAN_LAUNCHES
     if ids.device.type != "cuda":
         raise ValueError(f"stream_kernel takes CUDA tensors, got {ids.device}")
     rr_start = _check(ids, ii, jj, budget, scene_mat, bounds, cam_row,
@@ -374,14 +400,14 @@ def stream_kernel(ids, ii, jj, budget, scene_mat, bounds, cam_row, *,
 
     launch = _build.function("stream_render", _C_ARGTYPES)
     padded = ids.shape[0]
-    rows = soa(scene_mat)
-    out = torch.empty((2 if emit_stats else 3, padded), dtype=torch.float32,
-                      device=ids.device)
+    rows, scan = soa(scene_mat), scan_buffer(scene_mat)
+    out = torch.empty((3, padded), dtype=torch.float32, device=ids.device)
     k0, k1 = rtrng.key_from_seed(seed)
     err = launch(
         ids.data_ptr(), ii.data_ptr(), jj.data_ptr(), budget.data_ptr(),
-        rows.data_ptr(), scene_mat.shape[0], bounds.data_ptr(),
-        bounds.shape[0], block, cam_row.data_ptr(), out.data_ptr(), padded,
+        rows.data_ptr(), scene_mat.shape[0], scan.data_ptr(),
+        bounds.data_ptr(), bounds.shape[0], block, cam_row.data_ptr(),
+        out.data_ptr(), padded,
         max_depth, k0, k1, sample_offset,
         -1 if rr_start is None else rr_start,
         int(finalize_scale is not None),
@@ -391,6 +417,7 @@ def stream_kernel(ids, ii, jj, budget, scene_mat, bounds, cam_row, *,
     if err != 0:
         raise RuntimeError(f"stream_render launch failed: CUDA error {err}")
     LAUNCHES += 1
+    SCAN_LAUNCHES += 1
     return out
 
 

@@ -339,9 +339,7 @@ _COUNT_ARGTYPES = [
 def _scan_table(scene_mat):
     """The kernels' inputs from a stream matrix: its SoA, and room for the
     (rows, 4) scan table that each launch builds from it."""
-    return sk.soa(scene_mat), torch.empty((scene_mat.shape[0], 4),
-                                          dtype=torch.float32,
-                                          device=scene_mat.device)
+    return sk.soa(scene_mat), sk.scan_buffer(scene_mat)
 
 
 def train_records(ids, ii, jj, rows, scene_mat, bounds, cam_row, *, block,
@@ -381,6 +379,7 @@ def train_records(ids, ii, jj, rows, scene_mat, bounds, cam_row, *, block,
                  cam_part.data_ptr(), loss_part.data_ptr(), tk._stream(ids))
     tk._raise_on(err, "stream_train_render")
     LAUNCHES += 1
+    sk.SCAN_LAUNCHES += 1
     return image, rec_row, rec_val, cam_part, loss_part
 
 
@@ -415,6 +414,7 @@ def walk_counts(ids, ii, jj, scene_mat, bounds, cam_row, *, block: int,
                         k1, opened.data_ptr(), fetched.data_ptr(),
                         tk._stream(ids)), "stream_walk_counts")
     LAUNCHES += 1
+    sk.SCAN_LAUNCHES += 1
     return opened, fetched
 
 

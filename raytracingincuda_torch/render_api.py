@@ -1,10 +1,11 @@
 """Renderer factory: config + device -> ``renderer(scene, cam_cfg) -> image``.
 
 ``impl='kernel'`` is the main path, the counterpart of the JAX package's
-``make_renderer(impl='pallas')``: a difficulty prepass (the same kernel
-with ``return_depth``) orders the pixels so that each warp holds pixels
-of similar traced depth, then the regeneration kernel renders in that
-order. ``impl='stream'`` (and ``layout='packed'``, the texture-path
+``make_renderer(impl='pallas')``: the regeneration kernel renders the
+pixels in raster order. The JAX renderer orders them by a difficulty
+prepass first; on the card, where raster neighbours already share their
+traced depth, that order made the kernel slower (``PERF.md``), so this
+renderer takes none. ``impl='stream'`` (and ``layout='packed'``, the texture-path
 analog, which routes there as in JAX) renders through the stream kernel
 (``ops/stream_kernel.py``): a prepared scene of any size, walked in
 culled sphere blocks. ``impl='oracle'`` runs the plain PyTorch tracer.
@@ -129,7 +130,7 @@ def make_f64_renderer(cfg: RenderConfig, check) -> Callable:
     ``make_df64_renderer``. Returns ``renderer(scene, cam_cfg) -> (H, W,
     3)`` float64 (JAX returns (H, W, 3, 2) f32 hi/lo pairs). At >= 8 spp
     and > 4 bounces the lanes take the difficulty order of the f32
-    prepass (kernel 1, ``cfg.layout``), cached as the f32 renderer's:
+    prepass (kernel 1, ``cfg.layout``), cached by the scene's shapes:
     the order changes speed only. The packed scene matrix is cached by
     the scene's identity; ``prepare`` packs it ahead."""
     if cfg.dtype != "float64":
@@ -190,14 +191,11 @@ def make_renderer(cfg: RenderConfig, device) -> Callable:
     if cfg.impl == "stream" or cfg.layout == "packed":
         return _stream_renderer(cfg, check)
 
-    order_cache: dict = {}
-
     def renderer(scene, cam_cfg):
         check(scene)
         return render_kernel.render_kernel(
             scene, cam_cfg, cfg.width, cfg.height, cfg.samples, cfg.bounces,
             seed=cfg.seed, layout=cfg.layout, legacy_sky=cfg.legacy_sky,
-            rr_start=cfg.rr_start,
-            pixel_order=_prepass_order(cfg, scene, cam_cfg, order_cache))
+            rr_start=cfg.rr_start)
 
     return renderer

@@ -23,13 +23,19 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.mark.parametrize("rr_start", [None, 2])
-def test_make_renderer_cpu_equals_plain_version(rr_start):
-    """samples >= 8 and bounces > 4: the prepass orders the lanes, which
-    changes nothing in the image."""
+def test_make_renderer_cpu_equals_plain_version(rr_start, monkeypatch):
+    """samples >= 8 and bounces > 4: the renderer runs no difficulty
+    prepass (kernel 1 renders in raster order), and its image is the plain
+    version's."""
     cfg = RenderConfig(scene_id=2, width=20, height=12, samples=8, bounces=5,
                        rr_start=rr_start)
     scene, cam = build_scene(2), CameraConfig.reference_default()
+    calls = []
+    real = rk.measure_difficulty
+    monkeypatch.setattr(rk, "measure_difficulty",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
     img = make_renderer(cfg, "cpu")(scene, cam)
+    assert calls == []
     inputs = rk.regen_inputs(scene, cam, 20, 12, 8)
     want = rk.regen_reference(*inputs, samples=8, max_depth=5,
                               rr_start=rr_start, finalize_scale=1 / 8)
@@ -46,17 +52,20 @@ def test_make_renderer_oracle_impl():
 
 
 def test_make_renderer_order_cache_by_shape(monkeypatch):
-    """A rebuilt scene of the same shapes reuses the prepass order."""
-    cfg = RenderConfig(scene_id=2, width=16, height=8, samples=8, bounces=5)
+    """A rebuilt scene of the same shapes reuses the prepass order (the
+    stream renderer orders one-block scenes)."""
+    cfg = RenderConfig(scene_id=2, width=16, height=8, samples=8, bounces=5,
+                       impl="stream")
     r = make_renderer(cfg, "cpu")
     cam = CameraConfig.reference_default()
-    first = r(build_scene(2), cam)
     calls = []
     real = rk.measure_difficulty
     monkeypatch.setattr(rk, "measure_difficulty",
                         lambda *a, **k: calls.append(1) or real(*a, **k))
+    first = r(build_scene(2), cam)
+    assert calls == [1]
     assert torch.equal(r(build_scene(2), cam), first)
-    assert calls == []
+    assert calls == [1]
 
 
 @pytest.mark.parametrize("kw, exc", [

@@ -210,3 +210,93 @@ def test_kernel_matches_goldens_on_card(cuda, scene_id):
     assert ppm.passes_cross_framework_gate(st), st
     cpu = ttr.render(t_build(scene_id), cam, 48, 30, 4, 8)
     assert torch.equal(img.cpu(), cpu)
+
+
+def _budgets(seed, top):
+    return np.random.default_rng(seed).integers(0, top + 1, W * H)
+
+
+@pytest.mark.parametrize("rr_start", [None, 2])
+def test_plain_counts_vs_segments_and_pallas(rr_start):
+    """The count mode's plain version at the prepass test's shape, with
+    per-pixel budgets: its lane totals are the plain render's emit_depth
+    segments bit for bit; its warp iterations, from per-sample segments,
+    are the regenerating warp's longest lane (at most the per-sample wait
+    of the nested loop); and the same counts from the JAX kernel's
+    per-sample segments (interpret mode, so XLA's fused multiply-adds can
+    end a path at another bounce, as in the prepass test) agree."""
+    spp, depth = 4, 8
+    nb = _budgets(3, spp)
+    inputs = rk.regen_inputs(t_build(1), TCam.reference_default(), W, H, spp,
+                             sample_budgets=torch.from_numpy(nb))
+    kw = dict(samples=spp, max_depth=depth, rr_start=rr_start)
+    seg, regen = rk.regen_counts_reference(*inputs, **kw)
+    per = rk.sample_segments(*inputs, **kw)
+    nested = rk.warp_iterations(per, "nested")
+    want = rk.regen_reference(*inputs, emit_depth=True, **kw)[0]
+    assert torch.equal(seg, want) and torch.equal(per.sum(0), want)
+    assert torch.equal(regen.double(), seg.double().view(-1, rk.WARP).amax(1))
+    assert bool((nested >= regen).all()) and bool((nested > regen).any())
+    per_jax = np.stack([np.asarray(_pallas(1, 1, depth, gamma=False,
+                                       return_depth=True, sample_offset=s,
+                                       sample_budgets=(nb > s).astype(np.int32),
+                                       rr_start=rr_start)[1])
+                    for s in range(spp)])
+    jax_seg = torch.from_numpy(per_jax.astype(np.float32))
+    assert (jax_seg.sum(0) == seg).float().mean() >= 0.95
+    for loop, mine in (("regen", regen.double()), ("nested", nested)):
+        theirs = rk.warp_iterations(jax_seg, loop)
+        rel = (theirs - mine).abs() / mine
+        assert float(rel.max()) <= 0.1, (loop, theirs, mine)
+
+
+def test_warp_iterations_by_hand():
+    """Two warps, three samples: per-lane totals and per-sample maxima."""
+    seg = torch.zeros((3, 2 * rk.WARP))
+    seg[:, 0] = torch.tensor([1.0, 5.0, 1.0])     # warp 0: one long lane
+    seg[:, 1] = torch.tensor([4.0, 1.0, 4.0])
+    seg[:, rk.WARP:] = 2.0                        # warp 1: all equal
+    assert rk.warp_iterations(seg).tolist() == [9.0, 6.0]
+    assert rk.warp_iterations(seg, "nested").tolist() == [13.0, 6.0]
+    with pytest.raises(ValueError):
+        rk.warp_iterations(seg, "wave")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["vmem", "hbm"])
+def test_kernel_equals_plain_legacy_budgets_prepass_on_card(cuda, layout):
+    """The regenerating loop against the plain version with legacy_sky, with
+    per-pixel budgets from a sample offset, and as the prepass."""
+    s, cam = t_build(1, device=cuda), TCam.reference_default()
+    inputs = rk.regen_inputs(s, cam, 64, 40, 4)
+    kw = dict(samples=4, max_depth=10, legacy_sky=True, layout=layout)
+    assert torch.equal(rk.regen_kernel(*inputs, **kw),
+                       rk.regen_reference(*inputs, **kw))
+    nb = torch.from_numpy(np.random.default_rng(4).integers(0, 5, 64 * 40))
+    inputs = rk.regen_inputs(s, cam, 64, 40, 4, sample_offset=3,
+                             sample_budgets=nb)
+    for extra in (dict(rr_start=2), dict(emit_depth=True)):
+        kw = dict(samples=4, max_depth=10, sample_offset=3, layout=layout,
+                  **extra)
+        assert torch.equal(rk.regen_kernel(*inputs, **kw),
+                           rk.regen_reference(*inputs, **kw))
+    seg = rk.measure_difficulty(s, cam, 64, 40, 8, 6, layout=layout)
+    assert torch.equal(seg.cpu(), rk.measure_difficulty(
+        t_build(1), cam, 64, 40, 8, 6, layout=layout))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["vmem", "hbm"])
+@pytest.mark.parametrize("rr_start", [None, 2])
+def test_count_mode_equals_plain_count_on_card(cuda, layout, rr_start):
+    """The card's hit-test issues per warp equal the plain count from
+    per-sample segments: the regenerating loop's warps issue the scan once
+    for each segment of their longest lane."""
+    nb = torch.from_numpy(np.random.default_rng(5).integers(0, 7, 64 * 40))
+    inputs = rk.regen_inputs(t_build(1, device=cuda), TCam.reference_default(),
+                             64, 40, 6, sample_budgets=nb)
+    kw = dict(samples=6, max_depth=12, rr_start=rr_start, layout=layout)
+    seg, issues = rk.regen_counts(*inputs, **kw)
+    p_seg, p_iter = rk.regen_counts_reference(*inputs, **kw)
+    assert torch.equal(seg, p_seg)
+    assert torch.equal(issues, p_iter)

@@ -209,8 +209,36 @@ def test_render_stream_contract(small):
     seg = rk.regen_reference(ids, ii, jj, bud, st.scene_mat, row,
                              samples=SPP, max_depth=DEPTH, emit_depth=True,
                              layout="hbm")
-    assert float(stats[0]) == float(seg.sum())
-    assert 0 < float(stats[1]) < float(stats[0]) * st.n_blocks
+    assert torch.equal(stats[0], seg[0])
+    assert 0 < float(stats[1].sum()) < float(stats[0].sum()) * st.n_blocks
+
+
+@pytest.mark.parametrize("rr", [None, 2])
+def test_plain_warp_union_between_max_and_sum_of_opened(small, rr):
+    """The plain walk's warp-union count, with per-pixel budgets: each warp
+    tests at least the blocks of its busiest lane and at most the sum of
+    its lanes' opened blocks; the count sits at each warp's first lane, and
+    the lanes' segments are the brute-force plain render's."""
+    _, ts = small
+    cam = TCam.reference_default()
+    st = sk.prepare_stream_scene(ts, block=64,
+                                 camdist_from=initialize(cam, W, H).center)
+    nb = torch.from_numpy(np.random.default_rng(6).integers(0, 4, W * H))
+    ids, ii, jj, bud, _, row = rk.regen_inputs(ts, cam, W, H, 3,
+                                               sample_budgets=nb)
+    kw = dict(samples=3, max_depth=DEPTH, rr_start=rr)
+    stats = sk.stream_reference(ids, ii, jj, bud, st.scene_mat, st.bounds,
+                                row, block=64, emit_stats=True, **kw)
+    assert stats.shape == (3, ids.shape[0])
+    seg = rk.regen_reference(ids, ii, jj, bud, st.scene_mat, row,
+                             emit_depth=True, layout="hbm", **kw)
+    assert torch.equal(stats[0], seg[0])
+    opened = stats[1].view(-1, 32)
+    fetched = stats[2].view(-1, 32)
+    assert not bool(fetched[:, 1:].any())
+    assert bool((fetched[:, 0] >= opened.amax(1)).all())
+    assert bool((fetched[:, 0] <= opened.sum(1)).all())
+    assert bool((fetched[:, 0] < opened.sum(1)).any())
 
 
 def test_stream_arguments_raise(small):
@@ -256,9 +284,9 @@ def test_stream_kernel_equals_plain_version_on_card(cuda, rr):
     assert sk.LAUNCHES == before + 2
     assert torch.equal(got, again)
     assert torch.equal(got, sk.stream_reference(*args, **kw))
-    counts = sk.stream_kernel(*args, emit_stats=True, **kw).double().sum(1)
-    assert torch.equal(counts.cpu(), sk.stream_reference(
-        *args, emit_stats=True, **kw))
+    counts = sk.stream_kernel(*args, emit_stats=True, **kw)
+    assert torch.equal(counts, sk.stream_reference(*args, emit_stats=True,
+                                                   **kw))
 
 
 @pytest.mark.cuda
@@ -272,3 +300,35 @@ def test_packed_scene_one_block_on_card(cuda):
     got = sk.render_stream(st, cam, 64, 40, 4, 8, rr_start=2)
     want = rk.render_kernel(s, cam, 64, 40, 4, 8, rr_start=2, layout="hbm")
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", [256, 1024])
+@pytest.mark.parametrize("rr", [None, 2])
+def test_stream_kernel_equals_plain_and_kernel5_on_card(cuda, block, rr):
+    """Kernel 4's regenerating loop with the staged walk: its image equals
+    the plain version's and kernel 5's fused image bit for bit, in Morton
+    and front-to-back order, and its work counts (segments, opened blocks,
+    each warp's union) equal the plain walk's."""
+    from raytracingincuda_torch.ops import stream_train_kernel as stk
+
+    s = build_random_scene(20_000, seed=3, device=cuda)
+    cam = TCam.reference_default()
+    morton = sk.prepare_stream_scene(s, block=block)
+    front = sk.reorder_front_to_back(morton, initialize(cam, 64, 40).center)
+    assert morton.block == block
+    ids, ii, jj, bud, _, row = rk.regen_inputs(s, cam, 64, 40, 2)
+    tgt = torch.rand((3, ids.shape[0]), generator=torch.Generator()
+                     .manual_seed(7)).to(cuda)
+    for st in (morton, front):
+        args = (ids, ii, jj, bud, st.scene_mat, st.bounds, row)
+        kw = dict(block=block, samples=2, max_depth=6, rr_start=rr)
+        got = sk.stream_kernel(*args, finalize_scale=0.5, **kw)
+        assert torch.equal(got, sk.stream_reference(*args, finalize_scale=0.5,
+                                                    **kw))
+        _, img5, _, _ = stk.fused_stream_kernel(
+            ids, ii, jj, tgt, st.scene_mat, st.bounds, row,
+            num_pixels=64 * 40, gamma=True, **kw)
+        assert torch.equal(got, img5)
+        assert torch.equal(sk.stream_kernel(*args, emit_stats=True, **kw),
+                           sk.stream_reference(*args, emit_stats=True, **kw))

@@ -18,7 +18,8 @@ CPU path):
              per warp against the lanes' mean segments, equal to
              warp_iterations of the kernel's per-sample segments, and
              those segments' count under the nested loop kernel 1 ran
-             before it regenerated
+             before it regenerated and under the compact kernel's
+             per-sample and refilling pools
   4 headline make_renderer at scene 1, 1280x768, 100 spp, 25 bounces,
              parity and rr2 (no difficulty order): one warm-up and 3 timed
              renders each (CUDA events), the kernel's launch count over
@@ -92,8 +93,9 @@ CPU path):
              and from run to run: scene 1 at 320x192x4spp/8b (both
              layouts) and at the headline's width (1280x768, 2 spp, 25b)
   16 f64 headline  make_renderer(dtype='float64') at scene 1, 1280x768,
-             100 spp, 25 bounces, parity, vmem, the f32 difficulty order:
-             one warm-up and 3 timed renders, launches, and the image's
+             100 spp, 25 bounces, parity, vmem, raster order (no f32
+             prepass): one warm-up and 3 timed renders, launches (the f64
+             kernel's alone), and the image's
              gap to phase 4's f32 parity image (mean |d| in 8-bit levels,
              share of components >= 1 level); the CLI with --dtype
              float64 at 320x192x10spp (its file equal to the renderer's
@@ -104,8 +106,11 @@ CPU path):
              with legacy_sky equal to the regen kernel's legacy image;
              render_kernel(mode='compact') at the headline (100 spp, 25b,
              parity): a warm-up and 3 timed renders beside 3 of the regen
-             kernel unsorted, the images bit-equal; one mode='simple'
-             render at the headline (kernel 1's launches) equal to them
+             kernel unsorted, the images bit-equal, the time ratio and the
+             ratio of warp scans (the refilling pool's blocks against kernel
+             1's warps, rk.warp_iterations on phase 4's segments); one
+             mode='simple' render at the headline (kernel 1's launches)
+             equal to them
 
 Then the kernels line (JSON, with each kernel's bound and, as
 bound_fmad_off_ms, the same bound with the operations at half the rate,
@@ -429,6 +434,10 @@ def main() -> int:
                "lane_mean_segments": mean,
                "issues_over_mean": float(issues.double().sum()) / mean,
                "nested_iterations": nested, "nested_over_mean": nested / mean}
+        # the compact kernel's block schedules on the same segments
+        for loop in ("compact", "pool"):
+            out[f"{loop}_over_mean"] = float(
+                rk.warp_iterations(per, loop).sum()) / mean
         if not (torch.equal(seg, per.sum(0))
                 and torch.equal(issues.double(), rk.warp_iterations(per))):
             raise AssertionError(f"count mode against its segments: {out}")
@@ -1348,7 +1357,7 @@ def main() -> int:
     scene = build_scene(1, device=dev)
     reset_counts()
     with RenderTimer(dev) as warm:
-        img64 = renderer(scene, cam)            # f32 prepass + render
+        img64 = renderer(scene, cam)
     times = []
     for _ in range(3):
         with RenderTimer(dev) as t:
@@ -1356,7 +1365,7 @@ def main() -> int:
         times.append(t.ms)
     f64_counts = read_counts("16 f64 headline")
     arr = img64.cpu().numpy()
-    if not (f64_counts["f64_render"] >= 4 and f64_counts["regen_render"] >= 1
+    if not (f64_counts["f64_render"] >= 4 and f64_counts["regen_render"] == 0
             and img64.dtype == torch.float64 and arr.shape == (768, 1280, 3)
             and np.isfinite(arr).all() and arr.min() >= 0.0
             and arr.max() <= 1.0):
@@ -1366,7 +1375,7 @@ def main() -> int:
         f32_headline.cpu().numpy()))
     best = min(times)
     record["f64_headline"] = {
-        "render_ms": times, "warmup_with_prepass_ms": warm.ms,
+        "render_ms": times, "warmup_ms": warm.ms,
         "launches": f64_counts,
         "vs_f32_parity": best / min(record["headline"]["parity"]["render_ms"]),
         "vs_reference_f64": REFERENCE_F64_HEADLINE_MS / best,
@@ -1464,17 +1473,27 @@ def main() -> int:
                              f"simple {simple_counts}, images equal "
                              f"{torch.equal(img_c, img_r)}, "
                              f"{torch.equal(img_s, img_r)}")
+    # warp scans over the lanes' mean segments at this shape (phase 4's
+    # count): kernel 1's warps, the refilling pool's blocks
+    scans = record["headline"]["parity"]["counts"]["unsorted"]
     record["compact_headline"] = {
         "render_ms": times, "warmup_ms": warm.ms, "launches": compact_counts,
         "regen_unsorted_ms": regen_times, "simple_launches": simple_counts,
-        "vs_regen_unsorted": min(times) / min(regen_times)}
+        "vs_regen_unsorted": min(times) / min(regen_times),
+        "pool_scans_over_mean": scans["pool_over_mean"],
+        "regen_scans_over_mean": scans["issues_over_mean"],
+        "pool_scans_vs_regen": scans["pool_over_mean"]
+        / scans["issues_over_mean"]}
     say("17 compact", f"headline render_kernel(mode='compact') render_ms "
         f"{', '.join(f'{t:.2f}' for t in times)} (warm-up {warm.ms:.2f}) "
         f"beside the regen kernel unsorted "
         f"{', '.join(f'{t:.2f}' for t in regen_times)}: "
-        f"{min(times) / min(regen_times):.3f}x; images bit-equal, and "
-        f"mode='simple' too; launches compact {nonzero(compact_counts)}, "
-        f"simple {nonzero(simple_counts)}")
+        f"{min(times) / min(regen_times):.3f}x in time; warp scans "
+        f"{scans['pool_over_mean']:.3f}x the lanes' mean against kernel 1's "
+        f"{scans['issues_over_mean']:.3f}x "
+        f"({record['compact_headline']['pool_scans_vs_regen']:.3f}x); "
+        f"images bit-equal, and mode='simple' too; launches compact "
+        f"{nonzero(compact_counts)}, simple {nonzero(simple_counts)}")
     del img_c, img_r, img_s
 
     # -- result lines ---------------------------------------------------------

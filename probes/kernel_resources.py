@@ -3,20 +3,23 @@
 kernels, and the loops of their machine code, on a machine with nvcc.
 
     PYTHONPATH=<tree> python3 probes/kernel_resources.py --tag NAME
-        [--functions SUBSTRING ...]
+        [--functions SUBSTRING ...] [--sources STEM ...]
 
-Compiles each ``csrc/*.cu`` of the package on ``PYTHONPATH`` with the
-package's own nvcc flags and ``-Xptxas -v`` into an object in a temporary
-directory, and reads per kernel what ptxas reports (registers, stack frame,
-spills, static shared memory). Blocks per SM follow for 128-thread blocks
-from the H100's limits (65,536 registers allocated 256 a warp, 233,472
-bytes of shared memory with 1 KB reserved a block, 2,048 threads, 32
-blocks), with each kernel's dynamic shared memory at the main path's
-shapes (the staged scene 1: 512 slots of 44 bytes; the stream walk's 32 KB
-of stage). For the kernels whose names contain one of ``--functions``,
-``cuobjdump -sass`` gives the machine code: every loop (a branch back to an
-earlier address) is listed with its length in instructions and its mix of
-opcodes, and the code goes to ``chiprun_out/sass_<tag>_<kernel>.txt``.
+Compiles each ``csrc/*.cu`` of the package on ``PYTHONPATH`` (or those
+named by ``--sources``, e.g. ``f64_render``) with the package's own nvcc
+flags and ``-Xptxas -v`` into an object in a temporary directory, and
+reads per kernel what ptxas reports (registers, stack frame, spills,
+static shared memory). Blocks per SM follow from the H100's limits
+(65,536 registers allocated 256 a warp, 233,472 bytes of shared memory
+with 1 KB reserved a block, 2,048 threads, 32 blocks) at each kernel's
+block size (the compact kernel's ``kTile``, its pool; else 128) and its
+dynamic shared memory at the main path's shapes (the staged scene 1: 512
+slots of 44 bytes, or of 32 bytes as the f64 kernel's double scan table;
+the stream walk's 32 KB of stage). For the kernels whose names contain
+one of ``--functions``, ``cuobjdump -sass`` gives the machine code: every
+loop (a branch back to an earlier address) is listed with its length in
+instructions and its mix of opcodes, and the code goes to
+``chiprun_out/sass_<tag>_<kernel>.txt``.
 Prints one JSON line and writes it to ``chiprun_out/resources_<tag>.json``.
 """
 from __future__ import annotations
@@ -33,13 +36,14 @@ from pathlib import Path
 
 REGS_PER_SM = 65536
 SMEM_PER_SM = 233472
-THREADS = 128
+THREADS = 128  # kBlock (path_common.cuh)
 # Dynamic shared memory a block takes on the main path, by kernel name
 # prefix: the staged scene 1, and the stream walk's stage where the tree's
 # stream kernel launches with one (kStageBytes in its source).
 DYNAMIC = {"regen_kernel<false>": 512 * 44, "count_kernel<false": 512 * 44,
            "park_render_kernel<false>": 512 * 44,
-           "reverse_kernel<false>": 512 * 44, "compact_kernel<false>": 512 * 44}
+           "reverse_kernel<false>": 512 * 44, "compact_kernel<false>": 512 * 44,
+           "f64_kernel<false>": 512 * 32}
 STAGE = 32768
 
 
@@ -69,12 +73,12 @@ def demangle(names):
     return dict(zip(names, out))
 
 
-def blocks_per_sm(regs: int, smem: int) -> int:
-    warps = THREADS // 32
+def blocks_per_sm(regs: int, smem: int, threads: int = THREADS) -> int:
+    warps = threads // 32
     per_warp = math.ceil(regs * 32 / 256) * 256
     by_regs = REGS_PER_SM // (per_warp * warps) if regs else 32
     by_smem = SMEM_PER_SM // (smem + 1024)
-    return min(32, 2048 // THREADS, by_regs, by_smem)
+    return min(32, 2048 // threads, by_regs, by_smem)
 
 
 def ptxas(text: str) -> dict:
@@ -153,7 +157,9 @@ def main() -> int:
     ap.add_argument("--tag", required=True)
     ap.add_argument("--functions", nargs="*",
                     default=["regen_kernel", "park_render_kernel",
-                             "stream_kernel", "count_kernel"])
+                             "stream_kernel", "count_kernel", "f64_kernel",
+                             "compact_kernel"])
+    ap.add_argument("--sources", nargs="*", default=None)
     args = ap.parse_args()
 
     import raytracingincuda_torch
@@ -168,7 +174,8 @@ def main() -> int:
            "package": str(Path(raytracingincuda_torch.__file__).parent),
            "flags": flags, "kernels": {}}
     with tempfile.TemporaryDirectory() as tmp:
-        cus = sorted(_build.CSRC_DIR.glob("*.cu"))
+        cus = [cu for cu in sorted(_build.CSRC_DIR.glob("*.cu"))
+               if args.sources is None or cu.stem in args.sources]
         jobs = []
         for cu in cus:
             obj = Path(tmp) / f"{cu.stem}.o"
@@ -180,6 +187,9 @@ def main() -> int:
             if proc.returncode:
                 raise RuntimeError(f"nvcc failed on {cu.name}:\n{text}")
             info = ptxas(text)
+            tile = re.search(r"constexpr int kTile = (\d+);", cu.read_text())
+            threads = int(tile.group(1)) if cu.stem == "compact_render" \
+                else THREADS
             names = demangle(list(info))
             sass = sass_functions(subprocess.run(
                 [cuobjdump, "-sass", str(obj)], capture_output=True,
@@ -191,10 +201,12 @@ def main() -> int:
                 if short.startswith(("stream_kernel", "stream_train_kernel")) \
                         and "kStageBytes" in cu.read_text():
                     dyn = STAGE
-                entry = {"source": cu.name, **props, "dynamic_smem": dyn}
+                entry = {"source": cu.name, **props, "dynamic_smem": dyn,
+                         "threads": threads}
                 if "registers" in props:
                     entry["blocks_per_sm"] = blocks_per_sm(
-                        props["registers"], props.get("static_smem", 0) + dyn)
+                        props["registers"], props.get("static_smem", 0) + dyn,
+                        threads)
                 if any(f in short for f in args.functions) and mangled in sass:
                     code = sass[mangled]
                     entry["instructions"] = len(code)
@@ -211,7 +223,8 @@ def main() -> int:
             print(f"{name}: {e['registers']} registers, stack {e.get('stack')}"
                   f", spills {e.get('spill_stores')}/{e.get('spill_loads')}, "
                   f"static smem {e.get('static_smem')}, dynamic "
-                  f"{e['dynamic_smem']}: {e['blocks_per_sm']} blocks an SM")
+                  f"{e['dynamic_smem']}, {e['threads']} threads: "
+                  f"{e['blocks_per_sm']} blocks an SM")
         for lp in e.get("loops", [])[:6]:
             print(f"    loop {lp['from']}-{lp['to']}: {lp['instructions']} "
                   f"instructions {lp['mix']}")

@@ -4,7 +4,7 @@ with the counts behind them, for comparing trees of the port on the same
 card in one call.
 
     PYTHONPATH=<tree> python3 probes/render_step.py --tag NAME [--reps N]
-        [--counts] [--no-times] [--parts render train stream]
+        [--counts] [--no-times] [--parts render train stream f64 compact]
 
 The package is imported from ``PYTHONPATH``, so one call can time several
 checkouts: unpack the parent with ``git archive <sha> | tar -x -C
@@ -26,7 +26,14 @@ CUDA-event bracket; renders and steps take a warm-up, then ``--reps``.
     640x384x1spp/3b: kernel 4's row (``stream_kernel``) and kernel 5's
     (``fused_stream_kernel``);
   * the 100k stream train step (``make_stream_train``, fused, 4 spp, 10
-    bounces, MSE).
+    bounces, MSE);
+  * the f64 headline (``make_renderer(dtype='float64')``, scene 1,
+    1280x768, 100 spp, 25 bounces, parity), and ``--pairs`` pairs of
+    ``render_f64`` with the f32 difficulty order and without it; kernel 6's
+    row: ``f64_kernel`` at 1280x768x2spp/25b parity;
+  * the compact headline (``render_kernel(mode='compact')``, 100 spp, 25
+    bounces, parity) in turns with kernel 1's (``mode='regen'``, no order);
+    kernel 7's row: ``compact_kernel`` at 1280x768x2spp/25b.
 
 With ``--counts`` (trees that have ``regen_counts``), beside the times:
 kernel 1's hit-test issues per warp against the lanes' mean segments at
@@ -37,7 +44,9 @@ before it regenerated; and kernel 4's work
 render's, beside kernel 5's union (``walk_counts``). ``--no-times`` takes
 the counts alone; ``--parts`` times only some of the groups above (the
 headline renders and kernel 1; the fused step and kernels 2 and 3; the
-stream render, kernels 4 and 5 and the stream step). Prints one JSON line and writes it to
+stream render, kernels 4 and 5 and the stream step; the f64 headline and
+kernel 6; the compact headline and kernel 7). Prints one JSON line and
+writes it to
 ``chiprun_out/render_step_<tag>.json``.
 """
 from __future__ import annotations
@@ -49,7 +58,8 @@ from pathlib import Path
 
 import torch
 
-PARTS = ("render", "train", "stream")
+PARTS = ("render", "train", "stream", "f64", "compact")
+
 
 def timed(fn, reps):
     """Mean ms of ``reps`` calls after a warm-up, one CUDA-event bracket."""
@@ -80,6 +90,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--tag", required=True)
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--pairs", type=int, default=10)
     ap.add_argument("--counts", action="store_true")
     ap.add_argument("--no-times", dest="times", action="store_false")
     ap.add_argument("--parts", nargs="*", choices=PARTS, default=PARTS)
@@ -90,6 +101,8 @@ def main() -> int:
     from raytracingincuda_torch.models.camera import CameraConfig, initialize
     from raytracingincuda_torch.models.scene import (Scene, build_random_scene,
                                                       build_scene)
+    from raytracingincuda_torch.ops import compact_kernel as ck
+    from raytracingincuda_torch.ops import f64_kernel as fk
     from raytracingincuda_torch.ops import grad as gradlib
     from raytracingincuda_torch.ops import render_kernel as rk
     from raytracingincuda_torch.ops import stream_kernel as sk
@@ -125,10 +138,15 @@ def main() -> int:
                                  rr_start=rr)
         mean = float(seg.double().view(-1, 32).mean(1).sum())
         nested = float(rk.warp_iterations(per, "nested").sum())
-        return {"warp_issues": int(issues.long().sum()),
-                "lane_mean_segments": mean,
-                "ratio": float(issues.double().sum()) / mean,
-                "nested_ratio": nested / mean}
+        out = {"warp_issues": int(issues.long().sum()),
+               "lane_mean_segments": mean,
+               "ratio": float(issues.double().sum()) / mean,
+               "nested_ratio": nested / mean}
+        for loop in ("compact", "pool"):
+            if loop in rk.LOOPS:
+                out[f"{loop}_ratio"] = float(
+                    rk.warp_iterations(per, loop).sum()) / mean
+        return out
 
     # the headline renders, with and without the order
     for rr in (None, 2):
@@ -181,14 +199,15 @@ def main() -> int:
         _, res["kernel3_ms"] = timed(lambda: tk.grad_kernel(
             ids, ii, jj, g, sm, row, samples=4, max_depth=8, rr_start=2), reps)
     # the 100k stream render, and the step's stream
-    s100k = build_random_scene(100_000, seed=3, device=dev)
-    stream = sk.prepare_stream_scene(s100k)
-    border = gradlib.front_to_back_border(stream, cam, sw, sh)
-    st0 = StreamScene(*sk.build_stream_arrays(
-        Scene(s100k.params, s100k.mat_type, s100k.active), stream.perm,
-        stream.block, stream.scene_mat.shape[0], border=border),
-        stream.block, stream.perm)
-    row = rk.pack_camera(initialize(cam, sw, sh)).to(dev)
+    if go["stream"] or counts:
+        s100k = build_random_scene(100_000, seed=3, device=dev)
+        stream = sk.prepare_stream_scene(s100k)
+        border = gradlib.front_to_back_border(stream, cam, sw, sh)
+        st0 = StreamScene(*sk.build_stream_arrays(
+            Scene(s100k.params, s100k.mat_type, s100k.active), stream.perm,
+            stream.block, stream.scene_mat.shape[0], border=border),
+            stream.block, stream.perm)
+        row = rk.pack_camera(initialize(cam, sw, sh)).to(dev)
     if go["stream"]:
         renderer = make_renderer(RenderConfig(
             scene_id=0, width=sw, height=sh, samples=10, bounces=10,
@@ -237,6 +256,42 @@ def main() -> int:
         res["counts_stream_render"] = walk_work(
             sk.reorder_front_to_back(stream, initialize(cam, sw, sh).center),
             10, 10)
+    if go["f64"]:
+        # the f64 headline through the renderer, then with and without the
+        # f32 difficulty order in turns
+        renderer = make_renderer(RenderConfig(
+            scene_id=1, width=w, height=h, samples=spp, bounces=bounces,
+            dtype="float64"), dev)
+        res["f64_headline_ms"] = each(lambda: renderer(scene, cam), reps,
+                                      RenderTimer, dev)
+        pairs = []
+        for _ in range(args.pairs):
+            pair = []
+            for po in (order, None):
+                with RenderTimer(dev) as t:
+                    fk.render_f64(scene, cam, w, h, spp, bounces,
+                                  pixel_order=po)
+                pair.append(t.ms)
+            pairs.append(pair)
+        res["f64_ordered_raster_pairs_ms"] = pairs
+        inputs = fk.f64_inputs(scene, cam, w, h)
+        _, res["kernel6_ms"] = timed(lambda: fk.f64_kernel(
+            *inputs, samples=2, max_depth=25), reps)
+    if go["compact"]:
+        # the compact headline in turns with kernel 1's, then kernel 7's row
+        turns = []
+        for _ in range(reps + 1):
+            turn = []
+            for mode in ("compact", "regen"):
+                with RenderTimer(dev) as t:
+                    rk.render_kernel(scene, cam, w, h, spp, bounces, mode=mode)
+                turn.append(t.ms)
+            turns.append(turn)
+        res["compact_regen_turns_ms"] = turns[1:]
+        ids, ii, jj, _, sm, row = rk.regen_inputs(scene, cam, w, h, 2)
+        _, res["kernel7_ms"] = timed(lambda: ck.compact_kernel(
+            ids, ii, jj, sm, row, samples=2, max_depth=25,
+            finalize_scale=0.5), reps)
     line = json.dumps(res)
     print(line)
     out_dir = Path("chiprun_out")

@@ -29,15 +29,32 @@
 // closest hit keeps the first slot at an exact tie (df64 blends tied
 // slots through its one-hot gather).
 //
-// What bounds it. The FP64 hit loop: about 18 double operations a sphere
-// test, at half the card's FP32 rate (34 TFLOP/s). Shared memory decides
-// the layout: kernel 1's f32 staging (44 B a slot) doubled would need
-// 360 KB at 4096 slots. So layout 'vmem' stages only the scan table, as
-// double (cx, cy, cz, |C|^2 - r^2: 32 B a slot, 128 KB at 4096 slots,
-// converted once per block and not once per test), and the seven gather
-// columns, read once per bounce for the winning slot, come from device
-// memory in both layouts. Layout 'hbm' reads the f32 SoA per test and
-// converts there.
+// What bounds it. The FP64 hit loop: 17 double operations a sphere test
+// and its guard, on an SM that has half as many FP64 lanes as FP32 lanes
+// (34 TFLOP/s). What the design does about that:
+//   * the loop regenerates, as kernel 1's (path_common.cuh's regen_lane,
+//     followed statement for statement in double here): one path segment
+//     an iteration, and a lane whose path ended starts its pixel's next
+//     sample at the next iteration. A warp then pays its longest lane's
+//     total of segments, where a loop over samples around a bounce loop
+//     paid, sample by sample, the longest path of the warp;
+//   * the hit test takes kSlotStep (4) slots a step: their entries are
+//     loaded and their discriminants computed before one branch, taken
+//     where any discriminant is positive, and the roots then run in slot
+//     order, so the same slot wins as in a one-slot loop. Four slots'
+//     chains are independent work for the FP64 pipe's latency;
+//   * the compiler is asked for 4 blocks an SM (128 registers): without
+//     the minimum the four-slot step takes 135 and 3 blocks. The 16-byte
+//     spill lies outside the scan loop, and the fourth block ran 5%
+//     faster (PERF.md's ladder; 5 blocks, 64 bytes of spill, were no
+//     faster);
+//   * layout 'vmem' stages only the scan table, as double (cx, cy, cz,
+//     |C|^2 - r^2: 32 B a slot, 16 KB at 512 slots, converted once per
+//     block and not once per test); every lane reads the same slot, a
+//     broadcast. Kernel 1's f32 staging doubled would need 360 KB at 4096
+//     slots, so the seven gather columns, read once per bounce for the
+//     winning slot, come from device memory in both layouts. Layout 'hbm'
+//     reads the f32 SoA per test and converts there.
 
 #include "path_common.cuh"
 
@@ -100,8 +117,43 @@ struct Params {
   uint32_t k0, k1;
 };
 
+// Slots tested a step by the closest hit, and the blocks an SM asked of
+// the compiler.
+constexpr int kSlotStep = 4;
+constexpr int kMinBlocks = 4;
+
+template <bool kHbm>
+__device__ __forceinline__ Slot slot_at(const Params& p, const Slot* scan, int k) {
+  return kHbm ? slot_of(p.scene, p.n, k) : scan[k];
+}
+
+// One slot's test in two parts: the half-b numerator h and the
+// discriminant, then the root, which keeps the smallest root numerator
+// with a strict '<', so the first slot wins an exact tie.
+struct DiscD {
+  double h, disc;
+};
+__device__ __forceinline__ DiscD slot_disc_d(const Slot& e, D3 o, D3 d, double a,
+                                             double d_dot_o, double o2) {
+  const double h = ((e.cx * d.x + e.cy * d.y) + e.cz * d.z) - d_dot_o;
+  const double c = (e.c2r2 + o2) - 2.0 * ((e.cx * o.x + e.cy * o.y) + e.cz * o.z);
+  return {h, h * h - a * c};
+}
+__device__ __forceinline__ void take_root_d(DiscD q, double tmin_a, int k, double& best,
+                                            int& win) {
+  if (q.disc > 0.0) {
+    const double sq = sqrt(q.disc);
+    const double near = q.h - sq;
+    const double root = near > tmin_a ? near : q.h + sq;
+    if (root > tmin_a && root < best) {
+      best = root;
+      win = k;
+    }
+  }
+}
+
 // The closest hit over every slot: true on a hit, with the winning slot
-// and t = t_num / a; the smallest root numerator wins with a strict '<'.
+// and t = t_num / a.
 template <bool kHbm>
 __device__ __forceinline__ bool hit_d(const Params& p, const Slot* scan, D3 o, D3 d, int& win,
                                       double& t) {
@@ -111,20 +163,23 @@ __device__ __forceinline__ bool hit_d(const Params& p, const Slot* scan, D3 o, D
   const double tmin_a = kTMin64 * a;
   double best = kTMiss64;
   win = 0;
-  for (int k = 0; k < p.n; ++k) {
-    const Slot e = kHbm ? slot_of(p.scene, p.n, k) : scan[k];
-    const double h = ((e.cx * d.x + e.cy * d.y) + e.cz * d.z) - d_dot_o;
-    const double c = (e.c2r2 + o2) - 2.0 * ((e.cx * o.x + e.cy * o.y) + e.cz * o.z);
-    const double disc = h * h - a * c;
-    if (disc > 0.0) {
-      const double sq = sqrt(disc);
-      const double near = h - sq;
-      const double root = near > tmin_a ? near : h + sq;
-      if (root > tmin_a && root < best) {
-        best = root;
-        win = k;
-      }
+  int k = 0;
+  for (; k + kSlotStep <= p.n; k += kSlotStep) {
+    DiscD q[kSlotStep];
+    bool any = false;
+#pragma unroll
+    for (int j = 0; j < kSlotStep; ++j) {
+      q[j] = slot_disc_d(slot_at<kHbm>(p, scan, k + j), o, d, a, d_dot_o, o2);
+      any = any || q[j].disc > 0.0;
     }
+    if (any) {
+#pragma unroll
+      for (int j = 0; j < kSlotStep; ++j) take_root_d(q[j], tmin_a, k + j, best, win);
+    }
+  }
+  for (; k < p.n; ++k) {
+    const DiscD q = slot_disc_d(slot_at<kHbm>(p, scan, k), o, d, a, d_dot_o, o2);
+    take_root_d(q, tmin_a, k, best, win);
   }
   if (!(best < kTMiss64)) return false;
   t = best / a;
@@ -139,8 +194,70 @@ __device__ __forceinline__ D3 sky_d(D3 d) {
   return {w * 1.0 + a * 0.5, w * 1.0 + a * 0.7, w * 1.0 + a * 1.0};
 }
 
+// Bounce b of sample s after a hit on slot `win` at t: the hit point, the
+// oriented normal and the material's scatter from this bounce's draws. A
+// scatter at bounce max_depth-1 exits black. Returns false when the path
+// ends black here; else moves (o, d, atten) to the scattered ray.
+__device__ __forceinline__ bool scatter_d(const Params& p, const Stream& st, int s, int b,
+                                          int win, double t, D3& o, D3& d, D3& atten) {
+  const int n = p.n;
+  const float* col = p.scene + kRadius * n;  // radius, albedo rgb, fuzz, ior, mat
+  const D3 hp = o + d * t;
+  const D3 center = {(double)p.scene[kCx * n + win], (double)p.scene[kCy * n + win],
+                     (double)p.scene[kCz * n + win]};
+  const double radius = col[win];
+  const double rs = fabs(radius) > 1e-12 ? radius : 1e-12;
+  const D3 outward = (hp - center) * (1.0 / rs);
+  const bool front = dot(d, outward) < 0.0;
+  const D3 normal = front ? outward : -outward;
+  const int mat = (int)col[6 * n + win];
+  const D3 albedo = {(double)col[n + win], (double)col[2 * n + win], (double)col[3 * n + win]};
+
+  D3 dir, att;
+  bool scattered = true;
+  if (mat == 0 || mat == 1) {
+    const D3 ur = promote(st.unit_vector((uint32_t)s, (uint32_t)b));
+    if (mat == 0) {  // lambertian
+      dir = normal + ur;
+      if (fabs(dir.x) < 1e-6 && fabs(dir.y) < 1e-6 && fabs(dir.z) < 1e-6) dir = normal;
+    } else {  // metal
+      dir = unit(reflect(d, normal)) + ur * (double)col[4 * n + win];
+      scattered = dot(dir, normal) > 0.0;
+    }
+    att = albedo;
+  } else {  // dielectric (any other id takes this direction, as in JAX)
+    float coin, unused;
+    st.uniform2((uint32_t)s, (uint32_t)b, kDrawCoin, coin, unused);
+    const double ior = col[5 * n + win];
+    const double ri = front ? 1.0 / ior : ior;
+    const D3 ud = unit(d);
+    const double cos_t = min_d(dot(-ud, normal), 1.0);
+    const double sin_t = sqrt(max_d(1.0 - cos_t * cos_t, 0.0));
+    double r0 = (1.0 - ri) / (1.0 + ri);
+    r0 = r0 * r0;
+    const double om = 1.0 - cos_t;
+    const double om2 = om * om;
+    const double refl = r0 + (1.0 - r0) * ((om2 * om2) * om);
+    if (ri * sin_t > 1.0 || refl > (double)coin) {
+      dir = reflect(ud, normal);
+    } else {  // refract
+      const double ct = min_d(dot(-ud, normal), 1.0);
+      const D3 perp = (ud + normal * ct) * ri;
+      const double par = sqrt(max_d(fabs(1.0 - dot(perp, perp)), 1e-12));
+      dir = perp + normal * (-par);
+    }
+    att = mat == 2 ? D3{1.0, 1.0, 1.0} : albedo;
+  }
+  // absorbed, or scattering at the depth cap: the path ends black
+  if (!scattered || b >= p.max_depth - 1) return false;
+  atten = atten * att;
+  o = hp;
+  d = dir;
+  return true;
+}
+
 template <bool kHbm>
-__global__ void __launch_bounds__(kBlock) f64_kernel(Params p) {
+__global__ void __launch_bounds__(kBlock, kMinBlocks) f64_kernel(Params p) {
   extern __shared__ Slot scan[];
   if (!kHbm) {
     for (int k = threadIdx.x; k < p.n; k += blockDim.x) scan[k] = slot_of(p.scene, p.n, k);
@@ -148,83 +265,35 @@ __global__ void __launch_bounds__(kBlock) f64_kernel(Params p) {
   }
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= p.padded) return;
-  const int n = p.n;
-  const float* col = p.scene + kRadius * n;  // radius, albedo rgb, fuzz, ior, mat
   const CamD cam = load_cam_d(p.cam);
   const Stream st{p.k0, p.k1, (uint32_t)p.ids[i]};
   const double fi = p.ii[i], fj = p.jj[i];
-  D3 acc = {0.0, 0.0, 0.0};
-
-  for (int s = 0; s < p.samples; ++s) {
-    // the primary ray: f32 draws, double geometry
-    float u0, u1, px, py;
-    primary_draws(st, (uint32_t)s, u0, u1, px, py);
-    const double ix = fi + (double)(u0 - 0.5f), jy = fj + (double)(u1 - 0.5f);
-    const D3 sample_pt = (cam.pixel00 + cam.du * ix) + cam.dv * jy;
-    D3 o = cam.defocus ? (cam.center + cam.disk_u * (double)px) + cam.disk_v * (double)py
-                       : cam.center;
-    D3 d = sample_pt - o;
-    D3 atten = {1.0, 1.0, 1.0};
-    for (int b = 0;; ++b) {
-      int win;
-      double t;
-      if (!hit_d<kHbm>(p, scan, o, d, win, t)) {
-        acc = acc + atten * sky_d(d);
-        break;
-      }
-      const D3 hp = o + d * t;
-      const D3 center = {(double)p.scene[kCx * n + win], (double)p.scene[kCy * n + win],
-                         (double)p.scene[kCz * n + win]};
-      const double radius = col[win];
-      const double rs = fabs(radius) > 1e-12 ? radius : 1e-12;
-      const D3 outward = (hp - center) * (1.0 / rs);
-      const bool front = dot(d, outward) < 0.0;
-      const D3 normal = front ? outward : -outward;
-      const int mat = (int)col[6 * n + win];
-      const D3 albedo = {(double)col[n + win], (double)col[2 * n + win],
-                         (double)col[3 * n + win]};
-
-      D3 dir, att;
-      bool scattered = true;
-      if (mat == 0 || mat == 1) {
-        const D3 ur = promote(st.unit_vector((uint32_t)s, (uint32_t)b));
-        if (mat == 0) {  // lambertian
-          dir = normal + ur;
-          if (fabs(dir.x) < 1e-6 && fabs(dir.y) < 1e-6 && fabs(dir.z) < 1e-6) dir = normal;
-        } else {  // metal
-          dir = unit(reflect(d, normal)) + ur * (double)col[4 * n + win];
-          scattered = dot(dir, normal) > 0.0;
-        }
-        att = albedo;
-      } else {  // dielectric (any other id takes this direction, as in JAX)
-        float coin, unused;
-        st.uniform2((uint32_t)s, (uint32_t)b, kDrawCoin, coin, unused);
-        const double ior = col[5 * n + win];
-        const double ri = front ? 1.0 / ior : ior;
-        const D3 ud = unit(d);
-        const double cos_t = min_d(dot(-ud, normal), 1.0);
-        const double sin_t = sqrt(max_d(1.0 - cos_t * cos_t, 0.0));
-        double r0 = (1.0 - ri) / (1.0 + ri);
-        r0 = r0 * r0;
-        const double om = 1.0 - cos_t;
-        const double om2 = om * om;
-        const double refl = r0 + (1.0 - r0) * ((om2 * om2) * om);
-        if (ri * sin_t > 1.0 || refl > (double)coin) {
-          dir = reflect(ud, normal);
-        } else {  // refract
-          const double ct = min_d(dot(-ud, normal), 1.0);
-          const D3 perp = (ud + normal * ct) * ri;
-          const double par = sqrt(max_d(fabs(1.0 - dot(perp, perp)), 1e-12));
-          dir = perp + normal * (-par);
-        }
-        att = mat == 2 ? D3{1.0, 1.0, 1.0} : albedo;
-      }
-      // absorbed, or scattering at the depth cap: the path ends black
-      if (!scattered || b >= p.max_depth - 1) break;
-      atten = atten * att;
-      o = hp;
-      d = dir;
+  D3 acc = {0.0, 0.0, 0.0}, o = acc, d = acc, atten = acc;
+  // regen_lane's loop: one segment an iteration; a miss banks atten * sky
+  // and a scatter that ends the path ends it black; either way the lane
+  // moves to its next sample, which starts at the next iteration
+  int s = 0, b = 0;
+  while (s < p.samples) {
+    if (b == 0) {  // the primary ray: f32 draws, double geometry
+      float u0, u1, px, py;
+      primary_draws(st, (uint32_t)s, u0, u1, px, py);
+      const double ix = fi + (double)(u0 - 0.5f), jy = fj + (double)(u1 - 0.5f);
+      const D3 sample_pt = (cam.pixel00 + cam.du * ix) + cam.dv * jy;
+      o = cam.defocus ? (cam.center + cam.disk_u * (double)px) + cam.disk_v * (double)py
+                      : cam.center;
+      d = sample_pt - o;
+      atten = {1.0, 1.0, 1.0};
     }
+    int win;
+    double t;
+    if (!hit_d<kHbm>(p, scan, o, d, win, t)) {
+      acc = acc + atten * sky_d(d);
+    } else if (scatter_d(p, st, s, b, win, t, o, d, atten)) {
+      ++b;
+      continue;
+    }
+    ++s;
+    b = 0;
   }
   p.out[i] = acc.x;
   p.out[p.padded + i] = acc.y;

@@ -12,9 +12,11 @@ to its lane and is added to the lane's sum, in sample order.
 Two implementations share one signature:
 
   * ``compact_kernel`` launches the hand-written CUDA kernel
-    (``csrc/compact_render.cu``: a block of 256 lanes keeps its pool in
-    shared memory, and warps wholly past the live count sit a wave out)
-    on CUDA tensors;
+    (``csrc/compact_render.cu``) on CUDA tensors: a block of 128 lanes
+    keeps one ray in flight for each lane with samples left, a lane whose
+    path ended starts its next sample in the same pool entry, and the pool
+    is packed only in the waves where lanes finished, so warps wholly past
+    the live count sit a wave out;
   * ``compact_reference`` is the plain PyTorch version: the JAX compact
     recurrence, one pool over the lanes given.
 
@@ -22,7 +24,8 @@ Two implementations share one signature:
 for CPU tensors; nothing falls back. Each bounce is the regeneration
 kernel's arithmetic (``tracer.shade_hit``; ``path_common.cuh``'s
 ``scatter_bounce`` on the card), and a sample's radiance is added only
-where its ray missed, so the image equals kernel 1's bit for bit.
+where its ray missed, in sample order in both schedules, so the image
+equals kernel 1's bit for bit.
 """
 from __future__ import annotations
 

@@ -374,8 +374,10 @@ _COUNT_ARGTYPES = [
     ctypes.c_int,      # hbm layout
     ctypes.c_void_p,   # cudaStream_t
 ]
-LOOPS = ("regen", "nested")
+LOOPS = ("regen", "nested", "compact", "pool")
 WARP = 32
+# lanes a block of the compact kernel takes (csrc/compact_render.cu kTile)
+POOL = 128
 
 
 def regen_counts(ids, ii, jj, budget, scene_mat, cam_row, *, samples: int,
@@ -430,19 +432,42 @@ def sample_segments(ids, ii, jj, budget, scene_mat, cam_row, *, samples: int,
 
 
 def warp_iterations(seg: torch.Tensor, loop: str = "regen") -> torch.Tensor:
-    """Iterations of the closest-hit loop that each warp of 32 lanes runs,
-    from per-sample segments ``seg`` (samples, padded): under the
-    regenerating loop (``'regen'``) its longest lane's total; under a loop
-    over samples around each sample's bounce loop (``'nested'``, kernel 1
-    before it regenerated, whose lanes wait at each sample's end for the
-    warp's longest path) the sum over samples of the sample's longest path
-    in the warp. float64 (padded // 32,)."""
+    """Warp issues of the closest-hit scan, from per-sample segments
+    ``seg`` (samples, padded).
+
+    Per warp of 32 lanes, float64 (padded // 32,): under the regenerating
+    loop (``'regen'``) its longest lane's total; under a loop over samples
+    around each sample's bounce loop (``'nested'``, kernel 1 before it
+    regenerated, whose lanes wait at each sample's end for the warp's
+    longest path) the sum over samples of the sample's longest path in the
+    warp.
+
+    Per block of ``POOL`` lanes (the compact kernel's; the last block takes
+    the lanes left), float64 (ceil(padded / POOL),), where the live rays of
+    a wave fill the block's first ceil(live / 32) warps: ``'compact'``, the
+    per-sample pool (each sample's rays enter together, and at wave w the
+    lanes whose path in that sample has more than w segments are live),
+    summed over samples; ``'pool'``, the refilling pool (a lane's ray stays
+    live until its last sample ends, so at wave w the lanes whose total
+    exceeds w are live). The sum over waves of ceil(live / 32) is the sum
+    of every 32nd of the block's values in descending order."""
     if loop not in LOOPS:
         raise ValueError(f"loop must be one of {LOOPS}, got {loop!r}")
-    per = seg.double().reshape(seg.shape[0], -1, WARP)
-    if loop == "regen":
-        return per.sum(0).amax(1)
-    return per.amax(2).sum(0)
+    seg = seg.double()
+    if loop in ("regen", "nested"):
+        per = seg.reshape(seg.shape[0], -1, WARP)
+        if loop == "regen":
+            return per.sum(0).amax(1)
+        return per.amax(2).sum(0)
+    samples, padded = seg.shape
+    blocks = -(-padded // POOL)
+    per = seg.new_zeros((samples, blocks * POOL))
+    per[:, :padded] = seg
+    per = per.reshape(samples, blocks, POOL)
+    if loop == "pool":
+        per = per.sum(0, keepdim=True)
+    lead = per.sort(dim=2, descending=True).values[:, :, ::WARP]
+    return lead.sum(2).sum(0)
 
 
 def regen_counts_reference(ids, ii, jj, budget, scene_mat, cam_row, *,

@@ -90,7 +90,7 @@ def _stream_renderer(cfg: RenderConfig, check) -> Callable:
                                           cfg.height).center)
         order = None
         if scene.num_slots <= _ONE_BLOCK_SLOTS:
-            order = _prepass_order(cfg, scene, cam_cfg, order_cache, "vmem")
+            order = _prepass_order(cfg, scene, cam_cfg, order_cache)
         return stream_kernel.render_stream(
             ent["stream"], cam_cfg, cfg.width, cfg.height, cfg.samples,
             cfg.bounces, seed=cfg.seed, rr_start=cfg.rr_start,
@@ -104,10 +104,10 @@ def _stream_renderer(cfg: RenderConfig, check) -> Callable:
 
 
 def _prepass_order(cfg: RenderConfig, scene: Scene, cam_cfg: CameraConfig,
-                   order_cache: dict, layout=None):
+                   order_cache: dict):
     """The f32 difficulty order at >= 8 spp and > 4 bounces (else None),
-    from the regen kernel's prepass in ``layout`` (``cfg.layout`` by
-    default), cached by leaf shapes: any permutation gives the same
+    from the regen kernel's prepass with the scene staged (layout
+    ``vmem``), cached by leaf shapes: any permutation gives the same
     image, so a different same-shaped scene gets a stale but valid order,
     which changes speed only."""
     if not (cfg.samples >= 8 and cfg.bounces > 4):
@@ -118,7 +118,7 @@ def _prepass_order(cfg: RenderConfig, scene: Scene, cam_cfg: CameraConfig,
         pd, ps = min(8, cfg.bounces), min(6, cfg.samples)
         seg = render_kernel.measure_difficulty(
             scene, cam_cfg, cfg.width, cfg.height, pd, ps, seed=cfg.seed,
-            layout=layout or cfg.layout)
+            layout="vmem")
         order = render_kernel.difficulty_order(seg, pd, ps)
         order_cache.clear()
         order_cache[key] = order
@@ -128,24 +128,22 @@ def _prepass_order(cfg: RenderConfig, scene: Scene, cam_cfg: CameraConfig,
 def make_f64_renderer(cfg: RenderConfig, check) -> Callable:
     """``dtype='float64'``: the counterpart of the JAX
     ``make_df64_renderer``. Returns ``renderer(scene, cam_cfg) -> (H, W,
-    3)`` float64 (JAX returns (H, W, 3, 2) f32 hi/lo pairs). At >= 8 spp
-    and > 4 bounces the lanes take the difficulty order of the f32
-    prepass (kernel 1, ``cfg.layout``), cached by the scene's shapes:
-    the order changes speed only. The packed scene matrix is cached by
-    the scene's identity; ``prepare`` packs it ahead."""
+    3)`` float64 (JAX returns (H, W, 3, 2) f32 hi/lo pairs). The lanes
+    run in raster order, as kernel 1's renderer runs them: with the f64
+    kernel's regenerating loop the f32 prepass's difficulty order made
+    every render slower on the card (raster neighbours share their
+    depth), and an order changes speed only. The packed scene matrix is
+    cached by the scene's identity; ``prepare`` packs it ahead."""
     if cfg.dtype != "float64":
         raise ValueError(f"make_f64_renderer renders dtype float64, the "
                          f"config says {cfg.dtype}")
     packed = _identity_cache()
-    order_cache: dict = {}
 
     def renderer(scene, cam_cfg):
         check(scene)
         return f64_kernel.render_f64(
             scene, cam_cfg, cfg.width, cfg.height, cfg.samples, cfg.bounces,
-            seed=cfg.seed, layout=cfg.layout,
-            pixel_order=_prepass_order(cfg, scene, cam_cfg, order_cache),
-            scene_mat=prepare(scene))
+            seed=cfg.seed, layout=cfg.layout, scene_mat=prepare(scene))
 
     def prepare(scene):
         check(scene)

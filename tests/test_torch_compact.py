@@ -8,8 +8,12 @@ Pallas kernels in interpret mode under the cross-framework gate of
 ``mode='regen'`` bit for bit, and to JAX's mode rules. The scene is JAX
 scene 2 (``tiny_scene``'s build) carried across with ``models/convert.py``.
 The ``cuda`` test holds the CUDA kernel to its plain version and to
-kernel 1 on the card; it skips without a card.
+kernel 1 on the card, at the schedule's edge cases too; they skip
+without a card. The count tests hold ``warp_iterations``' block schedules
+('compact', 'pool') to a wave-by-wave simulation of the two pools.
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -17,6 +21,7 @@ import torch
 from raytracingincuda_torch.models.camera import CameraConfig as TCam
 from raytracingincuda_torch.models.convert import (camera_config_from_numpy,
                                                    scene_from_numpy)
+from raytracingincuda_torch.models.scene import DIELECTRIC, Scene
 from raytracingincuda_torch.models.scene import build_scene as t_build
 from raytracingincuda_torch.ops import compact_kernel as ck
 from raytracingincuda_torch.ops import render_kernel as rk
@@ -142,6 +147,105 @@ def test_kernel_equals_plain_version_and_kernel_1_on_card(cuda, layout):
     got = ck.compact_kernel(ids, ii, jj, sm, row, **kw)
     torch.cuda.synchronize()
     assert ck.LAUNCHES == before + 1
+    assert torch.equal(got, ck.compact_reference(ids, ii, jj, sm, row, **kw))
+    assert torch.equal(got, rk.regen_kernel(ids, ii, jj, bud, sm, row, **kw))
+    assert torch.equal(got, ck.compact_kernel(ids, ii, jj, sm, row, **kw))
+
+
+def test_block_schedules_by_hand():
+    """One block of 64 lanes, three samples: the per-sample pool waits for
+    each sample's longest path, the refilling pool for the longest total."""
+    seg = torch.zeros((3, 2 * rk.WARP))
+    seg[:, 0] = torch.tensor([1.0, 5.0, 1.0])
+    seg[:, 1] = torch.tensor([4.0, 1.0, 4.0])
+    seg[:, rk.WARP:] = 2.0
+    # sample 0: waves of 34, 33, 1, 1 live lanes; 1: 34, 33, 1, 1, 1;
+    # 2: as 0
+    assert rk.warp_iterations(seg, "compact").tolist() == [19.0]
+    # waves 0-5: 34 live (2 warps), 6: lanes 0 and 1, 7-8: lane 1
+    assert rk.warp_iterations(seg, "pool").tolist() == [15.0]
+    # a full block of one-segment samples first, then those 64 lanes
+    two = torch.ones((3, rk.POOL + 2 * rk.WARP))
+    two[:, rk.POOL:] = seg
+    full = 3.0 * rk.POOL / rk.WARP
+    assert rk.warp_iterations(two, "compact").tolist() == [full, 19.0]
+    assert rk.warp_iterations(two, "pool").tolist() == [full, 15.0]
+
+
+def _simulate(seg, refill):
+    """(warp issues, waves) of one block's pool, wave by wave: each live
+    lane runs one segment a wave, and the live lanes fill the first
+    ceil(live / 32) warps. ``refill``: a lane whose path ended starts its
+    next sample in the next wave; else each sample's rays enter together
+    and the next sample starts when the last of them ends."""
+    samples, lanes = seg.shape
+    issues = waves = 0
+    for group in ([list(range(samples))] if refill
+                  else [[s] for s in range(samples)]):
+        left = {k: [int(seg[s, k]) for s in group] for k in range(lanes)}
+        live = list(range(lanes))
+        while live:
+            waves += 1
+            issues += math.ceil(len(live) / rk.WARP)
+            for k in live:
+                left[k][0] -= 1
+                if left[k][0] == 0:
+                    left[k].pop(0)
+            live = [k for k in live if left[k]]
+    return issues, waves
+
+
+def test_block_schedules_on_plain_segments():
+    """Kernel 1's plain per-sample segments over 1920 lanes (a last block
+    of 128 where blocks take 256): both closed forms equal the
+    simulation; the refilling pool takes as many waves as its longest
+    lane's total, and on these paths issues no more than the per-sample
+    pool in every block (not a law: on made-up segments it can issue one
+    warp scan more)."""
+    spp = 6
+    inputs = rk.regen_inputs(t_build(1), TCam.reference_default(), 48, 40, spp)
+    seg = rk.sample_segments(*inputs, samples=spp, max_depth=12)
+    assert seg.shape == (spp, 1920) and bool((seg >= 1).all())
+    compact = rk.warp_iterations(seg, "compact")
+    pool = rk.warp_iterations(seg, "pool")
+    blocks = -(-1920 // rk.POOL)
+    assert compact.shape == pool.shape == (blocks,)
+    for blk in range(blocks):
+        part = seg[:, blk * rk.POOL:(blk + 1) * rk.POOL].long()
+        sim_pool, waves = _simulate(part, refill=True)
+        sim_compact, _ = _simulate(part, refill=False)
+        assert (sim_pool, sim_compact) == (pool[blk], compact[blk])
+        assert waves == int(part.sum(0).max())
+    assert bool((pool <= compact).all()) and bool((pool < compact).any())
+
+
+def _glass(scene):
+    """Every sphere but the ground dielectric: long paths."""
+    mat = scene.mat_type.clone()
+    mat[1:] = DIELECTRIC
+    ior = torch.full_like(scene.params.ior, 1.5)
+    return Scene(scene.params._replace(ior=ior), mat, scene.active)
+
+
+# (scene, width, height, spp, depth): every path ends at bounce 0 and the
+# pool refills every wave; one sample; 16 samples at 640 lanes (not a
+# multiple of 256); long paths through glass
+EDGE_CASES = {"depth1": (1, 64, 40, 4, 1), "spp1": (1, 64, 40, 1, 25),
+              "partial_block": (1, 40, 16, 16, 8), "glass": (0, 48, 32, 4, 50)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["vmem", "hbm"])
+@pytest.mark.parametrize("case", list(EDGE_CASES))
+def test_kernel_edge_cases_on_card(cuda, case, layout):
+    sid, w, h, spp, depth = EDGE_CASES[case]
+    s = _glass(t_build(1, device=cuda)) if sid == 0 else t_build(sid,
+                                                                 device=cuda)
+    ids, ii, jj, bud, sm, row = rk.regen_inputs(s, TCam.reference_default(),
+                                                w, h, spp)
+    kw = dict(samples=spp, max_depth=depth, layout=layout)
+    got = ck.compact_kernel(ids, ii, jj, sm, row, **kw)
+    torch.cuda.synchronize()
     assert torch.equal(got, ck.compact_reference(ids, ii, jj, sm, row, **kw))
     assert torch.equal(got, rk.regen_kernel(ids, ii, jj, bud, sm, row, **kw))
     assert torch.equal(got, ck.compact_kernel(ids, ii, jj, sm, row, **kw))

@@ -7,8 +7,8 @@ oracle with its samplers pinned to their f32 values, as
 ``tests/test_df64.py`` pins them, within the JAX package's own df64 bound
 of 1e-6 in gamma space. The scene is JAX scene 2 (``tiny_scene``'s build)
 carried across with ``models/convert.py``. The ``cuda`` test holds the
-CUDA kernel to the plain version on the card, bit for bit; it skips
-without a card.
+CUDA kernel to the plain version on the card, bit for bit, at the
+regenerating loop's edge cases too; they skip without a card.
 """
 import os
 
@@ -23,6 +23,7 @@ from raytracingincuda_torch.models.camera import initialize_f64
 from raytracingincuda_torch.models.convert import (camera_config_from_numpy,
                                                    f64_inputs_from_numpy,
                                                    scene_from_numpy)
+from raytracingincuda_torch.models.scene import DIELECTRIC, Scene
 from raytracingincuda_torch.models.scene import build_scene as t_build
 from raytracingincuda_torch.ops import f64_kernel as fk
 from raytracingincuda_torch.ops import render_kernel as rk
@@ -155,12 +156,14 @@ def test_pixel_order_and_layout_change_nothing(layout):
                                            layout=layout, pixel_order=perm))
 
 
-def test_make_renderer_f64_cpu():
-    """>= 8 spp and > 4 bounces: the f32 prepass orders the lanes, which
-    changes nothing; ``prepare`` packs the scene ahead."""
+def test_make_renderer_f64_cpu(monkeypatch):
+    """Raster order at >= 8 spp and > 4 bounces too: no f32 prepass runs;
+    ``prepare`` packs the scene ahead."""
     cfg = RenderConfig(scene_id=2, width=20, height=12, samples=8, bounces=5,
                        dtype="float64")
     scene, cam = t_build(2), TCam.reference_default()
+    monkeypatch.setattr(rk, "measure_difficulty", lambda *a, **k: pytest.fail(
+        "the f64 renderer ran the f32 prepass"))
     r = make_renderer(cfg, "cpu")
     r.prepare(scene)
     img = r(scene, cam)
@@ -248,3 +251,32 @@ def test_kernel_equals_plain_version_on_card(cuda, layout):
     assert torch.equal(got, fk.f64_kernel(*inputs, **kw))
     cpu = fk.f64_reference(*(t.cpu() for t in inputs), **kw)
     assert torch.equal(got.cpu(), cpu)
+
+
+def _glass(scene):
+    """Every sphere but the ground dielectric: long paths."""
+    mat = scene.mat_type.clone()
+    mat[1:] = DIELECTRIC
+    ior = torch.full_like(scene.params.ior, 1.5)
+    return Scene(scene.params._replace(ior=ior), mat, scene.active)
+
+
+# (scene, width, height, spp, depth): every path ends at bounce 0; one
+# sample; 16 samples at 640 lanes; long paths through glass
+EDGE_CASES = {"depth1": (1, 64, 40, 4, 1), "spp1": (1, 64, 40, 1, 25),
+              "spp16": (1, 40, 16, 16, 8), "glass": (0, 48, 32, 4, 50)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["vmem", "hbm"])
+@pytest.mark.parametrize("case", list(EDGE_CASES))
+def test_kernel_edge_cases_on_card(cuda, case, layout):
+    sid, w, h, spp, depth = EDGE_CASES[case]
+    s = _glass(t_build(1, device=cuda)) if sid == 0 else t_build(sid,
+                                                                 device=cuda)
+    inputs = fk.f64_inputs(s, TCam.reference_default(), w, h)
+    kw = dict(samples=spp, max_depth=depth, layout=layout)
+    got = fk.f64_kernel(*inputs, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, fk.f64_reference(*inputs, **kw))
+    assert torch.equal(got, fk.f64_kernel(*inputs, **kw))

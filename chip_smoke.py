@@ -111,6 +111,35 @@ CPU path):
              1's warps, rk.warp_iterations on phase 4's segments); one
              mode='simple' render at the headline (kernel 1's launches)
              equal to them
+  18 adaptive  impl='adaptive' (ops/adaptive.py) at 64x40 (base 4, max
+             16, tol 0.1, rounds 1 and 2): the card's render_adaptive
+             bit-equal to the plain versions' (image and spp map), the
+             renderer's image equal to it, zero-extra pixels equal to
+             gamma((A+B)/4) of the same probes; at the headline (scene 1,
+             1280x768, 25 bounces, parity, base 16, max 256, tol 0.05,
+             rounds 1 and 2) through make_renderer: a warm-up and 3 timed
+             renders (CUDA events around the whole render), spp mean, min
+             and max, kernel 1's launches a render, the host syncs of one
+             render (torch.cuda's sync debug mode) and the idle share of
+             one torch.profiler window; 10 pairs of the headline refine in
+             the budget-bucket order against raster (sums bit-equal); and
+             the quality table of benchmarks/adaptive_probe.py: uniform
+             16/32/64/100 spp and its seven adaptive schedules against a
+             1024-spp truth from samples 4096 on (a window no schedule
+             reaches): ms, mean spp, the per-pixel channel-mean |error|'s
+             mean, p99 and p99.9, and err^2 x ms
+  19 adaptive stream  make_renderer(impl='adaptive') on 100k random
+             spheres (above 4096 slots: kernel 4), 640x384, 10 bounces,
+             base 4, max 32, tol 0.1: a warm-up and 3 timed renders, kernel
+             4's launches, spp; render_adaptive on a 200-sphere explicit
+             stream (blocks of 64) at 64x40, card bit-equal to plain
+  20 assets and pose  scene 1 through .npz and .csv on the card (arrays
+             equal, 512 slots, the same render); cli --scene_file on the
+             .npz writes the bytes of --scene_id 1's file at 320x192; cli
+             --impl adaptive runs; the serial scene's sha256 is the pin;
+             the two pose examples at their defaults on the card (exit 0
+             or 1, the final pose error, kernel 1's launches, and kernel
+             3's for joint recovery's train steps)
 
 Then the kernels line (JSON, with each kernel's bound and, as
 bound_fmad_off_ms, the same bound with the operations at half the rate,
@@ -120,7 +149,7 @@ stream_segment_sum, f64_render and compact_render), the nvidia-smi line,
 and last {"ok": true, "device": {...}}. Everything measured is
 also written to chip_smoke.json in the output directory. Launch counts
 are set to 0 just before each main path (phases 4, 7, 8, 10, 12, 13, 14,
-16, 17) and read just after it: each path's own counts are in chip_smoke.json
+16-20) and read just after it: each path's own counts are in chip_smoke.json
 (launches_by_phase) and their sums are the kernels line's launches.
 fused_train_render counts its two launches a window (the park render,
 then the reverse; one window at the headline), grad_render its reverse,
@@ -134,6 +163,9 @@ those of the headline-width comparisons in phases 15 and 17.
 """
 from __future__ import annotations
 
+import contextlib
+import hashlib
+import io
 import json
 import os
 import re
@@ -1495,6 +1527,365 @@ def main() -> int:
         f"images bit-equal, and mode='simple' too; launches compact "
         f"{nonzero(compact_counts)}, simple {nonzero(simple_counts)}")
     del img_c, img_r, img_s
+
+    # -- 18 adaptive sampling ------------------------------------------------
+    from raytracingincuda_torch.ops import adaptive as ad
+    from raytracingincuda_torch.ops.tracer import _linear_to_gamma
+
+    def adaptive_cfg(**kw):
+        return RenderConfig(impl="adaptive", **kw)
+
+    # the card against the plain versions: the user's entry point on the
+    # card, render_adaptive on both
+    t_phase = time.perf_counter()
+    record["adaptive_compare"] = []
+    for rounds in (1, 2):
+        cfg = adaptive_cfg(scene_id=1, width=64, height=40, samples=4,
+                           bounces=6, max_samples=16, adaptive_tol=0.1,
+                           adaptive_rounds=rounds)
+        kw = dict(base_spp=4, max_spp=16, tol=0.1, rounds=rounds)
+        s = build_scene(1, device=dev)
+        card = ad.render_adaptive(s, cam, 64, 40, 6, **kw)
+        via_renderer = make_renderer(cfg, dev)(s, cam)
+        plain = ad.render_adaptive(build_scene(1), cam, 64, 40, 6, **kw)
+        pa = rk.render_kernel(s, cam, 64, 40, 2, 6, gamma=False,
+                              accumulate_only=True)
+        pb = rk.render_kernel(s, cam, 64, 40, 2, 6, gamma=False,
+                              accumulate_only=True, sample_offset=2)
+        base = _linear_to_gamma((pa + pb) / 4.0)
+        mask = card.spp_map == 4
+        out = {"rounds": rounds,
+               "renderer_equals_render_adaptive": bool(torch.equal(
+                   via_renderer, card.image)),
+               "image_bit_equal": bool(torch.equal(card.image.cpu(),
+                                                   plain.image)),
+               "spp_equal": bool(torch.equal(card.spp_map.cpu(),
+                                             plain.spp_map)),
+               "zero_extra_pixels": int(mask.sum()),
+               "zero_extra_equal_probes": bool(torch.equal(
+                   card.image[mask], base[mask])),
+               "spp_min_max": [int(card.spp_map.min()),
+                               int(card.spp_map.max())]}
+        record["adaptive_compare"].append(out)
+        if not (out["renderer_equals_render_adaptive"]
+                and out["image_bit_equal"] and out["spp_equal"]
+                and out["zero_extra_pixels"] > 0
+                and out["zero_extra_equal_probes"]
+                and out["spp_min_max"][0] >= 4
+                and out["spp_min_max"][1] <= 16
+                and out["spp_min_max"][1] > out["spp_min_max"][0]):
+            raise AssertionError(f"adaptive card vs plain: {out}")
+        say("18 adaptive", f"64x40 base 4 max 16 tol 0.1 rounds {rounds}: "
+            f"make_renderer's image is render_adaptive's, bit-equal to the "
+            f"plain versions', spp maps equal (spp {out['spp_min_max']}); "
+            f"{out['zero_extra_pixels']} zero-extra pixels equal "
+            f"gamma((A+B)/4) of the probes")
+
+    def count_syncs(fn):
+        """Host syncs of one call of ``fn``: torch's sync debug mode warns
+        at each one (copies to the host, item, tolist, and the pageable
+        copies to the card that wait for the stream)."""
+        import warnings
+
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        return sum("synchroniz" in str(w.message).lower() for w in caught)
+
+    scene = build_scene(1, device=dev)
+    W, H, D = 1280, 768, 25
+    record["adaptive_headline"] = {}
+    for rounds in (1, 2):
+        cfg = adaptive_cfg(scene_id=1, width=W, height=H, samples=16,
+                           bounces=D, max_samples=256, adaptive_tol=0.05,
+                           adaptive_rounds=rounds)
+        renderer = make_renderer(cfg, dev)
+        reset_counts()
+        with RenderTimer(dev) as warm:
+            img = renderer(scene, cam)
+        times = []
+        for _ in range(3):
+            with RenderTimer(dev) as t:
+                img = renderer(scene, cam)
+            times.append(t.ms)
+        counts = read_counts(f"18 adaptive headline rounds {rounds}")
+        arr = img.cpu().numpy()
+        spp = ad.render_adaptive(scene, cam, W, H, D, base_spp=16,
+                                 max_spp=256, tol=0.05,
+                                 rounds=rounds).spp_map.float()
+        syncs = count_syncs(lambda: renderer(scene, cam))
+        idle = profiled_idle(lambda: renderer(scene, cam))
+        if not (counts["regen_render"] >= 4 and counts["stream_render"] == 0
+                and arr.shape == (H, W, 3) and np.isfinite(arr).all()
+                and arr.min() >= 0.0 and arr.max() <= 1.0
+                and float(spp.min()) >= 16 and float(spp.max()) <= 256):
+            raise AssertionError(f"adaptive headline rounds {rounds}: "
+                                 f"{counts}, spp [{spp.min()}, {spp.max()}]")
+        h = record["adaptive_headline"][f"rounds{rounds}"] = {
+            "render_ms": times, "warmup_ms": warm.ms, "launches": counts,
+            "regen_launches_per_render": counts["regen_render"] / 4,
+            "spp_mean": float(spp.mean()), "spp_min": float(spp.min()),
+            "spp_max": float(spp.max()), "host_syncs_per_render": syncs,
+            "idle": idle}
+        say("18 adaptive", f"headline rounds {rounds} (scene 1 {W}x{H}/{D}b "
+            f"parity, base 16, max 256, tol 0.05): render_ms "
+            f"{', '.join(f'{t:.2f}' for t in times)} (warm-up "
+            f"{warm.ms:.2f}); spp mean {h['spp_mean']:.3f} [{h['spp_min']:.0f},"
+            f" {h['spp_max']:.0f}]; kernel 1 launches a render "
+            f"{h['regen_launches_per_render']:.2f}; host syncs a render "
+            f"{syncs}; idle {fmt_idle(idle)}")
+
+    # the refine's pixel order: budget buckets against raster, in pairs
+    cap = 256 - 16
+    pa = rk.render_kernel(scene, cam, W, H, 8, D, gamma=False,
+                          accumulate_only=True)
+    pb = rk.render_kernel(scene, cam, W, H, 8, D, gamma=False,
+                          accumulate_only=True, sample_offset=8)
+    _, extra = ad.plan(pa, pb, torch.full((H, W), 16, dtype=torch.int32,
+                                          device=dev), max_spp=256, tol=0.05)
+    order = ad.bucket_order(extra, cap, rk.PAD * -(-W * H // rk.PAD))
+
+    def refine(po):
+        return rk.render_kernel(scene, cam, W, H, cap, D, gamma=False,
+                                accumulate_only=True, sample_offset=16,
+                                sample_budgets=extra.reshape(-1),
+                                pixel_order=po)
+
+    refine(order)
+    refine(None)
+    pairs = []
+    for _ in range(SORT_PAIRS):
+        with RenderTimer(dev) as tb:
+            by_bucket = refine(order)
+        with RenderTimer(dev) as tr:
+            raster = refine(None)
+        pairs.append((tb.ms, tr.ms))
+    if not torch.equal(by_bucket, raster):
+        raise AssertionError("the bucket order changed the refine's sums")
+    wins = sum(a < b for a, b in pairs)
+    record["adaptive_refine_order"] = {
+        "bucket_raster_pairs_ms": pairs, "bucket_wins": wins,
+        "extra_mean": float(extra.float().mean()),
+        "extra_max": int(extra.max())}
+    say("18 adaptive", f"headline refine (extra mean "
+        f"{float(extra.float().mean()):.3f}, max {int(extra.max())}): the "
+        f"bucket order won {wins} of {SORT_PAIRS} pairs against raster "
+        f"(bucket {', '.join(f'{a:.2f}' for a, _ in pairs)}; raster "
+        f"{', '.join(f'{b:.2f}' for _, b in pairs)}); sums bit-equal")
+
+    # quality at the headline against a 1024-spp truth from a disjoint
+    # window (benchmarks/adaptive_probe.py's cases and error statistics)
+    truth_offset, truth_spp = 4096, 1024
+    with RenderTimer(dev) as t_truth:
+        truth = rk.render_kernel(scene, cam, W, H, truth_spp, D, gamma=False,
+                                 sample_offset=truth_offset)
+
+    def errs(img):
+        d = (img - truth).abs().mean(-1).reshape(-1)
+        return {"err": float(d.mean()),
+                "p99": float(torch.quantile(d, 0.99)),
+                "p999": float(torch.quantile(d, 0.999))}
+
+    def timed_case(fn):
+        """A warm-up, then one timed run (as benchmarks/adaptive_probe.py
+        times each case)."""
+        fn()
+        with RenderTimer(dev) as t:
+            out = fn()
+        return out, t.ms
+
+    quality = []
+    for n in (16, 32, 64, 100):
+        img, ms = timed_case(lambda: rk.render_kernel(scene, cam, W, H, n, D,
+                                                      gamma=False))
+        quality.append({"case": f"uniform_{n}", "ms": ms, "mean_spp": n,
+                        **errs(img)})
+    for base, mx, tol, rounds in ((16, 256, 0.08, 1), (16, 256, 0.05, 1),
+                                  (32, 512, 0.05, 1), (16, 128, 0.1, 1),
+                                  (16, 256, 0.05, 2), (16, 256, 0.05, 3),
+                                  (32, 512, 0.05, 2)):
+        last_spp, last_offset = ad.sample_windows(base, mx, rounds)[-1][-1]
+        if last_offset + last_spp > truth_offset:
+            raise AssertionError("an adaptive window reaches the truth's")
+        res, ms = timed_case(lambda: ad.render_adaptive(
+            scene, cam, W, H, D, base_spp=base, max_spp=mx, tol=tol,
+            rounds=rounds, gamma=False))
+        quality.append({"case": f"adaptive_b{base}_m{mx}_t{tol}_r{rounds}",
+                        "ms": ms,
+                        "mean_spp": float(res.spp_map.float().mean()),
+                        **errs(res.image)})
+    for q in quality:
+        q["err2_x_ms"] = q["err"] ** 2 * q["ms"]
+        q["p99_2_x_ms"] = q["p99"] ** 2 * q["ms"]
+        if not all(np.isfinite([q["err"], q["p99"], q["p999"]])):
+            raise AssertionError(f"quality case not finite: {q}")
+    record["adaptive_quality"] = {"truth_spp": truth_spp,
+                                  "truth_offset": truth_offset,
+                                  "truth_ms": t_truth.ms, "cases": quality}
+    say("18 adaptive", f"quality at the headline against a {truth_spp}-spp "
+        f"truth (samples from {truth_offset}, {t_truth.ms:.1f} ms): "
+        + "; ".join(f"{q['case']} {q['ms']:.2f} ms spp {q['mean_spp']:.2f} "
+                    f"err {q['err']:.5f} p99 {q['p99']:.4f} p99.9 "
+                    f"{q['p999']:.4f} err2*ms {q['err2_x_ms']:.4g}"
+                    for q in quality))
+    del truth, pa, pb, by_bucket, raster
+    record["phase_s"] = {"18 adaptive": time.perf_counter() - t_phase}
+
+    # -- 19 adaptive sampling on the stream kernel --------------------------
+    t_phase = time.perf_counter()
+    w, h = 640, 384
+    cfg = adaptive_cfg(scene_id=0, width=w, height=h, samples=4, bounces=10,
+                       max_samples=32, adaptive_tol=0.1)
+    renderer = make_renderer(cfg, dev)
+    renderer.prepare(s100k)
+    reset_counts()
+    with RenderTimer(dev) as warm:
+        img = renderer(s100k, cam)
+    times = []
+    for _ in range(3):
+        with RenderTimer(dev) as t:
+            img = renderer(s100k, cam)
+        times.append(t.ms)
+    counts = read_counts("19 adaptive stream")
+    st = sk.reorder_front_to_back(sk.prepare_stream_scene(s100k, block=256),
+                                  initialize(cam, w, h).center)
+    res = ad.render_adaptive(s100k, cam, w, h, 10, base_spp=4, max_spp=32,
+                             tol=0.1, stream=st)
+    spp = res.spp_map.float()
+    if not (counts["stream_render"] >= 4 and counts["regen_render"] == 0
+            and torch.equal(res.image, img)
+            and bool(torch.isfinite(img).all())
+            and float(spp.min()) >= 4 and float(spp.max()) <= 32):
+        raise AssertionError(f"adaptive stream: {counts}, image equal "
+                             f"{torch.equal(res.image, img)}")
+    small = build_random_scene(200, half_extent=10.0)
+    st_cpu = sk.prepare_stream_scene(small, block=64)
+    st_dev = sk.StreamScene(st_cpu.scene_mat.to(dev), st_cpu.bounds.to(dev),
+                            st_cpu.block, st_cpu.perm.to(dev))
+    kw = dict(base_spp=4, max_spp=16, tol=0.1)
+    on_card = ad.render_adaptive(
+        build_random_scene(200, half_extent=10.0, device=dev), cam, 64, 40,
+        6, stream=st_dev, **kw)
+    plain = ad.render_adaptive(small, cam, 64, 40, 6, stream=st_cpu, **kw)
+    small_eq = (torch.equal(on_card.image.cpu(), plain.image)
+                and torch.equal(on_card.spp_map.cpu(), plain.spp_map))
+    if not small_eq:
+        raise AssertionError("adaptive stream card vs plain differ")
+    record["adaptive_stream"] = {
+        "render_ms": times, "warmup_ms": warm.ms, "launches": counts,
+        "stream_launches_per_render": counts["stream_render"] / 4,
+        "spp_mean": float(spp.mean()), "spp_min": float(spp.min()),
+        "spp_max": float(spp.max()), "small_card_vs_plain_bit_equal": True}
+    say("19 adaptive stream", f"100k spheres {w}x{h}/10b base 4 max 32 tol "
+        f"0.1: render_ms {', '.join(f'{t:.2f}' for t in times)} (warm-up "
+        f"{warm.ms:.2f}); spp mean {float(spp.mean()):.3f}; kernel 4 "
+        f"launches a render {counts['stream_render'] / 4:.2f}; 200 spheres "
+        f"64x40 through an explicit stream: card bit-equal to plain")
+
+    record["phase_s"]["19 adaptive stream"] = time.perf_counter() - t_phase
+
+    # -- 20 scene assets and pose recovery ----------------------------------
+    t_phase = time.perf_counter()
+    from raytracingincuda_torch.examples import joint_recovery, pose_recovery
+    from raytracingincuda_torch.models import io as scene_io
+    from raytracingincuda_torch.models import reference_scene as refscene
+
+    s1 = build_scene(1, device=dev)
+    assets = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for ext in ("npz", "csv"):
+            path = str(Path(tmp) / f"scene1.{ext}")
+            scene_io.save_scene(path, s1)
+            loaded = scene_io.load_scene(path, device=dev)
+            a, b = (scene_io._scene_to_arrays(x) for x in (s1, loaded))
+            assets[ext] = {
+                "arrays_equal": all(np.array_equal(a[k], b[k]) for k in a),
+                "slots": loaded.num_slots,
+                "render_equal": bool(torch.equal(
+                    rk.render_kernel(loaded, cam, 320, 192, 10, 25),
+                    rk.render_kernel(s1, cam, 320, 192, 10, 25)))}
+        env = dict(os.environ, PYTHONPATH=str(ROOT))
+        # what cli --scene_id 1 writes at this shape: the renderer's image
+        # through write_ppm
+        ppm.write_ppm(str(Path(tmp) / "scene_id.ppm"), make_renderer(
+            RenderConfig(scene_id=1), dev)(s1, cam).cpu().numpy())
+        ppm_bytes = {"scene_id": (Path(tmp) / "scene_id.ppm").read_bytes()}
+        lines = {}
+        for tag, flags, cfg in (
+                ("scene_file", ["--scene_file", str(Path(tmp) / "scene1.npz")],
+                 RenderConfig(scene_id=0)),
+                ("adaptive", ["--scene_id", "1", "--impl", "adaptive"],
+                 RenderConfig(scene_id=1, impl="adaptive"))):
+            out_dir = Path(tmp) / tag
+            out_dir.mkdir()
+            res = subprocess.run(
+                [sys.executable, "-m", "raytracingincuda_torch.cli",
+                 "--width", "320", "--height", "192", "--outdir",
+                 str(out_dir), *flags],
+                cwd=tmp, env=env, capture_output=True, text=True, timeout=600)
+            if res.returncode != 0:
+                raise AssertionError(f"cli {flags} failed: "
+                                     f"{res.stderr[-2000:]}")
+            lines[tag] = res.stdout.strip().splitlines()[-1]
+            ppm_bytes[tag] = (out_dir / cfg.output_filename()).read_bytes()
+            if not re.fullmatch(r"\s*[0-9.]+,\s*[0-9.]+", lines[tag]):
+                raise AssertionError(f"cli {flags} printed {lines[tag]!r}")
+    h256 = hashlib.sha256()
+    for arr in refscene.serial_scene1_arrays():
+        h256.update(np.ascontiguousarray(arr, np.float64).tobytes())
+    serial = refscene.build_serial_reference_scene(device=dev)
+    serial_img = rk.render_kernel(serial, cam, 320, 192, 10, 25)
+    assets.update(
+        cli_scene_file_equals_scene_id=ppm_bytes["scene_file"]
+        == ppm_bytes["scene_id"], cli_lines=lines,
+        serial_sha256_matches=h256.hexdigest()
+        == refscene.SERIAL_SCENE1_SHA256,
+        serial_slots=serial.num_slots,
+        serial_active=int(serial.active.sum()),
+        serial_render_finite=bool(torch.isfinite(serial_img).all()))
+    if not (all(assets[e]["arrays_equal"] and assets[e]["slots"] == 512
+                for e in ("npz", "csv"))
+            and assets["cli_scene_file_equals_scene_id"]
+            and assets["serial_sha256_matches"]
+            and (assets["serial_slots"], assets["serial_active"]) == (512, 487)
+            and assets["serial_render_finite"]):
+        raise AssertionError(f"scene assets: {assets}")
+    record["assets"] = assets
+    say("20 assets", f"scene 1 round-trips through .npz and .csv on the card "
+        f"(arrays equal, 512 slots; renders equal: npz "
+        f"{assets['npz']['render_equal']}, csv "
+        f"{assets['csv']['render_equal']}); cli --scene_file writes the "
+        f"--scene_id 1 PPM bytes ({lines['scene_file'].strip()}); cli --impl "
+        f"adaptive {lines['adaptive'].strip()}; the serial scene's sha256 "
+        f"matches the pin (487 spheres in 512 slots)")
+
+    record["pose"] = {}
+    for name, example in (("pose_recovery", pose_recovery),
+                          ("joint_recovery", joint_recovery)):
+        out, err = io.StringIO(), io.StringIO()
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = example.main(["--device", "cuda"])
+        secs = time.perf_counter() - t0
+        counts = read_counts(f"20 {name}")
+        text = out.getvalue() + err.getvalue()
+        final = [ln for ln in text.splitlines()
+                 if ln.startswith(("recovered", "final"))]
+        need = ("regen_render",) + (("grad_render",)
+                                    if name == "joint_recovery" else ())
+        if rc not in (0, 1) or not final or min(counts[k] for k in need) < 1:
+            raise AssertionError(f"{name}: rc {rc}, {counts}, {text[-2000:]}")
+        record["pose"][name] = {"rc": rc, "final": final[-1], "secs": secs,
+                                "launches": counts}
+        say("20 pose", f"{name} --device cuda (defaults): rc {rc} in "
+            f"{secs:.1f} s; {final[-1].strip()}; launches {nonzero(counts)}")
+    record["phase_s"]["20 assets and pose"] = time.perf_counter() - t_phase
 
     # -- result lines ---------------------------------------------------------
     record["main_path_launches"] = main_launches

@@ -15,7 +15,12 @@ the TPU schedule and the CUDA kernels ignore them (one thread per pixel,
 sort and block bounds) runs after the scene is built and before the
 render bracket, like the reference's upload. ``--dtype float64``
 renders in double and writes the PPM from the double image, as the
-reference's double variants do.
+reference's double variants do. ``--scene_file`` renders a scene asset
+(``.npz`` or ``.csv``, ``models/io.py``) instead of a built-in scene;
+the file name then says scene 0, as the JAX package's does.
+``--impl adaptive`` renders with per-pixel sample budgets
+(``ops/adaptive.py``): ``--samples`` is the probe budget, ``--max_samples``
+the per-pixel cap.
 """
 from __future__ import annotations
 
@@ -31,6 +36,9 @@ def build_parser() -> argparse.ArgumentParser:
         description="Path tracer on PyTorch and CUDA (Hopper)",
     )
     p.add_argument("--scene_id", type=int, help="ID of the scene to render")
+    p.add_argument("--scene_file", type=str, default=None,
+                   help="render a scene asset (.npz or .csv, models/io.py) "
+                        "instead of a built-in --scene_id")
     p.add_argument("--width", type=int, default=320,
                    help="Width of the output image")
     p.add_argument("--height", type=int, default=192,
@@ -58,11 +66,21 @@ def build_parser() -> argparse.ArgumentParser:
                    help="scene in shared memory (vmem, 'const'), read from "
                         "device memory (hbm, 'global'), or the texture-path "
                         "analog (packed, 'tex': the stream kernel)")
-    p.add_argument("--impl", choices=["kernel", "stream", "oracle"],
+    p.add_argument("--impl", choices=["kernel", "stream", "adaptive",
+                                      "oracle"],
                    default="kernel",
                    help="the CUDA regeneration kernel, the stream kernel "
-                        "(culled sphere blocks, any scene size) or the "
-                        "plain PyTorch tracer")
+                        "(culled sphere blocks, any scene size), adaptive "
+                        "per-pixel sampling on them, or the plain PyTorch "
+                        "tracer")
+    p.add_argument("--max_samples", type=int, default=None,
+                   help="impl=adaptive: per-pixel spp cap (default 4x "
+                        "--samples); --samples is the probe budget")
+    p.add_argument("--adaptive_tol", type=float, default=0.05,
+                   help="impl=adaptive: target relative error per pixel")
+    p.add_argument("--adaptive_rounds", type=int, default=1,
+                   help="impl=adaptive: refine rounds (>1 estimates the "
+                        "error again after each refine)")
     p.add_argument("--stream_block", type=int, default=256,
                    help="impl=stream: spheres per block (a minimum)")
     p.add_argument("--stream_lane_group", type=int, default=None,
@@ -83,8 +101,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.scene_id is None:
-        print("Error: --scene_id is required.", file=sys.stderr)
+    if args.scene_id is None and args.scene_file is None:
+        print("Error: --scene_id (or --scene_file) is required.",
+              file=sys.stderr)
         build_parser().print_help()
         return 1
 
@@ -98,10 +117,13 @@ def main(argv=None) -> int:
     from .utils.timing import RenderTimer
 
     cfg = RenderConfig(
-        scene_id=args.scene_id, width=args.width, height=args.height,
+        scene_id=args.scene_id if args.scene_id is not None else 0,
+        width=args.width, height=args.height,
         samples=args.samples, bounces=args.bounces, threads=args.threads,
         dtype=args.dtype, layout=args.layout, impl=args.impl, seed=args.seed,
         legacy_sky=args.legacy_sky, rr_start=args.rr_start,
+        max_samples=args.max_samples, adaptive_tol=args.adaptive_tol,
+        adaptive_rounds=args.adaptive_rounds,
         pixels_per_lane=args.pixels_per_lane,
         stream_block=args.stream_block,
         stream_lane_group=args.stream_lane_group,
@@ -109,13 +131,21 @@ def main(argv=None) -> int:
     device = torch.device(args.device)
     renderer = make_renderer(cfg, device)
     cam = CameraConfig.reference_default()
+
+    def make_scene():
+        if args.scene_file is not None:
+            from .models.io import load_scene
+
+            return load_scene(args.scene_file, device=device)
+        return build_scene(cfg.scene_id, seed=cfg.seed, device=device)
+
     if args.warmup:
-        renderer(build_scene(cfg.scene_id, seed=cfg.seed, device=device), cam)
+        renderer(make_scene(), cam)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
     t_e2e0 = time.perf_counter()
-    scene = build_scene(cfg.scene_id, seed=cfg.seed, device=device)
+    scene = make_scene()
     prepare = getattr(renderer, "prepare", None)
     if prepare is not None:
         prepare(scene)

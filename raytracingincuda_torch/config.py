@@ -15,6 +15,10 @@ carry over unchanged. What this port serves:
   impl:   kernel (the CUDA regeneration kernel; the JAX 'pallas') |
           stream (the stream kernel: scenes of any size, walked in culled
           sphere blocks of ``stream_block`` rows) |
+          adaptive (per-pixel sample budgets, ``ops/adaptive.py``:
+          ``samples`` is the probe, ``max_samples`` the cap, default 4x
+          ``samples``; the regen kernel, or the stream kernel above 4096
+          slots) |
           oracle (the plain PyTorch tracer)
 
 ``threads``, ``chunk_pixels``, ``pixels_per_lane``, ``ray_tile`` and
@@ -31,11 +35,7 @@ from .ops.rng import DEFAULT_SEED
 
 DTYPE_NAMES = {"float32": "float", "float64": "double"}
 LAYOUT_NAMES = {"hbm": "global", "vmem": "const", "packed": "tex"}
-IMPLS = ("kernel", "stream", "oracle")
-# impls of the JAX package that later slices port (ROADMAP queue 1)
-_NOT_YET = {
-    "adaptive": "adaptive sampling, ROADMAP queue 1 item 3",
-}
+IMPLS = ("kernel", "stream", "adaptive", "oracle")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,8 +54,8 @@ class RenderConfig:
     chunk_pixels: Optional[int] = None
     # Russian-roulette start depth (None = off = the reference estimator)
     rr_start: Optional[int] = None
-    # the adaptive fields keep the JAX field names; that impl is not
-    # ported yet and raises
+    # impl='adaptive': the per-pixel cap (None = 4x samples), the target
+    # relative error and the refine rounds
     max_samples: Optional[int] = None
     adaptive_tol: float = 0.05
     adaptive_rounds: int = 1
@@ -73,9 +73,6 @@ class RenderConfig:
                              f"got {self.dtype!r}")
         if self.layout not in LAYOUT_NAMES:
             raise ValueError(f"layout must be one of {list(LAYOUT_NAMES)}")
-        if self.impl in _NOT_YET:
-            raise NotImplementedError(
-                f"impl={self.impl} is not ported yet ({_NOT_YET[self.impl]})")
         if self.impl not in IMPLS:
             raise ValueError(f"impl must be one of {list(IMPLS)}")
         if self.mxu_dots:
@@ -96,6 +93,16 @@ class RenderConfig:
         if self.stream_lane_group is not None and self.stream_lane_group < 0:
             raise ValueError("stream_lane_group must be >= 0 (or None = "
                              "auto)")
+        if not 0.0 < self.adaptive_tol:
+            raise ValueError("adaptive_tol must be positive")
+        if self.impl == "adaptive":
+            if self.samples % 2 != 0:
+                raise ValueError(
+                    "impl=adaptive needs even --samples (two half-buffers)")
+            if self.effective_max_samples < self.samples:
+                raise ValueError("max_samples must be >= samples")
+            if self.adaptive_rounds < 1:
+                raise ValueError("adaptive_rounds must be >= 1")
 
     def _check_f64_scope(self):
         """dtype=float64 is the JAX df64 path's precision comparison:
@@ -112,6 +119,10 @@ class RenderConfig:
             raise ValueError(
                 f"dtype=float64 runs on the f64 kernel (impl='kernel'); "
                 f"impl={self.impl} has no f64 path")
+
+    @property
+    def effective_max_samples(self) -> int:
+        return self.max_samples if self.max_samples else 4 * self.samples
 
     @property
     def effective_chunk_pixels(self) -> int:

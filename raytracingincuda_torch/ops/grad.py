@@ -19,13 +19,15 @@ through the continuous quantities those decisions select.
     one launch (``train_kernel.fused_train``).
 
 The optimizer is ``torch.optim.Adam`` (``optax.adam``'s counterpart, with
-the same defaults); a ``trainable`` mask freezes parameter groups as
-``optax.multi_transform`` with ``set_to_zero`` does: a frozen leaf takes
-no update and its moments do not change.
+the same defaults) unless ``optimizer=`` gives a ``torch.optim`` factory
+(the JAX ``optimizer=`` argument, which takes an optax transformation); a
+``trainable`` mask freezes parameter groups as ``optax.multi_transform``
+with ``set_to_zero`` does: a frozen leaf takes no update and its
+optimizer state does not change.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -174,15 +176,30 @@ class AdamState(NamedTuple):
     nu: SceneParams
 
 
+class OptimizerState(NamedTuple):
+    """The state of an ``optimizer=`` train step: the optimizer's class
+    name, the step count and, for each of the 9 SceneParams leaves, the
+    ``torch.optim`` per-parameter state dict (empty for frozen leaves)."""
+    name: str
+    count: torch.Tensor     # int32 scalar
+    per_leaf: tuple
+
+
 class TrainState(NamedTuple):
     params: SceneParams
-    opt_state: AdamState
+    opt_state: "AdamState | OptimizerState"
     step: torch.Tensor      # int32 scalar
 
 
 def train_state_leaves(state: TrainState) -> list:
-    """The 29 tensors of a TrainState: 9 params, count, 9 mu, 9 nu,
-    step."""
+    """The 29 tensors of an Adam TrainState: 9 params, count, 9 mu, 9 nu,
+    step. A state of another optimizer has no such layout and raises."""
+    if not isinstance(state.opt_state, AdamState):
+        raise TypeError(
+            f"the train state holds {type(state.opt_state).__name__} of "
+            f"{getattr(state.opt_state, 'name', '?')} (make_train_step("
+            f"optimizer=...)); only the default Adam state has the 29-leaf "
+            f"layout that checkpoints save")
     return [*param_leaves(state.params), state.opt_state.count,
             *param_leaves(state.opt_state.mu),
             *param_leaves(state.opt_state.nu), state.step]
@@ -201,13 +218,17 @@ def train_state_from_leaves(leaves) -> TrainState:
     )
 
 
+def _mask(trainable) -> list:
+    return ([True] * 9 if trainable is None
+            else [bool(t) for t in param_leaves(trainable)])
+
+
 def _adam(learning_rate: float, trainable):
     """``(init_fn, apply)`` for Adam over the SceneParams leaves:
     ``torch.optim.Adam(lr=learning_rate)`` with optax's defaults (betas
     0.9/0.999, eps 1e-8); ``trainable``, a SceneParams of bools, selects
     the leaves it updates."""
-    mask = ([True] * 9 if trainable is None
-            else [bool(t) for t in param_leaves(trainable)])
+    mask = _mask(trainable)
 
     def init_fn(params: SceneParams) -> TrainState:
         leaves = [t.detach().clone() for t in param_leaves(params)]
@@ -246,9 +267,61 @@ def _adam(learning_rate: float, trainable):
     return init_fn, apply
 
 
+def _torch_optimizer(factory: Callable, trainable):
+    """``(init_fn, apply)`` for any ``torch.optim`` optimizer:
+    ``factory(tensors)`` builds it over the trainable leaves each step,
+    with each leaf's state dict carried in an ``OptimizerState`` (copied,
+    so a state is never changed in place)."""
+    mask = _mask(trainable)
+
+    def copy(st: dict) -> dict:
+        return {k: v.clone() if torch.is_tensor(v) else v
+                for k, v in st.items()}
+
+    def init_fn(params: SceneParams) -> TrainState:
+        leaves = [t.detach().clone() for t in param_leaves(params)]
+        dev = leaves[0].device
+        name = getattr(factory, "func", factory).__name__
+        return TrainState(
+            params=params_from_leaves(leaves),
+            opt_state=OptimizerState(
+                name, torch.zeros((), dtype=torch.int32, device=dev),
+                tuple({} for _ in leaves)),
+            step=torch.zeros((), dtype=torch.int32, device=dev),
+        )
+
+    def apply(state: TrainState, d_params: SceneParams):
+        leaves = [t.detach().clone() for t in param_leaves(state.params)]
+        per_leaf = list(state.opt_state.per_leaf)
+        grads = param_leaves(d_params)
+        train = [i for i in range(9) if mask[i]]
+        if train:
+            opt = factory([leaves[i] for i in train])
+            for i in train:
+                leaves[i].grad = grads[i].detach().to(leaves[i].dtype)
+                if per_leaf[i]:
+                    opt.state[leaves[i]] = copy(per_leaf[i])
+            opt.step()
+            for i in train:
+                leaves[i].grad = None
+                per_leaf[i] = copy(opt.state[leaves[i]])
+        opt_state = state.opt_state._replace(
+            count=state.opt_state.count + 1, per_leaf=tuple(per_leaf))
+        return params_from_leaves(leaves), opt_state
+
+    return init_fn, apply
+
+
+def _optimizer(optimizer: Optional[Callable], learning_rate: float,
+               trainable):
+    if optimizer is None:
+        return _adam(learning_rate, trainable)
+    return _torch_optimizer(optimizer, trainable)
+
+
 def make_train_step(img_width: int, img_height: int, samples_per_pixel: int,
-                    max_depth: int, learning_rate: float = 1e-2,
-                    trainable=None, **kw):
+                    max_depth: int, optimizer: Optional[Callable] = None,
+                    learning_rate: float = 1e-2, trainable=None, **kw):
     """Build ``(init_fn, step_fn)`` for inverse rendering;
     ``step_fn(state, cam_cfg, mat_type, active, target) -> (state,
     loss)``.
@@ -257,17 +330,23 @@ def make_train_step(img_width: int, img_height: int, samples_per_pixel: int,
     other keywords go to ``make_loss_fn`` or, for 'fused', to
     ``fused_train`` (``gamma``, ``seed``, ``pixel_order``, ``rr_start``,
     ``loss``, ``huber_delta``, ``layout``; the TPU knobs are ignored).
-    ``trainable``: a SceneParams of bools selecting the leaves Adam
-    updates. Adam is ``torch.optim.Adam(lr=learning_rate)``, optax's
-    defaults (betas 0.9/0.999, eps 1e-8); the JAX package's
-    ``optimizer`` argument has no counterpart."""
+    ``trainable``: a SceneParams of bools selecting the leaves the
+    optimizer updates. By default the optimizer is
+    ``torch.optim.Adam(lr=learning_rate)`` with optax's defaults (betas
+    0.9/0.999, eps 1e-8), its state an ``AdamState``. ``optimizer``, the
+    JAX argument's counterpart, is a factory of a ``torch.optim``
+    optimizer over a list of tensors, for example
+    ``functools.partial(torch.optim.SGD, lr=1e-2, momentum=0.9)``
+    (``learning_rate`` is then unused); its state is an
+    ``OptimizerState``, which ``utils/checkpoint.save_train_state``
+    refuses."""
     impl = kw.get("impl", "oracle")
     if impl == "stream":
         raise ValueError(_STREAM)
     if impl not in ("oracle", "kernel", "fused"):
         raise ValueError(f"impl must be 'oracle', 'kernel' or 'fused', got "
                          f"{impl!r}")
-    init_fn, apply = _adam(learning_rate, trainable)
+    init_fn, apply = _optimizer(optimizer, learning_rate, trainable)
 
     if impl == "fused":
         fused_kw = {k: kw[k] for k in ("seed", "pixel_order", "rr_start",
@@ -309,6 +388,7 @@ def make_train_step(img_width: int, img_height: int, samples_per_pixel: int,
 
 def make_stream_train(stream, img_width: int, img_height: int,
                       samples_per_pixel: int, max_depth: int,
+                      optimizer: Optional[Callable] = None,
                       learning_rate: float = 1e-2, trainable=None,
                       seed: int = 1227, fused: bool = True, mesh=None,
                       loss: str = "mse",
@@ -325,15 +405,16 @@ def make_stream_train(stream, img_width: int, img_height: int,
     (``prepare_stream_scene``); each step rebuilds the matrix and bounds
     from the current parameters on their device (``build_stream_arrays``),
     with the blocks visited front to back from the first step's camera.
-    The loss is taken in linear radiance. Adam as in ``make_train_step``;
-    the JAX ``optimizer``, ``interpret`` and ``lane_group`` (the TPU
-    schedule) arguments have no counterpart, ``mesh`` raises."""
+    The loss is taken in linear radiance. The optimizer (Adam, or
+    ``optimizer``) as in ``make_train_step``; the JAX ``interpret`` and
+    ``lane_group`` (the TPU schedule) arguments have no counterpart,
+    ``mesh`` raises."""
     from .stream_kernel import StreamScene, build_stream_arrays, render_stream
     from .stream_train_kernel import (mse_train_stream, render_stream_grads,
                                       stream_grads_to_scene_mat)
 
     refuse_unported(mesh)
-    init_fn, apply = _adam(learning_rate, trainable)
+    init_fn, apply = _optimizer(optimizer, learning_rate, trainable)
     block, n_pad, perm = stream.block, stream.scene_mat.shape[0], stream.perm
     border: dict = {}
 

@@ -521,7 +521,8 @@ def _lane_setup(img_width, img_height, pixel_order, samples_per_pixel,
         nb = torch.as_tensor(sample_budgets).reshape(-1)
         if tuple(nb.shape) != (num_pixels,):
             raise ValueError(f"sample_budgets must have shape ({num_pixels},)")
-        if int(nb.min()) < 0 or int(nb.max()) > samples_per_pixel:
+        lo, hi = torch.stack(torch.aminmax(nb)).tolist()   # one host sync
+        if lo < 0 or hi > samples_per_pixel:
             raise ValueError(
                 f"sample_budgets must lie in [0, {samples_per_pixel}]")
         nb_pad = torch.zeros(padded, dtype=torch.float32, device=device)

@@ -8,7 +8,9 @@ traced depth, that order made the kernel slower (``PERF.md``), so this
 renderer takes none. ``impl='stream'`` (and ``layout='packed'``, the texture-path
 analog, which routes there as in JAX) renders through the stream kernel
 (``ops/stream_kernel.py``): a prepared scene of any size, walked in
-culled sphere blocks. ``impl='oracle'`` runs the plain PyTorch tracer.
+culled sphere blocks. ``impl='adaptive'`` renders with per-pixel sample
+budgets (``ops/adaptive.py``) on the regen kernel, or on the stream
+kernel above 4096 slots. ``impl='oracle'`` runs the plain PyTorch tracer.
 ``dtype='float64'`` (``impl='kernel'`` only) renders in double through
 the f64 kernel (``ops/f64_kernel.py``), ordered by the f32 prepass.
 
@@ -60,17 +62,13 @@ def _identity_cache():
 _ONE_BLOCK_SLOTS = 4096
 
 
-def _stream_renderer(cfg: RenderConfig, check) -> Callable:
-    """``impl='stream'``: the JAX package's rules. A scene of at most 4096
-    slots is one block of round_up(slots, 256) rows, unpaired; a larger
-    one is blocked by ``cfg.stream_block``. The preparation is cached by
-    the scene's identity (``renderer.prepare`` runs it ahead); the bounds
-    are reordered front to back at the first render; one-block scenes get
-    the difficulty order at >= 8 spp and > 4 bounces."""
-    if cfg.legacy_sky:
-        raise ValueError("impl=stream has no legacy_sky variant")
+def _stream_preparer(cfg: RenderConfig) -> Callable:
+    """``get(scene, cam_cfg=None) -> StreamScene`` by the JAX package's
+    rules: a scene of at most 4096 slots is one block of round_up(slots,
+    256) rows, unpaired; a larger one is blocked by ``cfg.stream_block``.
+    The preparation is cached by the scene's identity; the bounds are
+    reordered front to back from the first camera given."""
     prepared = _identity_cache()
-    order_cache: dict = {}
 
     def build(scene):
         if scene.num_slots <= _ONE_BLOCK_SLOTS:
@@ -80,24 +78,68 @@ def _stream_renderer(cfg: RenderConfig, check) -> Callable:
         return {"stream": stream_kernel.prepare_stream_scene(
             scene, block=cfg.stream_block)}
 
-    def renderer(scene, cam_cfg):
-        check(scene)
+    def get(scene, cam_cfg=None):
         ent = prepared(scene, lambda: build(scene))
-        if "camdist" not in ent:
+        if cam_cfg is not None and "camdist" not in ent:
             ent["camdist"] = True
             ent["stream"] = stream_kernel.reorder_front_to_back(
                 ent["stream"], initialize(cam_cfg, cfg.width,
                                           cfg.height).center)
+        return ent["stream"]
+
+    return get
+
+
+def _stream_renderer(cfg: RenderConfig, check) -> Callable:
+    """``impl='stream'``: the stream kernel on ``_stream_preparer``'s
+    stream (``renderer.prepare`` runs the preparation ahead); one-block
+    scenes get the difficulty order at >= 8 spp and > 4 bounces."""
+    if cfg.legacy_sky:
+        raise ValueError("impl=stream has no legacy_sky variant")
+    stream_of = _stream_preparer(cfg)
+    order_cache: dict = {}
+
+    def renderer(scene, cam_cfg):
+        check(scene)
         order = None
         if scene.num_slots <= _ONE_BLOCK_SLOTS:
             order = _prepass_order(cfg, scene, cam_cfg, order_cache)
         return stream_kernel.render_stream(
-            ent["stream"], cam_cfg, cfg.width, cfg.height, cfg.samples,
-            cfg.bounces, seed=cfg.seed, rr_start=cfg.rr_start,
+            stream_of(scene, cam_cfg), cam_cfg, cfg.width, cfg.height,
+            cfg.samples, cfg.bounces, seed=cfg.seed, rr_start=cfg.rr_start,
             pixel_order=order)
 
+    renderer.prepare = stream_of
+    return renderer
+
+
+def _adaptive_renderer(cfg: RenderConfig, check) -> Callable:
+    """``impl='adaptive'`` (``ops/adaptive.py``): a scene of at most 4096
+    slots renders every phase on the regen kernel with the scene staged
+    (layout ``vmem``); a larger one on the stream kernel, over the stream
+    ``_stream_preparer`` builds (blocks of ``cfg.stream_block``, cached by
+    the scene's identity, front to back from the first camera), whose
+    image equals the brute-force one but at exact ties between blocks.
+    ``renderer.prepare`` runs that preparation ahead."""
+    from .ops.adaptive import render_adaptive
+
+    stream_of = _stream_preparer(cfg)
+
+    def renderer(scene, cam_cfg):
+        check(scene)
+        stream = None
+        if scene.num_slots > _ONE_BLOCK_SLOTS:
+            stream = stream_of(scene, cam_cfg)
+        return render_adaptive(
+            scene, cam_cfg, cfg.width, cfg.height, cfg.bounces,
+            base_spp=cfg.samples, max_spp=cfg.effective_max_samples,
+            tol=cfg.adaptive_tol, seed=cfg.seed, legacy_sky=cfg.legacy_sky,
+            rr_start=cfg.rr_start, rounds=cfg.adaptive_rounds,
+            stream=stream).image
+
     def prepare(scene):
-        prepared(scene, lambda: build(scene))
+        if scene.num_slots > _ONE_BLOCK_SLOTS:
+            stream_of(scene)
 
     renderer.prepare = prepare
     return renderer
@@ -188,6 +230,9 @@ def make_renderer(cfg: RenderConfig, device) -> Callable:
 
     if cfg.impl == "stream" or cfg.layout == "packed":
         return _stream_renderer(cfg, check)
+
+    if cfg.impl == "adaptive":
+        return _adaptive_renderer(cfg, check)
 
     def renderer(scene, cam_cfg):
         check(scene)

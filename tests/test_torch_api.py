@@ -14,6 +14,7 @@ from raytracingincuda_torch.models.scene import build_scene
 from raytracingincuda_torch.ops import render_kernel as rk
 from raytracingincuda_torch.ops import tracer
 from raytracingincuda_torch.render_api import make_renderer
+from raytracingincuda_torch.utils import ppm
 
 # One intra-op thread: the suite runs in several worker processes, and
 # torch's default of one thread per core oversubscribes the CPU.
@@ -71,7 +72,7 @@ def test_make_renderer_order_cache_by_shape(monkeypatch):
 @pytest.mark.parametrize("kw, exc", [
     (dict(dtype="float64", rr_start=2), ValueError),
     (dict(dtype="bfloat16"), ValueError),
-    (dict(impl="adaptive"), NotImplementedError),
+    (dict(impl="adaptive", samples=3), ValueError),
     (dict(impl="stream", dtype="float64"), ValueError),
     (dict(impl="pallas"), ValueError),
     (dict(layout="packed", dtype="float64"), ValueError),
@@ -156,6 +157,48 @@ def test_cli_cpu_writes_reference_file(tmp_path, capsys):
     assert os.listdir(tmp_path) == [name]
     with open(tmp_path / name) as f:
         assert f.readline() == "P3\n" and f.readline() == "24 16\n"
+
+
+def test_cli_scene_file_renders_the_asset(tmp_path, capsys):
+    """--scene_file renders a saved .npz asset to the bytes --scene_id
+    writes for the same scene, under the file name of scene 0 (as the JAX
+    CLI names it); without either flag the CLI refuses."""
+    from raytracingincuda_torch.models.io import save_scene
+
+    save_scene(str(tmp_path / "s2.npz"), build_scene(2))
+    common = ["--width", "24", "--height", "16", "--samples", "2",
+              "--bounces", "4", "--device", "cpu", "--no-warmup"]
+    for flags, out in ((["--scene_file", str(tmp_path / "s2.npz")], "f"),
+                       (["--scene_id", "2"], "i")):
+        os.makedirs(tmp_path / out)
+        assert cli.main([*flags, *common, "--outdir",
+                         str(tmp_path / out)]) == 0
+    capsys.readouterr()
+    name = "const_float_scene{}_24x16_2samples_4bounces_8threadsPerBlockRow.ppm"
+    assert os.listdir(tmp_path / "f") == [name.format(0)]
+    assert ((tmp_path / "f" / name.format(0)).read_bytes()
+            == (tmp_path / "i" / name.format(2)).read_bytes())
+    assert cli.main(common) == 1
+    assert "--scene_file" in capsys.readouterr().err
+
+
+def test_cli_adaptive_renders(tmp_path, capsys):
+    """--impl adaptive with its flags renders the renderer's image."""
+    rc = cli.main(["--scene_id", "2", "--width", "16", "--height", "8",
+                   "--samples", "4", "--bounces", "4", "--device", "cpu",
+                   "--impl", "adaptive", "--max_samples", "12",
+                   "--adaptive_tol", "0.2", "--adaptive_rounds", "2",
+                   "--outdir", str(tmp_path)])
+    assert rc == 0
+    assert len(capsys.readouterr().out.strip().split(",")) == 2
+    name = "const_float_scene2_16x8_4samples_4bounces_8threadsPerBlockRow.ppm"
+    got, _ = ppm.read_ppm(str(tmp_path / name))
+    cfg = RenderConfig(scene_id=2, width=16, height=8, samples=4, bounces=4,
+                       impl="adaptive", max_samples=12, adaptive_tol=0.2,
+                       adaptive_rounds=2)
+    want = make_renderer(cfg, "cpu")(build_scene(2),
+                                     CameraConfig.reference_default())
+    assert (got == ppm.quantize(want.numpy())).all()
 
 
 def test_package_never_imports_jax():

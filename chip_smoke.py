@@ -140,6 +140,32 @@ CPU path):
              the two pose examples at their defaults on the card (exit 0
              or 1, the final pose error, kernel 1's launches, and kernel
              3's for joint recovery's train steps)
+  21 f64 oracle  tracer.render(dtype=float64) on the card (plain PyTorch,
+             as JAX's oracle is plain jnp): autograd against f64 central
+             differences (albedo, radius, vfov) at the JAX package's FD
+             shape and tolerances (scene 2, 24x16x2spp/4b, h 1e-6); scene
+             1 (512 slots) at 32x20x2spp/4b against the CPU (image within
+             1e-12, gradients within 1e-8 of each leaf's largest entry plus
+             1e-15); render_grads at the largest image whose autograd graph
+             fits in half the free memory (size from a 64x40 probe's bytes
+             a pixel; its time, peak memory, finite gradients); the render
+             at that shape through make_renderer(impl='oracle',
+             dtype='float64') (2 timed) beside the f64 kernel's (3 timed)
+  22 two ranks  parallel/worker.py under torchrun --nproc_per_node 2
+             (gloo, both ranks on the one card): the headline parity and
+             rr2 renders (bit-equal to phase 4's images; parity's PPM
+             through part files and the stitch equal to phase 4's bytes), phase
+             7's fused step, kernel 3's gradients (320x192x4spp/8b rr2),
+             the compact kernel (320x192x10spp/25b), the 100k stream render
+             (bit-equal to phase 10's) and stream step, adaptive sampling
+             at 64x40 (rounds 1 and 2; image and spp map) against the same
+             jobs in this process on one rank: forward paths bit for bit,
+             the gradient paths' loss within rtol 1e-6 and the rest within
+             rtol 1e-4 / atol 1e-7, bit-identical from run to run, one
+             all_reduce a fused step; each rank's kernel launches; then
+             the CLI under torchrun --devices 2 at 320x192 (its file's
+             bytes equal one process's). Times are two ranks sharing one
+             card, not a multi-device speed-up
 
 Then the kernels line (JSON, with each kernel's bound and, as
 bound_fmad_off_ms, the same bound with the operations at half the rate,
@@ -149,8 +175,10 @@ stream_segment_sum, f64_render and compact_render), the nvidia-smi line,
 and last {"ok": true, "device": {...}}. Everything measured is
 also written to chip_smoke.json in the output directory. Launch counts
 are set to 0 just before each main path (phases 4, 7, 8, 10, 12, 13, 14,
-16-20) and read just after it: each path's own counts are in chip_smoke.json
-(launches_by_phase) and their sums are the kernels line's launches.
+16-21) and read just after it: each path's own counts are in chip_smoke.json
+(launches_by_phase) and their sums are the kernels line's launches; phase
+22's ranks count their own launches (each job's, in the worker) and their
+sums are added too.
 fused_train_render counts its two launches a window (the park render,
 then the reverse; one window at the headline), grad_render its reverse,
 one a window; stream_segment_sum counts its two kernels (tile_sums_kernel,
@@ -492,6 +520,7 @@ def main() -> int:
 
     # -- 4 the main path at full width ----------------------------------------
     record["headline"] = {}
+    headline_imgs = {}
     for rr in (None, 2):
         cfg = RenderConfig(scene_id=1, width=1280, height=768, samples=100,
                            bounces=25, rr_start=rr)
@@ -536,6 +565,7 @@ def main() -> int:
         name = "parity" if rr is None else f"rr{rr}"
         if rr is None:
             f32_headline = img
+        headline_imgs[name] = img
         record["headline"][name] = {
             "render_ms": times, "warmup_ms": warm.ms,
             "sorted_unsorted_pairs_ms": pairs, "sorted_wins": wins,
@@ -945,6 +975,7 @@ def main() -> int:
     if not (head_counts["stream_render"] >= 4 and arr.shape == (h, w, 3)
             and np.isfinite(arr).all()):
         raise AssertionError(f"stream headline: {head_counts}, {arr.shape}")
+    stream_headline_img = img
     with RenderTimer(dev) as brute:
         rk.render_kernel(s100k, cam, w, h, 2, 10, layout="hbm")
     st_head = sk.reorder_front_to_back(sk.prepare_stream_scene(s100k),
@@ -1886,6 +1917,321 @@ def main() -> int:
         say("20 pose", f"{name} --device cuda (defaults): rc {rc} in "
             f"{secs:.1f} s; {final[-1].strip()}; launches {nonzero(counts)}")
     record["phase_s"]["20 assets and pose"] = time.perf_counter() - t_phase
+
+    # -- 21 the f64 oracle ---------------------------------------------------
+    t_phase = time.perf_counter()
+    from raytracingincuda_torch.models.camera import config_from_leaves
+    from raytracingincuda_torch.models.scene import Scene, params_from_leaves
+    from raytracingincuda_torch.ops import tracer
+
+    f64 = torch.float64
+
+    def to_f64(s, device):
+        """A scene and the reference camera in float64 on ``device``."""
+        return (Scene(params_from_leaves([t.double().to(device) for t in
+                                          param_leaves(s.params)]),
+                      s.mat_type.to(device), s.active.to(device)),
+                config_from_leaves([t.double().to(device) for t in
+                                    config_leaves(cam)]))
+
+    def grad_leaves(out):
+        _, (gp, gc) = out
+        return [t.detach().cpu() for t in (*param_leaves(gp),
+                                           *config_leaves(gc))]
+
+    reset_counts()
+    f64_oracle = {}
+    # gradients against f64 central differences at the JAX package's own
+    # FD shape and tolerances (tests/test_df64.py: scene 2 in slots of 64,
+    # 24x16x2spp/4b, h = 1e-6, where no silhouette is crossed)
+    sc2, cm2 = to_f64(build_scene(2, pad_to_multiple=64), dev)
+    wimg = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (16, 24, 3))).to(dev)
+
+    def fd_loss(sc, cm):
+        return (wimg * tracer.render(sc, cm, 24, 16, 2, 4, dtype=f64,
+                                     gamma=False)).sum()
+
+    fd_rows = []
+    for name, k, rtol, atol in (("albedo.x", 4, 1e-4, 1e-10),
+                                ("radius", 3, 1e-3, 1e-9)):
+        x0 = param_leaves(sc2.params)[k]
+
+        def with_leaf(v, k=k):
+            leaves = param_leaves(sc2.params)
+            leaves[k] = v
+            return Scene(params_from_leaves(leaves), sc2.mat_type,
+                         sc2.active)
+
+        x = x0.clone().requires_grad_(True)
+        (g,) = torch.autograd.grad(fd_loss(with_leaf(x), cm2), x)
+        i = int(g.abs().argmax())
+        e = torch.zeros_like(x0)
+        e[i] = 1e-6
+        fd = float(fd_loss(with_leaf(x0 + e), cm2)
+                   - fd_loss(with_leaf(x0 - e), cm2)) / 2e-6
+        fd_rows.append((name, float(g[i]), fd, rtol, atol))
+    v = cm2.vfov.clone().requires_grad_(True)
+    (gv,) = torch.autograd.grad(fd_loss(sc2, cm2._replace(vfov=v)), v)
+    fd = float(fd_loss(sc2, cm2._replace(vfov=cm2.vfov + 1e-6))
+               - fd_loss(sc2, cm2._replace(vfov=cm2.vfov - 1e-6))) / 2e-6
+    fd_rows.append(("vfov", float(gv), fd, 1e-4, 1e-10))
+    f64_oracle["fd"] = [dict(leaf=n, grad=g, fd=f, rtol=r, atol=a)
+                        for n, g, f, r, a in fd_rows]
+    if not all(abs(g - f) <= a + r * abs(f) for _, g, f, r, a in fd_rows):
+        raise AssertionError(f"f64 oracle vs FD: {f64_oracle['fd']}")
+    # scene 1 (all 512 slots) on the card against the CPU at 32x20x2spp/4b:
+    # the image within 1e-12 and the gradients within 1e-8 of each leaf's
+    # largest entry plus 1e-15 (tests/test_torch_f64_grad.py's bounds; the
+    # card's double sin/cos are not glibc's)
+    s1 = build_scene(1)
+    tgt = torch.from_numpy(np.random.default_rng(3).uniform(0, 1, (20, 32,
+                                                                   3)))
+    on = {d: to_f64(s1, d) for d in ("cpu", dev)}
+    img_d = tracer.render(*on[dev], 32, 20, 2, 4, dtype=f64).cpu()
+    img_h = tracer.render(*on["cpu"], 32, 20, 2, 4, dtype=f64)
+    g_d = grad_leaves(gradlib.render_grads(*on[dev], tgt.to(dev), 32, 20, 2,
+                                           4, dtype=f64))
+    g_h = grad_leaves(gradlib.render_grads(*on["cpu"], tgt, 32, 20, 2, 4,
+                                           dtype=f64))
+    # the largest share of its bound that a gradient entry's difference uses
+    grad_err = max(float(((a - b).abs() / (1e-8 * b.abs().max() + 1e-15))
+                         .max()) for a, b in zip(g_d, g_h))
+    f64_oracle["card_vs_cpu"] = {
+        "image_max_abs_err": float((img_d - img_h).abs().max()),
+        "image_dtype": str(img_d.dtype), "grad_share_of_bound": grad_err,
+        "grads_finite": all(bool(torch.isfinite(t).all()) for t in g_d)}
+    if not (img_d.dtype == f64 and f64_oracle["card_vs_cpu"]["grads_finite"]
+            and f64_oracle["card_vs_cpu"]["image_max_abs_err"] <= 1e-12
+            and grad_err <= 1.0):
+        raise AssertionError(f"f64 oracle card vs CPU: {f64_oracle}")
+    # the largest image whose autograd graph fits in half the free memory
+    # (2 spp, 4 bounces): the graph's bytes a pixel from a 64x40 probe
+    sc1, cm1 = on[dev]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    gradlib.render_grads(sc1, cm1, torch.rand((40, 64, 3), dtype=f64,
+                                              device=dev), 64, 40, 2, 4,
+                         dtype=f64)
+    per_px = (torch.cuda.max_memory_allocated() - base) / (64 * 40)
+    free = torch.cuda.mem_get_info()[0]
+    k = min(256, int((0.5 * free / per_px / 15) ** 0.5))
+    bw, bh = 5 * k, 3 * k
+    torch.cuda.reset_peak_memory_stats()
+    with RenderTimer(dev) as t_grad:
+        big = gradlib.render_grads(sc1, cm1, torch.rand(
+            (bh, bw, 3), dtype=f64, device=dev), bw, bh, 2, 4, dtype=f64)
+    big_peak = torch.cuda.max_memory_allocated() / 2**20
+    big_finite = all(bool(torch.isfinite(t).all()) for t in grad_leaves(big))
+    del big
+    # the render alone, beside the f64 kernel's, at that shape: the
+    # oracle's ops ran in render_grads just before, so it takes no warm-up
+    times = {}
+    s1d = build_scene(1, device=dev)
+    for impl, n in (("oracle", 2), ("kernel", 3)):
+        r = make_renderer(RenderConfig(scene_id=1, width=bw, height=bh,
+                                       samples=2, bounces=4, dtype="float64",
+                                       impl=impl), dev)
+        if impl == "kernel":
+            r(s1d, cam)
+        times[impl] = []
+        for _ in range(n):
+            with RenderTimer(dev) as t:
+                out64 = r(s1d, cam)
+            times[impl].append(t.ms)
+        if out64.dtype != f64 or out64.shape != (bh, bw, 3):
+            raise AssertionError(f"f64 {impl} image {out64.dtype} "
+                                 f"{tuple(out64.shape)}")
+    counts = read_counts("21 f64 oracle")
+    f64_oracle.update(
+        graph_bytes_per_pixel=per_px, largest=[bw, bh, 2, 4],
+        grads_ms=t_grad.ms, grads_peak_mib=big_peak, grads_finite=big_finite,
+        oracle_render_ms=times["oracle"], f64_kernel_render_ms=times["kernel"],
+        launches=counts)
+    if not (big_finite and counts["f64_render"] >= 4):
+        raise AssertionError(f"f64 oracle at {bw}x{bh}: {f64_oracle}")
+    record["f64_oracle"] = f64_oracle
+    say("21 f64 oracle", "vs f64 central differences (scene 2, 24x16x2spp/4b"
+        ", h 1e-6): " + "; ".join(
+            f"{n} {g:.9g} vs {f:.9g}" for n, g, f, _, _ in fd_rows)
+        + f" | scene 1 card vs CPU at 32x20x2spp/4b: image "
+        f"{f64_oracle['card_vs_cpu']['image_max_abs_err']:.3g}, gradients "
+        f"use {grad_err:.3g} of their bound | largest graph: {bw}x{bh}"
+        f"x2spp/4b ({per_px / 1024:.1f} KiB a pixel): render_grads "
+        f"{t_grad.ms:.1f} ms, peak {big_peak:.1f} MiB, finite | render at "
+        f"that shape: oracle {', '.join(f'{t:.2f}' for t in times['oracle'])}"
+        f" ms, f64 kernel {', '.join(f'{t:.3f}' for t in times['kernel'])} "
+        f"ms")
+    record["phase_s"]["21 f64 oracle"] = time.perf_counter() - t_phase
+
+    # -- 22 two ranks on the one card ----------------------------------------
+    t_phase = time.perf_counter()
+    from raytracingincuda_torch.parallel import worker
+
+    hl = dict(scene_id=1, width=1280, height=768, samples=100, bounces=25)
+    small = dict(scene_id=1, width=320, height=192)
+    s100 = dict(scene_id=0, n_spheres=100_000, width=640, height=384,
+                bounces=10)
+    ad = dict(scene_id=1, width=64, height=40, samples=4, max_samples=16,
+              adaptive_tol=0.1, bounces=25)
+    jobs = [
+        dict(job="render", impl="kernel", tag="warmup", scene_id=1,
+             width=64, height=40, samples=2, bounces=4),
+        dict(job="render", impl="kernel", tag="headline_parity", **hl),
+        dict(job="render", impl="kernel", rr_start=2, tag="headline_rr2",
+             stitch=False, **hl),
+        dict(job="fused", rr_start=2, order="difficulty", tag="fused", **hl),
+        dict(job="grads", impl="kernel", rr_start=2, samples=4, bounces=8,
+             tag="grads_kernel", **small),
+        dict(job="kernel", mode="compact", samples=10, bounces=25,
+             tag="compact", **small),
+        dict(job="render", impl="stream", samples=10, tag="stream_render",
+             **s100),
+        dict(job="stream_train", samples=4, tag="stream_train", **s100),
+        dict(job="adaptive", tag="adaptive_r1", **ad),
+        dict(job="adaptive", rounds=2, tag="adaptive_r2", **ad),
+    ]
+    defaults = dict(rr_start=None, impl="kernel")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    two_ranks = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        two, one = Path(tmp) / "two", Path(tmp) / "one"
+        two.mkdir()
+        one.mkdir()
+        (two / "jobs.json").write_text(json.dumps(jobs))
+        res = worker.torchrun(
+            ["-m", "raytracingincuda_torch.parallel.worker", "--device",
+             "cuda", "--backend", "gloo", "--outdir", str(two), "--jobs",
+             str(two / "jobs.json")], timeout=600, env=env, cwd=str(two))
+        if res.returncode != 0:
+            raise AssertionError(f"two ranks failed: {res.stderr[-3000:]}")
+        ranks = json.loads(res.stdout.strip().splitlines()[-1])["ranks"]
+
+        def load(d, tag, rank=0):
+            with np.load(d / f"{tag}_r{rank}.npz") as z:
+                return {k: z[k] for k in z.files}
+
+        # the same jobs in this process (one rank): the references
+        single = {job["tag"]: worker.run_job(job, defaults, "cuda", str(one))
+                  for job in jobs[3:6] + jobs[7:]}
+        checks = {}
+        want = {"headline_parity": headline_imgs["parity"],
+                "headline_rr2": headline_imgs["rr2"],
+                "stream_render": stream_headline_img}
+        for tag, img in want.items():
+            checks[tag] = all(np.array_equal(load(two, tag, r)["out"],
+                                             img.cpu().numpy())
+                              for r in (0, 1))
+        for tag in ("compact", "adaptive_r1", "adaptive_r2"):
+            a = load(one, tag)
+            checks[tag] = all(all(np.array_equal(load(two, tag, r)[k], a[k])
+                                  for k in a) for r in (0, 1))
+        grad_errs = {}
+        for tag, loss_key in (("fused", "out.0"), ("grads_kernel", "out.0"),
+                              ("stream_train", "out.1")):
+            a, b, b1 = load(one, tag), load(two, tag), load(two, tag, 1)
+            # the largest share of its bound that an entry's difference uses
+            worst = {}
+            ok = all(np.array_equal(b[k], b1[k]) for k in b)
+            for k in a:
+                if k == loss_key:
+                    worst["loss"] = abs(float(b[k]) - float(a[k])) / (
+                        1e-6 * abs(float(a[k])))
+                elif a[k].dtype.kind in "iub" or k == "out.1" and tag == \
+                        "fused":
+                    ok &= bool(np.array_equal(a[k], b[k]))
+                else:
+                    worst["rest"] = max(worst.get("rest", 0.0), float(
+                        (np.abs(b[k] - a[k]) / (1e-7 + 1e-4 * np.abs(a[k])))
+                        .max()))
+            ok &= max(worst.values()) <= 1.0
+            grad_errs[tag] = worst
+            recs = [next(j for j in rk_["jobs"] if j["tag"] == tag)
+                    for rk_ in ranks]
+            checks[tag] = ok and all(r["runs_bit_identical"] for r in recs)
+            if tag in ("fused", "stream_train"):
+                checks[tag] &= all(r["all_reduces_a_step"] == 1 for r in recs)
+        checks["ppm_identical"] = next(
+            j for j in ranks[0]["jobs"]
+            if j["tag"] == "headline_parity")["ppm_identical"]
+        ppm.write_ppm(str(two / "phase4.ppm"),
+                      headline_imgs["parity"].cpu().numpy())
+        checks["stitched_is_phase4"] = ((two / "headline_parity.stitched.ppm")
+                                        .read_bytes()
+                                        == (two / "phase4.ppm").read_bytes())
+        # the CLI under torchrun against one process's image
+        cli_dir = Path(tmp) / "cli"
+        cli_dir.mkdir()
+        t0 = time.perf_counter()
+        res = worker.torchrun(
+            ["-m", "raytracingincuda_torch.cli", "--devices", "2",
+             "--scene_id", "1", "--width", "320", "--height", "192",
+             "--outdir", str(cli_dir)], timeout=300, env=env,
+            cwd=str(cli_dir))
+        cli_s = time.perf_counter() - t0
+        if res.returncode != 0:
+            raise AssertionError(f"torchrun cli failed: {res.stderr[-3000:]}")
+        cli_lines = res.stdout.strip().splitlines()
+        ppm.write_ppm(str(cli_dir / "one.ppm"), make_renderer(
+            RenderConfig(scene_id=1), dev)(build_scene(1, device=dev),
+                                           cam).cpu().numpy())
+        checks["cli_bytes_equal"] = (
+            (cli_dir / RenderConfig(scene_id=1).output_filename())
+            .read_bytes() == (cli_dir / "one.ppm").read_bytes()
+            and len(cli_lines) == 1)
+    by_rank = {}
+    for r in ranks:
+        tot: dict = {}
+        for j in r["jobs"]:
+            for name, n in j["launches"].items():
+                tot[name] = tot.get(name, 0) + n
+        by_rank[r["rank"]] = tot
+        record["launches_by_phase"][f"22 two ranks, rank {r['rank']}"] = tot
+        for name, n in tot.items():
+            main_launches[name] += n
+    need = ("regen_render", "fused_train_render", "grad_render",
+            "compact_render", "stream_render", "stream_train",
+            "stream_segment_sum")
+    two_ranks.update(
+        ranks=ranks, checks=checks, grad_err_over_leaf_max=grad_errs,
+        single_secs={k: v["secs"] for k, v in single.items()},
+        cli_line=cli_lines[-1], cli_s=cli_s, launches_by_rank=by_rank)
+    record["two_ranks"] = two_ranks
+    if not (all(checks.values()) and all(min(by_rank[r].get(n, 0)
+                                             for n in need) >= 1
+                                         for r in (0, 1))):
+        raise AssertionError(f"two ranks: {checks}, {by_rank}")
+    secs = {j["tag"]: j["secs"] for j in ranks[0]["jobs"]}
+    steps = {}
+    for tag in ("fused", "stream_train"):
+        recs = [next(j for j in r["jobs"] if j["tag"] == tag) for r in ranks]
+        steps[tag] = {
+            "two_ranks_run_s": [r["run_secs"] for r in recs],
+            "two_ranks_all_reduce_s": [r["all_reduce_secs"] for r in recs],
+            "two_ranks_peak_mib": [r.get("peak_mib") for r in recs],
+            "one_process_run_s": single[tag]["run_secs"],
+            "one_process_peak_mib": single[tag].get("peak_mib")}
+    two_ranks["steps"] = steps
+    say("22 two ranks", "two gloo ranks sharing one card (torchrun): the "
+        "headline parity and rr2 images, the 100k stream image, compact and "
+        "adaptive (rounds 1, 2) bit-equal to one process; PPM via parts + "
+        "stitch = phase 4's bytes; fused step (phase 7's config), kernel 3 "
+        "grads and the 100k stream step within loss rtol 1e-6 and rtol 1e-4"
+        "/atol 1e-7 (share of the bound used: " + ", ".join(
+            f"{k} loss {v['loss']:.3g}, rest {v['rest']:.3g}"
+            for k, v in grad_errs.items())
+        + "), bit-identical run to run, one "
+        f"all_reduce a fused step; torchrun cli bytes equal ({cli_s:.1f} s);"
+        " rank 0 seconds (two ranks sharing one card): " + ", ".join(
+            f"{k} {v:.2f}" for k, v in secs.items())
+        + "; a step's two runs (s) and their all_reduce seconds by rank, "
+        "against one process: " + "; ".join(
+            f"{k} {v['two_ranks_run_s']} ({v['two_ranks_all_reduce_s']}) "
+            f"vs {v['one_process_run_s']}, peak MiB {v['two_ranks_peak_mib']}"
+            f" vs {v['one_process_peak_mib']}" for k, v in steps.items())
+        + f"; launches by rank {by_rank}")
+    record["phase_s"]["22 two ranks"] = time.perf_counter() - t_phase
 
     # -- result lines ---------------------------------------------------------
     record["main_path_launches"] = main_launches

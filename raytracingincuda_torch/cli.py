@@ -20,7 +20,14 @@ reference's double variants do. ``--scene_file`` renders a scene asset
 the file name then says scene 0, as the JAX package's does.
 ``--impl adaptive`` renders with per-pixel sample budgets
 (``ops/adaptive.py``): ``--samples`` is the probe budget, ``--max_samples``
-the per-pixel cap.
+the per-pixel cap. ``--chunk_pixels`` sizes the oracle's pixel chunks.
+
+Multiple devices: one process per device, launched by ``torchrun``, for
+example ``torchrun --nproc_per_node 2 -m raytracingincuda_torch.cli
+--devices 2 --scene_id 1`` (``--devices`` 0, the default, takes the
+launched world; any other value must equal it). Each rank renders its
+slice of the pixels (``parallel/mesh.py``); rank 0 prints the line and
+writes the PPM, whose bytes are the single-process run's.
 """
 from __future__ import annotations
 
@@ -87,6 +94,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="TPU culling granularity; ignored by the kernel")
     p.add_argument("--pixels_per_lane", type=int, default=None,
                    help="TPU schedule hint; ignored by the kernel")
+    p.add_argument("--chunk_pixels", type=int, default=None,
+                   help="impl=oracle: rays a pixel chunk (default "
+                        "max(threads^2 x 128, 1024))")
+    p.add_argument("--devices", type=int, default=0,
+                   help="ranks to shard over: 0 (default) takes the world "
+                        "torchrun launched, 1 without a launcher; any other "
+                        "value must equal it")
     p.add_argument("--outdir", type=str, default=".")
     p.add_argument("--no-warmup", dest="warmup", action="store_false",
                    help="time the first render (kernel build and prepass "
@@ -112,6 +126,7 @@ def main(argv=None) -> int:
     from .config import RenderConfig
     from .models.camera import CameraConfig
     from .models.scene import build_scene
+    from .parallel import mesh as meshlib
     from .render_api import make_renderer
     from .utils.ppm import write_ppm
     from .utils.timing import RenderTimer
@@ -127,9 +142,14 @@ def main(argv=None) -> int:
         pixels_per_lane=args.pixels_per_lane,
         stream_block=args.stream_block,
         stream_lane_group=args.stream_lane_group,
+        chunk_pixels=args.chunk_pixels,
     )
-    device = torch.device(args.device)
-    renderer = make_renderer(cfg, device)
+    meshlib.maybe_initialize_distributed()
+    sharded = meshlib.world_size() > 1
+    device = (meshlib.rank_device(args.device) if sharded
+              else torch.device(args.device))
+    renderer = make_renderer(cfg, device, n_devices=args.devices)
+    lead = not sharded or torch.distributed.get_rank() == 0
     cam = CameraConfig.reference_default()
 
     def make_scene():
@@ -151,13 +171,17 @@ def main(argv=None) -> int:
         prepare(scene)
     with RenderTimer(device) as timer:
         img = renderer(scene, cam)
-    print(f"{timer.ms:15.8f}", end=",")
+    if lead:
+        print(f"{timer.ms:15.8f}", end=",")
 
-    if args.write_output:
+    if args.write_output and lead:
         write_ppm(os.path.join(args.outdir, cfg.output_filename()),
                   img.cpu().numpy())
     e2e_ms = (time.perf_counter() - t_e2e0) * 1e3
-    print(f"{e2e_ms:15.8f}")
+    if lead:
+        print(f"{e2e_ms:15.8f}")
+    if sharded:
+        torch.distributed.destroy_process_group()
     return 0
 
 

@@ -5,9 +5,10 @@ Field names and ``output_filename()`` are the JAX package's
 carry over unchanged. What this port serves:
 
   dtype:  float32 ('float' in the file name) |
-          float64 ('double': the render in double on the f64 kernel,
-          ``impl='kernel'`` with ``layout`` vmem or hbm, the parity
-          estimator and the current-bounce sky, as the JAX df64 path)
+          float64 ('double': the render in double on the f64 kernel
+          (``impl='kernel'``) or the f64 oracle (``impl='oracle'``), with
+          ``layout`` vmem or hbm, the parity estimator and the
+          current-bounce sky, as the JAX df64 path)
   layout: vmem ('const': the scene staged in shared memory) |
           hbm ('global': the scene read from device memory) |
           packed ('tex': the texture-path analog, served by the stream
@@ -106,7 +107,8 @@ class RenderConfig:
 
     def _check_f64_scope(self):
         """dtype=float64 is the JAX df64 path's precision comparison:
-        the f64 kernel, parity estimator, current-bounce sky."""
+        the f64 kernel or the f64 oracle, parity estimator, current-bounce
+        sky."""
         if self.legacy_sky or self.rr_start is not None:
             raise ValueError(
                 "dtype=float64 is a precision-comparison config: parity "
@@ -115,10 +117,11 @@ class RenderConfig:
             raise ValueError(
                 "dtype=float64 has no packed/stream path; the f64 kernel "
                 "reads the scene in layout vmem or hbm")
-        if self.impl != "kernel":
+        if self.impl not in ("kernel", "oracle"):
             raise ValueError(
-                f"dtype=float64 runs on the f64 kernel (impl='kernel'); "
-                f"impl={self.impl} has no f64 path")
+                f"dtype=float64 runs on the f64 kernel (impl='kernel') or "
+                f"the f64 oracle (impl='oracle'); impl={self.impl} has no "
+                f"f64 path")
 
     @property
     def effective_max_samples(self) -> int:

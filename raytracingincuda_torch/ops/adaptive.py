@@ -36,8 +36,12 @@ the mean of all its samples, so the image is unbiased given the budget
 schedule. Adaptive sampling is forward-only: there is no gradient through
 a budget.
 
+``mesh`` (``parallel/mesh.py``): every phase renders sharded and its raw
+sums reach every rank (the renders' one ``all_reduce`` each), so every
+rank computes the same plan on the whole image (the blur and dilation
+cross pixels); the refine's bucket order covers the lanes of every rank.
 ``ray_tile``, ``interpret`` and ``stream_lane_group`` shaped the TPU
-schedule and are ignored; ``mesh`` (multiple devices) raises.
+schedule and are ignored.
 """
 from __future__ import annotations
 
@@ -46,7 +50,8 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..models.camera import CameraConfig
-from ..models.scene import Scene, _round_up
+from ..models.scene import Scene
+from ..parallel import mesh as meshlib
 from . import render_kernel as rk
 from . import rng as rtrng
 from .stream_kernel import render_stream
@@ -187,10 +192,9 @@ def render_adaptive(
     windows); a round whose budgets are all zero ends the loop. The total
     per-pixel count is capped at ``max_spp``. ``stream``, a prepared
     ``stream_kernel.StreamScene`` of ``scene``, renders every phase on the
-    stream kernel. ``base_spp`` must be even."""
-    from .train_kernel import refuse_unported
-
-    refuse_unported(mesh)
+    stream kernel. ``base_spp`` must be even. ``mesh``
+    (``parallel.mesh.Mesh``) shards every phase's lanes over its ranks;
+    every rank returns the same result, the same bits as one process."""
     del ray_tile, interpret, stream_lane_group
     if base_spp % 2 != 0:
         raise ValueError("base_spp must be even (two half-buffers)")
@@ -210,7 +214,7 @@ def render_adaptive(
     def phase(spp, offset, budgets=None, order=None):
         kw = dict(seed=seed, gamma=False, accumulate_only=True,
                   rr_start=rr_start, sample_offset=offset,
-                  sample_budgets=budgets, pixel_order=order)
+                  sample_budgets=budgets, pixel_order=order, mesh=mesh)
         if stream is not None:
             return render_stream(stream, cam_cfg, img_width, img_height, spp,
                                  max_depth, **kw)
@@ -223,7 +227,7 @@ def render_adaptive(
     b_cum = phase(half, half)
     counts = torch.full(a_cum.shape[:2], base_spp, dtype=torch.int32,
                         device=a_cum.device)
-    padded = _round_up(img_width * img_height, rk.PAD)
+    padded = meshlib.padded_lanes(img_width * img_height, mesh)
     err = None
     for launches in windows:
         err, extra = plan(a_cum, b_cum, counts, max_spp=max_spp, tol=tol,

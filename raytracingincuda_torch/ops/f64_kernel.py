@@ -36,12 +36,12 @@ from __future__ import annotations
 import ctypes
 from typing import Optional
 
-import numpy as np
 import torch
 
 from ..models.camera import CameraConfig, initialize_f64
 from ..models.scene import LAMBERTIAN, METAL, DIELECTRIC, Scene
 from . import render_kernel as rk
+from . import f32math
 from . import rng as rtrng
 from . import vec
 from .intersect import T_MIN, T_MISS
@@ -64,14 +64,9 @@ def _check(ids, ii, jj, scene_mat, cam_row, *, samples, max_depth, layout):
     rtrng.validate_stream_ids(samples, max_depth)
 
 
-def _sqrt(x: torch.Tensor) -> torch.Tensor:
-    """The correctly rounded double sqrt on every device, as the kernel's
-    ``sqrt``. The card's ``torch.sqrt`` is; the CPU's vectorized double
-    ``torch.sqrt`` is an ulp off on about 0.75% of inputs (measured on
-    10^6 uniform inputs), so the CPU takes numpy's, which is not."""
-    if x.device.type == "cpu":
-        return torch.from_numpy(np.sqrt(x.numpy()))
-    return torch.sqrt(x)
+# The correctly rounded double sqrt on every device, as the kernel's
+# ``sqrt`` (f32math: numpy's on the CPU, torch's on the card).
+_sqrt = f32math.sqrt
 
 
 def _unit(v: Vec3) -> Vec3:

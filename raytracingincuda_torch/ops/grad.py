@@ -18,6 +18,14 @@ through the continuous quantities those decisions select.
   * ``'fused'``: the fused step kernel, render, loss and gradients in
     one launch (``train_kernel.fused_train``).
 
+Double precision (``dtype=torch.float64``) differentiates through the
+oracle only, as in JAX: ``make_loss_fn`` / ``render_grads`` /
+``make_train_step`` with ``impl='oracle'``; the Adam state follows the
+parameters' dtype. ``mesh=`` (``parallel/mesh.py``) shards every
+implementation's pixels over the ranks of a process group; the
+parameters step alike on every rank, since every rank holds the same
+summed gradients.
+
 The optimizer is ``torch.optim.Adam`` (``optax.adam``'s counterpart, with
 the same defaults) unless ``optimizer=`` gives a ``torch.optim`` factory
 (the JAX ``optimizer=`` argument, which takes an optax transformation); a
@@ -35,6 +43,7 @@ import torch
 from ..models.camera import (CameraConfig, config_from_leaves, config_leaves,
                              initialize)
 from ..models.scene import Scene, SceneParams, param_leaves, params_from_leaves
+from ..parallel import mesh as meshlib
 from . import tracer
 from .render_kernel import make_diff_render
 from .train_kernel import chain_to_params, fused_train, refuse_unported
@@ -83,13 +92,22 @@ def make_loss_fn(img_width: int, img_height: int, samples_per_pixel: int,
     sqrt-gamma has an unbounded slope at black, and absorbed paths are
     black. ``impl='kernel'`` renders with ``make_diff_render`` (the regen
     kernel forward, the gradient kernel backward); ``impl='oracle'``
-    with ``tracer.render``. ``rr_start`` selects the Russian-roulette
-    estimator for both. ``ray_tile``, ``bwd_ray_tile``, ``sweep``,
-    ``window`` and ``pixels_per_lane`` tuned the TPU kernels: ignored
-    under ``impl='kernel'``, refused under ``impl='oracle'`` as the JAX
-    package refuses them. The JAX package's ``pixel_sharding`` and
-    ``remat`` have no counterpart here and are dropped."""
-    refuse_unported(mesh, dtype, layout)
+    with ``tracer.render``, in ``dtype`` (float32, or float64 for the f64
+    oracle: the image and the loss in double). ``rr_start`` selects the
+    Russian-roulette estimator for both. ``mesh``: each rank renders and
+    differentiates its slice of the pixels, the image reaches every rank
+    (one ``all_reduce``) and so the loss is the same on every rank, and
+    the gradients are summed over the ranks (one more, in the backward
+    pass). ``ray_tile``, ``bwd_ray_tile``, ``sweep``, ``window`` and
+    ``pixels_per_lane`` tuned the TPU kernels: ignored under
+    ``impl='kernel'``, refused under ``impl='oracle'`` as the JAX package
+    refuses them. The JAX package's ``pixel_sharding`` is ``mesh`` here;
+    its ``remat`` has no counterpart and is dropped."""
+    refuse_unported(dtype if impl == "kernel" else torch.float32, layout)
+    meshlib.validate(mesh)
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"dtype must be torch.float32 or torch.float64, "
+                         f"got {dtype!r}")
     if impl == "stream":
         raise ValueError(_STREAM)
     if impl not in ("oracle", "kernel"):
@@ -112,13 +130,13 @@ def make_loss_fn(img_width: int, img_height: int, samples_per_pixel: int,
             img = make_diff_render(
                 mat_type, active, img_width, img_height, samples_per_pixel,
                 max_depth, seed=seed, gamma=gamma, pixel_order=pixel_order,
-                rr_start=rr_start, layout=layout)(params, cam_cfg)
+                rr_start=rr_start, layout=layout, mesh=mesh)(params, cam_cfg)
         else:
             img = tracer.render(
                 Scene(params=params, mat_type=mat_type, active=active),
                 cam_cfg, img_width, img_height, samples_per_pixel, max_depth,
-                seed=seed, chunk_pixels=chunk_pixels, gamma=gamma,
-                rr_start=rr_start)
+                seed=seed, dtype=dtype, chunk_pixels=chunk_pixels,
+                gamma=gamma, rr_start=rr_start, mesh=mesh)
         return image_loss(img, target, loss, huber_delta)
 
     return loss_fn
@@ -329,7 +347,8 @@ def make_train_step(img_width: int, img_height: int, samples_per_pixel: int,
     ``impl`` (in ``kw``): 'oracle' (default), 'kernel' or 'fused'; the
     other keywords go to ``make_loss_fn`` or, for 'fused', to
     ``fused_train`` (``gamma``, ``seed``, ``pixel_order``, ``rr_start``,
-    ``loss``, ``huber_delta``, ``layout``; the TPU knobs are ignored).
+    ``loss``, ``huber_delta``, ``layout``, ``mesh``; the TPU knobs are
+    ignored).
     ``trainable``: a SceneParams of bools selecting the leaves the
     optimizer updates. By default the optimizer is
     ``torch.optim.Adam(lr=learning_rate)`` with optax's defaults (betas
@@ -407,13 +426,15 @@ def make_stream_train(stream, img_width: int, img_height: int,
     with the blocks visited front to back from the first step's camera.
     The loss is taken in linear radiance. The optimizer (Adam, or
     ``optimizer``) as in ``make_train_step``; the JAX ``interpret`` and
-    ``lane_group`` (the TPU schedule) arguments have no counterpart,
-    ``mesh`` raises."""
+    ``lane_group`` (the TPU schedule) arguments have no counterpart.
+    ``mesh``: each rank steps its slice of the pixels; a fused step makes
+    one ``all_reduce`` (the loss and the cotangents), a ``fused=False``
+    step two (the image's, then the cotangents')."""
     from .stream_kernel import StreamScene, build_stream_arrays, render_stream
     from .stream_train_kernel import (mse_train_stream, render_stream_grads,
                                       stream_grads_to_scene_mat)
 
-    refuse_unported(mesh)
+    meshlib.validate(mesh)
     init_fn, apply = _optimizer(optimizer, learning_rate, trainable)
     block, n_pad, perm = stream.block, stream.scene_mat.shape[0], stream.perm
     border: dict = {}
@@ -430,7 +451,7 @@ def make_stream_train(stream, img_width: int, img_height: int,
     def step_fn(state: TrainState, cam_cfg: CameraConfig, mat_type, active,
                 target):
         st = stream_of(state.params, mat_type, active, cam_cfg)
-        kw = dict(seed=seed)
+        kw = dict(seed=seed, mesh=mesh)
         if fused:
             loss_v, d_stream, d_cr = mse_train_stream(
                 st, cam_cfg, target, img_width, img_height, samples_per_pixel,

@@ -27,7 +27,9 @@ and ``make_diff_render``, the render as a ``torch.autograd.Function``
 whose backward is the gradient kernel (``ops/train_kernel.py``).
 ``render_kernel(mode=...)`` also takes the JAX package's older schedules:
 ``'simple'`` runs this kernel, ``'compact'`` the compact kernel
-(``ops/compact_kernel.py``).
+(``ops/compact_kernel.py``). ``mesh=`` (``parallel/mesh.py``) gives each
+rank its slice of the lanes, padded to ``PAD`` lanes a rank, and
+assembles the image on every rank.
 """
 from __future__ import annotations
 
@@ -40,6 +42,7 @@ from ..models.camera import (Camera, CameraConfig, config_from_leaves,
                              config_leaves, initialize)
 from ..models.scene import (Scene, SceneParams, _round_up, param_leaves,
                             params_from_leaves)
+from ..parallel import mesh as meshlib
 from . import rng as rtrng
 from . import tracer, vec
 from .tracer import _linear_to_gamma, _sky_color, primary_rays_from_ij, shade_hit
@@ -499,19 +502,27 @@ def _regen(ids, *args, **kw) -> torch.Tensor:
 
 
 def _lane_setup(img_width, img_height, pixel_order, samples_per_pixel,
-                sample_offset, sample_budgets, device):
-    """Lane -> pixel plumbing: padding to ``PAD``, the optional pixel
-    order, f32 pixel coordinates, and per-lane ABSOLUTE budgets
-    (exclusive end sample ids). Returns (ids, ii, jj, budget)."""
+                sample_offset, sample_budgets, device, mesh=None):
+    """Lane -> pixel plumbing: padding to ``PAD`` lanes on every rank of
+    ``mesh``, the optional pixel order, f32 pixel coordinates, and
+    per-lane ABSOLUTE budgets (exclusive end sample ids). Returns (ids,
+    ii, jj, budget) over all the ranks' lanes (``shard`` takes this
+    rank's). An order over one process's lanes (``PAD``-padded) is
+    extended with the padding ids under a mesh."""
     num_pixels = img_width * img_height
-    padded = _round_up(num_pixels, PAD)
+    padded = meshlib.padded_lanes(num_pixels, mesh)
     if padded >= MAX_PIXELS:
         raise ValueError(f"images must have fewer than {MAX_PIXELS} pixels")
     if pixel_order is not None:
-        if tuple(pixel_order.shape) != (padded,):
+        n = pixel_order.shape[0] if pixel_order.dim() == 1 else -1
+        if n not in (_round_up(num_pixels, PAD), padded):
             raise ValueError(f"pixel_order must have shape ({padded},), "
                              f"got {tuple(pixel_order.shape)}")
-        ids = pixel_order.to(device=device, dtype=torch.int32).contiguous()
+        ids = pixel_order.to(device=device, dtype=torch.int32)
+        if n < padded:
+            ids = torch.cat([ids, torch.arange(n, padded, dtype=torch.int32,
+                                               device=device)])
+        ids = ids.contiguous()
     else:
         ids = torch.arange(padded, dtype=torch.int32, device=device)
     ii = (ids % img_width).to(torch.float32)
@@ -537,16 +548,23 @@ def _lane_setup(img_width, img_height, pixel_order, samples_per_pixel,
 def regen_inputs(scene: Scene, cam_cfg: CameraConfig, img_width: int,
                  img_height: int, samples_per_pixel: int, *,
                  pixel_order=None, sample_offset: int = 0,
-                 sample_budgets=None) -> tuple:
+                 sample_budgets=None, mesh=None) -> tuple:
     """The six tensors both regen implementations take, on the scene's
-    device: (ids, ii, jj, budget, scene_mat, cam_row). The camera is
-    derived from ``cam_cfg`` where that lives (the host, by default)."""
+    device: (ids, ii, jj, budget, scene_mat, cam_row), the lanes of every
+    rank of ``mesh``. The camera is derived from ``cam_cfg`` where that
+    lives (the host, by default)."""
     scene_mat = pack_scene_matrix(scene)
     dev = scene_mat.device
     cam_row = pack_camera(initialize(cam_cfg, img_width, img_height)).to(dev)
     lanes = _lane_setup(img_width, img_height, pixel_order, samples_per_pixel,
-                        sample_offset, sample_budgets, dev)
+                        sample_offset, sample_budgets, dev, mesh)
     return (*lanes, scene_mat, cam_row)
+
+
+def shard(mesh, *lanes) -> tuple:
+    """This rank's contiguous slice of each lane tensor (the last axis)."""
+    sl = meshlib.local_slice(lanes[0].shape[-1], mesh)
+    return tuple(t[..., sl].contiguous() for t in lanes)
 
 
 def _finalize_output(acc, ids, use_sort, img_width, img_height,
@@ -586,6 +604,7 @@ def render_kernel(
     sample_budgets=None,
     accumulate_only: bool = False,
     mode: str = "regen",
+    mesh=None,
 ) -> torch.Tensor:
     """Render on the scene's device; (H, W, 3) f32, or with
     ``return_depth`` the (padded,) per-lane traced-segment totals.
@@ -606,7 +625,11 @@ def render_kernel(
     or at 2^24 pixels or more, it runs ``'simple'``, as in JAX.
     ``return_depth``, ``sample_offset`` and ``sample_budgets`` need
     ``'regen'``. ``rr_start`` with ``'simple'`` or ``'compact'`` raises,
-    where JAX silently renders the parity estimator."""
+    where JAX silently renders the parity estimator.
+
+    ``mesh`` (``parallel.mesh.Mesh``): this rank renders its slice of the
+    lanes; the image (or the depth totals) reaches every rank, the same
+    bits as one process renders (one ``all_reduce``)."""
     if mode not in ("regen", "compact", "simple"):
         raise ValueError(f"mode must be 'regen', 'compact' or 'simple', got "
                          f"{mode!r}")
@@ -625,30 +648,29 @@ def render_kernel(
     inputs = regen_inputs(scene, cam_cfg, img_width, img_height,
                           samples_per_pixel, pixel_order=pixel_order,
                           sample_offset=sample_offset,
-                          sample_budgets=sample_budgets)
+                          sample_budgets=sample_budgets, mesh=mesh)
+    ids, padded = inputs[0], inputs[0].shape[0]
+    ids_l, ii, jj, budget = shard(mesh, *inputs[:4])
     fuse = (gamma and not accumulate_only and not return_depth
             and sample_budgets is None)
+    scale = 1.0 / samples_per_pixel if fuse else None
     if mode == "compact":
         from .compact_kernel import _compact
 
-        out = _compact(*inputs[:3], *inputs[4:], samples=samples_per_pixel,
-                       max_depth=max_depth, seed=seed,
-                       finalize_scale=1.0 / samples_per_pixel if fuse else None,
+        out = _compact(ids_l, ii, jj, *inputs[4:], samples=samples_per_pixel,
+                       max_depth=max_depth, seed=seed, finalize_scale=scale,
                        layout=layout)
-        return _finalize_output(out, inputs[0], pixel_order is not None,
-                                img_width, img_height, samples_per_pixel,
-                                gamma, accumulate_only, already_finalized=fuse)
-    out = _regen(
-        *inputs, samples=samples_per_pixel,
-        max_depth=max_depth, seed=seed, legacy_sky=legacy_sky,
-        emit_depth=return_depth, rr_start=rr_start,
-        sample_offset=sample_offset,
-        finalize_scale=1.0 / samples_per_pixel if fuse else None,
-        layout=layout,
-    )
+    else:
+        out = _regen(ids_l, ii, jj, budget, *inputs[4:],
+                     samples=samples_per_pixel, max_depth=max_depth,
+                     seed=seed, legacy_sky=legacy_sky,
+                     emit_depth=return_depth, rr_start=rr_start,
+                     sample_offset=sample_offset, finalize_scale=scale,
+                     layout=layout)
+    out = meshlib.gather_lanes(mesh, out, padded)
     if return_depth:
         return out[0]
-    return _finalize_output(out, inputs[0], pixel_order is not None,
+    return _finalize_output(out, ids, pixel_order is not None,
                             img_width, img_height, samples_per_pixel, gamma,
                             accumulate_only, already_finalized=fuse)
 
@@ -694,12 +716,16 @@ def make_diff_render(mat_type, active, img_width: int, img_height: int,
     gradient kernel has the current-bounce sky only, so ``legacy_sky``
     with ``backward='kernel'`` raises (the JAX package switches to the
     oracle silently). ``pixel_order`` orders both passes' lanes and
-    changes speed only. ``ray_tile``, ``bwd_ray_tile``, ``bwd_sweep``,
+    changes speed only. ``mesh``: each rank renders and differentiates its
+    slice of the lanes; the image reaches every rank (one ``all_reduce``
+    in the forward pass) and the gradients are summed over the ranks (one
+    in the backward pass). ``ray_tile``, ``bwd_ray_tile``, ``bwd_sweep``,
     ``bwd_window`` and ``bwd_pixels_per_lane`` shaped the TPU schedule
     and are ignored."""
     from . import train_kernel
 
-    train_kernel.refuse_unported(mesh, layout=layout)
+    train_kernel.refuse_unported(layout=layout)
+    meshlib.validate(mesh)
     del ray_tile, bwd_ray_tile, bwd_sweep, bwd_window, bwd_pixels_per_lane
     if backward not in ("kernel", "oracle"):
         raise ValueError(f"backward must be 'kernel' or 'oracle', got "
@@ -722,7 +748,7 @@ def make_diff_render(mat_type, active, img_width: int, img_height: int,
                 Scene(params, mat_type, active), cfg, img_width, img_height,
                 samples_per_pixel, max_depth, seed=seed, layout=layout,
                 legacy_sky=legacy_sky, gamma=gamma, pixel_order=pixel_order,
-                rr_start=rr_start)
+                rr_start=rr_start, mesh=mesh)
             ctx.save_for_backward(*leaves, img)
             return img
 
@@ -741,7 +767,8 @@ def make_diff_render(mat_type, active, img_width: int, img_height: int,
             d_sm, d_cr = train_kernel.render_kernel_grads(
                 Scene(params, mat_type, active), cfg, g_acc, img_width,
                 img_height, samples_per_pixel, max_depth, seed=seed,
-                pixel_order=pixel_order, rr_start=rr_start, layout=layout)
+                pixel_order=pixel_order, rr_start=rr_start, layout=layout,
+                mesh=mesh)
             d_params, d_cfg = train_kernel.chain_to_params(
                 d_sm, d_cr, params, cfg, mat_type, active, img_width,
                 img_height)
@@ -754,7 +781,7 @@ def make_diff_render(mat_type, active, img_width: int, img_height: int,
             img = tracer.render(
                 Scene(params, mat_type, active), cfg, img_width, img_height,
                 samples_per_pixel, max_depth, seed=seed, gamma=gamma,
-                legacy_sky=legacy_sky, rr_start=rr_start)
+                legacy_sky=legacy_sky, rr_start=rr_start, mesh=mesh)
             grads = torch.autograd.grad(img, leaves, g, allow_unused=True)
         return tuple(torch.zeros_like(t) if d is None else d
                      for d, t in zip(grads, leaves))

@@ -95,25 +95,31 @@ def _bits_to_unit_float(bits: torch.Tensor) -> torch.Tensor:
     return one.view(torch.float32) - 1.0
 
 
-def uniform2(key, ray_id, sample, bounce, draw):
-    """Two independent f32 uniforms in [0,1) per lane for one slot."""
+def uniform2(key, ray_id, sample, bounce, draw, dtype=torch.float32):
+    """Two independent uniforms in [0,1) per lane for one slot: the f32
+    mantissa fill (23 random bits), cast to ``dtype`` after, as the JAX
+    package draws them at either dtype."""
     b0, b1 = threefry2x32(key[0], key[1], ray_id,
                           make_counter(sample, bounce, draw))
-    return _bits_to_unit_float(b0), _bits_to_unit_float(b1)
+    return (_bits_to_unit_float(b0).to(dtype),
+            _bits_to_unit_float(b1).to(dtype))
 
 
-def random_unit_vector(key, ray_id, sample, bounce, draw) -> Vec3:
-    """Uniform direction on S^2 by inversion (z = 1-2u, phi = 2 pi u)."""
-    u0, u1 = uniform2(key, ray_id, sample, bounce, draw)
+def random_unit_vector(key, ray_id, sample, bounce, draw,
+                       dtype=torch.float32) -> Vec3:
+    """Uniform direction on S^2 by inversion (z = 1-2u, phi = 2 pi u), in
+    ``dtype``."""
+    u0, u1 = uniform2(key, ray_id, sample, bounce, draw, dtype)
     z = 1.0 - 2.0 * u0
     r = f32math.sqrt(torch.clamp(1.0 - z * z, min=0.0))
     phi = (2.0 * math.pi) * u1
     return Vec3(r * f32math.cos(phi), r * f32math.sin(phi), z)
 
 
-def random_in_unit_disk(key, ray_id, sample):
-    """Uniform point in the unit disk by inversion (r = sqrt(u))."""
-    u0, u1 = uniform2(key, ray_id, sample, 0, DRAW_DEFOCUS)
+def random_in_unit_disk(key, ray_id, sample, dtype=torch.float32):
+    """Uniform point in the unit disk by inversion (r = sqrt(u)), in
+    ``dtype``."""
+    u0, u1 = uniform2(key, ray_id, sample, 0, DRAW_DEFOCUS, dtype)
     r = f32math.sqrt(u0)
     theta = (2.0 * math.pi) * u1
     return r * f32math.cos(theta), r * f32math.sin(theta)

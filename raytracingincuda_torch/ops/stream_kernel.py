@@ -39,6 +39,7 @@ import torch
 
 from ..models.camera import CameraConfig, initialize
 from ..models.scene import Scene, _round_up
+from ..parallel import mesh as meshlib
 from . import f32math
 from . import render_kernel as rk
 from . import rng as rtrng
@@ -445,22 +446,24 @@ def render_stream(stream: StreamScene, cam_cfg: CameraConfig, img_width: int,
     offset + budget)`` per pixel as raw sums; ``pixel_order`` changes speed
     only; uniform-budget gamma renders finish 1/spp and gamma in the
     kernel. The TPU schedule's keywords (``ray_tile``, ``lane_group``,
-    ``pixels_per_lane``, ``resident``) have no counterpart; ``mesh``
-    (multiple devices, ROADMAP queue 1 item 6) raises."""
+    ``pixels_per_lane``, ``resident``) have no counterpart. ``mesh``
+    (``parallel.mesh.Mesh``): this rank renders its slice of the lanes and
+    the image reaches every rank (one ``all_reduce``)."""
     from .train_kernel import refuse_unported
 
-    refuse_unported(mesh, dtype)
+    refuse_unported(dtype)
     dev = stream.scene_mat.device
     cam_row = rk.pack_camera(initialize(cam_cfg, img_width, img_height)).to(dev)
     ids, ii, jj, budget = rk._lane_setup(img_width, img_height, pixel_order,
                                          samples_per_pixel, sample_offset,
-                                         sample_budgets, dev)
+                                         sample_budgets, dev, mesh)
     fuse = gamma and not accumulate_only and sample_budgets is None
-    out = _stream(ids, ii, jj, budget, stream.scene_mat, stream.bounds,
-                  cam_row, block=stream.block, samples=samples_per_pixel,
-                  max_depth=max_depth, seed=seed, rr_start=rr_start,
-                  sample_offset=sample_offset,
+    out = _stream(*rk.shard(mesh, ids, ii, jj, budget), stream.scene_mat,
+                  stream.bounds, cam_row, block=stream.block,
+                  samples=samples_per_pixel, max_depth=max_depth, seed=seed,
+                  rr_start=rr_start, sample_offset=sample_offset,
                   finalize_scale=1.0 / samples_per_pixel if fuse else None)
+    out = meshlib.gather_lanes(mesh, out, ids.shape[0])
     return rk._finalize_output(out, ids, pixel_order is not None, img_width,
                                img_height, samples_per_pixel, gamma,
                                accumulate_only, already_finalized=fuse)

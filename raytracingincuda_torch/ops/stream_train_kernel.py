@@ -42,6 +42,7 @@ import ctypes
 import torch
 
 from ..models.camera import CameraConfig, initialize
+from ..parallel import mesh as meshlib
 from . import render_kernel as rk
 from . import rng as rtrng
 from . import stream_kernel as sk
@@ -485,13 +486,16 @@ def _fused(ids, *args, **kw):
 # -- entry points -------------------------------------------------------------
 
 def _lanes(stream: StreamScene, cam_cfg, img_width, img_height,
-           samples_per_pixel, sample_offset, pixel_order):
+           samples_per_pixel, sample_offset, pixel_order, mesh, img):
+    """The lanes of every rank of ``mesh`` with ``img``'s lane rows, then
+    this rank's slice of each: (ids, ii, jj, rows, cam_row)."""
     dev = stream.scene_mat.device
     cam_row = rk.pack_camera(initialize(cam_cfg, img_width, img_height)).to(dev)
     ids, ii, jj, _ = rk._lane_setup(img_width, img_height, pixel_order,
                                     samples_per_pixel, sample_offset, None,
-                                    dev)
-    return ids, ii, jj, cam_row
+                                    dev, mesh)
+    rows = tk._lane_rows(img, ids, img_width * img_height)
+    return (*rk.shard(mesh, ids, ii, jj, rows), cam_row)
 
 
 def render_stream_grads(stream: StreamScene, cam_cfg: CameraConfig, g_acc,
@@ -506,16 +510,19 @@ def render_stream_grads(stream: StreamScene, cam_cfg: CameraConfig, g_acc,
     windows add up; ``pixel_order`` changes speed only. The TPU
     schedule's keywords (``ray_tile``, ``lane_group``, ``sweep``,
     ``window``, ``pixels_per_lane``, ``park``, ``acc``) have no
-    counterpart."""
-    tk.refuse_unported(mesh, dtype)
-    ids, ii, jj, cam_row = _lanes(stream, cam_cfg, img_width, img_height,
-                                  samples_per_pixel, sample_offset,
-                                  pixel_order)
-    rows = tk._lane_rows(g_acc, ids, img_width * img_height)
-    return _grads(ids, ii, jj, rows, stream.scene_mat, stream.bounds,
-                  cam_row, block=stream.block, samples=samples_per_pixel,
-                  max_depth=max_depth, seed=seed, rr_start=rr_start,
-                  sample_offset=sample_offset)
+    counterpart. ``mesh``: each rank takes its slice of the lanes, and the
+    cotangents are summed over the ranks (one ``all_reduce``)."""
+    tk.refuse_unported(dtype)
+    ids, ii, jj, rows, cam_row = _lanes(stream, cam_cfg, img_width,
+                                        img_height, samples_per_pixel,
+                                        sample_offset, pixel_order, mesh,
+                                        g_acc)
+    d_stream, d_cam = _grads(ids, ii, jj, rows, stream.scene_mat,
+                             stream.bounds, cam_row, block=stream.block,
+                             samples=samples_per_pixel, max_depth=max_depth,
+                             seed=seed, rr_start=rr_start,
+                             sample_offset=sample_offset)
+    return meshlib.all_reduce_sum(mesh, d_stream, d_cam)
 
 
 def mse_train_stream(stream: StreamScene, cam_cfg: CameraConfig, target,
@@ -529,17 +536,21 @@ def mse_train_stream(stream: StreamScene, cam_cfg: CameraConfig, target,
     loss ('mse' | 'l1' | 'huber' | 'relmse') is a mean over pixels and
     channels of the image in linear radiance (``gamma=False``, the JAX
     package's only mode) or after gamma 2. The TPU schedule's keywords
-    have no counterpart."""
-    tk.refuse_unported(mesh, dtype)
-    ids, ii, jj, cam_row = _lanes(stream, cam_cfg, img_width, img_height,
-                                  samples_per_pixel, 0, pixel_order)
+    have no counterpart. ``mesh``: each rank runs the step on its slice of
+    the lanes with the global loss constants; one ``all_reduce`` of one
+    flat buffer sums the loss and the cotangents over the ranks."""
+    tk.refuse_unported(dtype)
+    ids, ii, jj, rows, cam_row = _lanes(stream, cam_cfg, img_width,
+                                        img_height, samples_per_pixel, 0,
+                                        pixel_order, mesh, target)
     num_pixels = img_width * img_height
-    rows = tk._lane_rows(target, ids, num_pixels)
     total, _img, d_stream, d_cam = _fused(
         ids, ii, jj, rows, stream.scene_mat, stream.bounds, cam_row,
         block=stream.block, samples=samples_per_pixel, max_depth=max_depth,
         num_pixels=num_pixels, seed=seed, rr_start=rr_start, gamma=gamma,
         loss=loss, huber_delta=huber_delta)
+    total, d_stream, d_cam = meshlib.all_reduce_sum(mesh, total, d_stream,
+                                                    d_cam)
     w = tk.loss_constants(samples_per_pixel, num_pixels, huber_delta)["w"]
     return total * w, d_stream, d_cam
 

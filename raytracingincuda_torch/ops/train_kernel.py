@@ -35,11 +35,14 @@ version for CPU tensors; neither falls back to the other.
 The TPU kernels' schedule knobs (``ray_tile``, ``bwd_ray_tile``,
 ``sweep``, ``window``, ``park_residuals``, ``park``, ``pixels_per_lane``)
 fitted VMEM and the 128-lane rows; the entry points here accept them and
-ignore them. ``mesh`` (multiple devices, ROADMAP queue 1 item 6) and
-``dtype=float64`` (f64 gradients through the oracle, queue 1 item 10)
-raise; so does ``layout='packed'``,
-the streamed-scene layout, which ``grad.make_stream_train`` trains
-(``ops/stream_train_kernel.py``).
+ignore them. ``dtype=float64`` raises: as in JAX, double precision has
+gradients through the oracle only (``grad.make_loss_fn(impl='oracle',
+dtype=torch.float64)``). So does ``layout='packed'``, the streamed-scene
+layout, which ``grad.make_stream_train`` trains
+(``ops/stream_train_kernel.py``). ``mesh=`` (``parallel/mesh.py``) gives
+each rank its slice of the lanes; the loss constants use the global
+pixel count on every rank, and a step's loss and cotangents are summed
+over the ranks by one ``all_reduce`` of one flat buffer.
 """
 from __future__ import annotations
 
@@ -52,6 +55,7 @@ import torch
 from ..models.camera import (CameraConfig, config_from_leaves, config_leaves,
                              initialize)
 from ..models.scene import Scene, param_leaves, params_from_leaves
+from ..parallel import mesh as meshlib
 from . import render_kernel as rk
 from . import rng as rtrng
 from .backward import (N_CAM, bounce_draws, hit_winner, primary_ray_vjp,
@@ -99,23 +103,20 @@ GRAD_LAUNCHES = 0
 FUSED_LAUNCHES = 0
 
 
-def refuse_unported(mesh=None, dtype=torch.float32,
-                    layout: str = "vmem") -> None:
-    """Raise for the axes a later slice ports, and for ``layout='packed'``,
+def refuse_unported(dtype=torch.float32, layout: str = "vmem") -> None:
+    """Raise for what the f32 kernels do not take: ``dtype=float64``,
+    which has gradients through the oracle only, and ``layout='packed'``,
     which the stream path trains."""
     if layout == "packed":
         raise ValueError(
             "layout='packed' is the streamed-scene layout; train it with "
             "grad.make_stream_train")
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh is not ported yet (multiple devices, ROADMAP queue 1 "
-            "item 6)")
     if dtype in (torch.float64, "float64", np.float64):
         raise NotImplementedError(
-            "dtype=float64 has no gradient here: JAX differentiates f64 "
-            "through its oracle only, not through a kernel (f64 gradients "
-            "through the oracle, ROADMAP queue 1 item 10)")
+            "dtype=float64 has no gradient kernel: as in JAX, double "
+            "precision differentiates through the oracle only; use "
+            "impl='oracle' (grad.make_loss_fn / make_train_step with "
+            "dtype=torch.float64)")
     if dtype not in (torch.float32, "float32", np.float32):
         raise ValueError(f"dtype must be float32, got {dtype!r}")
 
@@ -658,18 +659,21 @@ def render_kernel_grads(scene: Scene, cam_cfg: CameraConfig, g_acc,
     samples, so calls over disjoint windows add up. ``pixel_order`` (a
     (padded,) permutation) changes speed only. ``ray_tile``, ``sweep``,
     ``window``, ``pixels_per_lane`` and ``park`` shaped the TPU schedule
-    and are ignored."""
-    refuse_unported(mesh, dtype, layout)
+    and are ignored. ``mesh``: each rank takes its slice of the lanes, and
+    the cotangents are summed over the ranks (one ``all_reduce``)."""
+    refuse_unported(dtype, layout)
     del ray_tile, sweep, window, pixels_per_lane, park
     scene_mat, cam_row = _packed(scene, cam_cfg, img_width, img_height)
     ids, ii, jj, _ = rk._lane_setup(img_width, img_height, pixel_order,
                                     samples_per_pixel, sample_offset, None,
-                                    scene_mat.device)
+                                    scene_mat.device, mesh)
     rows = _lane_rows(g_acc, ids, img_width * img_height)
-    return _grad(ids, ii, jj, rows, scene_mat, cam_row,
-                 samples=samples_per_pixel, max_depth=max_depth, seed=seed,
-                 rr_start=rr_start, sample_offset=sample_offset,
-                 layout=layout)
+    ids, ii, jj, rows = rk.shard(mesh, ids, ii, jj, rows)
+    d_scene, d_cam = _grad(ids, ii, jj, rows, scene_mat, cam_row,
+                           samples=samples_per_pixel, max_depth=max_depth,
+                           seed=seed, rr_start=rr_start,
+                           sample_offset=sample_offset, layout=layout)
+    return meshlib.all_reduce_sum(mesh, d_scene, d_cam)
 
 
 def fused_train(scene: Scene, cam_cfg: CameraConfig, target,
@@ -692,15 +696,25 @@ def fused_train(scene: Scene, cam_cfg: CameraConfig, target,
     (up to float summation order), and the image as raw (3, count * PAD)
     lane rows; ``make_tiled_train`` drives the chunks. ``ray_tile``,
     ``park_residuals``, ``sweep``, ``window`` and ``pixels_per_lane``
-    shaped the TPU schedule and are ignored."""
-    refuse_unported(mesh, dtype, layout)
+    shaped the TPU schedule and are ignored.
+
+    ``mesh``: each rank runs kernel B on its slice of the lanes with the
+    global loss constants; one ``all_reduce`` of one flat buffer sums the
+    loss and the cotangents over the ranks and assembles the image (the
+    ranks' pixels are disjoint, so that part of the sum is exact)."""
+    refuse_unported(dtype, layout)
     del ray_tile, park_residuals, sweep, window, pixels_per_lane
+    if tile_chunk is not None and meshlib.sharded(mesh):
+        raise ValueError("tile_chunk runs one process's tile ranges; it "
+                         "takes no mesh")
     scene_mat, cam_row = _packed(scene, cam_cfg, img_width, img_height)
     num_pixels = img_width * img_height
     ids, ii, jj, _ = rk._lane_setup(img_width, img_height, pixel_order,
                                     samples_per_pixel, 0, None,
-                                    scene_mat.device)
+                                    scene_mat.device, mesh)
     rows = _lane_rows(target, ids, num_pixels)
+    full_ids, padded = ids, ids.shape[0]
+    ids, ii, jj, rows = rk.shard(mesh, ids, ii, jj, rows)
     if tile_chunk is not None:
         t0, count = (int(v) for v in tile_chunk)
         tiles = ids.shape[0] // rk.PAD
@@ -715,11 +729,17 @@ def fused_train(scene: Scene, cam_cfg: CameraConfig, target,
         max_depth=max_depth, num_pixels=num_pixels, seed=seed,
         rr_start=rr_start, gamma=gamma, loss=loss, huber_delta=huber_delta,
         layout=layout)
+    if meshlib.sharded(mesh):
+        full = img.new_zeros((3, padded))
+        full[:, meshlib.local_slice(padded, mesh)] = img
+        total, d_scene, d_cam, img = meshlib.all_reduce_sum(
+            mesh, total, d_scene, d_cam, full)
     loss_v = total * loss_constants(samples_per_pixel, num_pixels,
                                     huber_delta)["w"]
     if tile_chunk is not None:
         return loss_v, img, d_scene, d_cam
-    return (loss_v, rk._finalize_output(img, ids, pixel_order is not None,
+    return (loss_v, rk._finalize_output(img, full_ids,
+                                        pixel_order is not None,
                                         img_width, img_height,
                                         samples_per_pixel, gamma,
                                         accumulate_only=True,
@@ -739,7 +759,7 @@ def make_tiled_train(scene: Scene, cam_cfg: CameraConfig, img_width: int,
     -> (loss, image, d_scene_mat, d_cam_row)``, the sums of the chunks'
     partial sums and the reassembled image. ``ray_tile``,
     ``pixels_per_lane`` and ``park_residuals`` are ignored."""
-    refuse_unported(None, dtype, layout)
+    refuse_unported(dtype, layout)
     num_pixels = img_width * img_height
     tiles = rk._round_up(num_pixels, rk.PAD) // rk.PAD
     bounds = [(tiles * c // n_chunks, tiles * (c + 1) // n_chunks)
@@ -790,10 +810,12 @@ def make_mse_train(mat_type, active, img_width: int, img_height: int,
                    sweep=None, window: int = 0, pixels_per_lane=None):
     """The fused train step builder: ``f(params, cam_cfg, target) ->
     (loss, image, (d_params, d_cam_cfg))``. ``pixel_order`` (e.g. a
-    frozen difficulty order) changes speed only. ``ray_tile``,
+    frozen difficulty order) changes speed only. ``mesh``: as
+    ``fused_train``, one ``all_reduce`` a step. ``ray_tile``,
     ``park_residuals``, ``sweep``, ``window`` and ``pixels_per_lane`` are
     ignored."""
-    refuse_unported(mesh, layout=layout)
+    refuse_unported(layout=layout)
+    meshlib.validate(mesh)
     del ray_tile, park_residuals, sweep, window, pixels_per_lane
 
     def f(params, cam_cfg, target):
@@ -802,7 +824,7 @@ def make_mse_train(mat_type, active, img_width: int, img_height: int,
             scene, cam_cfg, target, img_width, img_height, samples_per_pixel,
             max_depth, seed=seed, gamma=gamma, pixel_order=pixel_order,
             rr_start=rr_start, loss=loss, huber_delta=huber_delta,
-            layout=layout)
+            layout=layout, mesh=mesh)
         grads = chain_to_params(d_sm, d_cr, params, cam_cfg, mat_type,
                                 active, img_width, img_height)
         return loss_v, img, grads

@@ -11,8 +11,17 @@ analog, which routes there as in JAX) renders through the stream kernel
 culled sphere blocks. ``impl='adaptive'`` renders with per-pixel sample
 budgets (``ops/adaptive.py``) on the regen kernel, or on the stream
 kernel above 4096 slots. ``impl='oracle'`` runs the plain PyTorch tracer.
-``dtype='float64'`` (``impl='kernel'`` only) renders in double through
-the f64 kernel (``ops/f64_kernel.py``), ordered by the f32 prepass.
+``dtype='float64'`` renders in double through the f64 kernel
+(``ops/f64_kernel.py``, ``impl='kernel'``) or the f64 oracle
+(``tracer.render(dtype=torch.float64)``, ``impl='oracle'``).
+
+``n_devices``: the launched world of one process per device
+(``parallel/mesh.py``; 0 takes it, 1 without a launcher). Each rank
+renders its slice of the pixels and every rank returns the whole image,
+the same bits as one process renders. Any other value than the world
+raises, where JAX clamps to the devices it has; the f64 kernel renders on
+one device and raises under a larger world, where JAX notes it and
+renders on one. The f64 oracle shards, as JAX's does.
 
 Nothing falls back: a CUDA device without CUDA raises, and the kernel
 path on a CPU device runs the kernel's plain version by design (the
@@ -28,6 +37,7 @@ from .config import RenderConfig
 from .models.camera import CameraConfig, initialize
 from .models.scene import Scene, _round_up, param_leaves
 from .ops import f64_kernel, render_kernel, stream_kernel, tracer
+from .parallel import mesh as meshlib
 
 
 def _leaf_key(scene: Scene, cam_cfg: CameraConfig) -> tuple:
@@ -90,7 +100,7 @@ def _stream_preparer(cfg: RenderConfig) -> Callable:
     return get
 
 
-def _stream_renderer(cfg: RenderConfig, check) -> Callable:
+def _stream_renderer(cfg: RenderConfig, check, mesh) -> Callable:
     """``impl='stream'``: the stream kernel on ``_stream_preparer``'s
     stream (``renderer.prepare`` runs the preparation ahead); one-block
     scenes get the difficulty order at >= 8 spp and > 4 bounces."""
@@ -107,13 +117,13 @@ def _stream_renderer(cfg: RenderConfig, check) -> Callable:
         return stream_kernel.render_stream(
             stream_of(scene, cam_cfg), cam_cfg, cfg.width, cfg.height,
             cfg.samples, cfg.bounces, seed=cfg.seed, rr_start=cfg.rr_start,
-            pixel_order=order)
+            pixel_order=order, mesh=mesh)
 
     renderer.prepare = stream_of
     return renderer
 
 
-def _adaptive_renderer(cfg: RenderConfig, check) -> Callable:
+def _adaptive_renderer(cfg: RenderConfig, check, mesh) -> Callable:
     """``impl='adaptive'`` (``ops/adaptive.py``): a scene of at most 4096
     slots renders every phase on the regen kernel with the scene staged
     (layout ``vmem``); a larger one on the stream kernel, over the stream
@@ -135,7 +145,7 @@ def _adaptive_renderer(cfg: RenderConfig, check) -> Callable:
             base_spp=cfg.samples, max_spp=cfg.effective_max_samples,
             tol=cfg.adaptive_tol, seed=cfg.seed, legacy_sky=cfg.legacy_sky,
             rr_start=cfg.rr_start, rounds=cfg.adaptive_rounds,
-            stream=stream).image
+            stream=stream, mesh=mesh).image
 
     def prepare(scene):
         if scene.num_slots > _ONE_BLOCK_SLOTS:
@@ -195,50 +205,62 @@ def make_f64_renderer(cfg: RenderConfig, check) -> Callable:
     return renderer
 
 
-def make_renderer(cfg: RenderConfig, device) -> Callable:
+def make_renderer(cfg: RenderConfig, device, n_devices: int = 0) -> Callable:
     """Return ``renderer(scene, cam_cfg) -> (H, W, 3)`` on ``device``: f32,
-    or float64 for ``dtype='float64'`` (``make_f64_renderer``).
+    or float64 for ``dtype='float64'``.
 
     The scene must already be on ``device`` (``build_scene(...,
-    device=...)``); the camera config is host data."""
+    device=...)``); the camera config is host data. ``n_devices``: 0 (the
+    launched world) or the world's size; under a world of more than one
+    rank each rank renders its slice of the pixels
+    (``parallel.mesh.make_mesh``) and every rank gets the whole image."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"device {device} requested but torch.cuda.is_available() is "
             "False: there is no CUDA device here")
+    mesh = meshlib.make_mesh(n_devices, device=device)
+    mesh = mesh if mesh.world > 1 else None
 
     def check(scene: Scene):
         if scene.mat_type.device.type != device.type:
             raise ValueError(f"scene is on {scene.mat_type.device}, the "
                              f"renderer on {device}")
 
-    if cfg.dtype == "float64":
-        # RenderConfig allows float64 with impl='kernel' only
-        return make_f64_renderer(cfg, check)
-
     if cfg.impl == "oracle":
+        dtype = torch.float64 if cfg.dtype == "float64" else torch.float32
+
         def oracle_renderer(scene, cam_cfg):
             check(scene)
             return tracer.render(
                 scene, cam_cfg, cfg.width, cfg.height, cfg.samples,
-                cfg.bounces, seed=cfg.seed,
+                cfg.bounces, seed=cfg.seed, dtype=dtype,
                 chunk_pixels=cfg.effective_chunk_pixels,
-                legacy_sky=cfg.legacy_sky, rr_start=cfg.rr_start,
+                legacy_sky=cfg.legacy_sky, rr_start=cfg.rr_start, mesh=mesh,
             )
 
         return oracle_renderer
 
+    if cfg.dtype == "float64":
+        # RenderConfig allows float64 with impl kernel or oracle only
+        if mesh is not None:
+            raise ValueError(
+                f"the f64 kernel renders on one device, the launched world "
+                f"has {mesh.world} ranks: run one process, or impl='oracle' "
+                f"(the f64 oracle shards)")
+        return make_f64_renderer(cfg, check)
+
     if cfg.impl == "stream" or cfg.layout == "packed":
-        return _stream_renderer(cfg, check)
+        return _stream_renderer(cfg, check, mesh)
 
     if cfg.impl == "adaptive":
-        return _adaptive_renderer(cfg, check)
+        return _adaptive_renderer(cfg, check, mesh)
 
     def renderer(scene, cam_cfg):
         check(scene)
         return render_kernel.render_kernel(
             scene, cam_cfg, cfg.width, cfg.height, cfg.samples, cfg.bounces,
             seed=cfg.seed, layout=cfg.layout, legacy_sky=cfg.legacy_sky,
-            rr_start=cfg.rr_start)
+            rr_start=cfg.rr_start, mesh=mesh)
 
     return renderer

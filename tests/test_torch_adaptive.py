@@ -308,7 +308,7 @@ def test_render_adaptive_rejects(kw, match):
 
 def test_adaptive_refusals_and_config():
     scene, cam = build_scene(2), CameraConfig.reference_default()
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="Mesh"):
         ad.render_adaptive(scene, cam, W, H, 2, mesh=object())
     with pytest.raises(ValueError, match="counter field"):
         ad.render_adaptive(scene, cam, W, H, 2, base_spp=16,

@@ -177,7 +177,7 @@ def test_make_renderer_f64_cpu(monkeypatch):
     (dict(legacy_sky=True), "parity estimator"),
     (dict(layout="packed"), "packed"),
     (dict(impl="stream"), "impl=stream"),
-    (dict(impl="oracle"), "impl=oracle"),
+    (dict(impl="adaptive"), "impl=adaptive"),
 ])
 def test_f64_scope_refusals(kw, match):
     with pytest.raises(ValueError, match=match):

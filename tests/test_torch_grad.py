@@ -283,10 +283,12 @@ def test_loss_falls(target, impl):
 def test_unported_axes_and_misuse_raise():
     s = _port(_mixed())
     cam = TCam.reference_default()
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(TypeError, match="Mesh"):
         tgrad.make_loss_fn(W, H, SPP, DEPTH, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tgrad.make_loss_fn(W, H, SPP, DEPTH, dtype=torch.float64)
+    # float64 has gradients through the oracle only, as in JAX
+    with pytest.raises(NotImplementedError, match="impl='oracle'"):
+        tgrad.make_loss_fn(W, H, SPP, DEPTH, impl="kernel",
+                           dtype=torch.float64)
     # streamed scenes train through make_stream_train, which the refusals
     # name (the JAX make_loss_fn runs its oracle for impl='stream')
     with pytest.raises(ValueError, match="make_stream_train"):
@@ -301,7 +303,7 @@ def test_unported_axes_and_misuse_raise():
     from raytracingincuda_torch.ops.stream_kernel import prepare_stream_scene
 
     stream = prepare_stream_scene(s, block=2)
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(TypeError, match="Mesh"):
         tgrad.make_stream_train(stream, W, H, SPP, DEPTH, mesh=object())
     border = tgrad.front_to_back_border(stream, cam, W, H)
     assert sorted(border.tolist()) == list(range(stream.n_blocks))
@@ -310,10 +312,10 @@ def test_unported_axes_and_misuse_raise():
     with pytest.raises(ValueError, match="backward='oracle'"):
         rk.make_diff_render(s.mat_type, s.active, W, H, SPP, DEPTH,
                             legacy_sky=True)
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(TypeError, match="Mesh"):
         tk.render_kernel_grads(s, cam, torch.zeros((H, W, 3)), W, H, SPP,
                                DEPTH, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="impl='oracle'"):
         tk.fused_train(s, cam, torch.zeros((H, W, 3)), W, H, SPP, DEPTH,
                        dtype=torch.float64)
     ids, ii, jj, _, sm, row = rk.regen_inputs(s, cam, W, H, SPP)

@@ -259,7 +259,7 @@ def test_stream_arguments_raise(small):
     with pytest.raises(ValueError, match="first matrix row"):
         sk.stream_reference(*args[:5], shifted, row, block=64, samples=SPP,
                             max_depth=DEPTH)
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(TypeError, match="Mesh"):
         sk.render_stream(st, cam, W, H, SPP, DEPTH, mesh=object())
     with pytest.raises(NotImplementedError):
         sk.prepare_stream_scene(ts, dtype=torch.float64)

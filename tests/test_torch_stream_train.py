@@ -266,7 +266,7 @@ def test_stream_training_entry_points():
     with pytest.raises(ValueError, match="make_stream_train"):
         tk.fused_train(s, cam, torch.zeros((H, W, 3)), W, H, SPP, DEPTH,
                        layout="packed")
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(TypeError, match="Mesh"):
         tgrad.make_stream_train(sk.prepare_stream_scene(s), W, H, SPP, DEPTH,
                                 mesh=object())
     st = sk.prepare_stream_scene(s, block=32)

@@ -166,6 +166,21 @@ CPU path):
              the CLI under torchrun --devices 2 at 320x192 (its file's
              bytes equal one process's). Times are two ranks sharing one
              card, not a multi-device speed-up
+  23 routes  the routes the JAX package takes for the same config: the
+             adaptive headline (phase 18's, rounds 1) with layout='packed'
+             through make_renderer (one render_adaptive call, kernel 1's
+             launches, image and spp map bit-equal to phase 18's vmem
+             render); the f64 oracle with rr_start=2 and with legacy_sky
+             on the card against the CPU (32x20x2spp/4b, within 1e-12);
+             render_incremental at float64 in two rounds against the
+             one-shot f64 oracle on the card (within 1e-12) and refused
+             with impl='kernel' (the f64 kernel takes no sample_offset),
+             and with impl='kernel', layout='packed' (kernel 4, two rounds)
+             against
+             one render_stream render at 320x192x4spp/25b (within 1e-6);
+             the CLI with --dtype float64 --impl oracle --rr_start 2 in
+             this process (rc 0, a float64 scene and camera, its PPM the
+             renderer's image)
 
 Then the kernels line (JSON, with each kernel's bound and, as
 bound_fmad_off_ms, the same bound with the operations at half the rate,
@@ -175,7 +190,7 @@ stream_segment_sum, f64_render and compact_render), the nvidia-smi line,
 and last {"ok": true, "device": {...}}. Everything measured is
 also written to chip_smoke.json in the output directory. Launch counts
 are set to 0 just before each main path (phases 4, 7, 8, 10, 12, 13, 14,
-16-21) and read just after it: each path's own counts are in chip_smoke.json
+16-21, 23) and read just after it: each path's own counts are in chip_smoke.json
 (launches_by_phase) and their sums are the kernels line's launches; phase
 22's ranks count their own launches (each job's, in the worker) and their
 sums are added too.
@@ -1657,6 +1672,8 @@ def main() -> int:
                 and float(spp.min()) >= 16 and float(spp.max()) <= 256):
             raise AssertionError(f"adaptive headline rounds {rounds}: "
                                  f"{counts}, spp [{spp.min()}, {spp.max()}]")
+        if rounds == 1:  # phase 23's packed route must equal this
+            adaptive_vmem = (img, spp)
         h = record["adaptive_headline"][f"rounds{rounds}"] = {
             "render_ms": times, "warmup_ms": warm.ms, "launches": counts,
             "regen_launches_per_render": counts["regen_render"] / 4,
@@ -2232,6 +2249,158 @@ def main() -> int:
             f" vs {v['one_process_peak_mib']}" for k, v in steps.items())
         + f"; launches by rank {by_rank}")
     record["phase_s"]["22 two ranks"] = time.perf_counter() - t_phase
+
+    # -- 23 routes -----------------------------------------------------------
+    t_phase = time.perf_counter()
+    from raytracingincuda_torch import cli as cli_mod
+    from raytracingincuda_torch import render_api
+    from raytracingincuda_torch.ops import adaptive as adaptive_mod
+    from raytracingincuda_torch.utils import checkpoint as ckpt
+
+    routes = {}
+    # impl='adaptive' with layout='packed' is the adaptive renderer (kernel
+    # 1 at this slot count), equal to phase 18's vmem headline, rounds 1
+    calls = []
+    real_adaptive = adaptive_mod.render_adaptive
+
+    def spy_adaptive(*a, **k):
+        out = real_adaptive(*a, **k)
+        calls.append(out.spp_map.float())
+        return out
+
+    adaptive_mod.render_adaptive = spy_adaptive
+    try:
+        renderer = make_renderer(adaptive_cfg(
+            scene_id=1, width=W, height=H, samples=16, bounces=D,
+            max_samples=256, adaptive_tol=0.05, layout="packed"), dev)
+        reset_counts()
+        with RenderTimer(dev) as t_packed:
+            img = renderer(scene, cam)
+        counts = read_counts("23 routes adaptive packed")
+    finally:
+        adaptive_mod.render_adaptive = real_adaptive
+    routes["adaptive_packed"] = {
+        "render_adaptive_calls": len(calls), "launches": nonzero(counts),
+        "render_ms": t_packed.ms,
+        "image_equal_phase18": bool(torch.equal(img, adaptive_vmem[0])),
+        "spp_equal_phase18": bool(len(calls) == 1 and torch.equal(
+            calls[0], adaptive_vmem[1]))}
+    if not (len(calls) == 1 and counts["regen_render"] >= 1
+            and counts["stream_render"] == 0
+            and routes["adaptive_packed"]["image_equal_phase18"]
+            and routes["adaptive_packed"]["spp_equal_phase18"]):
+        raise AssertionError(f"adaptive packed route: {routes}")
+    del img, adaptive_vmem
+    # the f64 oracle takes rr_start and legacy_sky: the card against the
+    # CPU at phase 21's bar, on scene 1 built in float64 (as the CLI does)
+    f64_routes = {}
+    for name, kw in (("rr2", dict(rr_start=2)),
+                     ("legacy_sky", dict(legacy_sky=True))):
+        cfg = RenderConfig(scene_id=1, width=32, height=20, samples=2,
+                           bounces=4, impl="oracle", dtype="float64", **kw)
+        cam64 = CameraConfig.reference_default(dtype=f64)
+        got = make_renderer(cfg, dev)(build_scene(1, dtype=f64, device=dev),
+                                      cam64).cpu()
+        want = make_renderer(cfg, "cpu")(build_scene(1, dtype=f64), cam64)
+        f64_routes[name] = float((got - want).abs().max())
+        if not (got.dtype == f64 and f64_routes[name] <= 1e-12):
+            raise AssertionError(f"f64 oracle {name} card vs CPU: "
+                                 f"{f64_routes}")
+    routes["f64_oracle_card_vs_cpu_max_abs_err"] = f64_routes
+    # render_incremental at float64 in two rounds on the card: the sum
+    # stays double, within 1e-12 of the one-shot f64 oracle on the card
+    cfg = RenderConfig(scene_id=1, width=32, height=20, samples=4, bounces=4,
+                       impl="oracle", dtype="float64")
+    s64 = build_scene(1, dtype=f64, device=dev)
+    inc = ckpt.render_incremental(s64, cam64, cfg, samples_per_round=2)
+    one = make_renderer(cfg, dev)(s64, cam64).cpu().numpy()
+    routes["incremental_f64_max_abs_err"] = float(np.abs(inc - one).max())
+    if not (inc.dtype == np.float64
+            and routes["incremental_f64_max_abs_err"] <= 1e-12):
+        raise AssertionError(f"render_incremental float64: {routes}")
+    # with impl='kernel' a float64 config is refused in rounds (the f64
+    # kernel takes no sample_offset), not rendered on the oracle
+    try:
+        ckpt.render_incremental(s64, cam64, RenderConfig(
+            scene_id=1, width=32, height=20, samples=4, bounces=4,
+            impl="kernel", dtype="float64"), samples_per_round=2)
+        refused = ""
+    except ValueError as e:
+        refused = str(e)
+    routes["incremental_f64_kernel_refused"] = refused
+    if "impl='oracle'" not in refused:
+        raise AssertionError(f"render_incremental float64 kernel: {routes}")
+    # render_incremental with impl='kernel', layout='packed': kernel 4 in
+    # two rounds, against one render_stream render over the same stream
+    # (f32 sums in another order: within 1e-6)
+    cfg = RenderConfig(scene_id=1, width=320, height=192, samples=4,
+                       bounces=25, layout="packed")
+    s1d = build_scene(1, device=dev)
+    reset_counts()
+    inc = ckpt.render_incremental(s1d, cam, cfg, samples_per_round=2)
+    counts = read_counts("23 routes incremental packed")
+    one = sk.render_stream(make_renderer(cfg, dev).prepare(s1d, cam), cam,
+                           320, 192, 4, 25).cpu().numpy()
+    routes["incremental_packed"] = {
+        "launches": nonzero(counts),
+        "max_abs_err": float(np.abs(inc - one).max())}
+    if not (counts["stream_render"] == 2 and counts["regen_render"] == 0
+            and routes["incremental_packed"]["max_abs_err"] <= 1e-6):
+        raise AssertionError(f"render_incremental packed: {routes}")
+    # the CLI's f64 oracle: a float64 scene and camera, rc 0, its PPM the
+    # renderer's image
+    seen = []
+    real_mr = render_api.make_renderer
+
+    def spy_renderer(cfg, *a, **k):
+        r = real_mr(cfg, *a, **k)
+
+        def wrapped(sc, cm):
+            seen.append((str(sc.params.radius.dtype), str(cm.vfov.dtype)))
+            return r(sc, cm)
+        return wrapped
+
+    render_api.make_renderer = spy_renderer
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                rc = cli_mod.main(["--scene_id", "1", "--width", "64",
+                                   "--height", "40", "--samples", "2",
+                                   "--bounces", "4", "--dtype", "float64",
+                                   "--impl", "oracle", "--rr_start", "2",
+                                   "--no-warmup", "--outdir", tmp])
+            cfg = RenderConfig(scene_id=1, width=64, height=40, samples=2,
+                               bounces=4, dtype="float64", impl="oracle",
+                               rr_start=2)
+            got, _ = ppm.read_ppm(str(Path(tmp) / cfg.output_filename()))
+    finally:
+        render_api.make_renderer = real_mr
+    want = make_renderer(cfg, dev)(build_scene(1, dtype=f64, device=dev),
+                                   cam64).cpu().numpy()
+    routes["cli_f64_oracle"] = {"rc": rc, "line": out.getvalue().strip(),
+                                "scene_camera_dtypes": seen,
+                                "ppm_equal": bool(np.array_equal(
+                                    got, ppm.quantize(want)))}
+    if not (rc == 0 and seen == [("torch.float64", "torch.float64")]
+            and routes["cli_f64_oracle"]["ppm_equal"]):
+        raise AssertionError(f"cli --dtype float64 --impl oracle: {routes}")
+    record["routes"] = routes
+    say("23 routes", f"adaptive headline with layout packed: one "
+        f"render_adaptive call, launches "
+        f"{routes['adaptive_packed']['launches']}, "
+        f"{t_packed.ms:.2f} ms, image and spp map bit-equal to phase 18's "
+        f"vmem render | f64 oracle card vs CPU (32x20x2spp/4b): rr2 "
+        f"{f64_routes['rr2']:.3g}, legacy_sky {f64_routes['legacy_sky']:.3g}"
+        f" | render_incremental f64 two rounds vs one-shot: "
+        f"{routes['incremental_f64_max_abs_err']:.3g}, impl kernel "
+        f"refused | packed two rounds "
+        f"vs render_stream (320x192x4spp/25b): "
+        f"{routes['incremental_packed']['max_abs_err']:.3g}, "
+        f"{routes['incremental_packed']['launches']} | cli --dtype float64 "
+        f"--impl oracle --rr_start 2: rc 0, float64 scene and camera, PPM "
+        f"equal to the renderer's")
+    record["phase_s"]["23 routes"] = time.perf_counter() - t_phase
 
     # -- result lines ---------------------------------------------------------
     record["main_path_launches"] = main_launches

@@ -15,9 +15,14 @@ the TPU schedule and the CUDA kernels ignore them (one thread per pixel,
 sort and block bounds) runs after the scene is built and before the
 render bracket, like the reference's upload. ``--dtype float64``
 renders in double and writes the PPM from the double image, as the
-reference's double variants do. ``--scene_file`` renders a scene asset
-(``.npz`` or ``.csv``, ``models/io.py``) instead of a built-in scene;
-the file name then says scene 0, as the JAX package's does.
+reference's double variants do: ``--impl kernel`` on the f64 kernel
+(parity estimator, layout vmem or hbm, the scene built in float32 as
+JAX's df64 path builds it), ``--impl oracle`` on the f64 oracle (any
+``--rr_start``, ``--legacy_sky`` and layout, the scene and camera built
+in float64 as JAX's CPU path builds them). ``--scene_file`` renders a
+scene asset (``.npz`` or ``.csv``, ``models/io.py``) instead of a
+built-in scene; the file name then says scene 0, as the JAX package's
+does.
 ``--impl adaptive`` renders with per-pixel sample budgets
 (``ops/adaptive.py``): ``--samples`` is the probe budget, ``--max_samples``
 the per-pixel cap. ``--chunk_pixels`` sizes the oracle's pixel chunks.
@@ -66,8 +71,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "CUDA variants' quirk)")
     p.add_argument("--dtype", choices=["float32", "float64"],
                    default="float32",
-                   help="float64 renders in double on the f64 kernel "
-                        "(parity estimator, layout vmem or hbm)")
+                   help="float64 renders in double: on the f64 kernel "
+                        "(parity estimator, layout vmem or hbm), or with "
+                        "--impl oracle on the f64 oracle (any estimator)")
     p.add_argument("--layout", choices=["vmem", "hbm", "packed"],
                    default="vmem",
                    help="scene in shared memory (vmem, 'const'), read from "
@@ -150,14 +156,21 @@ def main(argv=None) -> int:
               else torch.device(args.device))
     renderer = make_renderer(cfg, device, n_devices=args.devices)
     lead = not sharded or torch.distributed.get_rank() == 0
-    cam = CameraConfig.reference_default()
+    # the f64 oracle takes its scene and camera in double, as JAX's CPU
+    # path builds them; the f64 kernel packs an f32 scene, as JAX's df64
+    # path does
+    scene_dtype = (torch.float64 if cfg.dtype == "float64"
+                   and cfg.impl == "oracle" else torch.float32)
+    cam = CameraConfig.reference_default(dtype=scene_dtype)
 
     def make_scene():
         if args.scene_file is not None:
             from .models.io import load_scene
 
-            return load_scene(args.scene_file, device=device)
-        return build_scene(cfg.scene_id, seed=cfg.seed, device=device)
+            return load_scene(args.scene_file, dtype=scene_dtype,
+                              device=device)
+        return build_scene(cfg.scene_id, seed=cfg.seed, dtype=scene_dtype,
+                           device=device)
 
     if args.warmup:
         renderer(make_scene(), cam)

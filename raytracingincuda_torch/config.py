@@ -5,14 +5,16 @@ Field names and ``output_filename()`` are the JAX package's
 carry over unchanged. What this port serves:
 
   dtype:  float32 ('float' in the file name) |
-          float64 ('double': the render in double on the f64 kernel
-          (``impl='kernel'``) or the f64 oracle (``impl='oracle'``), with
-          ``layout`` vmem or hbm, the parity estimator and the
-          current-bounce sky, as the JAX df64 path)
+          float64 ('double': the render in double. ``impl='kernel'`` is
+          the f64 kernel, in the JAX df64 kernel's scope: ``layout`` vmem
+          or hbm, the parity estimator, the current-bounce sky.
+          ``impl='oracle'`` is the f64 oracle, as JAX's native-f64
+          oracle: either estimator, ``legacy_sky``, any layout (the
+          oracle ignores it). Other impls have no f64 path.)
   layout: vmem ('const': the scene staged in shared memory) |
           hbm ('global': the scene read from device memory) |
-          packed ('tex': the texture-path analog, served by the stream
-          kernel, as in JAX)
+          packed ('tex': the texture-path analog; ``impl='kernel'``
+          renders it on the stream kernel, as JAX's 'pallas' does)
   impl:   kernel (the CUDA regeneration kernel; the JAX 'pallas') |
           stream (the stream kernel: scenes of any size, walked in culled
           sphere blocks of ``stream_block`` rows) |
@@ -106,22 +108,29 @@ class RenderConfig:
                 raise ValueError("adaptive_rounds must be >= 1")
 
     def _check_f64_scope(self):
-        """dtype=float64 is the JAX df64 path's precision comparison:
-        the f64 kernel or the f64 oracle, parity estimator, current-bounce
-        sky."""
-        if self.legacy_sky or self.rr_start is not None:
-            raise ValueError(
-                "dtype=float64 is a precision-comparison config: parity "
-                "estimator only (no legacy_sky / rr_start)")
-        if self.layout == "packed":
-            raise ValueError(
-                "dtype=float64 has no packed/stream path; the f64 kernel "
-                "reads the scene in layout vmem or hbm")
-        if self.impl not in ("kernel", "oracle"):
+        """dtype=float64 per impl: ``'oracle'`` (the f64 oracle) takes
+        every estimator, ``legacy_sky`` and every layout, as JAX's
+        native-f64 oracle does; ``'kernel'`` (the f64 kernel) keeps the
+        JAX df64 kernel's scope (``make_df64_renderer``): parity
+        estimator, current-bounce sky, layout vmem or hbm; any other impl
+        has no f64 path."""
+        if self.impl == "oracle":
+            return
+        if self.impl != "kernel":
             raise ValueError(
                 f"dtype=float64 runs on the f64 kernel (impl='kernel') or "
                 f"the f64 oracle (impl='oracle'); impl={self.impl} has no "
                 f"f64 path")
+        if self.legacy_sky or self.rr_start is not None:
+            raise ValueError(
+                "dtype=float64 with impl='kernel' is the f64 kernel's "
+                "precision comparison: parity estimator only (no "
+                "legacy_sky / rr_start; impl='oracle' takes both)")
+        if self.layout == "packed":
+            raise ValueError(
+                "dtype=float64 with impl='kernel' has no packed/stream "
+                "path; the f64 kernel reads the scene in layout vmem or "
+                "hbm (impl='oracle' ignores the layout)")
 
     @property
     def effective_max_samples(self) -> int:

@@ -5,15 +5,20 @@
 pixels in raster order. The JAX renderer orders them by a difficulty
 prepass first; on the card, where raster neighbours already share their
 traced depth, that order made the kernel slower (``PERF.md``), so this
-renderer takes none. ``impl='stream'`` (and ``layout='packed'``, the texture-path
-analog, which routes there as in JAX) renders through the stream kernel
-(``ops/stream_kernel.py``): a prepared scene of any size, walked in
-culled sphere blocks. ``impl='adaptive'`` renders with per-pixel sample
-budgets (``ops/adaptive.py``) on the regen kernel, or on the stream
-kernel above 4096 slots. ``impl='oracle'`` runs the plain PyTorch tracer.
-``dtype='float64'`` renders in double through the f64 kernel
-(``ops/f64_kernel.py``, ``impl='kernel'``) or the f64 oracle
-(``tracer.render(dtype=torch.float64)``, ``impl='oracle'``).
+renderer takes none. ``impl='stream'`` (and ``impl='kernel'`` with
+``layout='packed'``, the texture-path analog, which routes there as in
+JAX) renders through the stream kernel (``ops/stream_kernel.py``): a
+prepared scene of any size, walked in culled sphere blocks.
+``impl='adaptive'`` renders with per-pixel sample budgets
+(``ops/adaptive.py``) on the regen kernel, or on the stream kernel above
+4096 slots, whatever the layout. ``impl='oracle'`` runs the plain
+PyTorch tracer and ignores the layout. ``dtype='float64'`` renders in
+double through the f64 kernel (``ops/f64_kernel.py``, ``impl='kernel'``)
+or the f64 oracle (``tracer.render(dtype=torch.float64)``,
+``impl='oracle'``, with either estimator and ``legacy_sky``).
+``_route`` makes that choice for both factories here: ``make_renderer``
+and ``make_sum_renderer``, whose raw sums over a window of samples are
+``utils.checkpoint.render_incremental``'s rounds.
 
 ``n_devices``: the launched world of one process per device
 (``parallel/mesh.py``; 0 takes it, 1 without a launcher). Each rank
@@ -205,6 +210,42 @@ def make_f64_renderer(cfg: RenderConfig, check) -> Callable:
     return renderer
 
 
+def _route(cfg: RenderConfig) -> str:
+    """The renderer that serves ``cfg``, by the JAX package's rules:
+    'oracle' (the plain tracer in the config's dtype, whatever the
+    layout), 'f64' (the f64 kernel), 'adaptive' (tested before the packed
+    layout: the adaptive renderer picks its kernel by slot count, whatever
+    the layout), 'stream' (``impl='stream'``, or ``impl='kernel'`` with
+    ``layout='packed'``) or 'regen' (kernel 1)."""
+    if cfg.impl == "oracle":
+        return "oracle"
+    if cfg.dtype == "float64":
+        # RenderConfig allows float64 with impl kernel or oracle only
+        return "f64"
+    if cfg.impl == "adaptive":
+        return "adaptive"
+    if cfg.impl == "stream" or cfg.layout == "packed":
+        return "stream"
+    return "regen"
+
+
+def _scene_check(device) -> Callable:
+    """``check(scene)``: raises unless the scene is on ``device``'s type;
+    a CUDA device without CUDA raises here."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device} requested but torch.cuda.is_available() is "
+            "False: there is no CUDA device here")
+
+    def check(scene: Scene):
+        if scene.mat_type.device.type != device.type:
+            raise ValueError(f"scene is on {scene.mat_type.device}, the "
+                             f"renderer on {device}")
+
+    return check
+
+
 def make_renderer(cfg: RenderConfig, device, n_devices: int = 0) -> Callable:
     """Return ``renderer(scene, cam_cfg) -> (H, W, 3)`` on ``device``: f32,
     or float64 for ``dtype='float64'``.
@@ -214,20 +255,12 @@ def make_renderer(cfg: RenderConfig, device, n_devices: int = 0) -> Callable:
     launched world) or the world's size; under a world of more than one
     rank each rank renders its slice of the pixels
     (``parallel.mesh.make_mesh``) and every rank gets the whole image."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {device} requested but torch.cuda.is_available() is "
-            "False: there is no CUDA device here")
-    mesh = meshlib.make_mesh(n_devices, device=device)
+    check = _scene_check(device)
+    mesh = meshlib.make_mesh(n_devices, device=torch.device(device))
     mesh = mesh if mesh.world > 1 else None
+    route = _route(cfg)
 
-    def check(scene: Scene):
-        if scene.mat_type.device.type != device.type:
-            raise ValueError(f"scene is on {scene.mat_type.device}, the "
-                             f"renderer on {device}")
-
-    if cfg.impl == "oracle":
+    if route == "oracle":
         dtype = torch.float64 if cfg.dtype == "float64" else torch.float32
 
         def oracle_renderer(scene, cam_cfg):
@@ -241,8 +274,7 @@ def make_renderer(cfg: RenderConfig, device, n_devices: int = 0) -> Callable:
 
         return oracle_renderer
 
-    if cfg.dtype == "float64":
-        # RenderConfig allows float64 with impl kernel or oracle only
+    if route == "f64":
         if mesh is not None:
             raise ValueError(
                 f"the f64 kernel renders on one device, the launched world "
@@ -250,11 +282,11 @@ def make_renderer(cfg: RenderConfig, device, n_devices: int = 0) -> Callable:
                 f"(the f64 oracle shards)")
         return make_f64_renderer(cfg, check)
 
-    if cfg.impl == "stream" or cfg.layout == "packed":
-        return _stream_renderer(cfg, check, mesh)
-
-    if cfg.impl == "adaptive":
+    if route == "adaptive":
         return _adaptive_renderer(cfg, check, mesh)
+
+    if route == "stream":
+        return _stream_renderer(cfg, check, mesh)
 
     def renderer(scene, cam_cfg):
         check(scene)
@@ -264,3 +296,50 @@ def make_renderer(cfg: RenderConfig, device, n_devices: int = 0) -> Callable:
             rr_start=cfg.rr_start, mesh=mesh)
 
     return renderer
+
+
+def make_sum_renderer(cfg: RenderConfig, device) -> Callable:
+    """Return ``render_sum(scene, cam_cfg, n, sample_offset) -> (H, W,
+    3)``: each pixel's raw sum of samples ``[sample_offset, sample_offset
+    + n)`` on one device, on ``make_renderer``'s route for ``cfg``. These
+    are ``utils.checkpoint.render_incremental``'s rounds.
+
+    The oracle sums in the config's dtype; kernels 1 and 4 sum in f32,
+    and the stream kernel refuses ``legacy_sky`` as ``make_renderer``
+    does. ``impl='adaptive'`` sums uniform samples (a budget does not
+    split into rounds) on the kernel its renderer takes at the scene's
+    slot count. The f64 kernel takes no ``sample_offset``, so a float64
+    config renders in rounds with ``impl='oracle'`` only."""
+    route = _route(cfg)
+    if route == "f64":
+        raise ValueError(
+            "the f64 kernel renders no sample window (no sample_offset): "
+            "render a float64 config in rounds with impl='oracle'")
+    if route == "stream" and cfg.legacy_sky:
+        raise ValueError("impl=stream has no legacy_sky variant")
+    check = _scene_check(device)
+    stream_of = _stream_preparer(cfg)
+    dtype = torch.float64 if cfg.dtype == "float64" else torch.float32
+
+    def render_sum(scene, cam_cfg, n, sample_offset):
+        check(scene)
+        kw = dict(seed=cfg.seed, rr_start=cfg.rr_start,
+                  sample_offset=sample_offset, accumulate_only=True)
+        if route == "oracle":
+            return tracer.render(
+                scene, cam_cfg, cfg.width, cfg.height, n, cfg.bounces,
+                dtype=dtype, chunk_pixels=cfg.chunk_pixels,
+                legacy_sky=cfg.legacy_sky, **kw)
+        big = scene.num_slots > _ONE_BLOCK_SLOTS
+        if route == "stream" or (route == "adaptive" and big):
+            if cfg.legacy_sky:
+                raise ValueError("streamed adaptive has no legacy_sky")
+            return stream_kernel.render_stream(
+                stream_of(scene, cam_cfg), cam_cfg, cfg.width, cfg.height,
+                n, cfg.bounces, **kw)
+        return render_kernel.render_kernel(
+            scene, cam_cfg, cfg.width, cfg.height, n, cfg.bounces,
+            layout="vmem" if route == "adaptive" else cfg.layout,
+            legacy_sky=cfg.legacy_sky, **kw)
+
+    return render_sum

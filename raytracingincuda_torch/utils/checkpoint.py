@@ -25,8 +25,9 @@ import torch
 from ..config import RenderConfig
 from ..models.camera import CameraConfig
 from ..models.scene import Scene
-from ..ops import render_kernel, tracer
+from ..ops import tracer
 from ..ops.grad import train_state_from_leaves, train_state_leaves
+from ..render_api import make_sum_renderer
 
 
 def _config_token(cfg: RenderConfig) -> str:
@@ -49,9 +50,14 @@ def _save(path: str, **arrays) -> None:
     os.replace(tmp, path)
 
 
+def _acc_dtype(cfg: RenderConfig):
+    """The accumulator's dtype: a float64 config keeps its sum in double."""
+    return np.float64 if cfg.dtype == "float64" else np.float32
+
+
 def save_checkpoint(path: str, acc: np.ndarray, samples_done: int,
                     cfg: RenderConfig) -> None:
-    _save(path, acc=np.asarray(acc, np.float32),
+    _save(path, acc=np.asarray(acc, _acc_dtype(cfg)),
           samples_done=np.int64(samples_done),
           config=np.frombuffer(_config_token(cfg).encode(), np.uint8))
 
@@ -73,9 +79,17 @@ def render_incremental(scene: Scene, cam_cfg: CameraConfig, cfg: RenderConfig,
     """Render ``cfg.samples`` samples in rounds on the scene's device,
     checkpointing the raw sum after each; returns the gamma-encoded
     (H, W, 3) image. A checkpoint of the same config at
-    ``checkpoint_path`` is resumed (``resume=True``). ``cfg.impl`` picks
-    the regen kernel or the oracle."""
-    acc = np.zeros((cfg.height, cfg.width, 3), np.float32)
+    ``checkpoint_path`` is resumed (``resume=True``).
+
+    Each round is ``render_api.make_sum_renderer``'s raw sum, on
+    ``make_renderer``'s route for ``cfg`` (JAX renders every round on its
+    oracle): the oracle in the config's dtype, kernel 1 or kernel 4 at
+    float32. A float64 config keeps its sum and image in double (JAX casts
+    each round to f32) and renders with ``impl='oracle'`` only: the f64
+    kernel takes no ``sample_offset``."""
+    render_sum = make_sum_renderer(cfg, scene.mat_type.device)
+    acc_dtype = _acc_dtype(cfg)
+    acc = np.zeros((cfg.height, cfg.width, 3), acc_dtype)
     done = 0
     if checkpoint_path and resume:
         try:
@@ -83,23 +97,14 @@ def render_incremental(scene: Scene, cam_cfg: CameraConfig, cfg: RenderConfig,
         except FileNotFoundError:
             pass
     rounds = samples_per_round or cfg.samples
-    kw = dict(seed=cfg.seed, legacy_sky=cfg.legacy_sky, rr_start=cfg.rr_start,
-              accumulate_only=True)
     while done < cfg.samples:
         n = min(rounds, cfg.samples - done)
-        if cfg.impl == "kernel":
-            part = render_kernel.render_kernel(
-                scene, cam_cfg, cfg.width, cfg.height, n, cfg.bounces,
-                layout=cfg.layout, sample_offset=done, **kw)
-        else:
-            part = tracer.render(
-                scene, cam_cfg, cfg.width, cfg.height, n, cfg.bounces,
-                chunk_pixels=cfg.chunk_pixels, sample_offset=done, **kw)
-        acc = acc + part.cpu().numpy()
+        part = render_sum(scene, cam_cfg, n, done)
+        acc = acc + part.cpu().numpy().astype(acc_dtype)
         done += n
         if checkpoint_path:
             save_checkpoint(checkpoint_path, acc, done, cfg)
-    img = torch.from_numpy(acc / np.float32(cfg.samples))
+    img = torch.from_numpy(acc / acc_dtype(cfg.samples))
     return tracer._linear_to_gamma(img).numpy()
 
 

@@ -4,6 +4,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -110,6 +111,52 @@ def test_stream_configs_render_on_cpu(kw, block):
         "tex_" if cfg.layout == "packed" else "const_")
     with pytest.raises(ValueError, match="legacy_sky"):
         make_renderer(RenderConfig(scene_id=2, legacy_sky=True, **kw), "cpu")
+
+
+def _adaptive_cfg(**kw):
+    return RenderConfig(scene_id=2, width=32, height=20, samples=4,
+                        bounces=4, impl="adaptive", max_samples=16, **kw)
+
+
+@pytest.mark.parametrize("legacy_sky", [False, True])
+def test_adaptive_packed_renders_adaptively(legacy_sky, monkeypatch):
+    """impl='adaptive' takes the adaptive renderer whatever the layout, as
+    JAX's does (only impl 'pallas' remaps 'packed' to the stream kernel):
+    with layout='packed' it calls render_adaptive once, and its image is
+    the layout='vmem' adaptive image bit for bit. With legacy_sky it
+    renders, held to JAX's make_renderer under the cross-framework gate:
+    at this shape the two packages' budgets agree, and 4 of the 640
+    pixels take another path after a knife-edge bounce under XLA's fused
+    multiply-adds (0.024 at most, with or without legacy_sky)."""
+    from raytracingincuda_torch.ops import adaptive
+
+    calls = []
+    real = adaptive.render_adaptive
+    monkeypatch.setattr(adaptive, "render_adaptive",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    scene, cam = build_scene(2), CameraConfig.reference_default()
+    img = make_renderer(_adaptive_cfg(layout="packed", legacy_sky=legacy_sky),
+                        "cpu")(scene, cam)
+    assert calls == [1]
+    want = make_renderer(_adaptive_cfg(layout="vmem", legacy_sky=legacy_sky),
+                         "cpu")(scene, cam)
+    assert torch.equal(img, want)
+    if legacy_sky:
+        from raytracingincuda_tpu.config import RenderConfig as JaxConfig
+        from raytracingincuda_tpu.models.camera import \
+            CameraConfig as JaxCamera
+        from raytracingincuda_tpu.models.scene import \
+            build_scene as jax_scene
+        from raytracingincuda_tpu.render_api import \
+            make_renderer as jax_renderer
+
+        jcfg = JaxConfig(scene_id=2, width=32, height=20, samples=4,
+                         bounces=4, impl="adaptive", max_samples=16,
+                         layout="packed", legacy_sky=True)
+        jimg = jax_renderer(jcfg, n_devices=1)(
+            jax_scene(2), JaxCamera.reference_default())
+        stats = ppm.diff_stats(img.numpy(), ppm.quantize(np.asarray(jimg)))
+        assert ppm.passes_cross_framework_gate(stats), stats
 
 
 def test_cli_stream_writes_tex_file(tmp_path, capsys):

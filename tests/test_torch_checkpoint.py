@@ -6,6 +6,7 @@ bit for bit, and loading refuses a leaf whose dtype differs from the
 template's (the JAX package casts there). On the CPU the kernel paths run
 the kernels' plain versions.
 """
+import dataclasses
 import os
 import sys
 
@@ -21,6 +22,8 @@ from raytracingincuda_torch.models.scene import (SceneParams, build_scene,
                                                  params_from_leaves)
 from raytracingincuda_torch.ops import grad as tgrad
 from raytracingincuda_torch.ops import render_kernel as rk
+from raytracingincuda_torch.ops import tracer
+from raytracingincuda_torch.render_api import make_renderer
 from raytracingincuda_torch.ops.vec import Vec3
 from raytracingincuda_torch.utils import checkpoint as ck
 
@@ -69,6 +72,137 @@ def test_render_incremental_resumes(tmp_path, impl):
     with pytest.raises(ValueError, match="different render config"):
         ck.load_checkpoint(path, RenderConfig(scene_id=2, width=W, height=H,
                                               samples=5, bounces=4))
+
+
+def _jax_incremental(dtype, **kw):
+    """JAX's render_incremental at ROADMAP Queue 3 A's inputs (scene 2,
+    24x16, 4 spp, 4 bounces, rounds of 2), with x64 on only inside the
+    call for float64: JAX renders every round on its oracle."""
+    import jax
+    import jax.numpy as jnp
+
+    from raytracingincuda_tpu.config import RenderConfig as JaxConfig
+    from raytracingincuda_tpu.models.camera import CameraConfig as JaxCamera
+    from raytracingincuda_tpu.models.scene import build_scene as jax_scene
+    from raytracingincuda_tpu.utils import checkpoint as jck
+
+    x64 = dtype == "float64"
+    jax.config.update("jax_enable_x64", x64)
+    try:
+        dt = jnp.float64 if x64 else jnp.float32
+        cfg = JaxConfig(scene_id=2, width=24, height=16, samples=4,
+                        bounces=4, dtype=dtype, **kw)
+        return np.asarray(jck.render_incremental(
+            jax_scene(2, dtype=dt), JaxCamera.reference_default(dtype=dt),
+            cfg, samples_per_round=2))
+    finally:
+        jax.config.update("jax_enable_x64", False)
+
+
+def test_render_incremental_float64_renders_in_double(tmp_path):
+    """A float64 config renders every round on the f64 oracle, as JAX's
+    render_incremental renders every round in the config's dtype; the
+    port keeps the sum in double (JAX casts each round to f32), so two
+    rounds equal the one-shot f64 oracle within 1e-15 and JAX's image
+    within 1e-6 (5.6e-8 measured). A checkpoint keeps the double sum and
+    resumes."""
+    cfg = RenderConfig(scene_id=2, width=24, height=16, samples=4, bounces=4,
+                       impl="oracle", dtype="float64")
+    s = build_scene(2, dtype=torch.float64)
+    cam = CameraConfig.reference_default(dtype=torch.float64)
+    path = str(tmp_path / "render64")
+    img = ck.render_incremental(s, cam, cfg, samples_per_round=2,
+                                checkpoint_path=path)
+    assert img.dtype == np.float64 and img.shape == (16, 24, 3)
+    one = tracer.render(s, cam, 24, 16, 4, 4, dtype=torch.float64)
+    np.testing.assert_allclose(img, one.numpy(), rtol=0, atol=1e-15)
+    np.testing.assert_allclose(img, _jax_incremental("float64"), rtol=0,
+                               atol=1e-6)
+    acc, done = ck.load_checkpoint(path, cfg)
+    assert acc.dtype == np.float64 and done == 4
+    part = tracer.render(s, cam, 24, 16, 2, 4, dtype=torch.float64,
+                         accumulate_only=True)
+    ck.save_checkpoint(path, part.numpy(), 2, cfg)
+    resumed = ck.render_incremental(s, cam, cfg, samples_per_round=1,
+                                    checkpoint_path=path)
+    np.testing.assert_allclose(resumed, img, rtol=0, atol=1e-15)
+
+
+@pytest.mark.parametrize("impl,layout", [("kernel", "packed"),
+                                         ("stream", "vmem")])
+def test_render_incremental_packed_takes_stream_kernel(tmp_path, monkeypatch,
+                                                        impl, layout):
+    """``impl='kernel', layout='packed'`` and ``impl='stream'`` render each
+    round on the stream kernel (kernel 4, ``sample_offset`` and raw sums),
+    as make_renderer routes them: rounds add up to make_renderer's single
+    pass, a resumed render too, and the image is JAX's
+    render_incremental's under the cross-framework gate (at this shape 5
+    of 1152 components take another path after a knife-edge bounce under
+    XLA's fused multiply-adds, as the kernel's image against JAX's oracle
+    does). With legacy_sky it raises, as the stream renderer does."""
+    from raytracingincuda_torch.ops import stream_kernel
+    from raytracingincuda_torch.utils import ppm
+
+    calls = []
+    real = stream_kernel.render_stream
+    monkeypatch.setattr(stream_kernel, "render_stream",
+                        lambda *a, **k: calls.append(k.get("sample_offset"))
+                        or real(*a, **k))
+    cfg = RenderConfig(scene_id=2, width=24, height=16, samples=4, bounces=4,
+                       impl=impl, layout=layout)
+    s, cam = build_scene(2), CameraConfig.reference_default()
+    img = ck.render_incremental(s, cam, cfg, samples_per_round=2)
+    assert calls == [0, 2]
+    assert img.dtype == np.float32 and img.shape == (16, 24, 3)
+    one = make_renderer(cfg, "cpu")(s, cam)
+    # the sum of [0, 2) + [2, 4) in another order than [0, 4)
+    np.testing.assert_allclose(img, one.numpy(), rtol=0, atol=1e-6)
+    want = _jax_incremental("float32")
+    stats = ppm.diff_stats(img, ppm.quantize(want))
+    assert ppm.passes_cross_framework_gate(stats), stats
+    path = str(tmp_path / "packed")
+    ck.render_incremental(s, cam, dataclasses.replace(cfg, samples=2),
+                          checkpoint_path=path)
+    acc, done = ck.load_checkpoint(path, dataclasses.replace(cfg, samples=2))
+    ck.save_checkpoint(path, acc, done, cfg)
+    resumed = ck.render_incremental(s, cam, cfg, checkpoint_path=path,
+                                    samples_per_round=1)
+    np.testing.assert_allclose(resumed, img, rtol=0, atol=1e-6)
+    with pytest.raises(ValueError, match="legacy_sky"):
+        ck.render_incremental(s, cam, dataclasses.replace(
+            cfg, legacy_sky=True))
+
+
+def test_render_incremental_adaptive_takes_regen_kernel(monkeypatch):
+    """``impl='adaptive'`` renders uniform rounds (a budget does not split
+    into rounds; JAX renders them uniformly on its oracle) on the kernel
+    its renderer takes at this slot count: kernel 1 with the scene staged
+    (layout 'vmem', whatever the config's), each round at its offset, and
+    the image equals impl='kernel''s in rounds."""
+    calls = []
+    real = rk.render_kernel
+    monkeypatch.setattr(rk, "render_kernel", lambda *a, **k: calls.append(
+        (k["sample_offset"], k["layout"])) or real(*a, **k))
+    s, cam = build_scene(2), CameraConfig.reference_default()
+    cfg = RenderConfig(scene_id=2, width=W, height=H, samples=4, bounces=4,
+                       impl="adaptive", layout="packed", legacy_sky=True)
+    img = ck.render_incremental(s, cam, cfg, samples_per_round=2)
+    assert calls == [(0, "vmem"), (2, "vmem")]
+    want = ck.render_incremental(s, cam, dataclasses.replace(
+        cfg, impl="kernel", layout="vmem"), samples_per_round=2)
+    np.testing.assert_array_equal(img, want)
+
+
+@pytest.mark.parametrize("layout", ["vmem", "hbm"])
+def test_render_incremental_float64_kernel_refused(layout):
+    """The f64 kernel takes no ``sample_offset``: a float64 config with
+    impl='kernel' is refused in rounds with a message that names
+    impl='oracle', and does not render on the oracle instead."""
+    cfg = RenderConfig(scene_id=2, width=W, height=H, samples=4, bounces=4,
+                       impl="kernel", layout=layout, dtype="float64")
+    with pytest.raises(ValueError, match="impl='oracle'"):
+        ck.render_incremental(build_scene(2),
+                              CameraConfig.reference_default(), cfg)
 
 
 def _setup():

@@ -25,6 +25,8 @@ each test states:
     (``tests/test_df64.py::test_f64_oracle_gradients_match_fd``);
   * one carried Adam step: see the test.
 """
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -367,7 +369,8 @@ def test_f64_carried_train_step_matches_jax(tiny_scene, default_camera,
 
 def test_cli_oracle_float64_writes_double_file(tmp_path, capsys):
     """``--impl oracle --dtype float64`` writes the 'double' file name,
-    from the f64 oracle's image."""
+    from the f64 oracle's image of the scene and camera built in
+    float64."""
     rc = cli.main(["--scene_id", "2", "--width", "20", "--height", "12",
                    "--samples", "2", "--bounces", "3", "--device", "cpu",
                    "--impl", "oracle", "--dtype", "float64", "--no-warmup",
@@ -380,10 +383,109 @@ def test_cli_oracle_float64_writes_double_file(tmp_path, capsys):
     from raytracingincuda_torch.models.camera import CameraConfig
     from raytracingincuda_torch.models.scene import build_scene
 
-    img = make_renderer(cfg, "cpu")(build_scene(2),
-                                    CameraConfig.reference_default())
+    img = make_renderer(cfg, "cpu")(build_scene(2, dtype=F64),
+                                    CameraConfig.reference_default(F64))
     ppm.write_ppm(str(tmp_path / "want.ppm"), img.numpy())
     assert ((tmp_path / name).read_bytes()
             == (tmp_path / "want.ppm").read_bytes())
     line = capsys.readouterr().out.strip().splitlines()[-1]
     assert len(line.split(",")) == 2
+
+
+@pytest.mark.parametrize("kw", [dict(rr_start=2), dict(legacy_sky=True),
+                                dict(layout="packed"),
+                                dict(layout="hbm", rr_start=2)],
+                         ids=["rr2", "legacy_sky", "packed", "hbm-rr2"])
+def test_f64_oracle_scope_takes_every_estimator(kw, carried):
+    """``dtype='float64'`` with ``impl='oracle'`` takes ``rr_start``,
+    ``legacy_sky`` and every layout, as JAX's native-f64 oracle does, and
+    its renderer is ``tracer.render(dtype=float64)`` bit for bit (the
+    oracle ignores the layout); the f64 kernel keeps the df64 kernel's
+    scope and refuses the same config."""
+    scene, cam = carried
+    cfg = RenderConfig(scene_id=2, width=W, height=H, samples=SPP,
+                       bounces=DEPTH, impl="oracle", dtype="float64", **kw)
+    img = make_renderer(cfg, "cpu")(scene, cam)
+    want = ttr.render(scene, cam, W, H, SPP, DEPTH, dtype=F64,
+                      rr_start=kw.get("rr_start"),
+                      legacy_sky=kw.get("legacy_sky", False))
+    assert img.dtype == F64 and torch.equal(img, want)
+    with pytest.raises(ValueError, match="impl='kernel'"):
+        RenderConfig(scene_id=2, impl="kernel", dtype="float64", **kw)
+    for impl in ("adaptive", "stream"):
+        with pytest.raises(ValueError, match="no f64 path"):
+            RenderConfig(scene_id=2, impl=impl, dtype="float64",
+                         samples=4, **kw)
+
+
+def test_f64_oracle_grad_entry_points_take_rr_start(carried):
+    """``grad.make_loss_fn`` and ``make_train_step`` at float64 through
+    the oracle take ``rr_start``, as JAX's do: the loss is the mean
+    squared error of ``tracer.render(dtype=float64, rr_start=2,
+    gamma=False)``, its gradient is float64 and finite, and a train step
+    returns that loss. Neither package's loss takes ``legacy_sky``."""
+    import inspect
+
+    from raytracingincuda_tpu.ops import grad as jgrad
+
+    scene, cam = carried
+    target = torch.from_numpy(_target())
+    loss_fn = tgrad.make_loss_fn(W, H, SPP, DEPTH, dtype=F64, rr_start=2)
+    params = params_from_leaves([x.detach().requires_grad_()
+                                 for x in param_leaves(scene.params)])
+    loss = loss_fn(params, cam, scene.mat_type, scene.active, target)
+    img = ttr.render(scene, cam, W, H, SPP, DEPTH, dtype=F64, rr_start=2,
+                     gamma=False)
+    assert loss.dtype == F64
+    assert float(loss.detach()) == float(torch.mean((img - target) ** 2))
+    loss.backward()
+    for x in param_leaves(params):
+        assert x.grad.dtype == F64 and torch.isfinite(x.grad).all()
+    init_fn, step_fn = tgrad.make_train_step(W, H, SPP, DEPTH, impl="oracle",
+                                             dtype=F64, rr_start=2)
+    _, step_loss = step_fn(init_fn(scene.params), cam, scene.mat_type,
+                           scene.active, target)
+    assert float(step_loss) == float(loss.detach())
+    for fn in (tgrad.make_loss_fn, jgrad.make_loss_fn):
+        assert "rr_start" in inspect.signature(fn).parameters
+        assert "legacy_sky" not in inspect.signature(fn).parameters
+
+
+def test_cli_f64_oracle_builds_double_scene(tmp_path, capsys, monkeypatch):
+    """``--dtype float64 --impl oracle`` builds the scene and camera in
+    float64, as JAX's CLI does on the CPU (scene 1's small spheres are not
+    exact in float32), and writes JAX's CLI's PPM bytes at scene 1,
+    48x32, 2 spp, 4 bounces; ``--impl kernel`` keeps the f32 scene that
+    the f64 kernel packs, as JAX's df64 path does."""
+    from raytracingincuda_torch import render_api
+    from raytracingincuda_tpu import cli as jax_cli
+
+    seen = []
+    real = render_api.make_renderer
+
+    def spy(cfg, *a, **k):
+        r = real(cfg, *a, **k)
+
+        def renderer(scene, cam):
+            seen.append((scene.params.radius.dtype, cam.vfov.dtype))
+            return r(scene, cam)
+        return renderer
+
+    monkeypatch.setattr(render_api, "make_renderer", spy)
+    flags = ["--scene_id", "1", "--width", "48", "--height", "32",
+             "--samples", "2", "--bounces", "4", "--dtype", "float64",
+             "--no-warmup"]
+    for impl, out in (("oracle", "port"), ("kernel", "kernel")):
+        os.makedirs(tmp_path / out)
+        assert cli.main([*flags, "--impl", impl, "--device", "cpu",
+                         "--outdir", str(tmp_path / out)]) == 0
+    assert seen == [(F64, F64), (torch.float32, torch.float32)]
+    os.makedirs(tmp_path / "jax")
+    with _x64():
+        assert jax_cli.main([*flags, "--impl", "oracle", "--devices", "1",
+                             "--outdir", str(tmp_path / "jax")]) == 0
+    capsys.readouterr()
+    name = "const_double_scene1_48x32_2samples_4bounces_8threadsPerBlockRow.ppm"
+    assert os.listdir(tmp_path / "port") == [name]
+    assert ((tmp_path / "port" / name).read_bytes()
+            == (tmp_path / "jax" / name).read_bytes())

@@ -91,7 +91,9 @@ CPU path):
              2000 --steps 20 (a falling loss)
   15 f64 compare  the f64 kernel against its plain version, bit for bit
              and from run to run: scene 1 at 320x192x4spp/8b (both
-             layouts) and at the headline's width (1280x768, 2 spp, 25b)
+             layouts) and at the headline's width (1280x768, 2 spp, 25b);
+             a window of samples at sample_offset 5 at 64x40x4spp/8b (both
+             layouts; not the window at 0)
   16 f64 headline  make_renderer(dtype='float64') at scene 1, 1280x768,
              100 spp, 25 bounces, parity, vmem, raster order (no f32
              prepass): one warm-up and 3 timed renders, launches (the f64
@@ -173,14 +175,21 @@ CPU path):
              render); the f64 oracle with rr_start=2 and with legacy_sky
              on the card against the CPU (32x20x2spp/4b, within 1e-12);
              render_incremental at float64 in two rounds against the
-             one-shot f64 oracle on the card (within 1e-12) and refused
-             with impl='kernel' (the f64 kernel takes no sample_offset),
-             and with impl='kernel', layout='packed' (kernel 4, two rounds)
-             against
+             one-shot f64 oracle on the card (within 1e-12), with
+             impl='kernel' (two f64 kernel launches at the rounds'
+             sample_offsets, no oracle call) against one make_renderer
+             render at 320x192x4spp/25b (within 1e-12), and with
+             impl='kernel', layout='packed' (kernel 4, two rounds) against
              one render_stream render at 320x192x4spp/25b (within 1e-6);
              the CLI with --dtype float64 --impl oracle --rr_start 2 in
              this process (rc 0, a float64 scene and camera, its PPM the
              renderer's image)
+  24 train checkpoints  make_train_step(impl='fused') with SGD-momentum
+             and with AdamW (torch.optim) at scene 1, 320x192x4spp/8b,
+             albedo and fuzz trained: 3 steps straight against 1 step,
+             save_train_state, load_train_state onto a fresh template and
+             2 steps; params and optimizer state bit-equal (keys, kinds,
+             devices, dtypes), kernel 2's launches
 
 Then the kernels line (JSON, with each kernel's bound and, as
 bound_fmad_off_ms, the same bound with the operations at half the rate,
@@ -190,7 +199,7 @@ stream_segment_sum, f64_render and compact_render), the nvidia-smi line,
 and last {"ok": true, "device": {...}}. Everything measured is
 also written to chip_smoke.json in the output directory. Launch counts
 are set to 0 just before each main path (phases 4, 7, 8, 10, 12, 13, 14,
-16-21, 23) and read just after it: each path's own counts are in chip_smoke.json
+16-21, 23, 24) and read just after it: each path's own counts are in chip_smoke.json
 (launches_by_phase) and their sums are the kernels line's launches; phase
 22's ranks count their own launches (each job's, in the worker) and their
 sums are added too.
@@ -207,6 +216,7 @@ those of the headline-width comparisons in phases 15 and 17.
 from __future__ import annotations
 
 import contextlib
+import functools
 import hashlib
 import io
 import json
@@ -1407,18 +1417,27 @@ def main() -> int:
             raise AssertionError(f"kernel vs plain failed: {res}")
         return res, k_out, plain_out
 
-    def f64_compare(width, height, spp, bounces, layout, reps, plain=None):
+    def f64_compare(width, height, spp, bounces, layout, reps, plain=None,
+                    sample_offset=0):
         inputs = fk.f64_inputs(build_scene(1, device=dev), cam, width, height)
-        kw = dict(samples=spp, max_depth=bounces, layout=layout)
-        res, _, plain = bit_compare(lambda: fk.f64_kernel(*inputs, **kw),
-                                    lambda: fk.f64_reference(*inputs, **kw),
-                                    reps, plain)
+        kw = dict(samples=spp, max_depth=bounces, layout=layout,
+                  sample_offset=sample_offset)
+        res, out, plain = bit_compare(lambda: fk.f64_kernel(*inputs, **kw),
+                                      lambda: fk.f64_reference(*inputs, **kw),
+                                      reps, plain)
         res.update(shape=f"{width}x{height}x{spp}spp/{bounces}b",
-                   layout=layout)
+                   layout=layout, sample_offset=sample_offset)
+        if sample_offset:
+            # the window is not the one at 0: the draws moved
+            res["differs_from_offset_0"] = not bool(torch.equal(
+                out, fk.f64_kernel(*inputs, **dict(kw, sample_offset=0))))
+            if not res["differs_from_offset_0"]:
+                raise AssertionError(f"f64 kernel at an offset: {res}")
         record["f64_compare"].append(res)
-        say("15 f64 compare", f"{res['shape']} {layout}: bit-equal to plain, "
-            f"run-to-run identical; kernel {res['kernel_ms']:.3f} ms, plain "
-            f"{res['plain_ms']:.1f} ms")
+        say("15 f64 compare", f"{res['shape']} {layout} sample_offset "
+            f"{sample_offset}: bit-equal to plain, run-to-run identical; "
+            f"kernel {res['kernel_ms']:.3f} ms, plain {res['plain_ms']:.1f} "
+            f"ms")
         return res, plain
 
     record["f64_compare"] = []
@@ -1426,6 +1445,9 @@ def main() -> int:
     for layout in ("vmem", "hbm"):
         _, plain = f64_compare(320, 192, 4, 8, layout, 5, plain)
     f64_head, _ = f64_compare(1280, 768, 2, 25, "vmem", 3)
+    # a window of samples at an offset (render_incremental's rounds)
+    for layout in ("vmem", "hbm"):
+        f64_compare(64, 40, 4, 8, layout, 5, sample_offset=5)
     del plain
 
     # -- 16 the f64 render at full width -------------------------------------
@@ -2318,24 +2340,38 @@ def main() -> int:
     if not (inc.dtype == np.float64
             and routes["incremental_f64_max_abs_err"] <= 1e-12):
         raise AssertionError(f"render_incremental float64: {routes}")
-    # with impl='kernel' a float64 config is refused in rounds (the f64
-    # kernel takes no sample_offset), not rendered on the oracle
+    # with impl='kernel' a float64 config renders each round on the f64
+    # kernel, a window of samples at the round's sample_offset, and never
+    # on the oracle: two rounds within 1e-12 of one make_renderer render
+    from raytracingincuda_torch.ops import tracer as tracer_mod
+
+    cfg = RenderConfig(scene_id=1, width=320, height=192, samples=4,
+                       bounces=25, dtype="float64")
+    s1d = build_scene(1, device=dev)
+    oracle_calls = []
+    real_oracle = tracer_mod.render
+    tracer_mod.render = lambda *a, **k: (oracle_calls.append(1)
+                                         or real_oracle(*a, **k))
     try:
-        ckpt.render_incremental(s64, cam64, RenderConfig(
-            scene_id=1, width=32, height=20, samples=4, bounces=4,
-            impl="kernel", dtype="float64"), samples_per_round=2)
-        refused = ""
-    except ValueError as e:
-        refused = str(e)
-    routes["incremental_f64_kernel_refused"] = refused
-    if "impl='oracle'" not in refused:
+        reset_counts()
+        inc = ckpt.render_incremental(s1d, cam, cfg, samples_per_round=2)
+        counts = read_counts("23 routes incremental f64 kernel")
+    finally:
+        tracer_mod.render = real_oracle
+    one = make_renderer(cfg, dev)(s1d, cam).cpu().numpy()
+    routes["incremental_f64_kernel"] = {
+        "launches": nonzero(counts), "oracle_calls": len(oracle_calls),
+        "max_abs_err": float(np.abs(inc - one).max())}
+    if not (counts["f64_render"] == 2 and not oracle_calls
+            and sum(counts.values()) == 2 and inc.dtype == np.float64
+            and inc.shape == (192, 320, 3) and np.isfinite(inc).all()
+            and routes["incremental_f64_kernel"]["max_abs_err"] <= 1e-12):
         raise AssertionError(f"render_incremental float64 kernel: {routes}")
     # render_incremental with impl='kernel', layout='packed': kernel 4 in
     # two rounds, against one render_stream render over the same stream
     # (f32 sums in another order: within 1e-6)
     cfg = RenderConfig(scene_id=1, width=320, height=192, samples=4,
                        bounces=25, layout="packed")
-    s1d = build_scene(1, device=dev)
     reset_counts()
     inc = ckpt.render_incremental(s1d, cam, cfg, samples_per_round=2)
     counts = read_counts("23 routes incremental packed")
@@ -2393,14 +2429,100 @@ def main() -> int:
         f"vmem render | f64 oracle card vs CPU (32x20x2spp/4b): rr2 "
         f"{f64_routes['rr2']:.3g}, legacy_sky {f64_routes['legacy_sky']:.3g}"
         f" | render_incremental f64 two rounds vs one-shot: "
-        f"{routes['incremental_f64_max_abs_err']:.3g}, impl kernel "
-        f"refused | packed two rounds "
+        f"{routes['incremental_f64_max_abs_err']:.3g}; impl kernel on the "
+        f"f64 kernel (320x192x4spp/25b) "
+        f"{routes['incremental_f64_kernel']['max_abs_err']:.3g}, "
+        f"{routes['incremental_f64_kernel']['launches']}, no oracle call"
+        f" | packed two rounds "
         f"vs render_stream (320x192x4spp/25b): "
         f"{routes['incremental_packed']['max_abs_err']:.3g}, "
         f"{routes['incremental_packed']['launches']} | cli --dtype float64 "
         f"--impl oracle --rr_start 2: rc 0, float64 scene and camera, PPM "
         f"equal to the renderer's")
     record["phase_s"]["23 routes"] = time.perf_counter() - t_phase
+
+    # -- 24 train checkpoints of any optimizer --------------------------------
+    t_phase = time.perf_counter()
+    from raytracingincuda_torch.ops import grad as grad24
+
+    def state_equal(a, b) -> bool:
+        """Params, count, step and every per-leaf optimizer state entry
+        equal: keys, kinds, devices, dtypes and bits."""
+        pairs = [*zip(param_leaves(a.params), param_leaves(b.params)),
+                 (a.opt_state.count, b.opt_state.count), (a.step, b.step)]
+        for sa, sb in zip(a.opt_state.per_leaf, b.opt_state.per_leaf):
+            if list(sa) != list(sb):
+                return False
+            for k in sa:
+                if not torch.is_tensor(sb[k]):
+                    if type(sa[k]) is not type(sb[k]) or sa[k] != sb[k]:
+                        return False
+                    continue
+                pairs.append((sa[k], sb[k]))
+        return a.opt_state.name == b.opt_state.name and all(
+            torch.is_tensor(x) and x.device == y.device
+            and x.dtype == y.dtype and torch.equal(x, y) for x, y in pairs)
+
+    scene24 = build_scene(1, device=dev)
+    w24, h24, spp24, d24 = 320, 192, 4, 8
+    tgt24 = rk.render_kernel(scene24, cam, w24, h24, spp24, d24, gamma=False)
+    gray = torch.full_like(scene24.params.albedo.x, 0.5)
+    start24 = scene24.params._replace(albedo=Vec3(gray, gray, gray))
+    mask24 = SceneParams(Vec3(False, False, False), False,
+                         Vec3(True, True, True), True, False)
+    optimizers = {
+        "sgd_momentum": functools.partial(torch.optim.SGD, lr=2e-2,
+                                          momentum=0.9),
+        "adamw": functools.partial(torch.optim.AdamW, lr=2e-2,
+                                   weight_decay=0.05)}
+    ckpts = {}
+    reset_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, factory in optimizers.items():
+            init24, step24 = grad24.make_train_step(
+                w24, h24, spp24, d24, factory, trainable=mask24,
+                impl="fused")
+
+            def steps(state, n):
+                losses = []
+                for _ in range(n):
+                    state, loss = step24(state, cam, scene24.mat_type,
+                                         scene24.active, tgt24)
+                    losses.append(float(loss))
+                return state, losses
+
+            straight, losses = steps(init24(start24), 3)
+            one, _ = steps(init24(start24), 1)
+            path = str(Path(tmp) / name)
+            ckpt.save_train_state(path, one, token=name)
+            loaded = ckpt.load_train_state(path, init24(start24), token=name)
+            resumed, _ = steps(loaded, 2)
+            ckpts[name] = {
+                "losses": losses, "loaded_equal": state_equal(loaded, one),
+                "resumed_equal": state_equal(resumed, straight),
+                "albedo_moved": float((straight.params.albedo.x
+                                       - gray).abs().max()),
+                "state_keys": sorted({k for st in straight.opt_state.per_leaf
+                                      for k in st})}
+            if not (ckpts[name]["loaded_equal"]
+                    and ckpts[name]["resumed_equal"]
+                    and all(np.isfinite(losses))
+                    and ckpts[name]["albedo_moved"] > 0.0):
+                raise AssertionError(f"train checkpoint {name}: {ckpts}")
+    counts = read_counts("24 train checkpoints")
+    if not (counts["fused_train_render"] >= 24
+            and counts["fused_train_render"] % 2 == 0):
+        raise AssertionError(f"train checkpoints launches: {counts}")
+    record["train_checkpoints"] = dict(ckpts, launches=nonzero(counts))
+    say("24 train ckpt", f"make_train_step(impl='fused') at scene 1 "
+        f"{w24}x{h24}x{spp24}spp/{d24}b: "
+        + "; ".join(f"{k} 3 steps straight vs 1 + save/load + 2: params "
+                    f"and state {v['state_keys']} bit-equal, loss "
+                    f"{v['losses'][0]:.6g} -> {v['losses'][-1]:.6g}, albedo "
+                    f"moved {v['albedo_moved']:.3g}"
+                    for k, v in ckpts.items())
+        + f" | launches {nonzero(counts)}")
+    record["phase_s"]["24 train checkpoints"] = time.perf_counter() - t_phase
 
     # -- result lines ---------------------------------------------------------
     record["main_path_launches"] = main_launches

@@ -9,7 +9,8 @@
 // and change no image.
 //
 // What it computes. Kernel 1's loop (regen_render.cu), one thread per
-// pixel, samples back to back, under the df64 path's scope: the parity
+// pixel, samples [sample_offset, sample_offset + samples) back to back
+// (a window of a render in rounds), under the df64 path's scope: the parity
 // estimator, the current-bounce sky, uniform budgets. The camera row, the
 // geometry (primary rays, the hit-test quadratic, roots, hit points,
 // normals, scatter directions), attenuation, the sky and the radiance sums
@@ -113,8 +114,12 @@ struct Params {
   const double* cam;   // (24,) double
   double* out;         // (3, padded)
   int padded;
-  int samples, max_depth;
+  int max_depth;
   uint32_t k0, k1;
+  // the lane renders samples [sample_offset, sample_end); the host sums
+  // the end, which summed in the loop's test cost the f64 headline 2.5%
+  // on the H100 (PERF.md)
+  int sample_offset, sample_end;
 };
 
 // Slots tested a step by the closest hit, and the blocks an SM asked of
@@ -271,9 +276,11 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks) f64_kernel(Params p) {
   D3 acc = {0.0, 0.0, 0.0}, o = acc, d = acc, atten = acc;
   // regen_lane's loop: one segment an iteration; a miss banks atten * sky
   // and a scatter that ends the path ends it black; either way the lane
-  // moves to its next sample, which starts at the next iteration
-  int s = 0, b = 0;
-  while (s < p.samples) {
+  // moves to its next sample, which starts at the next iteration. Samples
+  // are counted from sample_offset: the draws are keyed on the absolute
+  // sample index, so a window renders that window's samples exactly
+  int s = p.sample_offset, b = 0;
+  while (s < p.sample_end) {
     if (b == 0) {  // the primary ray: f32 draws, double geometry
       float u0, u1, px, py;
       primary_draws(st, (uint32_t)s, u0, u1, px, py);
@@ -305,9 +312,10 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks) f64_kernel(Params p) {
 // C entry: launches on `stream` and returns cudaGetLastError().
 extern "C" int f64_render(const int32_t* ids, const float* ii, const float* jj,
                           const float* scene, int n, const double* cam, double* out, int padded,
-                          int samples, int max_depth, uint32_t k0, uint32_t k1, int hbm,
-                          void* stream) {
-  const Params p{ids, ii, jj, scene, n, cam, out, padded, samples, max_depth, k0, k1};
+                          int samples, int max_depth, uint32_t k0, uint32_t k1,
+                          int sample_offset, int hbm, void* stream) {
+  const Params p{ids, ii, jj, scene, n, cam, out, padded, max_depth, k0, k1,
+                 sample_offset, sample_offset + samples};
   const dim3 grid((padded + kBlock - 1) / kBlock);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (hbm) {

@@ -56,12 +56,14 @@ _REFERENCE_CHUNK_ELEMS = 1 << 23
 LAUNCHES = 0
 
 
-def _check(ids, ii, jj, scene_mat, cam_row, *, samples, max_depth, layout):
+def _check(ids, ii, jj, scene_mat, cam_row, *, samples, max_depth,
+           sample_offset, layout):
     rk._check_tensors(ids, ii, jj, scene_mat, (("cam_row", cam_row, F64,
                                                 (24,)),), layout=layout)
-    if max_depth < 1 or samples < 1:
-        raise ValueError("samples and max_depth must be positive")
-    rtrng.validate_stream_ids(samples, max_depth)
+    if max_depth < 1 or samples < 1 or sample_offset < 0:
+        raise ValueError("samples and max_depth must be positive and "
+                         "sample_offset non-negative")
+    rtrng.validate_stream_ids(sample_offset + samples, max_depth)
 
 
 # The correctly rounded double sqrt on every device, as the kernel's
@@ -157,16 +159,18 @@ def _sky(d: Vec3) -> Vec3:
 
 def f64_reference(ids, ii, jj, scene_mat, cam_row, *, samples: int,
                   max_depth: int, seed: int = rtrng.DEFAULT_SEED,
+                  sample_offset: int = 0,
                   layout: str = "vmem") -> torch.Tensor:
     """Plain PyTorch version of the f64 kernel.
 
     Lane ``i`` renders pixel ``ids[i]`` (column ``ii[i]``, row ``jj[i]``)
-    over samples ``[0, samples)``, with the (N, 16) f32 scene matrix and
-    the (24,) float64 camera row of ``models.camera.initialize_f64``.
+    over samples ``[sample_offset, sample_offset + samples)``, its draws
+    keyed on the absolute sample index, with the (N, 16) f32 scene matrix
+    and the (24,) float64 camera row of ``models.camera.initialize_f64``.
     Returns the (3, padded) float64 radiance sums. ``layout`` only
     changes where the kernel keeps the scene."""
     _check(ids, ii, jj, scene_mat, cam_row, samples=samples,
-           max_depth=max_depth, layout=layout)
+           max_depth=max_depth, sample_offset=sample_offset, layout=layout)
     sm = scene_mat.to(F64)
     cols = {"cx": sm[:, rk.COL_CX, None], "cy": sm[:, rk.COL_CY, None],
             "cz": sm[:, rk.COL_CZ, None], "r": sm[:, rk.COL_RADIUS, None],
@@ -179,26 +183,30 @@ def f64_reference(ids, ii, jj, scene_mat, cam_row, *, samples: int,
                 _REFERENCE_CHUNK_ELEMS // scene_mat.shape[0] // rk.PAD * rk.PAD)
     return torch.cat([
         _f64_lanes(*lanes, sm, cols, cam, samples=samples,
-                   max_depth=max_depth, seed=seed)
+                   max_depth=max_depth, seed=seed,
+                   sample_offset=sample_offset)
         for lanes in zip(ids.split(chunk), ii.split(chunk), jj.split(chunk))
     ], dim=1)
 
 
-def _f64_lanes(ids, fi, fj, sm, cols, cam, *, samples, max_depth, seed):
-    """The regen_trace_df64 recurrence over one chunk of lanes."""
+def _f64_lanes(ids, fi, fj, sm, cols, cam, *, samples, max_depth, seed,
+               sample_offset):
+    """The regen_trace_df64 recurrence over one chunk of lanes; the
+    sample counter starts at ``sample_offset``."""
     key = rtrng.key_from_seed(seed)
     pid = ids.to(torch.int64)
     fi, fj = fi.to(F64), fj.to(F64)
     shape, dev = pid.shape, pid.device
     one3 = Vec3.full(shape, 1.0, 1.0, 1.0, dtype=F64, device=dev)
-    sample = torch.zeros(shape, dtype=torch.int64, device=dev)
+    end = sample_offset + samples
+    sample = torch.full(shape, sample_offset, dtype=torch.int64, device=dev)
     bounce = torch.zeros_like(sample)
     o, d = _primary(cam, fi, fj, pid, sample, key)
     atten, acc = one3, Vec3.zeros(shape, dtype=F64, device=dev)
     col = lambda k, idx: sm[idx, k]  # noqa: E731
 
     for _ in range(samples * max_depth):
-        active = sample < samples
+        active = sample < end
         if not bool(active.any()):
             break
         hit, t, idx = _hit(cols, o, d)
@@ -232,7 +240,7 @@ def _f64_lanes(ids, fi, fj, sm, cols, cam, *, samples, max_depth, seed):
         # dying lanes regenerate with the pixel's next sample
         sample = sample + dies.to(torch.int64)
         o_new, d_new = _primary(cam, fi, fj, pid, sample, key)
-        regen = dies & (sample < samples)
+        regen = dies & (sample < end)
         o = vec.where(regen, o_new, o)
         d = vec.where(regen, d_new, d)
         atten = vec.where(regen, one3, atten)
@@ -253,6 +261,7 @@ _C_ARGTYPES = [
     ctypes.c_int,      # max_depth
     ctypes.c_uint32,   # key word 0
     ctypes.c_uint32,   # key word 1
+    ctypes.c_int,      # sample_offset
     ctypes.c_int,      # hbm layout
     ctypes.c_void_p,   # cudaStream_t
 ]
@@ -260,6 +269,7 @@ _C_ARGTYPES = [
 
 def f64_kernel(ids, ii, jj, scene_mat, cam_row, *, samples: int,
                max_depth: int, seed: int = rtrng.DEFAULT_SEED,
+               sample_offset: int = 0,
                layout: str = "vmem") -> torch.Tensor:
     """Launch the CUDA f64 kernel; same contract as ``f64_reference``.
     Launches on the current stream without synchronising."""
@@ -267,7 +277,7 @@ def f64_kernel(ids, ii, jj, scene_mat, cam_row, *, samples: int,
     if ids.device.type != "cuda":
         raise ValueError(f"f64_kernel takes CUDA tensors, got {ids.device}")
     _check(ids, ii, jj, scene_mat, cam_row, samples=samples,
-           max_depth=max_depth, layout=layout)
+           max_depth=max_depth, sample_offset=sample_offset, layout=layout)
     from . import _build
 
     launch = _build.function("f64_render", _C_ARGTYPES)
@@ -277,7 +287,7 @@ def f64_kernel(ids, ii, jj, scene_mat, cam_row, *, samples: int,
     k0, k1 = rtrng.key_from_seed(seed)
     err = launch(ids.data_ptr(), ii.data_ptr(), jj.data_ptr(), soa.data_ptr(),
                  n, cam_row.data_ptr(), out.data_ptr(), padded, samples,
-                 max_depth, k0, k1, int(layout == "hbm"),
+                 max_depth, k0, k1, sample_offset, int(layout == "hbm"),
                  torch.cuda.current_stream(ids.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"f64_render launch failed: CUDA error {err}")
@@ -312,7 +322,9 @@ def render_f64(scene: Scene, cam_cfg: CameraConfig, img_width: int,
                img_height: int, samples_per_pixel: int, max_depth: int, *,
                seed: int = rtrng.DEFAULT_SEED, layout: str = "vmem",
                gamma: bool = True, pixel_order: Optional[torch.Tensor] = None,
-               scene_mat: Optional[torch.Tensor] = None) -> torch.Tensor:
+               scene_mat: Optional[torch.Tensor] = None,
+               sample_offset: int = 0,
+               accumulate_only: bool = False) -> torch.Tensor:
     """Render in double on the scene's device: (H, W, 3) float64.
 
     The JAX ``render_pallas_df64`` returns an (H, W, 3) hi/lo pair of f32
@@ -320,18 +332,25 @@ def render_f64(scene: Scene, cam_cfg: CameraConfig, img_width: int,
     itself. ``pixel_order`` (a (padded,) permutation of pixel ids) orders
     the lanes and the output is un-permuted exactly, so it changes speed
     only. 1/spp and then gamma 2 run in double. ``scene_mat``: the scene
-    already packed (``render_kernel.pack_scene_matrix``). The JAX
+    already packed (``render_kernel.pack_scene_matrix``). The pixels
+    render samples ``[sample_offset, sample_offset + samples_per_pixel)``;
+    ``accumulate_only`` returns their raw double sums (un-permuted, no
+    1/spp, no gamma), a round of ``utils.checkpoint.render_incremental``.
+    The JAX
     ``ray_tile`` and ``pixels_per_lane`` shaped the TPU schedule and have
     no counterpart."""
     ids, *rest = f64_inputs(scene, cam_cfg, img_width, img_height,
                             pixel_order=pixel_order, scene_mat=scene_mat)
     acc = _f64(ids, *rest, samples=samples_per_pixel, max_depth=max_depth,
-               seed=seed, layout=layout).t()
+               seed=seed, sample_offset=sample_offset, layout=layout).t()
     if pixel_order is not None:
         out = torch.zeros_like(acc)
         out[ids.long()] = acc
         acc = out
-    img = acc[:img_width * img_height] * (1.0 / samples_per_pixel)
+    acc = acc[:img_width * img_height]
+    if accumulate_only:
+        return acc.reshape(img_height, img_width, 3)
+    img = acc * (1.0 / samples_per_pixel)
     if gamma:
         pos = img > 0.0
         img = torch.where(pos, _sqrt(torch.where(pos, img, 1.0)), 0.0)

@@ -211,13 +211,14 @@ class TrainState(NamedTuple):
 
 def train_state_leaves(state: TrainState) -> list:
     """The 29 tensors of an Adam TrainState: 9 params, count, 9 mu, 9 nu,
-    step. A state of another optimizer has no such layout and raises."""
+    step. A state of another optimizer has no such layout and raises
+    (``utils.checkpoint.save_train_state`` saves it key by key)."""
     if not isinstance(state.opt_state, AdamState):
         raise TypeError(
             f"the train state holds {type(state.opt_state).__name__} of "
             f"{getattr(state.opt_state, 'name', '?')} (make_train_step("
             f"optimizer=...)); only the default Adam state has the 29-leaf "
-            f"layout that checkpoints save")
+            f"layout")
     return [*param_leaves(state.params), state.opt_state.count,
             *param_leaves(state.opt_state.mu),
             *param_leaves(state.opt_state.nu), state.step]
@@ -358,7 +359,7 @@ def make_train_step(img_width: int, img_height: int, samples_per_pixel: int,
     ``functools.partial(torch.optim.SGD, lr=1e-2, momentum=0.9)``
     (``learning_rate`` is then unused); its state is an
     ``OptimizerState``, which ``utils/checkpoint.save_train_state``
-    refuses."""
+    saves key by key."""
     impl = kw.get("impl", "oracle")
     if impl == "stream":
         raise ValueError(_STREAM)

@@ -82,15 +82,15 @@ def maybe_initialize_distributed(backend: Optional[str] = None) -> None:
 
 def rank_device(device=None) -> torch.device:
     """This rank's device: ``cuda:{LOCAL_RANK % device_count}`` for a CUDA
-    device given without an index (or None, where CUDA is available), the
-    CPU for 'cpu' (or None without CUDA), else ``device`` as given."""
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
-    device = torch.device(device)
+    device given without an index (or None, which means 'cuda'), the CPU
+    for 'cpu', else ``device`` as given. Nothing falls back to the CPU: a
+    CUDA device without CUDA raises."""
+    device = torch.device("cuda" if device is None else device)
     if device.type == "cuda" and device.index is None:
         if not torch.cuda.is_available():
             raise RuntimeError("a CUDA device was asked for but "
-                               "torch.cuda.is_available() is False")
+                               "torch.cuda.is_available() is False: pass "
+                               "device='cpu' to run on the CPU")
         device = torch.device("cuda", _local()[0] % torch.cuda.device_count())
     return device
 

@@ -354,9 +354,9 @@ def torchrun(args: list, nproc: int = 2, timeout: float = 600.0, env=None,
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="raytrace-torch-worker")
     ap.add_argument("--outdir", required=True)
-    ap.add_argument("--device", default=None,
-                   help="cpu or cuda (default: this rank's card where CUDA "
-                        "is available, else the CPU)")
+    ap.add_argument("--device", default="cuda",
+                   help="cuda (default: this rank's card; raises without "
+                        "CUDA) or cpu")
     ap.add_argument("--backend", default=None,
                    help="gloo, nccl or cpu:gloo,cuda:nccl (default: nccl "
                         "only where every rank has a card of its own)")

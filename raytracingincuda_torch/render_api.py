@@ -308,13 +308,10 @@ def make_sum_renderer(cfg: RenderConfig, device) -> Callable:
     and the stream kernel refuses ``legacy_sky`` as ``make_renderer``
     does. ``impl='adaptive'`` sums uniform samples (a budget does not
     split into rounds) on the kernel its renderer takes at the scene's
-    slot count. The f64 kernel takes no ``sample_offset``, so a float64
-    config renders in rounds with ``impl='oracle'`` only."""
+    slot count. A float64 config with ``impl='kernel'`` sums in double on
+    the f64 kernel, over the f32 scene and the float64 camera row that
+    ``make_f64_renderer`` renders from."""
     route = _route(cfg)
-    if route == "f64":
-        raise ValueError(
-            "the f64 kernel renders no sample window (no sample_offset): "
-            "render a float64 config in rounds with impl='oracle'")
     if route == "stream" and cfg.legacy_sky:
         raise ValueError("impl=stream has no legacy_sky variant")
     check = _scene_check(device)
@@ -323,6 +320,11 @@ def make_sum_renderer(cfg: RenderConfig, device) -> Callable:
 
     def render_sum(scene, cam_cfg, n, sample_offset):
         check(scene)
+        if route == "f64":
+            return f64_kernel.render_f64(
+                scene, cam_cfg, cfg.width, cfg.height, n, cfg.bounces,
+                seed=cfg.seed, layout=cfg.layout,
+                sample_offset=sample_offset, accumulate_only=True)
         kw = dict(seed=cfg.seed, rr_start=cfg.rr_start,
                   sample_offset=sample_offset, accumulate_only=True)
         if route == "oracle":

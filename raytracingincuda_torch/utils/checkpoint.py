@@ -3,14 +3,18 @@
 The counterpart of ``raytracingincuda_tpu/utils/checkpoint.py``. The
 Monte-Carlo accumulator is a sum over counter-keyed sample streams, so a
 render of samples [0, k) checkpointed and resumed with [k, n) adds up to
-the single [0, n) render (up to summation order). A train state is its
-29 tensors (``ops.grad.train_state_leaves``); a resumed run matches an
-uninterrupted one bit for bit.
+the single [0, n) render (up to summation order). An Adam train state is
+its 29 tensors (``ops.grad.train_state_leaves``); the state of any other
+``torch.optim`` optimizer (``optimizer=``, an ``ops.grad.OptimizerState``)
+is its 9 params, count, step, the optimizer's name and each leaf's state
+dict key by key, with each entry's key and kind recorded. A resumed run
+matches an uninterrupted one bit for bit.
 
 Format: one ``.npz``, written atomically, with an identifying token that
 loading checks, so a checkpoint cannot silently continue another render
-or run. Loading a train state refuses a leaf whose dtype or shape differs
-from the template's; the JAX package casts dtypes quietly there.
+or run. Loading a train state refuses a file of another optimizer and a
+leaf whose dtype or shape differs from the template's; the JAX package
+casts dtypes quietly there.
 """
 from __future__ import annotations
 
@@ -24,9 +28,10 @@ import torch
 
 from ..config import RenderConfig
 from ..models.camera import CameraConfig
-from ..models.scene import Scene
+from ..models.scene import Scene, param_leaves, params_from_leaves
 from ..ops import tracer
-from ..ops.grad import train_state_from_leaves, train_state_leaves
+from ..ops.grad import (OptimizerState, TrainState, train_state_from_leaves,
+                        train_state_leaves)
 from ..render_api import make_sum_renderer
 
 
@@ -84,9 +89,9 @@ def render_incremental(scene: Scene, cam_cfg: CameraConfig, cfg: RenderConfig,
     Each round is ``render_api.make_sum_renderer``'s raw sum, on
     ``make_renderer``'s route for ``cfg`` (JAX renders every round on its
     oracle): the oracle in the config's dtype, kernel 1 or kernel 4 at
-    float32. A float64 config keeps its sum and image in double (JAX casts
-    each round to f32) and renders with ``impl='oracle'`` only: the f64
-    kernel takes no ``sample_offset``."""
+    float32, the f64 kernel at float64 with ``impl='kernel'`` (each round
+    a window of samples at its ``sample_offset``). A float64 config keeps
+    its sum and image in double (JAX casts each round to f32)."""
     render_sum = make_sum_renderer(cfg, scene.mat_type.device)
     acc_dtype = _acc_dtype(cfg)
     acc = np.zeros((cfg.height, cfg.width, 3), acc_dtype)
@@ -108,28 +113,73 @@ def render_incremental(scene: Scene, cam_cfg: CameraConfig, cfg: RenderConfig,
     return tracer._linear_to_gamma(img).numpy()
 
 
+def _text(s: str) -> np.ndarray:
+    return np.frombuffer(s.encode(), np.uint8)
+
+
+# The kinds of a torch.optim state entry: a tensor on the params' device,
+# a tensor kept on the CPU beside params on a card (torch.optim's
+# non-capturable step counters), a Python number, or None.
+_NUMBER_KINDS = {"int": (int, np.int64), "float": (float, np.float64)}
+
+
+def _entry(v, dev) -> tuple:
+    """(kind, array or None) of one torch.optim state entry."""
+    if torch.is_tensor(v):
+        kind = "tensor" if v.device == dev else "cpu tensor"
+        return kind, v.detach().cpu().numpy()
+    if v is None:
+        return "none", None
+    for kind, (py, np_type) in _NUMBER_KINDS.items():
+        if type(v) is py:
+            return kind, np_type(v)
+    raise TypeError(f"a torch.optim state entry of type {type(v).__name__} "
+                    f"has no checkpoint layout")
+
+
+def _optimizer_arrays(state: TrainState) -> dict:
+    """An ``OptimizerState`` train state as .npz arrays: leaves 0-8 the
+    params, 9 the count, 10 the step; ``state_{leaf}_{j}`` the j-th entry
+    of a leaf's state dict; ``layout`` (JSON) each leaf's [key, kind]
+    pairs in order."""
+    params = param_leaves(state.params)
+    dev = params[0].device
+    leaves = [*params, state.opt_state.count, state.step]
+    arrays = {f"leaf_{i}": v.detach().cpu().numpy()
+              for i, v in enumerate(leaves)}
+    layout = []
+    for i, st in enumerate(state.opt_state.per_leaf):
+        pairs = []
+        for j, (key, v) in enumerate(st.items()):
+            kind, arr = _entry(v, dev)
+            if arr is not None:
+                arrays[f"state_{i}_{j}"] = arr
+            pairs.append([key, kind])
+        layout.append(pairs)
+    return dict(arrays, n_leaves=np.int64(len(leaves)),
+                optimizer=_text(state.opt_state.name),
+                layout=_text(json.dumps(layout)))
+
+
 def save_train_state(path: str, state, token: str = "") -> None:
-    """Checkpoint an ``ops.grad.TrainState`` (params, Adam state, step).
-    ``token`` identifies the run (training config, scene hash) and is
-    checked on load."""
-    leaves = train_state_leaves(state)
-    _save(path, token=np.frombuffer(token.encode(), np.uint8),
-          n_leaves=np.int64(len(leaves)),
-          **{f"leaf_{i}": v.detach().cpu().numpy()
-             for i, v in enumerate(leaves)})
+    """Checkpoint an ``ops.grad.TrainState``: params, optimizer state and
+    step; an Adam state as its 29 leaves, any other ``torch.optim``
+    optimizer's as ``_optimizer_arrays`` lays it out. ``token``
+    identifies the run (training config, scene hash) and is checked on
+    load."""
+    if isinstance(state.opt_state, OptimizerState):
+        arrays = _optimizer_arrays(state)
+    else:
+        leaves = train_state_leaves(state)
+        arrays = dict(n_leaves=np.int64(len(leaves)),
+                      **{f"leaf_{i}": v.detach().cpu().numpy()
+                         for i, v in enumerate(leaves)})
+    _save(path, token=_text(token), **arrays)
 
 
-def load_train_state(path: str, template, token: str = ""):
-    """Restore a TrainState saved by ``save_train_state``, bit for bit,
-    onto the devices of ``template`` (e.g. a fresh ``init_fn(params)``).
-    A leaf whose shape or dtype differs from the template's is refused."""
-    z = np.load(_npz_path(path))
-    saved = bytes(z["token"]).decode()
-    if saved != token:
-        raise ValueError(f"train checkpoint {path} belongs to a different "
-                         f"run:\n  checkpoint: {saved!r}\n  requested:  "
-                         f"{token!r}")
-    tleaves = train_state_leaves(template)
+def _checked_leaves(z, tleaves: list, path: str) -> list:
+    """The file's leaves, each held to its template leaf's shape and
+    dtype and moved to its device."""
     n = int(z["n_leaves"])
     if n != len(tleaves):
         raise ValueError(f"train checkpoint {path} has {n} leaves; the "
@@ -144,4 +194,56 @@ def load_train_state(path: str, template, token: str = ""):
             raise ValueError(f"leaf {i}: checkpoint dtype {v.dtype} != "
                              f"template dtype {t.dtype}; refusing to cast")
         leaves.append(v.to(t.device))
-    return train_state_from_leaves(leaves)
+    return leaves
+
+
+def _optimizer_state(z, template: TrainState, path: str) -> TrainState:
+    """Inverse of ``_optimizer_arrays`` onto ``template``'s devices. The
+    per-leaf structure comes from the file: a fresh ``init_fn`` holds
+    empty dicts."""
+    params = param_leaves(template.params)
+    dev = params[0].device
+    leaves = _checked_leaves(z, [*params, template.opt_state.count,
+                                 template.step], path)
+    per_leaf = []
+    for i, pairs in enumerate(json.loads(bytes(z["layout"]).decode())):
+        st = {}
+        for j, (key, kind) in enumerate(pairs):
+            if kind == "none":
+                st[key] = None
+            elif kind in _NUMBER_KINDS:
+                st[key] = _NUMBER_KINDS[kind][0](z[f"state_{i}_{j}"][()])
+            else:
+                v = torch.from_numpy(np.array(z[f"state_{i}_{j}"], copy=True))
+                st[key] = v.to(dev) if kind == "tensor" else v
+        per_leaf.append(st)
+    return TrainState(
+        params=params_from_leaves(leaves[:9]),
+        opt_state=template.opt_state._replace(count=leaves[9],
+                                              per_leaf=tuple(per_leaf)),
+        step=leaves[10])
+
+
+def load_train_state(path: str, template, token: str = ""):
+    """Restore a TrainState saved by ``save_train_state``, bit for bit,
+    onto the devices of ``template`` (e.g. a fresh ``init_fn(params)``),
+    whose optimizer must be the file's: an Adam state, or an
+    ``OptimizerState`` of the same name. A leaf whose shape or dtype
+    differs from the template's is refused."""
+    z = np.load(_npz_path(path))
+    saved = bytes(z["token"]).decode()
+    if saved != token:
+        raise ValueError(f"train checkpoint {path} belongs to a different "
+                         f"run:\n  checkpoint: {saved!r}\n  requested:  "
+                         f"{token!r}")
+    name = bytes(z["optimizer"]).decode() if "optimizer" in z.files else None
+    want = (template.opt_state.name
+            if isinstance(template.opt_state, OptimizerState) else None)
+    if name != want:
+        raise ValueError(f"train checkpoint {path} holds the state of "
+                         f"{name or 'Adam (the default)'}; the template's "
+                         f"optimizer is {want or 'Adam (the default)'}")
+    if name is not None:
+        return _optimizer_state(z, template, path)
+    return train_state_from_leaves(
+        _checked_leaves(z, train_state_leaves(template), path))

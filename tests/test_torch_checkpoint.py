@@ -194,15 +194,43 @@ def test_render_incremental_adaptive_takes_regen_kernel(monkeypatch):
 
 
 @pytest.mark.parametrize("layout", ["vmem", "hbm"])
-def test_render_incremental_float64_kernel_refused(layout):
-    """The f64 kernel takes no ``sample_offset``: a float64 config with
-    impl='kernel' is refused in rounds with a message that names
-    impl='oracle', and does not render on the oracle instead."""
+def test_render_incremental_float64_kernel_renders_in_rounds(tmp_path,
+                                                             monkeypatch,
+                                                             layout):
+    """A float64 config with impl='kernel' renders each round on the f64
+    kernel (its plain version here) at the round's ``sample_offset``,
+    never on the oracle: the sum and its checkpoint stay double, two
+    rounds equal make_renderer's one pass within 1e-12, and a render
+    resumed from the first round's checkpoint equals the uninterrupted
+    one bit for bit."""
+    from raytracingincuda_torch.ops import f64_kernel as fk
+
+    calls = []
+    real = fk._f64
+    monkeypatch.setattr(fk, "_f64", lambda *a, **k: calls.append(
+        (k["sample_offset"], k["layout"])) or real(*a, **k))
+    monkeypatch.setattr(tracer, "render", lambda *a, **k: pytest.fail(
+        "a float64 kernel round ran the oracle"))
     cfg = RenderConfig(scene_id=2, width=W, height=H, samples=4, bounces=4,
                        impl="kernel", layout=layout, dtype="float64")
-    with pytest.raises(ValueError, match="impl='oracle'"):
-        ck.render_incremental(build_scene(2),
-                              CameraConfig.reference_default(), cfg)
+    s, cam = build_scene(2), CameraConfig.reference_default()
+    path = str(tmp_path / "render64")
+    img = ck.render_incremental(s, cam, cfg, samples_per_round=2,
+                                checkpoint_path=path)
+    assert calls == [(0, layout), (2, layout)]
+    assert img.dtype == np.float64 and img.shape == (H, W, 3)
+    acc, done = ck.load_checkpoint(path, cfg)
+    assert acc.dtype == np.float64 and done == 4
+    one = make_renderer(cfg, "cpu")(s, cam)
+    np.testing.assert_allclose(img, one.numpy(), rtol=0, atol=1e-12)
+    first = fk.render_f64(s, cam, W, H, 2, 4, layout=layout,
+                          accumulate_only=True)
+    ck.save_checkpoint(path, first.numpy(), 2, cfg)
+    calls.clear()
+    resumed = ck.render_incremental(s, cam, cfg, samples_per_round=2,
+                                    checkpoint_path=path)
+    assert calls == [(2, layout)]
+    np.testing.assert_array_equal(resumed, img)
 
 
 def _setup():

@@ -6,9 +6,12 @@ On the CPU the f64 renderer runs the kernel's plain version
 oracle with its samplers pinned to their f32 values, as
 ``tests/test_df64.py`` pins them, within the JAX package's own df64 bound
 of 1e-6 in gamma space. The scene is JAX scene 2 (``tiny_scene``'s build)
-carried across with ``models/convert.py``. The ``cuda`` test holds the
-CUDA kernel to the plain version on the card, bit for bit, at the
-regenerating loop's edge cases too; they skip without a card.
+carried across with ``models/convert.py``. A window of samples at a
+``sample_offset`` (a round of ``render_incremental``) is held to the
+pinned oracle's window, and two windows to one. The ``cuda`` tests hold
+the CUDA kernel to the plain version on the card, bit for bit, at the
+regenerating loop's edge cases and at an offset too; they skip without a
+card.
 """
 import os
 
@@ -57,9 +60,10 @@ def _carried(tiny_scene, default_camera):
             camera_config_from_numpy(_leaves(default_camera)))
 
 
-def _pinned_f64_oracle(tiny_scene, default_camera, monkeypatch):
+def _pinned_f64_oracle(tiny_scene, default_camera, monkeypatch, **kw):
     """The JAX native-f64 oracle with its samplers pinned to their f32
-    values (the df64 contract), x64 on only inside."""
+    values (the df64 contract), x64 on only inside; ``kw`` goes to its
+    ``render`` (``sample_offset``, ``accumulate_only``)."""
     import jax
     import jax.numpy as jnp
 
@@ -88,7 +92,8 @@ def _pinned_f64_oracle(tiny_scene, default_camera, monkeypatch):
     jax.config.update("jax_enable_x64", True)
     try:
         return np.asarray(jtr.render(cast(tiny_scene), cast(default_camera),
-                                     W, H, SPP, DEPTH, dtype=jnp.float64))
+                                     W, H, SPP, DEPTH, dtype=jnp.float64,
+                                     **kw))
     finally:
         jax.config.update("jax_enable_x64", False)
 
@@ -130,6 +135,77 @@ def test_plain_version_vs_jax_f64_oracle(tiny_scene, default_camera,
     assert got.dtype == torch.float64 and got.shape == (H, W, 3)
     # measured 1.12e-8, the jitted f32 draws as above
     assert np.abs(got.numpy() - want).max() <= F64_TOL
+
+
+def test_sample_window_vs_jax_f64_oracle(tiny_scene, default_camera,
+                                         monkeypatch):
+    """Samples [3, 4) as raw sums against the pinned oracle's
+    ``sample_offset=3, accumulate_only=True``: the draws are keyed on the
+    absolute sample index. ``render_f64(accumulate_only=True)`` returns
+    the same sums as an (H, W, 3) image."""
+    want = _pinned_f64_oracle(tiny_scene, default_camera, monkeypatch,
+                              sample_offset=3, accumulate_only=True)
+    scene, cam = _carried(tiny_scene, default_camera)
+    inputs = fk.f64_inputs(scene, cam, W, H)
+    acc = fk.f64_reference(*inputs, samples=SPP, max_depth=DEPTH,
+                           sample_offset=3)
+    got = acc.t()[:W * H].reshape(H, W, 3)
+    # measured 1.82e-8, the jitted f32 draws as above
+    assert np.abs(got.numpy() - want).max() <= F64_TOL
+    # not the window [0, 1): the offset moves every draw
+    assert np.abs(got.numpy() - fk.render_f64(
+        scene, cam, W, H, SPP, DEPTH, accumulate_only=True).numpy()
+                  ).max() > 0.1
+    assert torch.equal(got, fk.render_f64(scene, cam, W, H, SPP, DEPTH,
+                                          sample_offset=3,
+                                          accumulate_only=True))
+
+
+def test_two_windows_sum_to_one():
+    """[0, 2) + [2, 4) is [0, 4) up to summation order, with the lanes in
+    any order (the sums come back un-permuted)."""
+    s, cam = t_build(3), TCam.reference_default()
+    kw = dict(seed=5, accumulate_only=True)
+    one = fk.render_f64(s, cam, 24, 16, 4, 5, **kw)
+    perm = torch.from_numpy(np.random.default_rng(2).permutation(384))
+    two = (fk.render_f64(s, cam, 24, 16, 2, 5, **kw)
+           + fk.render_f64(s, cam, 24, 16, 2, 5, sample_offset=2,
+                           pixel_order=perm, **kw))
+    assert one.dtype == two.dtype == torch.float64
+    assert one.shape == (16, 24, 3)
+    assert np.abs((one - two).numpy()).max() <= 1e-12
+
+
+def test_offset_zero_is_the_default_call():
+    """At ``sample_offset=0`` every output is the call without it, bit
+    for bit: the raw sums, the image, and the image from the sums."""
+    s, cam = t_build(1), TCam.reference_default()
+    inputs = fk.f64_inputs(s, cam, 20, 12)
+    kw = dict(samples=2, max_depth=6)
+    assert torch.equal(fk.f64_reference(*inputs, sample_offset=0, **kw),
+                       fk.f64_reference(*inputs, **kw))
+    img = fk.render_f64(s, cam, 20, 12, 2, 6)
+    assert torch.equal(img, fk.render_f64(s, cam, 20, 12, 2, 6,
+                                          sample_offset=0))
+    acc = fk.render_f64(s, cam, 20, 12, 2, 6, accumulate_only=True)
+    lin = acc * (1.0 / 2)
+    assert torch.equal(img, torch.where(lin > 0, fk._sqrt(
+        torch.where(lin > 0, lin, 1.0)), 0.0))
+
+
+def test_sample_window_is_validated_at_its_end():
+    """``validate_stream_ids`` takes the window's end, offset + samples,
+    as kernel 1's wrapper does; a negative offset raises."""
+    from raytracingincuda_torch.ops import rng as rtrng
+
+    inputs = fk.f64_inputs(t_build(2), TCam.reference_default(), W, H)
+    kw = dict(samples=2, max_depth=2)
+    fk.f64_reference(*inputs, sample_offset=rtrng.MAX_SAMPLE_ID - 2, **kw)
+    with pytest.raises(ValueError, match="exceed the counter field"):
+        fk.f64_reference(*inputs, sample_offset=rtrng.MAX_SAMPLE_ID - 1,
+                         **kw)
+    with pytest.raises(ValueError, match="non-negative"):
+        fk.f64_reference(*inputs, sample_offset=-1, **kw)
 
 
 def test_f64_is_closer_to_the_oracle_than_f32(tiny_scene, default_camera,
@@ -251,6 +327,23 @@ def test_kernel_equals_plain_version_on_card(cuda, layout):
     assert torch.equal(got, fk.f64_kernel(*inputs, **kw))
     cpu = fk.f64_reference(*(t.cpu() for t in inputs), **kw)
     assert torch.equal(got.cpu(), cpu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["vmem", "hbm"])
+def test_kernel_at_offset_equals_plain_version_on_card(cuda, layout):
+    """A window at ``sample_offset`` 5: bit for bit against the plain
+    version, from run to run, and not the window at 0."""
+    s = t_build(1, device=cuda)
+    inputs = fk.f64_inputs(s, TCam.reference_default(), 64, 40)
+    kw = dict(samples=4, max_depth=8, layout=layout)
+    got = fk.f64_kernel(*inputs, sample_offset=5, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, fk.f64_reference(*inputs, sample_offset=5, **kw))
+    assert torch.equal(got, fk.f64_kernel(*inputs, sample_offset=5, **kw))
+    assert not torch.equal(got, fk.f64_kernel(*inputs, **kw))
+    assert torch.equal(fk.f64_kernel(*inputs, sample_offset=0, **kw),
+                       fk.f64_kernel(*inputs, **kw))
 
 
 def _glass(scene):

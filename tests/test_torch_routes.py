@@ -18,8 +18,10 @@ outcomes:
 
 Measured at these shapes: float32 within 8.51e-6 on every route; float64
 within 9.14e-14 on the f64 oracle, 2.85e-8 on the f64 kernel (its scene
-is float32, JAX's float64) and 5.60e-8 from ``render_incremental`` (JAX
-casts each round to f32, the port keeps the sum in double).
+is float32, JAX's float64), and from ``render_incremental`` (JAX casts
+each round to f32, the port keeps the sum in double) 5.60e-8 on the f64
+oracle and 5.96e-8 on the f64 kernel, whose rounds are windows of
+samples at a ``sample_offset``.
 
 JAX renders each case's own config: on the CPU its 'pallas' is its
 oracle, and 'pallas' with 'packed' its stream kernel in interpret mode.
@@ -73,21 +75,26 @@ DIVERGENCES = {
         "under the f64 label (its accelerator route raises)."),
     "f64 pallas on the CPU": (
         lambda kind, impl, layout, est, dtype: (
-            kind != "incremental" and dtype == "float64" and impl == "kernel"
-            and layout != "packed" and est != "parity"),
+            dtype == "float64" and impl == "kernel" and (
+                est != "parity" and layout != "packed"
+                if kind != "incremental"
+                else est != "parity" or layout == "packed")),
         True,
         "the port's f64 kernel keeps the JAX df64 kernel's scope (parity, "
         "no legacy_sky, layout vmem or hbm) and refuses the rest, as JAX "
-        "does on an accelerator; JAX on the CPU renders its f64 oracle "
-        "instead ('pallas' falls back to it)."),
+        "does on an accelerator, in make_renderer and in "
+        "render_incremental's rounds; JAX on the CPU renders its f64 "
+        "oracle instead ('pallas' falls back to it), and JAX's "
+        "render_incremental renders every round on its oracle whatever "
+        "the impl and layout (its make_renderer raises at packed, as the "
+        "port's does)."),
     "f64 render_incremental off the oracle": (
         lambda kind, impl, layout, est, dtype: (
             kind == "incremental" and dtype == "float64"
-            and impl != "oracle"),
+            and impl in ("adaptive", "stream")),
         True,
-        "the port renders a float64 config in rounds with impl='oracle' "
-        "only: the f64 kernel takes no sample_offset, and the config "
-        "refuses float64 with impl adaptive or stream; JAX's "
+        "the port's config refuses float64 with impl adaptive or stream "
+        "(they have no f64 path), in rounds as in make_renderer; JAX's "
         "render_incremental renders every round on its oracle whatever "
         "the impl."),
     "render_incremental on the stream kernel with legacy_sky": (

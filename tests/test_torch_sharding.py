@@ -230,6 +230,25 @@ def test_mesh_refusals(monkeypatch):
     assert meshlib.lane_slice(512, 2, 1) == slice(256, 512)
 
 
+def test_no_cpu_fallback(monkeypatch, tmp_path):
+    """Without CUDA, the default device (None: 'cuda') raises and names
+    device='cpu', in rank_device, make_mesh and the worker without
+    --device; 'cpu' is the CPU. make_mesh's argument checks come first."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (meshlib.rank_device, lambda: meshlib.rank_device("cuda"),
+                 meshlib.make_mesh,
+                 lambda: worker.main(["--outdir", str(tmp_path)])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert os.listdir(tmp_path) == []
+    assert meshlib.rank_device("cpu") == torch.device("cpu")
+    assert meshlib.make_mesh(device="cpu").device == torch.device("cpu")
+    with pytest.raises(ValueError, match="n_devices=3"):
+        meshlib.make_mesh(3)
+    with pytest.raises(ValueError, match="at most 2 mesh axes"):
+        meshlib.make_mesh(axis_names=("a", "b", "c"))
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():

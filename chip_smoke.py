@@ -190,6 +190,26 @@ CPU path):
              save_train_state, load_train_state onto a fresh template and
              2 steps; params and optimizer state bit-equal (keys, kinds,
              devices, dtypes), kernel 2's launches
+  25 deep paths and record windows  kernels 2 and 3 on the deep scene
+             (models/scene.py:build_deep_scene) at 160x96x2spp/128b,
+             parity and rr2, on the reverse's 256-deep instance against
+             their plain versions (images bit-equal to plain and regen,
+             gradients within GRAD_RTOL, run-to-run identical) and the
+             share of banking paths that end beyond bounce 64; the 64 and
+             256 instances at depth 64 in turns (kernel 3's and kernel 2's
+             table shapes and the deep scene): times and equal bits;
+             make_mse_train and render_kernel_grads at depth 128 (launch
+             counts); phases 7 and 12 against PERF.md's section 5 (within
+             2%, printed); kernel 5's gradient mode in forced record
+             windows at 64x40 against its plain version in the same
+             windows; phase 12's cell at a forced budget (4 windows:
+             kernel 4's render, the loss block, kernel 5 a window)
+             against its one-launch step; and make_stream_train at 100k,
+             640x384, 100 spp, 25 bounces, which raised before record
+             windows: windows, 3 timed steps from one state
+             (bit-identical), peak memory (the largest window's records
+             within the budget, the peak within it plus 256 MiB for that
+             window's sort and the step's tensors), launches
 
 Then the kernels line (JSON, with each kernel's bound and, as
 bound_fmad_off_ms, the same bound with the operations at half the rate,
@@ -199,7 +219,7 @@ stream_segment_sum, f64_render and compact_render), the nvidia-smi line,
 and last {"ok": true, "device": {...}}. Everything measured is
 also written to chip_smoke.json in the output directory. Launch counts
 are set to 0 just before each main path (phases 4, 7, 8, 10, 12, 13, 14,
-16-21, 23, 24) and read just after it: each path's own counts are in chip_smoke.json
+16-21, 23-25) and read just after it: each path's own counts are in chip_smoke.json
 (launches_by_phase) and their sums are the kernels line's launches; phase
 22's ranks count their own launches (each job's, in the worker) and their
 sums are added too.
@@ -2523,6 +2543,269 @@ def main() -> int:
                     for k, v in ckpts.items())
         + f" | launches {nonzero(counts)}")
     record["phase_s"]["24 train checkpoints"] = time.perf_counter() - t_phase
+
+    # -- 25 deep paths and record windows -------------------------------------
+    t_phase = time.perf_counter()
+    from raytracingincuda_torch.models.scene import Scene as Scene25
+    from raytracingincuda_torch.models.scene import build_deep_scene
+    from raytracingincuda_torch.ops import grad as grad25
+
+    phase = "25 deep"
+    # kernels 2 and 3 past the shallow stack, on the deep scene (the 256
+    # instance), against their plain versions
+    deep25 = build_deep_scene(device=dev)
+    w25, h25, spp25, d25 = 160, 96, 2, 128
+    in25 = rk.regen_inputs(deep25, cam, w25, h25, spp25)
+    gen = torch.Generator().manual_seed(25)
+    g25 = (torch.randn((3, in25[0].shape[0]), generator=gen) * 1e-3).to(dev)
+    tgt25 = torch.rand((3, in25[0].shape[0]), generator=gen).to(dev)
+    grad_in25 = (*in25[:3], g25, *in25[4:])
+    fused_in25 = (*in25[:3], tgt25, *in25[4:])
+    deep_rows = []
+    for rr in (None, 2):
+        kw = dict(samples=spp25, max_depth=d25, rr_start=rr)
+        ends = tk.path_ends(*in25[:3], *in25[4:], **kw)[:, :w25 * h25]
+        banked = ends[ends > 0]
+        share = float((banked > tk.STACK_SHALLOW).double().mean())
+        a_out, a_ms = timed(lambda: tk.grad_kernel(*grad_in25, **kw), 3)
+        a_again = tk.grad_kernel(*grad_in25, **kw)
+        a_plain, a_plain_ms = timed(lambda: tk.grad_reference(*grad_in25,
+                                                              **kw), 1,
+                                    warm=False)
+        fkw = dict(kw, num_pixels=w25 * h25)
+        b_out, b_ms = timed(lambda: tk.fused_train_kernel(*fused_in25, **fkw),
+                            3)
+        b_again = tk.fused_train_kernel(*fused_in25, **fkw)
+        b_plain, b_plain_ms = timed(lambda: tk.fused_train_reference(
+            *fused_in25, **fkw), 1, warm=False)
+        img = rk.regen_kernel(*in25, samples=spp25, max_depth=d25,
+                              rr_start=rr, finalize_scale=1.0 / spp25)
+        segs = float(rk.regen_kernel(*in25, samples=spp25, max_depth=d25,
+                                     rr_start=rr, emit_depth=True)
+                     .double().sum())
+        n25 = deep25.num_slots
+        lanes25 = in25[0].shape[0]
+        res = {"shape": f"{w25}x{h25}x{spp25}spp/{d25}b", "rr_start": rr,
+               "banked_paths": int(banked.numel()),
+               "past_64_share": share, "deepest_bounce": int(banked.max()),
+               "grad_ms": a_ms, "grad_plain_ms": a_plain_ms,
+               "fused_ms": b_ms, "fused_plain_ms": b_plain_ms,
+               "grad_bound": bound(segs * n25 * OPS_TEST_STAGED,
+                                   lanes25 * 24 + n25 * (44 + 64)),
+               "fused_bound": bound(segs * n25 * OPS_TEST_STAGED,
+                                    lanes25 * 36 + n25 * (44 + 64)),
+               "run_to_run_identical": all(
+                   torch.equal(x, y) for x, y in zip((*a_out, *b_out),
+                                                     (*a_again, *b_again))),
+               "image_equals_plain": bool(torch.equal(b_out[1], b_plain[1])),
+               "image_equals_regen": bool(torch.equal(b_out[1], img)),
+               "grad": grad_compare(a_out, a_plain, ("d_scene", "d_cam")),
+               "fused": grad_compare(
+                   (b_out[0].reshape(1), b_out[2], b_out[3]),
+                   (b_plain[0].reshape(1), b_plain[2], b_plain[3]),
+                   ("loss", "d_scene", "d_cam"))}
+        deep_rows.append(res)
+        if not (res["run_to_run_identical"] and res["image_equals_plain"]
+                and res["image_equals_regen"] and share >= 0.01
+                and all(v["ok"] for v in (*res["grad"].values(),
+                                          *res["fused"].values()))):
+            raise AssertionError(f"deep instance vs plain: {res}")
+        say(phase, f"256 instance, deep scene {res['shape']} rr={rr}: "
+            f"{100 * share:.2f}% of {res['banked_paths']} banking paths end "
+            f"beyond bounce 64 (deepest {res['deepest_bounce']}); kernel 3 "
+            f"{a_ms:.3f} ms (plain {a_plain_ms:.1f}, bound "
+            f"{res['grad_bound'][0]:.4f}), d_scene max|d|/max "
+            f"{res['grad']['d_scene']['max_rel_to_largest']:.3g}; kernel 2 "
+            f"{b_ms:.3f} ms (plain {b_plain_ms:.1f}, bound "
+            f"{res['fused_bound'][0]:.4f}), image bit-equal to plain and "
+            f"regen, loss rel {res['fused']['loss']['max_rel_to_largest']:.3g}"
+            f", d_scene {res['fused']['d_scene']['max_rel_to_largest']:.3g};"
+            f" run-to-run identical")
+    # the two instances at depth 64 (forced), in turns: the same bits
+    head_in25 = rk.regen_inputs(build_scene(1, device=dev), cam, 1280, 768, 2)
+    head_tgt25 = torch.rand((3, head_in25[0].shape[0]), generator=gen).to(dev)
+    instances = {
+        "kernel 3 320x192x4spp/8b rr2 (row 3)": lambda st: tk.grad_kernel(
+            *grad_in, samples=4, max_depth=8, rr_start=2, stack=st),
+        "kernel 2 1280x768x2spp/25b rr2 (row 2)":
+            lambda st: tk.fused_train_kernel(
+                *head_in25[:3], head_tgt25, *head_in25[4:], samples=2,
+                max_depth=25, rr_start=2, num_pixels=1280 * 768, stack=st),
+        "kernel 3 deep 160x96x2spp/64b rr2": lambda st: tk.grad_kernel(
+            *grad_in25, samples=2, max_depth=64, rr_start=2, stack=st),
+        "kernel 2 deep 160x96x2spp/64b rr2": lambda st: tk.fused_train_kernel(
+            *fused_in25, samples=2, max_depth=64, rr_start=2,
+            num_pixels=w25 * h25, stack=st)}
+    stack_ms = {}
+    for name, fn in instances.items():
+        outs, ms = {}, {tk.STACK_SHALLOW: [], tk.MAX_DEPTH: []}
+        for st in (tk.STACK_SHALLOW, tk.MAX_DEPTH) * 2:
+            outs[st], t_ms = timed(lambda: fn(st), 3)
+            ms[st].append(t_ms)
+        equal = all(torch.equal(a, b) for a, b in
+                    zip(outs[tk.STACK_SHALLOW], outs[tk.MAX_DEPTH]))
+        stack_ms[name] = {"ms_64": ms[tk.STACK_SHALLOW],
+                          "ms_256": ms[tk.MAX_DEPTH], "bit_equal": equal}
+        if not equal:
+            raise AssertionError(f"stack instances differ: {name}")
+        say(phase, f"{name}: 64 instance {min(ms[tk.STACK_SHALLOW]):.3f} ms,"
+            f" 256 instance {min(ms[tk.MAX_DEPTH]):.3f} ms "
+            f"({min(ms[tk.MAX_DEPTH]) / min(ms[tk.STACK_SHALLOW]):.2f}x), "
+            f"outputs bit-equal")
+    # the main paths at depth 128: make_mse_train and render_kernel_grads
+    reset_counts()
+    step25 = tk.make_mse_train(deep25.mat_type, deep25.active, w25, h25,
+                               spp25, d25, rr_start=2)
+    loss25, img25, _ = step25(deep25.params, cam,
+                              torch.rand((h25, w25, 3), generator=gen).to(dev))
+    dsm25, dcr25 = tk.render_kernel_grads(deep25, cam,
+                                          torch.ones((h25, w25, 3)), w25, h25,
+                                          spp25, d25)
+    deep_counts = read_counts("25 deep paths (depth 128)")
+    if not (deep_counts["fused_train_render"] >= 2
+            and deep_counts["grad_render"] >= 1
+            and bool(torch.isfinite(loss25)) and bool(
+                torch.isfinite(dsm25).all())):
+        raise AssertionError(f"deep main paths: {deep_counts}")
+    # today's instance and route unchanged: phases 7 and 12 against the
+    # ranges PERF.md section 5 records for this card's model, within 2%
+    unchanged = {
+        "7 fused step": (min(record["train"]["fused_train_step_ms"]),
+                         145.48, 146.06),
+        "12 stream step": (min(record["stream_train"]["fused_step_ms"]),
+                           49.74, 52.47)}
+    unchanged = {k: {"best_ms": v[0], "range_ms": [v[1], v[2]],
+                     "within_2pct": 0.98 * v[1] <= v[0] <= 1.02 * v[2]}
+                 for k, v in unchanged.items()}
+    say(phase, "; ".join(f"phase {k} best {v['best_ms']:.2f} ms against "
+                         f"{v['range_ms'][0]}-{v['range_ms'][1]} ms: within "
+                         f"2% {v['within_2pct']}"
+                         for k, v in unchanged.items()))
+
+    phase = "25 windows"
+    # kernel 5 in forced windows (chunks of lanes and samples) against its
+    # plain version in the same windows, at 64x40
+    s1k = build_random_scene(1000, seed=3, device=dev)
+    st1k = sk.prepare_stream_scene(s1k, block=64)
+    ids, ii, jj, _, row = lanes(64, 40, 4)
+    g1k = (torch.randn((3, ids.shape[0]), generator=gen) * 1e-3).to(dev)
+    w_budget = 7 * rk.PAD * 6 * stk.RECORD_BYTES
+    w_args = (ids, ii, jj, g1k, st1k.scene_mat, st1k.bounds, row)
+    w_kw = dict(block=64, samples=4, max_depth=6, rr_start=2,
+                budget=w_budget)
+    n_win = len(stk.plan_records(ids.shape[0], 4, 6, w_budget))
+    before = stk.LAUNCHES
+    win_out = stk.stream_grads_kernel(*w_args, **w_kw)
+    win_again = stk.stream_grads_kernel(*w_args, **w_kw)
+    torch.cuda.synchronize()
+    win_launches = stk.LAUNCHES - before
+    win_plain = stk.stream_grads_reference(*w_args, **w_kw)
+    win_res = {"windows": n_win, "launches": win_launches,
+               "run_to_run_identical": all(torch.equal(a, b) for a, b in
+                                           zip(win_out, win_again)),
+               **grad_compare(win_out, win_plain, ("d_stream", "d_cam"))}
+    if not (win_res["run_to_run_identical"] and win_launches == 2 * n_win
+            and n_win >= 3 and win_res["d_stream"]["ok"]
+            and win_res["d_cam"]["ok"]):
+        raise AssertionError(f"kernel 5 in windows: {win_res}")
+    say(phase, f"kernel 5 gradient mode at 64x40x4spp/6b rr2 in {n_win} "
+        f"windows (3 chunks of lanes a sample) vs its plain version in the "
+        f"same windows: d_stream max|d|/max "
+        f"{win_res['d_stream']['max_rel_to_largest']:.3g}, d_cam "
+        f"{win_res['d_cam']['max_rel_to_largest']:.3g}; one launch a window;"
+        f" run-to-run identical")
+    # phase 12's cell with a forced budget against its one-launch step
+    w, h = 640, 384
+    stream25 = sk.prepare_stream_scene(s100k)
+    st25 = sk.StreamScene(*sk.build_stream_arrays(
+        Scene25(s100k.params, s100k.mat_type, s100k.active), stream25.perm,
+        stream25.block, stream25.scene_mat.shape[0],
+        border=grad25.front_to_back_border(stream25, cam, w, h)),
+        stream25.block, stream25.perm)
+    tgt100k = torch.rand((h, w, 3), generator=gen).to(dev)
+    forced = 100 << 20                  # one sample of 640x384 at 10 bounces
+    one = stk.mse_train_stream(st25, cam, tgt100k, w, h, 4, 10)
+    reset_counts()
+    win = stk.mse_train_stream(st25, cam, tgt100k, w, h, 4, 10,
+                               budget=forced)
+    forced_counts = read_counts("25 record windows (100k, 640x384x4spp/10b)")
+    n_forced = len(stk.plan_records(w * h, 4, 10, forced))
+    forced_res = {"windows": n_forced, "launches": nonzero(forced_counts),
+                  "loss_one_launch": float(one[0]), "loss_windows":
+                  float(win[0]), "loss_bit_equal": bool(torch.equal(one[0],
+                                                                    win[0])),
+                  **grad_compare(win[1:], one[1:], ("d_stream", "d_cam"))}
+    if not (n_forced >= 3 and forced_counts["stream_render"] == 1
+            and forced_counts["stream_train"] == n_forced
+            and abs(forced_res["loss_windows"] / forced_res["loss_one_launch"]
+                    - 1.0) <= 1e-6
+            and forced_res["d_stream"]["ok"] and forced_res["d_cam"]["ok"]):
+        raise AssertionError(f"forced windows on phase 12's cell: "
+                             f"{forced_res}")
+    say(phase, f"phase 12's cell (100k, {w}x{h}x4spp/10b) at a budget of "
+        f"{forced >> 20} MiB: {n_forced} windows; loss {float(win[0]):.9g} "
+        f"against the one-launch {float(one[0]):.9g} (bit-equal "
+        f"{forced_res['loss_bit_equal']}); d_stream max|d|/max "
+        f"{forced_res['d_stream']['max_rel_to_largest']:.3g}, d_cam "
+        f"{forced_res['d_cam']['max_rel_to_largest']:.3g}; launches "
+        f"{nonzero(forced_counts)}")
+    del one, win
+    # the shape that was refused: 100k, 640x384, 100 spp, 25 bounces
+    spp_r, d_r = 100, 25
+    init_r, step_r = grad25.make_stream_train(stream25, w, h, spp_r, d_r)
+    state_r = init_r(s100k.params)
+    n_r = len(stk.plan_records(w * h, spp_r, d_r))
+    torch.cuda.synchronize()
+    base_mib = torch.cuda.memory_allocated() / 2**20
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    times_r, outs_r = [], []
+    for _ in range(3):                  # best of 3, each from the same state
+        with RenderTimer(dev) as t:
+            outs_r.append(step_r(state_r, cam, s100k.mat_type, s100k.active,
+                                 tgt100k))
+        times_r.append(t.ms)
+    refused_counts = read_counts("25 refused shape (100k, 640x384x100spp/25b)")
+    peak_r = torch.cuda.max_memory_allocated() / 2**20 - base_mib
+    first_r = outs_r[0]
+    identical_r = all(
+        torch.equal(o[1], first_r[1]) and all(
+            torch.equal(a, b) for a, b in zip(param_leaves(o[0].params),
+                                              param_leaves(first_r[0].params)))
+        for o in outs_r)
+    # the largest window's records; the rest of the peak is that window's
+    # sort (record_order: a mask a record, keys and indices a written
+    # record) and the step's own tensors (image, scene, optimizer state)
+    window_mib = max(x.lanes * x.samples for x in stk.plan_records(
+        w * h, spp_r, d_r)) * d_r * stk.RECORD_BYTES / 2**20
+    refused = {"shape": f"{w}x{h}x{spp_r}spp/{d_r}b", "windows": n_r,
+               "step_ms": times_r, "loss": float(first_r[1]),
+               "peak_over_base_mib": peak_r,
+               "record_budget_mib": stk.RECORD_BUDGET / 2**20,
+               "largest_window_records_mib": window_mib,
+               "run_to_run_identical": identical_r,
+               "launches": nonzero(refused_counts)}
+    if not (identical_r and np.isfinite(refused["loss"])
+            and refused_counts["stream_train"] == 3 * n_r
+            and refused_counts["stream_render"] == 3
+            and window_mib <= refused["record_budget_mib"]
+            and peak_r <= refused["record_budget_mib"] + 256):
+        raise AssertionError(f"the refused shape: {refused}")
+    say(phase, f"make_stream_train 100k {refused['shape']} (refused before "
+        f"record windows): {n_r} windows; step ms "
+        f"{', '.join(f'{t:.2f}' for t in times_r)}; peak {peak_r:.1f} MiB "
+        f"above the {base_mib:.1f} MiB held before: the largest window's "
+        f"records {window_mib:.1f} MiB (budget "
+        f"{refused['record_budget_mib']:.0f} MiB), its sort and the step's "
+        f"tensors {peak_r - window_mib:.1f} MiB; loss {refused['loss']:.9g},"
+        f" bit-identical from run to run; launches {refused['launches']}")
+    record["deep_and_windows"] = {
+        "deep": deep_rows, "stack_instances": stack_ms,
+        "deep_main_path_launches": nonzero(deep_counts),
+        "unchanged": unchanged, "kernel5_windows": win_res,
+        "forced_windows_step": forced_res, "refused_shape": refused}
+    record["phase_s"]["25 deep and windows"] = time.perf_counter() - t_phase
+    say(phase, f"phase took {record['phase_s']['25 deep and windows']:.1f} s")
 
     # -- result lines ---------------------------------------------------------
     record["main_path_launches"] = main_launches

@@ -42,7 +42,7 @@ THREADS = 128  # kBlock (path_common.cuh)
 # stream kernel launches with one (kStageBytes in its source).
 DYNAMIC = {"regen_kernel<false>": 512 * 44, "count_kernel<false": 512 * 44,
            "park_render_kernel<false>": 512 * 44,
-           "reverse_kernel<false>": 512 * 44, "compact_kernel<false>": 512 * 44,
+           "reverse_kernel<false": 512 * 44, "compact_kernel<false>": 512 * 44,
            "f64_kernel<false>": 512 * 32}
 STAGE = 32768
 

@@ -359,7 +359,7 @@ __global__ void cross_sums_kernel(const int32_t* keys, long long m, long long ti
 
 // The scan table, then kernel 5 in `mode` on `stream`.
 int launch(StreamTrainParams& p, float* scan, int mode, cudaStream_t stream) {
-  if (p.padded % kBlock || p.max_depth > kMaxDepth) return (int)cudaErrorInvalidValue;
+  if (p.padded % kBlock) return (int)cudaErrorInvalidValue;
   scan_table_kernel<<<(p.n_rows + 255) / 256, 256, 0, stream>>>(p.scene, p.n_rows,
                                                                 reinterpret_cast<float4*>(scan));
   cudaError_t e = cudaGetLastError();

@@ -10,7 +10,12 @@
 
 namespace {
 
-constexpr int kMaxDepth = 64;   // ops/train_kernel.py:MAX_DEPTH
+// The reverse keeps a sample's path in a per-thread stack (train_render.cu),
+// built for kStackShallow bounces (the main paths' depths) and for
+// kMaxBounce, the sampler's bounce field (ops/rng.py:MAX_BOUNCE), the
+// deepest path any train kernel takes (ops/train_kernel.py:MAX_DEPTH).
+constexpr int kStackShallow = 64;  // ops/train_kernel.py:STACK_SHALLOW
+constexpr int kMaxBounce = 256;
 constexpr int kGradCols = 9;    // centre xyz, radius, albedo rgb, fuzz, ior
 constexpr int kNCam = 18;       // pack_camera columns 0..17
 enum { kMse, kL1, kHuber, kRelMse };

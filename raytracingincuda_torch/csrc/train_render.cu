@@ -32,7 +32,10 @@
 //      not parked, and the lane records how many were. Then loss_block gives
 //      the image, g and the loss term; the loss meets in a fixed block tree.
 //   2. reverse_kernel: per sample in order, the state entering each bounce
-//      (origin, direction, attenuation) is rebuilt into a per-thread stack:
+//      (origin, direction, attenuation) is rebuilt into a per-thread stack
+//      of kDepth entries (40 bytes each, in local memory; an instance for 64
+//      bounces, the main paths' depths, and one for 256, the sampler's bound,
+//      taken only above 64):
 //      from the park by replay (the primary ray, then per bounce the winner's
 //      own sphere test, which is the scan's arithmetic for that slot, and
 //      scatter_bounce: the entries are the render's bit for bit, at one test
@@ -240,7 +243,7 @@ struct ReverseParams {
   float* cam_part;         // (lanes / kBlock, kNCam)
 };
 
-template <bool kHbm>
+template <bool kHbm, int kDepth>
 __global__ void __launch_bounds__(kBlock) reverse_kernel(ReverseParams p) {
   extern __shared__ float4 smem[];
   __shared__ float val[kGradCols][kBlock];
@@ -266,7 +269,7 @@ __global__ void __launch_bounds__(kBlock) reverse_kernel(ReverseParams p) {
   float cam_acc[kNCam];
 #pragma unroll
   for (int c = 0; c < kNCam; ++c) cam_acc[c] = 0.0f;
-  Entry stack[kMaxDepth];
+  Entry stack[kDepth];
   for (int si = 0; si < p.samples; ++si) {
     const uint32_t s = (uint32_t)(p.sample_offset + si);
     const PathEnd e = si < parked
@@ -326,13 +329,22 @@ int allow_smem(K kernel, size_t dynamic, size_t fixed) {
                                    (int)dynamic);
 }
 
-int launch_reverse(const ReverseParams& p, int hbm, cudaStream_t st) {
-  if (p.lanes % kBlock || p.max_depth > kMaxDepth) return (int)cudaErrorInvalidValue;
+// `stack` picks the instance: 0 the smaller one that holds max_depth, else
+// kStackShallow or kMaxBounce (tests and measurements compare the two).
+int launch_reverse(const ReverseParams& p, int hbm, int stack, cudaStream_t st) {
+  if (stack == 0) stack = p.max_depth > kStackShallow ? kMaxBounce : kStackShallow;
+  if (p.lanes % kBlock || p.max_depth > stack ||
+      (stack != kStackShallow && stack != kMaxBounce))
+    return (int)cudaErrorInvalidValue;
   const size_t stage = hbm ? 0 : (size_t)p.n * (sizeof(float4) + kGather * sizeof(float));
   const size_t smem =
       stage + (p.warp_acc ? 0 : (size_t)kWarps * p.n * kGradCols * sizeof(float));
   if (smem + kReverseStatic > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
-  auto kernel = hbm ? reverse_kernel<true> : reverse_kernel<false>;
+  const bool deep = stack == kMaxBounce;
+  auto kernel = hbm ? (deep ? reverse_kernel<true, kMaxBounce>
+                            : reverse_kernel<true, kStackShallow>)
+                    : (deep ? reverse_kernel<false, kMaxBounce>
+                            : reverse_kernel<false, kStackShallow>);
   const int e = allow_smem(kernel, smem, kReverseStatic);
   if (e) return e;
   kernel<<<p.lanes / kBlock, kBlock, smem, st>>>(p);
@@ -367,7 +379,7 @@ extern "C" int fused_park_render(const int32_t* ids, const float* ii, const floa
                                  float two_w, float hd, float half_hd, float* image, float* g,
                                  float* loss_part, int32_t* park, int capacity,
                                  int32_t* parked, void* stream) {
-  if (lanes % kBlock || max_depth > kMaxDepth || capacity < 0 || (capacity && !park))
+  if (lanes % kBlock || max_depth > kMaxBounce || capacity < 0 || (capacity && !park))
     return (int)cudaErrorInvalidValue;
   ParkParams p{};
   p.ids = ids; p.ii = ii; p.jj = jj; p.target = target; p.scene = scene; p.n = n;
@@ -387,12 +399,13 @@ extern "C" int fused_park_render(const int32_t* ids, const float* ii, const floa
 
 // The reverse over `lanes` lanes: launch 2 of kernel 2 (park and parked
 // from launch 1), or kernel 3 (both null: every sample re-traced).
-// warp_acc null keeps the warps' accumulators in shared memory.
+// warp_acc null keeps the warps' accumulators in shared memory; `stack` as
+// launch_reverse's.
 extern "C" int reverse_render(const int32_t* ids, const float* ii, const float* jj,
                               const float* g, int stride, const float* scene, int n,
                               const float* cam, int lanes, int samples, int max_depth,
                               uint32_t k0, uint32_t k1, int sample_offset, int rr_start,
-                              int hbm, const int32_t* park, const int32_t* parked,
+                              int hbm, int stack, const int32_t* park, const int32_t* parked,
                               float* warp_acc, float* scene_part, float* cam_part,
                               void* stream) {
   if (parked && !park) return (int)cudaErrorInvalidValue;
@@ -402,7 +415,7 @@ extern "C" int reverse_render(const int32_t* ids, const float* ii, const float* 
   p.k0 = k0; p.k1 = k1; p.sample_offset = sample_offset; p.rr_start = rr_start;
   p.park = park; p.parked = parked; p.warp_acc = warp_acc;
   p.scene_part = scene_part; p.cam_part = cam_part;
-  return launch_reverse(p, hbm, static_cast<cudaStream_t>(stream));
+  return launch_reverse(p, hbm, stack, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int reduce_rows(const float* in, int rows, int cols, int chunk, float* out,

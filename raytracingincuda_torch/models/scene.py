@@ -217,3 +217,33 @@ def build_random_scene(
     active[1:n] = True
     return _to_scene(center, radius, albedo, fuzz, ior, mat, active, dtype,
                      device)
+
+
+def build_deep_scene(dtype=torch.float32, pad_to_multiple: Optional[int] = 8,
+                     device="cpu") -> Scene:
+    """A scene whose paths run deep, for the train kernels' deep stack: a
+    diffuse core (radius 2, albedo 0.99/0.96/0.93) inside a concentric
+    glass shell (radius 2.2, ior 4), centred 2.1 from the reference
+    camera's eye along its view, so that the camera looks from the gap
+    between them. A path that meets the shell more than 14.5 degrees from
+    its normal is held by total internal reflection; a path banks its
+    radiance only when it escapes through the shell (at 8x4x2spp, depth
+    256, 15 of the 61 banking paths end beyond bounce 64 at parity)."""
+    eye = np.array([13.0, 2.0, 3.0])
+    centre = eye - eye / np.linalg.norm(eye) * 2.1
+    n = 2
+    n_padded = _round_up(n, pad_to_multiple) if pad_to_multiple else n
+    center = np.zeros((n_padded, 3))
+    center[:, 1] = -1e6
+    center[:n] = centre
+    radius = np.ones(n_padded)
+    radius[:n] = (2.0, 2.2)
+    albedo = np.zeros((n_padded, 3))
+    albedo[0] = (0.99, 0.96, 0.93)
+    ior = np.ones(n_padded)
+    ior[1] = 4.0
+    mat = np.zeros(n_padded, np.int32)
+    mat[1] = DIELECTRIC
+    active = np.arange(n_padded) < n
+    return _to_scene(center, radius, albedo, np.zeros(n_padded), ior, mat,
+                     active, dtype, device)

@@ -46,6 +46,7 @@ from ..models.scene import Scene, SceneParams, param_leaves, params_from_leaves
 from ..parallel import mesh as meshlib
 from . import tracer
 from .render_kernel import make_diff_render
+from .stream_train_kernel import RECORD_BUDGET
 from .train_kernel import chain_to_params, fused_train, refuse_unported
 
 _STREAM = ("impl='stream' trains streamed scenes through make_stream_train "
@@ -412,7 +413,7 @@ def make_stream_train(stream, img_width: int, img_height: int,
                       learning_rate: float = 1e-2, trainable=None,
                       seed: int = 1227, fused: bool = True, mesh=None,
                       loss: str = "mse",
-                      huber_delta: float = 1.0):
+                      huber_delta: float = 1.0, budget: int = RECORD_BUDGET):
     """Inverse rendering for streamed scenes: ``(init_fn, step_fn)`` with
     ``step_fn(state, cam_cfg, mat_type, active, target) -> (state,
     loss)``, as ``make_train_step``.
@@ -430,7 +431,10 @@ def make_stream_train(stream, img_width: int, img_height: int,
     ``lane_group`` (the TPU schedule) arguments have no counterpart.
     ``mesh``: each rank steps its slice of the pixels; a fused step makes
     one ``all_reduce`` (the loss and the cotangents), a ``fused=False``
-    step two (the image's, then the cotangents')."""
+    step two (the image's, then the cotangents'). ``budget`` bounds the
+    gradient records a launch holds (``stream_train_kernel.plan_records``);
+    a fused step whose records need more than one window takes the
+    ``fused=False`` route on the card (render, loss, gradient windows)."""
     from .stream_kernel import StreamScene, build_stream_arrays, render_stream
     from .stream_train_kernel import (mse_train_stream, render_stream_grads,
                                       stream_grads_to_scene_mat)
@@ -452,7 +456,7 @@ def make_stream_train(stream, img_width: int, img_height: int,
     def step_fn(state: TrainState, cam_cfg: CameraConfig, mat_type, active,
                 target):
         st = stream_of(state.params, mat_type, active, cam_cfg)
-        kw = dict(seed=seed, mesh=mesh)
+        kw = dict(seed=seed, mesh=mesh, budget=budget)
         if fused:
             loss_v, d_stream, d_cr = mse_train_stream(
                 st, cam_cfg, target, img_width, img_height, samples_per_pixel,
@@ -460,7 +464,7 @@ def make_stream_train(stream, img_width: int, img_height: int,
         else:
             img = render_stream(st, cam_cfg, img_width, img_height,
                                 samples_per_pixel, max_depth, gamma=False,
-                                **kw).requires_grad_(True)
+                                seed=seed, mesh=mesh).requires_grad_(True)
             with torch.enable_grad():
                 loss_v = image_loss(img, torch.as_tensor(target).to(img),
                                     loss, huber_delta)

@@ -30,6 +30,19 @@ camera's scalars and the loss keep the train kernels' block partials and
 ``train_kernel._reduce_rows``. ``walk_counts`` runs the fused mode's walk
 alone and counts its work.
 
+A call's records take 40 bytes each, lanes x samples x max_depth of them
+(24.6 GB at 640x384, 100 spp and 25 bounces). ``plan_records`` splits a
+call into windows whose records fit ``RECORD_BUDGET``: windows of samples
+(``sample_offset`` windows add up) and, where one sample of every lane
+does not fit, chunks of lanes (lanes are independent). The gradient mode
+launches once a window and adds the windows' cotangents in the plan's
+order; its plain version takes the same windows. The fused mode needs
+every sample of a pixel before its loss's cotangent exists, so a plan of
+more than one window renders the image on the stream kernel, forms the
+cotangent with ``train_kernel.loss_and_cotangent`` and runs the gradient
+windows; one window is the single fused launch. ``budget`` is a keyword
+for tests, not a user's knob.
+
 ``_grads``, ``_fused`` and ``_segment_sum`` pick the kernel for CUDA
 tensors and the plain version for CPU tensors; nothing falls back.
 Gradients come back in stream row order; ``stream_grads_to_scene_mat``
@@ -38,6 +51,7 @@ maps them to scene order through ``perm``.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -54,29 +68,60 @@ from .stream_kernel import StreamScene
 # 32 warps of 32, one record a thread); the association depends on it alone
 TILE = 1024
 _WARP = 32
-# The record buffers hold padded x samples x max_depth records of 40
-# bytes; above this count (10.7 GB) the wrappers raise.
-MAX_RECORDS = 1 << 28
+# The record buffers hold lanes x samples x max_depth records of 40 bytes
+# (a row and nine floats); a launch's records take at most this many bytes
+# (plan_records), as the train kernels' park (train_kernel.PARK_BUDGET).
+RECORD_BUDGET = 2 << 30
+RECORD_BYTES = 4 + 4 * tk.GRAD_COLS
 
 # Launches of the CUDA kernels (the wrappers add one per launch).
 LAUNCHES = 0            # stream_train_render (both modes), stream_walk_counts
 SEGMENT_LAUNCHES = 0    # segment_sum's two kernels, two per call
 
 
-def _check(ids, ii, jj, rows, scene_mat, bounds, cam_row, *, block, samples,
-           max_depth, rr_start, sample_offset):
-    if max_depth > tk.MAX_DEPTH:
-        raise ValueError(
-            f"max_depth {max_depth} exceeds the train kernels' residual "
-            f"stack ({tk.MAX_DEPTH} bounces)")
-    if ids.shape[0] * samples * max_depth > MAX_RECORDS:
-        raise ValueError(
-            f"{ids.shape[0]} lanes x {samples} samples x {max_depth} "
-            f"bounces exceed the {MAX_RECORDS} gradient records a call "
-            "holds; split the samples (sample_offset windows add up)")
-    return sk._check(ids, ii, jj, rows, scene_mat, bounds, cam_row,
-                     block=block, samples=samples, max_depth=max_depth,
-                     rr_start=rr_start, sample_offset=sample_offset)
+class RecordWindow(NamedTuple):
+    """One launch's share of a call: lanes [lane0, lane0 + lanes) over
+    samples [sample0, sample0 + samples) of the call's window."""
+    lane0: int
+    lanes: int
+    sample0: int
+    samples: int
+
+
+def plan_records(lanes: int, samples: int, max_depth: int,
+                 budget: int = RECORD_BUDGET) -> list:
+    """The windows of a call over ``lanes`` lanes (a multiple of ``PAD``),
+    in the order their cotangents are added: each (lane, sample) falls in
+    exactly one, and one window's records (lanes x samples x max_depth x
+    40 bytes) take at most ``budget`` bytes. Windows of whole samples of
+    every lane where one sample fits, as many samples each as fit; else
+    one sample at a time in chunks of lanes (multiples of ``PAD``), the
+    chunks of a sample in lane order."""
+    if lanes <= 0 or lanes % rk.PAD:
+        raise ValueError(f"lanes must be a positive multiple of {rk.PAD}")
+    lane_bytes = max_depth * RECORD_BYTES            # one sample of a lane
+    if lanes * lane_bytes <= budget:
+        per = min(samples, budget // (lanes * lane_bytes))
+        return [RecordWindow(0, lanes, s0, min(per, samples - s0))
+                for s0 in range(0, samples, per)]
+    chunk = budget // lane_bytes // rk.PAD * rk.PAD
+    if chunk == 0:
+        raise ValueError(f"one sample of {rk.PAD} lanes at depth {max_depth} "
+                         f"needs {rk.PAD * lane_bytes} bytes of records, "
+                         f"above the budget of {budget}")
+    return [RecordWindow(l0, min(chunk, lanes - l0), s0, 1)
+            for s0 in range(samples) for l0 in range(0, lanes, chunk)]
+
+
+def _windows(ids, ii, jj, rows, plan):
+    """Each window of ``plan`` with its lanes' inputs: (window, ids, ii,
+    jj, rows); one window of every lane passes the tensors as they are."""
+    for w in plan:
+        sl = slice(w.lane0, w.lane0 + w.lanes)
+        if w.lanes == ids.shape[0]:
+            yield w, ids, ii, jj, rows
+        else:
+            yield w, ids[sl], ii[sl], jj[sl], rows[:, sl].contiguous()
 
 
 # -- the scatter ----------------------------------------------------------------
@@ -239,15 +284,35 @@ def scatter_records(rec_row, rec_val, n_rows: int) -> torch.Tensor:
 def stream_grads_reference(ids, ii, jj, g_rows, scene_mat, bounds, cam_row, *,
                            block: int, samples: int, max_depth: int,
                            seed: int = rtrng.DEFAULT_SEED, rr_start=None,
-                           sample_offset: int = 0):
+                           sample_offset: int = 0,
+                           budget: int = RECORD_BUDGET):
     """Plain PyTorch version of the kernel's gradient mode:
     ``train_kernel.grad_reference`` with the stream walk as the hit test,
     its records keyed by stream row and summed by
-    ``segment_sum_reference``. Returns (d_stream (rows, 16) in stream
-    order, d_cam_row (1, 24)); columns 9-15 and 18-23 are zero."""
-    rr_start = _check(ids, ii, jj, g_rows, scene_mat, bounds, cam_row,
-                      block=block, samples=samples, max_depth=max_depth,
-                      rr_start=rr_start, sample_offset=sample_offset)
+    ``segment_sum_reference``, window by window of
+    ``plan_records(..., budget)``, the windows' sums added in the plan's
+    order. Returns (d_stream (rows, 16) in stream order, d_cam_row (1,
+    24)); columns 9-15 and 18-23 are zero."""
+    rr_start = sk._check(ids, ii, jj, g_rows, scene_mat, bounds, cam_row,
+                         block=block, samples=samples, max_depth=max_depth,
+                         rr_start=rr_start, sample_offset=sample_offset)
+    d9 = dcam = None
+    for w, *lanes in _windows(ids, ii, jj, g_rows,
+                              plan_records(ids.shape[0], samples, max_depth,
+                                           budget)):
+        d9_w, dcam_w = _grads_window(
+            *lanes, scene_mat, bounds, cam_row, block=block,
+            samples=w.samples, max_depth=max_depth, seed=seed,
+            rr_start=rr_start, sample_offset=sample_offset + w.sample0)
+        d9 = d9_w if d9 is None else d9 + d9_w
+        dcam = dcam_w if dcam is None else dcam + dcam_w
+    return tk._outputs(d9, dcam)
+
+
+def _grads_window(ids, ii, jj, g_rows, scene_mat, bounds, cam_row, *, block,
+                  samples, max_depth, seed, rr_start, sample_offset):
+    """The plain gradient mode over one window: (d9 (rows, 9), dcam
+    (18,))."""
     dev, padded = ids.device, ids.shape[0]
     rec_row = torch.full((samples, max_depth, padded), -1, dtype=torch.int32,
                          device=dev)
@@ -273,7 +338,7 @@ def stream_grads_reference(ids, ii, jj, g_rows, scene_mat, bounds, cam_row, *,
     keys, src = record_order(rec_row.reshape(-1))
     d9 = segment_sum_reference(keys, src, rec_val.reshape(-1, tk.GRAD_COLS),
                                scene_mat.shape[0])
-    return tk._outputs(d9, dcam)
+    return d9, dcam
 
 
 def fused_stream_reference(ids, ii, jj, target_rows, scene_mat, bounds,
@@ -281,17 +346,19 @@ def fused_stream_reference(ids, ii, jj, target_rows, scene_mat, bounds,
                            max_depth: int, num_pixels: int,
                            seed: int = rtrng.DEFAULT_SEED, rr_start=None,
                            gamma: bool = False, loss: str = "mse",
-                           huber_delta: float = 1.0):
+                           huber_delta: float = 1.0,
+                           budget: int = RECORD_BUDGET):
     """Plain PyTorch version of the kernel's fused mode:
     ``stream_reference``'s render, ``train_kernel.loss_and_cotangent``,
-    then ``stream_grads_reference`` with that cotangent. Returns (loss sum
-    before the weight (), image (3, padded), d_stream, d_cam_row)."""
-    _check(ids, ii, jj, target_rows, scene_mat, bounds, cam_row, block=block,
-           samples=samples, max_depth=max_depth, rr_start=rr_start,
-           sample_offset=0)
-    budget = torch.full(ids.shape, float(samples), dtype=torch.float32,
-                        device=ids.device)
-    acc = sk.stream_reference(ids, ii, jj, budget, scene_mat, bounds, cam_row,
+    then ``stream_grads_reference`` with that cotangent (in the windows of
+    ``budget``). Returns (loss sum before the weight (), image (3, padded),
+    d_stream, d_cam_row)."""
+    sk._check(ids, ii, jj, target_rows, scene_mat, bounds, cam_row,
+              block=block, samples=samples, max_depth=max_depth,
+              rr_start=rr_start, sample_offset=0)
+    full = torch.full(ids.shape, float(samples), dtype=torch.float32,
+                      device=ids.device)
+    acc = sk.stream_reference(ids, ii, jj, full, scene_mat, bounds, cam_row,
                               block=block, samples=samples,
                               max_depth=max_depth, seed=seed,
                               rr_start=rr_start)
@@ -301,7 +368,8 @@ def fused_stream_reference(ids, ii, jj, target_rows, scene_mat, bounds,
                                           num_pixels=num_pixels)
     d_stream, d_cam = stream_grads_reference(
         ids, ii, jj, g.contiguous(), scene_mat, bounds, cam_row, block=block,
-        samples=samples, max_depth=max_depth, seed=seed, rr_start=rr_start)
+        samples=samples, max_depth=max_depth, seed=seed, rr_start=rr_start,
+        budget=budget)
     return terms.sum(), img, d_stream, d_cam
 
 
@@ -430,17 +498,26 @@ def _launch(ids, ii, jj, rows, scene_mat, bounds, cam_row, **kw):
 def stream_grads_kernel(ids, ii, jj, g_rows, scene_mat, bounds, cam_row, *,
                         block: int, samples: int, max_depth: int,
                         seed: int = rtrng.DEFAULT_SEED, rr_start=None,
-                        sample_offset: int = 0):
-    """Launch the kernel's gradient mode; same contract as
-    ``stream_grads_reference``. Launches on the current stream."""
+                        sample_offset: int = 0, budget: int = RECORD_BUDGET):
+    """Launch the kernel's gradient mode, once a window of
+    ``plan_records``; same contract as ``stream_grads_reference``.
+    Launches on the current stream; each window's record sort syncs once
+    (``record_order``)."""
     tk._cuda_only(ids, "stream_grads_kernel")
-    rr_start = _check(ids, ii, jj, g_rows, scene_mat, bounds, cam_row,
-                      block=block, samples=samples, max_depth=max_depth,
-                      rr_start=rr_start, sample_offset=sample_offset)
-    _, _, d_stream, d_cam = _launch(
-        ids, ii, jj, g_rows, scene_mat, bounds, cam_row, block=block,
-        samples=samples, max_depth=max_depth, seed=seed, rr_start=rr_start,
-        sample_offset=sample_offset, fused=False)
+    rr_start = sk._check(ids, ii, jj, g_rows, scene_mat, bounds, cam_row,
+                         block=block, samples=samples, max_depth=max_depth,
+                         rr_start=rr_start, sample_offset=sample_offset)
+    d_stream = d_cam = None
+    for w, *lanes in _windows(ids, ii, jj, g_rows,
+                              plan_records(ids.shape[0], samples, max_depth,
+                                           budget)):
+        _, _, ds, dc = _launch(
+            *lanes, scene_mat, bounds, cam_row, block=block,
+            samples=w.samples, max_depth=max_depth, seed=seed,
+            rr_start=rr_start, sample_offset=sample_offset + w.sample0,
+            fused=False)
+        d_stream = ds if d_stream is None else d_stream + ds
+        d_cam = dc if d_cam is None else d_cam + dc
     return d_stream, d_cam
 
 
@@ -448,21 +525,52 @@ def fused_stream_kernel(ids, ii, jj, target_rows, scene_mat, bounds, cam_row,
                         *, block: int, samples: int, max_depth: int,
                         num_pixels: int, seed: int = rtrng.DEFAULT_SEED,
                         rr_start=None, gamma: bool = False, loss: str = "mse",
-                        huber_delta: float = 1.0):
+                        huber_delta: float = 1.0,
+                        budget: int = RECORD_BUDGET):
     """Launch the kernel's fused mode; same contract as
-    ``fused_stream_reference``."""
+    ``fused_stream_reference``. Where ``plan_records`` gives more than one
+    window: the stream kernel's render, the loss block on the card
+    (``train_kernel.loss_and_cotangent``, its loss summed in the fused
+    launch's order) and the gradient mode window by window."""
     tk._cuda_only(ids, "fused_stream_kernel")
     if loss not in tk.LOSSES:
         raise ValueError(f"unknown loss {loss!r}; one of {tk.LOSSES}")
-    rr_start = _check(ids, ii, jj, target_rows, scene_mat, bounds, cam_row,
-                      block=block, samples=samples, max_depth=max_depth,
-                      rr_start=rr_start, sample_offset=0)
+    rr_start = sk._check(ids, ii, jj, target_rows, scene_mat, bounds, cam_row,
+                         block=block, samples=samples, max_depth=max_depth,
+                         rr_start=rr_start, sample_offset=0)
+    if len(plan_records(ids.shape[0], samples, max_depth, budget)) > 1:
+        full = torch.full(ids.shape, float(samples), dtype=torch.float32,
+                          device=ids.device)
+        acc = sk.stream_kernel(ids, ii, jj, full, scene_mat, bounds, cam_row,
+                               block=block, samples=samples,
+                               max_depth=max_depth, seed=seed,
+                               rr_start=rr_start)
+        img, terms, g = tk.loss_and_cotangent(
+            acc, target_rows, ids, samples=samples, gamma=gamma, loss=loss,
+            huber_delta=huber_delta, num_pixels=num_pixels)
+        d_stream, d_cam = stream_grads_kernel(
+            ids, ii, jj, g.contiguous(), scene_mat, bounds, cam_row,
+            block=block, samples=samples, max_depth=max_depth, seed=seed,
+            rr_start=rr_start, budget=budget)
+        return _block_sum(terms), img, d_stream, d_cam
     image, loss_part, d_stream, d_cam = _launch(
         ids, ii, jj, target_rows, scene_mat, bounds, cam_row, block=block,
         samples=samples, max_depth=max_depth, seed=seed, rr_start=rr_start,
         sample_offset=0, fused=True, num_pixels=num_pixels, gamma=gamma,
         loss=loss, huber_delta=huber_delta)
     return tk._reduce_rows(loss_part)[0], image, d_stream, d_cam
+
+
+def _block_sum(terms: torch.Tensor) -> torch.Tensor:
+    """The lanes' loss terms (padded,) summed as the fused launch sums
+    them: a halving tree over each block of ``PAD`` lanes (``block_tree``),
+    then the block partials by ``train_kernel._reduce_rows``."""
+    x = terms.view(-1, rk.PAD)
+    half = rk.PAD // 2
+    while half:
+        x = x[:, :half] + x[:, half:2 * half]
+        half //= 2
+    return tk._reduce_rows(x.contiguous())[0]
 
 
 def _grads(ids, *args, **kw):
@@ -503,7 +611,7 @@ def render_stream_grads(stream: StreamScene, cam_cfg: CameraConfig, g_acc,
                         samples_per_pixel: int, max_depth: int, *,
                         seed: int = rtrng.DEFAULT_SEED, dtype=torch.float32,
                         sample_offset: int = 0, pixel_order=None, mesh=None,
-                        rr_start=None):
+                        rr_start=None, budget: int = RECORD_BUDGET):
     """Cotangents for an upstream ``g_acc`` (H, W, 3) in the accumulated
     radiance domain (before 1/spp): (d_stream (rows, 16) in stream row
     order, d_cam_row (1, 24)). Calls over disjoint ``sample_offset``
@@ -511,7 +619,9 @@ def render_stream_grads(stream: StreamScene, cam_cfg: CameraConfig, g_acc,
     schedule's keywords (``ray_tile``, ``lane_group``, ``sweep``,
     ``window``, ``pixels_per_lane``, ``park``, ``acc``) have no
     counterpart. ``mesh``: each rank takes its slice of the lanes, and the
-    cotangents are summed over the ranks (one ``all_reduce``)."""
+    cotangents are summed over the ranks (one ``all_reduce``). The records
+    go in windows of ``plan_records(..., budget)`` (each rank plans its own
+    lanes)."""
     tk.refuse_unported(dtype)
     ids, ii, jj, rows, cam_row = _lanes(stream, cam_cfg, img_width,
                                         img_height, samples_per_pixel,
@@ -521,7 +631,7 @@ def render_stream_grads(stream: StreamScene, cam_cfg: CameraConfig, g_acc,
                              stream.bounds, cam_row, block=stream.block,
                              samples=samples_per_pixel, max_depth=max_depth,
                              seed=seed, rr_start=rr_start,
-                             sample_offset=sample_offset)
+                             sample_offset=sample_offset, budget=budget)
     return meshlib.all_reduce_sum(mesh, d_stream, d_cam)
 
 
@@ -530,9 +640,12 @@ def mse_train_stream(stream: StreamScene, cam_cfg: CameraConfig, target,
                      max_depth: int, *, seed: int = rtrng.DEFAULT_SEED,
                      dtype=torch.float32, gamma: bool = False,
                      pixel_order=None, mesh=None, rr_start=None,
-                     loss: str = "mse", huber_delta: float = 1.0):
+                     loss: str = "mse", huber_delta: float = 1.0,
+                     budget: int = RECORD_BUDGET):
     """The fused stream step: (loss, d_stream (rows, 16) in stream order,
-    d_cam_row (1, 24)) against a target (H, W, 3), from one launch. The
+    d_cam_row (1, 24)) against a target (H, W, 3), from one launch where
+    the records fit ``budget`` in one window (else the windowed route of
+    ``fused_stream_kernel``). The
     loss ('mse' | 'l1' | 'huber' | 'relmse') is a mean over pixels and
     channels of the image in linear radiance (``gamma=False``, the JAX
     package's only mode) or after gamma 2. The TPU schedule's keywords
@@ -548,7 +661,7 @@ def mse_train_stream(stream: StreamScene, cam_cfg: CameraConfig, target,
         ids, ii, jj, rows, stream.scene_mat, stream.bounds, cam_row,
         block=stream.block, samples=samples_per_pixel, max_depth=max_depth,
         num_pixels=num_pixels, seed=seed, rr_start=rr_start, gamma=gamma,
-        loss=loss, huber_delta=huber_delta)
+        loss=loss, huber_delta=huber_delta, budget=budget)
     total, d_stream, d_cam = meshlib.all_reduce_sum(mesh, total, d_stream,
                                                     d_cam)
     w = tk.loss_constants(samples_per_pixel, num_pixels, huber_delta)["w"]

@@ -63,10 +63,14 @@ from .backward import (N_CAM, bounce_draws, hit_winner, primary_ray_vjp,
 from .tracer import _linear_to_gamma, primary_ray_draws, primary_rays_from_ij
 from .vec import Vec3
 
-# The CUDA kernels keep each sample's path in a per-thread stack of this
-# many bounces (at least the JAX north star's 50); a deeper max_depth
-# raises, it is never truncated.
-MAX_DEPTH = 64
+# The deepest path the train kernels take: the sampler's bounce field
+# (rng.MAX_BOUNCE, 256), as in JAX, whose validate_stream_ids raises above
+# it. The reverse keeps a sample's path in a per-thread stack; it is built
+# twice (csrc/train_render.cu), for STACK_SHALLOW bounces (the main paths'
+# depths, the north star's 50 among them) and for MAX_DEPTH, and a launch
+# takes the smaller instance that holds max_depth.
+MAX_DEPTH = rtrng.MAX_BOUNCE
+STACK_SHALLOW = 64
 LOSSES = ("mse", "l1", "huber", "relmse")
 # scene-matrix columns that carry gradients (centre, radius, albedo,
 # fuzz, ior); mat/active and the spare columns get zeros
@@ -121,18 +125,6 @@ def refuse_unported(dtype=torch.float32, layout: str = "vmem") -> None:
         raise ValueError(f"dtype must be float32, got {dtype!r}")
 
 
-def _check(ids, ii, jj, rows, scene_mat, cam_row, *, samples, max_depth,
-           rr_start, sample_offset, layout):
-    if max_depth > MAX_DEPTH:
-        raise ValueError(
-            f"max_depth {max_depth} exceeds the train kernels' residual "
-            f"stack ({MAX_DEPTH} bounces)")
-    return rk._check_args(ids, ii, jj, rows, scene_mat, cam_row,
-                          samples=samples, max_depth=max_depth,
-                          rr_start=rr_start, sample_offset=sample_offset,
-                          layout=layout)
-
-
 def _f32(x: float) -> float:
     """A python float rounded to f32, as JAX rounds a weak constant."""
     return float(np.float32(x))
@@ -155,9 +147,10 @@ def grad_reference(ids, ii, jj, g_rows, scene_mat, cam_row, *, samples: int,
     primary ray's adjoint. Returns (d_scene_mat (N, 16), d_cam_row (1,
     24)); columns 9-15 and 18-23 are zero. ``layout`` only changes where
     the kernel keeps the scene."""
-    rr_start = _check(ids, ii, jj, g_rows, scene_mat, cam_row,
-                      samples=samples, max_depth=max_depth, rr_start=rr_start,
-                      sample_offset=sample_offset, layout=layout)
+    rr_start = rk._check_args(ids, ii, jj, g_rows, scene_mat, cam_row,
+                              samples=samples, max_depth=max_depth,
+                              rr_start=rr_start, sample_offset=sample_offset,
+                              layout=layout)
     n = scene_mat.shape[0]
     dev = ids.device
     d9 = torch.zeros((n, GRAD_COLS), dtype=torch.float32, device=dev)
@@ -181,6 +174,32 @@ def _outputs(d9, dcam):
     d_cam = torch.zeros((1, 24), dtype=torch.float32, device=d9.device)
     d_cam[0, :N_CAM] = dcam
     return d_scene, d_cam
+
+
+def path_ends(ids, ii, jj, scene_mat, cam_row, *, samples: int,
+              max_depth: int, seed: int = rtrng.DEFAULT_SEED, rr_start=None,
+              layout: str = "vmem") -> torch.Tensor:
+    """Where each sample's path banked its radiance, from kernel A's plain
+    version: (samples, padded) int64, the bounce at which the path missed
+    (its reverse runs that many steps), or 0 where it has nothing to pass
+    back (it ended black, or its primary ray missed)."""
+    rows = torch.ones((3, ids.shape[0]), device=ids.device)
+    rr_start = rk._check_args(ids, ii, jj, rows, scene_mat, cam_row,
+                              samples=samples, max_depth=max_depth,
+                              rr_start=rr_start, sample_offset=0,
+                              layout=layout)
+    ends = torch.zeros((samples, ids.shape[0]), dtype=torch.int64,
+                       device=ids.device)
+
+    def record(si, b, slot, rows9):
+        ends[si] = torch.where((slot >= 0) & (ends[si] == 0), b + 1, ends[si])
+
+    _grad_lanes(ids, ii, jj, rows, rk.scene_from_matrix(scene_mat),
+                rk.unpack_camera(cam_row), rtrng.key_from_seed(seed), None,
+                torch.zeros(N_CAM, device=ids.device), samples=samples,
+                max_depth=max_depth, rr_start=rr_start, sample_offset=0,
+                record=record)
+    return ends
 
 
 def _grad_lanes(ids, fi, fj, rows, scene, cam, key, d9, dcam, *, samples,
@@ -293,9 +312,9 @@ def fused_train_reference(ids, ii, jj, target_rows, scene_mat, cam_row, *,
     the pointwise loss block, then ``grad_reference`` with that
     cotangent. Returns (loss sum before the weight (), image (3, padded),
     d_scene_mat (N, 16), d_cam_row (1, 24))."""
-    _check(ids, ii, jj, target_rows, scene_mat, cam_row, samples=samples,
-           max_depth=max_depth, rr_start=rr_start, sample_offset=0,
-           layout=layout)
+    rk._check_args(ids, ii, jj, target_rows, scene_mat, cam_row,
+                   samples=samples, max_depth=max_depth, rr_start=rr_start,
+                   sample_offset=0, layout=layout)
     budget = torch.full(ids.shape, float(samples), dtype=torch.float32,
                         device=ids.device)
     acc = rk.regen_reference(ids, ii, jj, budget, scene_mat, cam_row,
@@ -338,6 +357,7 @@ _REVERSE_ARGTYPES = [
     _I, _I,         # samples, max_depth
     _U, _U,         # key words
     _I, _I, _I,     # sample_offset, rr_start (-1 = off), hbm layout
+    _I,             # stack instance (0: the smaller that holds max_depth)
     _P, _P,         # park, parked (null: nothing parked)
     _P,             # the warps' accumulators (null: shared memory)
     _P, _P,         # scene partials (blocks, N * 9), camera partials (blocks, 18)
@@ -448,8 +468,8 @@ def _reduce_rows(partials: torch.Tensor) -> torch.Tensor:
 
 
 def _reverse(ids, ii, jj, g_rows, soa, cam_row, window, *, samples,
-             max_depth, key, sample_offset, rr_start, layout, park, parked,
-             warp_acc, scene_part, cam_part):
+             max_depth, key, sample_offset, rr_start, layout, stack, park,
+             parked, warp_acc, scene_part, cam_part):
     """One launch of the reverse over one window of lanes."""
     from . import _build
 
@@ -459,7 +479,8 @@ def _reverse(ids, ii, jj, g_rows, soa, cam_row, window, *, samples,
                  _at(g_rows, col=w0), g_rows.shape[1], soa.data_ptr(),
                  soa.shape[1], cam_row.data_ptr(), lanes, samples, max_depth,
                  *key, sample_offset, -1 if rr_start is None else rr_start,
-                 int(layout == "hbm"), _at(park), _at(parked, col=w0),
+                 int(layout == "hbm"), stack or 0, _at(park),
+                 _at(parked, col=w0),
                  _at(warp_acc), _at(scene_part, w0 // rk.PAD),
                  _at(cam_part, w0 // rk.PAD), _stream(ids))
     _raise_on(err, "reverse_render")
@@ -481,15 +502,18 @@ def grad_kernel(ids, ii, jj, g_rows, scene_mat, cam_row, *, samples: int,
                 max_depth: int, seed: int = rtrng.DEFAULT_SEED,
                 rr_start=None, sample_offset: int = 0,
                 layout: str = "vmem", budget: int = PARK_BUDGET,
-                acc: Optional[str] = None):
+                acc: Optional[str] = None, stack: Optional[int] = None):
     """Launch kernel A (the reverse with nothing parked: every sample
     re-traced); same contract as ``grad_reference``. Launches on the
-    current stream without synchronising."""
+    current stream without synchronising. ``stack`` (STACK_SHALLOW or
+    MAX_DEPTH) forces the reverse's instance, for tests and measurements;
+    by default the smaller one that holds ``max_depth``."""
     global GRAD_LAUNCHES
     _cuda_only(ids, "grad_kernel")
-    rr_start = _check(ids, ii, jj, g_rows, scene_mat, cam_row,
-                      samples=samples, max_depth=max_depth, rr_start=rr_start,
-                      sample_offset=sample_offset, layout=layout)
+    rr_start = rk._check_args(ids, ii, jj, g_rows, scene_mat, cam_row,
+                              samples=samples, max_depth=max_depth,
+                              rr_start=rr_start, sample_offset=sample_offset,
+                              layout=layout)
     padded, n = ids.shape[0], scene_mat.shape[0]
     plan = plan_park(padded, samples, max_depth, n, layout, capacity=0,
                      budget=budget, acc=acc)
@@ -504,8 +528,8 @@ def grad_kernel(ids, ii, jj, g_rows, scene_mat, cam_row, *, samples: int,
         _reverse(ids, ii, jj, g_rows, soa, cam_row, window, samples=samples,
                  max_depth=max_depth, key=key,
                  sample_offset=sample_offset, rr_start=rr_start,
-                 layout=layout, park=None, parked=None, warp_acc=warp_acc,
-                 scene_part=scene_part, cam_part=cam_part)
+                 layout=layout, stack=stack, park=None, parked=None,
+                 warp_acc=warp_acc, scene_part=scene_part, cam_part=cam_part)
         GRAD_LAUNCHES += 1
     return _outputs(_reduce_rows(scene_part).view(n, GRAD_COLS),
                     _reduce_rows(cam_part))
@@ -529,16 +553,19 @@ def fused_train_parts(ids, ii, jj, target_rows, scene_mat, cam_row, *,
                       huber_delta: float = 1.0, layout: str = "vmem",
                       capacity: Optional[int] = None,
                       budget: int = PARK_BUDGET,
-                      acc: Optional[str] = None) -> FusedParts:
+                      acc: Optional[str] = None,
+                      stack: Optional[int] = None) -> FusedParts:
     """Kernel B's launches (per window of ``plan_park``: the park render,
-    then the reverse), before the block partials are summed."""
+    then the reverse), before the block partials are summed; ``stack`` as
+    ``grad_kernel``'s."""
     global FUSED_LAUNCHES
     _cuda_only(ids, "fused_train_kernel")
     if loss not in LOSSES:
         raise ValueError(f"unknown loss {loss!r}; one of {LOSSES}")
-    rr_start = _check(ids, ii, jj, target_rows, scene_mat, cam_row,
-                      samples=samples, max_depth=max_depth, rr_start=rr_start,
-                      sample_offset=0, layout=layout)
+    rr_start = rk._check_args(ids, ii, jj, target_rows, scene_mat, cam_row,
+                              samples=samples, max_depth=max_depth,
+                              rr_start=rr_start, sample_offset=0,
+                              layout=layout)
     from . import _build
 
     render = _build.function("fused_park_render", _PARK_ARGTYPES)
@@ -575,7 +602,7 @@ def fused_train_parts(ids, ii, jj, target_rows, scene_mat, cam_row, *,
         FUSED_LAUNCHES += 1
         _reverse(ids, ii, jj, g, soa, cam_row, window, samples=samples,
                  max_depth=max_depth, key=key, sample_offset=0,
-                 rr_start=rr_start, layout=layout, park=park,
+                 rr_start=rr_start, layout=layout, stack=stack, park=park,
                  parked=None if park is None else parked, warp_acc=warp_acc,
                  scene_part=scene_part, cam_part=cam_part)
         FUSED_LAUNCHES += 1
@@ -588,13 +615,15 @@ def fused_train_kernel(ids, ii, jj, target_rows, scene_mat, cam_row, *,
                        gamma: bool = True, loss: str = "mse",
                        huber_delta: float = 1.0, layout: str = "vmem",
                        capacity: Optional[int] = None,
-                       budget: int = PARK_BUDGET, acc: Optional[str] = None):
+                       budget: int = PARK_BUDGET, acc: Optional[str] = None,
+                       stack: Optional[int] = None):
     """Launch kernel B; same contract as ``fused_train_reference``."""
     parts = fused_train_parts(
         ids, ii, jj, target_rows, scene_mat, cam_row, samples=samples,
         max_depth=max_depth, num_pixels=num_pixels, seed=seed,
         rr_start=rr_start, gamma=gamma, loss=loss, huber_delta=huber_delta,
-        layout=layout, capacity=capacity, budget=budget, acc=acc)
+        layout=layout, capacity=capacity, budget=budget, acc=acc,
+        stack=stack)
     n = scene_mat.shape[0]
     d_scene, d_cam = _outputs(
         _reduce_rows(parts.scene_part).view(n, GRAD_COLS),

@@ -336,3 +336,160 @@ def test_cli_route_matches_renderer(case, tmp_path, capsys):
     ppm.write_ppm(str(tmp_path / "want.ppm"), want)
     assert (tmp_path / name).read_bytes() == (
         tmp_path / "want.ppm").read_bytes()
+
+
+# -- the train entry points' limits -------------------------------------------
+
+TRAIN_ENTRIES = ("make_mse_train", "make_train_step oracle",
+                 "make_train_step kernel", "make_train_step fused",
+                 "render_kernel_grads", "make_diff_render",
+                 "make_stream_train fused", "make_stream_train two-program")
+LIMIT_DEPTHS = (64, 65, 256, 257)
+TW, TH = 8, 4
+# (entry, max_depth) -> what each package does, where they differ on
+# purpose (ROADMAP.md Queue 3, "Divergences kept on purpose").
+DEPTH_DIVERGENCES = {
+    (entry, 257): "JAX's train kernels (mse_train_pallas, "
+    "render_pallas_grads, the stream gradient kernel and mse_train_stream) "
+    "never call validate_stream_ids: at 257 bounces bounce 256's draws are "
+    "the next sample's bounce 0's, with no error. The port raises with the "
+    "sampler's message there, as JAX's renders and its make_diff_render do."
+    for entry in ("make_mse_train", "make_train_step fused",
+                  "render_kernel_grads", "make_stream_train fused")}
+PIXEL_LIMIT_DIVERGENCE = (
+    "The port's lanes stop below MAX_PIXELS = 2^24 pixels "
+    "(render_kernel.MAX_PIXELS) on every route; JAX's render_pallas at "
+    "pixels_per_lane=1 (its make_renderer below 8 spp) takes such an image, "
+    "and its make_renderer at 8 spp and more (16 pixels a lane) raises as "
+    "the port does.")
+
+
+def _port_train(entry, depth):
+    from raytracingincuda_torch.ops import grad as tgrad
+    from raytracingincuda_torch.ops import render_kernel as rk
+    from raytracingincuda_torch.ops import stream_kernel as sk
+    from raytracingincuda_torch.ops import train_kernel as tk
+
+    s, cam = build_scene(2), CameraConfig.reference_default()
+    tgt = torch.zeros((TH, TW, 3))
+    if entry == "make_mse_train":
+        return tk.make_mse_train(s.mat_type, s.active, TW, TH, 1, depth)(
+            s.params, cam, tgt)[0]
+    if entry.startswith("make_train_step"):
+        init_fn, step_fn = tgrad.make_train_step(
+            TW, TH, 1, depth, impl=entry.split()[1])
+        return step_fn(init_fn(s.params), cam, s.mat_type, s.active, tgt)[1]
+    if entry == "render_kernel_grads":
+        return tk.render_kernel_grads(s, cam, tgt + 1.0, TW, TH, 1, depth)[0]
+    if entry == "make_diff_render":
+        return rk.make_diff_render(s.mat_type, s.active, TW, TH, 1, depth)(
+            s.params, cam)
+    init_fn, step_fn = tgrad.make_stream_train(
+        sk.prepare_stream_scene(s, block=32), TW, TH, 1, depth,
+        fused=entry.endswith("fused"))
+    return step_fn(init_fn(s.params), cam, s.mat_type, s.active, tgt)[1]
+
+
+def _jax_train(entry, depth):
+    """JAX's entry point traced with ``jax.eval_shape``: the depth checks
+    are host code, so a refusal raises while tracing, and a function that
+    traces takes the depth (nothing is compiled)."""
+    import jax
+    import jax.numpy as jnp
+
+    from raytracingincuda_tpu.models.camera import CameraConfig as JCam
+    from raytracingincuda_tpu.models.scene import build_scene as jbuild
+    from raytracingincuda_tpu.ops import grad as jg
+    from raytracingincuda_tpu.ops import pallas_backward as pb
+    from raytracingincuda_tpu.ops import pallas_kernel as pk
+    from raytracingincuda_tpu.ops.pallas_stream import prepare_stream_scene
+
+    s, cam = jbuild(2), JCam.reference_default()
+    tgt = jnp.zeros((TH, TW, 3))
+    if entry == "make_mse_train":
+        f = pb.make_mse_train(s.mat_type, s.active, TW, TH, 1, depth,
+                              interpret=True)
+        return jax.eval_shape(f, s.params, cam, tgt)
+    if entry.startswith("make_train_step"):
+        impl = {"kernel": "pallas"}.get(entry.split()[1], entry.split()[1])
+        init_fn, step_fn = jg.make_train_step(TW, TH, 1, depth, impl=impl,
+                                              interpret=True)
+        return jax.eval_shape(lambda p: step_fn(init_fn(p), cam, s.mat_type,
+                                                s.active, tgt), s.params)
+    if entry == "render_kernel_grads":
+        return jax.eval_shape(lambda: pb.render_pallas_grads(
+            s, cam, tgt + 1.0, TW, TH, 1, depth, interpret=True))
+    if entry == "make_diff_render":
+        f = pk.make_diff_render(s.mat_type, s.active, TW, TH, 1, depth,
+                                interpret=True)
+        return jax.eval_shape(f, s.params, cam)
+    init_fn, step_fn = jg.make_stream_train(
+        prepare_stream_scene(s, block=32), TW, TH, 1, depth,
+        fused=entry.endswith("fused"), interpret=True)
+    return jax.eval_shape(lambda p: step_fn(init_fn(p), cam, s.mat_type,
+                                            s.active, tgt), s.params)
+
+
+@pytest.mark.parametrize("entry", TRAIN_ENTRIES)
+def test_train_entry_depth_limits(entry):
+    """Each train entry point at max_depth 64, 65, 256 and 257 runs in
+    both packages or raises in both (the port's refusal with the sampler's
+    message), except the cases of DEPTH_DIVERGENCES, where JAX runs and
+    the port raises. The port runs for real (8x4x1spp, scene 2, the plain
+    versions) and its results are finite."""
+    def outcome(fn):
+        try:
+            return fn()
+        except Exception as e:  # a refusal of either kind counts
+            return e
+
+    for depth in LIMIT_DEPTHS:
+        port = outcome(lambda: _port_train(entry, depth))
+        jax_out = outcome(lambda: _jax_train(entry, depth))
+        if isinstance(port, Exception):
+            assert isinstance(port, ValueError), port
+            assert "bounce counter field" in str(port), port
+        else:
+            assert bool(torch.isfinite(torch.as_tensor(port)).all())
+        if (entry, depth) in DEPTH_DIVERGENCES:
+            assert isinstance(port, Exception) and not isinstance(
+                jax_out, Exception), (entry, depth, port, jax_out)
+        else:
+            assert (isinstance(port, Exception)
+                    == isinstance(jax_out, Exception)), (entry, depth, port,
+                                                         jax_out)
+        assert isinstance(port, Exception) == (depth > 256), (entry, depth)
+
+
+def test_max_pixels_divergence():
+    """PIXEL_LIMIT_DIVERGENCE: at 4096x4096 (2^24 pixels) the port's
+    renderer and train entry points raise; JAX's render_pallas traces
+    (jax.eval_shape) at pixels_per_lane=1 and raises at 16, which its
+    make_renderer's kernel route takes at 8 spp and more."""
+    import jax
+
+    from raytracingincuda_tpu.models.camera import CameraConfig as JCam
+    from raytracingincuda_tpu.models.scene import build_scene as jbuild
+    from raytracingincuda_tpu.ops import pallas_kernel as pk
+    from raytracingincuda_torch.ops import render_kernel as rk
+    from raytracingincuda_torch.ops import train_kernel as tk
+
+    side = 4096
+    assert side * side == rk.MAX_PIXELS
+    s, cam = build_scene(2), CameraConfig.reference_default()
+    for spp in (1, 8):
+        with pytest.raises(ValueError, match="pixels"):
+            make_renderer(RenderConfig(scene_id=2, width=side, height=side,
+                                       samples=spp, bounces=2), "cpu")(s, cam)
+    with pytest.raises(ValueError, match="pixels"):
+        tk.render_kernel_grads(s, cam, torch.zeros((1, 1, 3)), side, side, 1,
+                               2)
+    js, jcam = jbuild(2), JCam.reference_default()
+
+    def jax_render(kpl):
+        return jax.eval_shape(lambda: pk.render_pallas(
+            js, jcam, side, side, 1, 2, interpret=True, pixels_per_lane=kpl))
+
+    assert jax_render(1).shape == (side, side, 3)
+    with pytest.raises(ValueError, match="16M pixels"):
+        jax_render(16)

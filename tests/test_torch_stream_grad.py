@@ -314,12 +314,15 @@ def test_stream_gradient_arguments_raise(spread):
     with pytest.raises(ValueError, match="CUDA"):
         stk.fused_stream_kernel(*args, block=32, samples=SPP, max_depth=DEPTH,
                                 num_pixels=W * H)
-    with pytest.raises(ValueError, match="stack"):
+    # the sampler's bound, with its message (JAX's validate_stream_ids);
+    # 65 bounces run, and no record count raises any more
+    with pytest.raises(ValueError, match="bounce counter field"):
         stk.stream_grads_reference(*args, block=32, samples=1,
                                    max_depth=tk.MAX_DEPTH + 1)
-    with pytest.raises(ValueError, match="records"):
-        stk._check(*args, block=32, samples=1 << 20, max_depth=64,
-                   rr_start=None, sample_offset=0)
+    stk.stream_grads_reference(*args, block=32, samples=1,
+                               max_depth=tk.STACK_SHALLOW + 1)
+    assert len(stk.plan_records(ids.shape[0], 1 << 20, 256)) == -(-(1 << 20)
+                                                                 // 546)
     with pytest.raises(ValueError, match="CUDA"):
         stk.walk_counts(ids, ii, jj, st.scene_mat, st.bounds, row, block=32,
                         samples=SPP, max_depth=DEPTH)
@@ -327,6 +330,29 @@ def test_stream_gradient_arguments_raise(spread):
         stk.segment_sum_kernel(torch.zeros(1, dtype=torch.int32),
                                torch.zeros(1, dtype=torch.int64),
                                torch.zeros((1, 9)), 1)
+
+
+@pytest.mark.parametrize("budget,n_windows", [
+    (2 * rk.PAD * DEPTH * stk.RECORD_BYTES, 4),   # chunks of 256 lanes
+    (W * H * DEPTH * stk.RECORD_BYTES, 2),        # one sample a window
+])
+def test_stream_grads_in_record_windows(spread, weight, budget, n_windows):
+    """The plain gradient mode in the windows of a small record budget
+    (sample windows, and chunks of lanes where a sample does not fit)
+    equals one window within 1e-6 of each output's largest entry: the
+    windows' sums add in another order."""
+    _, ts = spread
+    cam = TCam.reference_default()
+    st = sk.prepare_stream_scene(ts, block=32)
+    ids, ii, jj, _, _, row = rk.regen_inputs(ts, cam, W, H, SPP)
+    g = tk._lane_rows(torch.from_numpy(weight), ids, W * H)
+    args = (ids, ii, jj, g, st.scene_mat, st.bounds, row)
+    kw = dict(block=32, samples=SPP, max_depth=DEPTH, rr_start=2)
+    assert len(stk.plan_records(ids.shape[0], SPP, DEPTH, budget)) == n_windows
+    one = stk.stream_grads_reference(*args, **kw)
+    got = stk.stream_grads_reference(*args, budget=budget, **kw)
+    for a, b, what in zip(got, one, ("d_stream", "d_cam_row")):
+        _close(a, b.numpy(), 1e-6, what)
 
 
 @pytest.mark.cuda
@@ -408,3 +434,30 @@ def test_stream_train_kernel_blocks_of_1024_rr2_on_card(cuda, fused):
             want[0].reshape(1), want[2], want[3])
     for a, c in zip(got, want):
         _close(a, c.cpu().numpy(), 1e-4, "stream gradients")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rr", [None, 2])
+def test_stream_grads_kernel_in_record_windows_on_card(cuda, rr):
+    """The gradient mode in forced windows (chunks of lanes and samples)
+    against its plain version in the same windows: 1e-4 of the largest
+    entry, the same bits from run to run, one launch a window."""
+    s = build_random_scene(1000, seed=3, device=cuda)
+    cam = TCam.reference_default()
+    st = sk.prepare_stream_scene(s, block=64)
+    ids, ii, jj, _, _, row = rk.regen_inputs(s, cam, 64, 40, 4)
+    g = torch.randn((3, ids.shape[0]), generator=torch.Generator().manual_seed(
+        4)).to(cuda)
+    budget = 7 * rk.PAD * 6 * stk.RECORD_BYTES   # 20 blocks a sample: 3 chunks
+    kw = dict(block=64, samples=4, max_depth=6, rr_start=rr, budget=budget)
+    args = (ids, ii, jj, g, st.scene_mat, st.bounds, row)
+    n = len(stk.plan_records(ids.shape[0], 4, 6, budget))
+    before = stk.LAUNCHES
+    got = stk.stream_grads_kernel(*args, **kw)
+    again = stk.stream_grads_kernel(*args, **kw)
+    torch.cuda.synchronize()
+    assert n == 12 and stk.LAUNCHES == before + 2 * n
+    want = stk.stream_grads_reference(*args, **kw)
+    for a, b, c in zip(got, again, want):
+        assert torch.equal(a, b)
+        _close(a, c.cpu().numpy(), 1e-4, "windowed gradient mode")

@@ -96,55 +96,64 @@ def target():
         np.float32)
 
 
-@pytest.mark.parametrize("fused", [True, False])
-def test_carried_stream_train_step_matches_jax(small, target, fused):
-    """A JAX TrainState after one stream step (albedo and fuzz trainable),
-    carried into the port, then one more step on each side: the loss to
-    1e-5, each trainable parameter within 1e-6 (as the carried oracle
-    step), the frozen ones unchanged, moments to 2e-3 of each leaf's
-    largest entry, count and step. Geometry is frozen here: on this
-    24x16 image one knife-edge metal bounce, sent elsewhere by a 1-ulp
-    rsqrt difference, moves a centre's gradient by 0.2% (measured), and
-    Adam's normalised step turns that into 1e-5 of the parameter; the
-    geometry step is held to the JAX oracle in
-    test_carried_stream_step_trains_geometry_as_jax."""
-    import jax
-    import jax.numpy as jnp
+@pytest.fixture(scope="module")
+def jax_carried(small, target):
+    """``jax_carried(fused)``: a JAX TrainState after one stream step
+    (albedo and fuzz trainable) and the next JAX step from it: (state,
+    next state, loss), each computed once."""
+    cache = {}
 
-    from raytracingincuda_torch.models.convert import train_state_from_numpy
+    def get(fused):
+        if fused not in cache:
+            import jax.numpy as jnp
+
+            from raytracingincuda_tpu.models.camera import CameraConfig as JCam
+            from raytracingincuda_tpu.models.scene import (
+                SceneParams as JParams)
+            from raytracingincuda_tpu.ops.grad import make_stream_train
+            from raytracingincuda_tpu.ops.pallas_stream import (
+                prepare_stream_scene)
+            from raytracingincuda_tpu.ops.vec import Vec3 as JV
+
+            js, _ = small
+            jmask = JParams(center=JV(False, False, False), radius=False,
+                            albedo=JV(True, True, True), fuzz=True, ior=False)
+            jcam, jtgt = JCam.reference_default(), jnp.asarray(target)
+            init_fn, step_fn = make_stream_train(
+                prepare_stream_scene(js, block=32), W, H, SPP, DEPTH,
+                fused=fused, trainable=jmask)
+            state, _ = step_fn(init_fn(js.params), jcam, js.mat_type,
+                               js.active, jtgt)
+            nxt, jloss = step_fn(state, jcam, js.mat_type, js.active, jtgt)
+            cache[fused] = state, nxt, jloss
+        return cache[fused]
+
+    return get
+
+
+def _albedo_fuzz_mask():
     from raytracingincuda_torch.models.scene import SceneParams
     from raytracingincuda_torch.ops.vec import Vec3 as TV
-    from raytracingincuda_tpu.models.camera import CameraConfig as JCam
-    from raytracingincuda_tpu.models.scene import SceneParams as JParams
-    from raytracingincuda_tpu.ops.grad import make_stream_train
-    from raytracingincuda_tpu.ops.pallas_stream import prepare_stream_scene
-    from raytracingincuda_tpu.ops.vec import Vec3 as JV
 
-    js, ts = small
-    jmask = JParams(center=JV(False, False, False), radius=False,
-                    albedo=JV(True, True, True), fuzz=True, ior=False)
-    tmask = SceneParams(center=TV(False, False, False), radius=False,
-                        albedo=TV(True, True, True), fuzz=True, ior=False)
-    jcam, jtgt = JCam.reference_default(), jnp.asarray(target)
-    init_fn, step_fn = make_stream_train(prepare_stream_scene(js, block=32),
-                                         W, H, SPP, DEPTH, fused=fused,
-                                         trainable=jmask)
-    state, _ = step_fn(init_fn(js.params), jcam, js.mat_type, js.active, jtgt)
-    nxt, jloss = step_fn(state, jcam, js.mat_type, js.active, jtgt)
+    return SceneParams(center=TV(False, False, False), radius=False,
+                       albedo=TV(True, True, True), fuzz=True, ior=False)
 
-    def carry(s):
-        return train_state_from_numpy(
-            [np.asarray(x) for x in jax.tree_util.tree_leaves(s)],
-            trainable=tmask)
 
-    carried = carry(state)
-    _, step_t = tgrad.make_stream_train(
-        sk.prepare_stream_scene(ts, block=32), W, H, SPP, DEPTH, fused=fused,
-        trainable=tmask)
-    new, tloss = step_t(carried, TCam.reference_default(), ts.mat_type,
-                        ts.active, torch.from_numpy(target))
+def _carry(s, trainable=None):
+    import jax
+
+    from raytracingincuda_torch.models.convert import train_state_from_numpy
+
+    return train_state_from_numpy(
+        [np.asarray(x) for x in jax.tree_util.tree_leaves(s)],
+        trainable=trainable)
+
+
+def _hold_to_jax(new, want, carried, tloss, jloss, tmask):
+    """The carried test's bars: the loss to 1e-5, each trainable parameter
+    within 1e-6, the frozen ones unchanged, moments to 2e-3 of each leaf's
+    largest entry, count and step."""
     np.testing.assert_allclose(float(tloss), float(jloss), rtol=1e-5)
-    want = carry(nxt)
     trainable = [bool(t) for t in param_leaves(tmask)]
     for k, (g, w, c) in enumerate(zip(param_leaves(new.params),
                                       param_leaves(want.params),
@@ -160,6 +169,99 @@ def test_carried_stream_train_step_matches_jax(small, target, fused):
             _close(g, w.numpy(), 2e-3, f"{name} leaf {k}")
     assert int(new.opt_state.count) == int(want.opt_state.count) == 2
     assert int(new.step) == int(want.step) == 2
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_carried_stream_train_step_matches_jax(small, target, jax_carried,
+                                               fused):
+    """A JAX TrainState after one stream step (albedo and fuzz trainable),
+    carried into the port, then one more step on each side: the loss to
+    1e-5, each trainable parameter within 1e-6 (as the carried oracle
+    step), the frozen ones unchanged, moments to 2e-3 of each leaf's
+    largest entry, count and step. Geometry is frozen here: on this
+    24x16 image one knife-edge metal bounce, sent elsewhere by a 1-ulp
+    rsqrt difference, moves a centre's gradient by 0.2% (measured), and
+    Adam's normalised step turns that into 1e-5 of the parameter; the
+    geometry step is held to the JAX oracle in
+    test_carried_stream_step_trains_geometry_as_jax."""
+    js, ts = small
+    tmask = _albedo_fuzz_mask()
+    state, nxt, jloss = jax_carried(fused)
+    carried = _carry(state, tmask)
+    _, step_t = tgrad.make_stream_train(
+        sk.prepare_stream_scene(ts, block=32), W, H, SPP, DEPTH, fused=fused,
+        trainable=tmask)
+    new, tloss = step_t(carried, TCam.reference_default(), ts.mat_type,
+                        ts.active, torch.from_numpy(target))
+    _hold_to_jax(new, _carry(nxt, tmask), carried, tloss, jloss, tmask)
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_carried_stream_train_step_in_record_windows(small, target,
+                                                     jax_carried, fused):
+    """The carried step with a record budget of one sample of 128 lanes (6
+    windows: 3 chunks of lanes a sample) equals the one-window step within
+    1e-6 (the windows' sums add in another order) and holds to the carried
+    JAX step as test_carried_stream_train_step_matches_jax does."""
+    js, ts = small
+    tmask = _albedo_fuzz_mask()
+    budget = rk.PAD * DEPTH * stk.RECORD_BYTES
+    assert len(stk.plan_records(W * H, SPP, DEPTH, budget)) == 6
+    state, nxt, jloss = jax_carried(fused)
+    carried = _carry(state, tmask)
+    stream = sk.prepare_stream_scene(ts, block=32)
+    steps = {b: tgrad.make_stream_train(stream, W, H, SPP, DEPTH, fused=fused,
+                                        trainable=tmask, budget=b)[1]
+             for b in (stk.RECORD_BUDGET, budget)}
+    args = (TCam.reference_default(), ts.mat_type, ts.active,
+            torch.from_numpy(target))
+    (one, one_loss), (new, tloss) = (steps[b](carried, *args)
+                                     for b in (stk.RECORD_BUDGET, budget))
+    np.testing.assert_allclose(float(tloss), float(one_loss), rtol=1e-6)
+    for k, (g, w) in enumerate(zip(param_leaves(new.params),
+                                   param_leaves(one.params))):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-6,
+                                   atol=1e-6, err_msg=f"param {k}")
+    _hold_to_jax(new, _carry(nxt, tmask), carried, tloss, jloss, tmask)
+
+
+@pytest.mark.parametrize("lanes,samples,depth,budget,n_windows", [
+    (640 * 384, 100, 25, stk.RECORD_BUDGET, 13),  # refused before
+    (640 * 384, 4, 10, stk.RECORD_BUDGET, 1),     # chip_smoke.py phase 12
+    (1280 * 768, 3, 256, stk.RECORD_BUDGET, 15),  # a sample does not fit
+    (24 * 16, 2, 3, 128 * 3 * 40, 6),
+    (5 * 128, 3, 4, 2 * 128 * 4 * 40, 9),
+    (5 * 128, 7, 4, 5 * 128 * 4 * 40 * 3, 3),
+])
+def test_plan_records_windows_cover_within_budget(lanes, samples, depth,
+                                                  budget, n_windows):
+    """Every (lane, sample) falls in exactly one window, a window's records
+    (40 bytes each) stay within the budget, lane chunks are whole blocks
+    of 128 and appear only where one sample of every lane does not fit. At
+    640x384, 100 spp and 25 bounces a sample's records take 245.76 MB, so
+    2 GiB holds 8 samples: 13 windows."""
+    plan = stk.plan_records(lanes, samples, depth, budget)
+    assert len(plan) == n_windows
+    covered = np.zeros((samples, lanes), np.int8)
+    for w in plan:
+        covered[w.sample0:w.sample0 + w.samples,
+                w.lane0:w.lane0 + w.lanes] += 1
+        assert w.lanes * w.samples * depth * stk.RECORD_BYTES <= budget
+        assert w.lane0 % rk.PAD == 0 and w.lanes % rk.PAD == 0
+    assert (covered == 1).all()
+    assert (any(w.lanes < lanes for w in plan)
+            == (lanes * depth * stk.RECORD_BYTES > budget))
+    if samples == 100:
+        assert max(w.samples for w in plan) == 8
+        assert lanes * depth * stk.RECORD_BYTES == 245_760_000
+
+
+def test_plan_records_refusals():
+    with pytest.raises(ValueError, match="multiple"):
+        stk.plan_records(100, 1, 4)
+    with pytest.raises(ValueError, match="budget"):
+        stk.plan_records(rk.PAD, 1, 256, budget=rk.PAD * 256 * 40 - 1)
+    assert stk.RECORD_BUDGET == tk.PARK_BUDGET == 2 << 30
 
 
 @pytest.fixture(scope="module")
@@ -313,3 +415,36 @@ def test_fused_stream_kernel_equals_plain_version_on_card(cuda, loss):
     np.testing.assert_allclose(float(got[0]), float(want[0]), rtol=1e-6)
     _close(got[2], want[2].cpu().numpy(), 1e-4, "d_stream")
     _close(got[3], want[3].cpu().numpy(), 1e-4, "d_cam_row")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("loss", tk.LOSSES)
+def test_fused_stream_kernel_in_record_windows_on_card(cuda, loss):
+    """The fused mode with a budget of several windows takes the windowed
+    route (the stream kernel's render, the loss block, the gradient mode a
+    window at a time): its image and loss are the one-launch step's bits
+    (the stream kernel's sums are kernel 5's, and the loss is summed in
+    the launch's order), its gradients within 1e-4 of the largest entry of
+    the one-launch step's and of the plain version in the same windows."""
+    s = build_random_scene(1000, seed=3, device=cuda)
+    cam = TCam.reference_default()
+    st = sk.prepare_stream_scene(s, block=64)
+    ids, ii, jj, _, _, row = rk.regen_inputs(s, cam, 64, 40, 4)
+    tgt = torch.rand((3, ids.shape[0]), generator=torch.Generator()
+                     .manual_seed(1)).to(cuda)
+    args = (ids, ii, jj, tgt, st.scene_mat, st.bounds, row)
+    kw = dict(block=64, samples=4, max_depth=6, rr_start=2,
+              num_pixels=64 * 40, gamma=loss == "mse", loss=loss,
+              huber_delta=0.25)
+    budget = ids.shape[0] * 6 * stk.RECORD_BYTES   # one sample a window
+    one = stk.fused_stream_kernel(*args, **kw)
+    before = (stk.LAUNCHES, sk.LAUNCHES)
+    got = stk.fused_stream_kernel(*args, budget=budget, **kw)
+    torch.cuda.synchronize()
+    assert (stk.LAUNCHES, sk.LAUNCHES) == (before[0] + 4, before[1] + 1)
+    want = stk.fused_stream_reference(*args, budget=budget, **kw)
+    assert torch.equal(got[1], one[1]) and torch.equal(got[0], one[0])
+    for a, b, c, what in zip(got[2:], one[2:], want[2:],
+                             ("d_stream", "d_cam_row")):
+        _close(a, b.cpu().numpy(), 1e-4, what)
+        _close(a, c.cpu().numpy(), 1e-4, what)

@@ -245,22 +245,37 @@ def test_tile_chunks_and_pixel_order(target):
 
 
 def test_depth_cap_and_arguments_raise():
+    """The train kernels take every depth the sampler does: 65 runs, and
+    257 raises with the sampler's own message, the one JAX's
+    validate_stream_ids gives (JAX's make_diff_render raises with it;
+    JAX's train kernels do not check, tests/test_torch_routes.py's
+    DEPTH_DIVERGENCES)."""
+    from raytracingincuda_tpu.ops.rng import validate_stream_ids
+
     s, cam = build_scene(2), TCam.reference_default()
     ids, ii, jj, _, sm, row = rk.regen_inputs(s, cam, W, H, SPP)
     rows = torch.zeros((3, ids.shape[0]))
-    with pytest.raises(ValueError, match="stack"):
+    assert tk.MAX_DEPTH == 256
+    with pytest.raises(ValueError) as jax_err:
+        validate_stream_ids(1, tk.MAX_DEPTH + 1)
+    with pytest.raises(ValueError) as err:
         tk.grad_reference(ids, ii, jj, rows, sm, row, samples=1,
                           max_depth=tk.MAX_DEPTH + 1)
+    assert str(err.value) == str(jax_err.value)
+    with pytest.raises(ValueError, match="bounce counter field"):
+        tk.fused_train(s, cam, torch.zeros((H, W, 3)), W, H, 1,
+                       tk.MAX_DEPTH + 1)
     with pytest.raises(ValueError):
         tk.grad_reference(ids, ii, jj, rows[:2], sm, row, samples=1,
                           max_depth=2)
     with pytest.raises(ValueError, match="loss"):
         tk.fused_train(s, cam, torch.zeros((H, W, 3)), W, H, 1, 2,
                        loss="l2")
-    # the north star's depth fits the stack
-    tk.grad_reference(ids[:rk.PAD], ii[:rk.PAD], jj[:rk.PAD],
-                      rows[:, :rk.PAD].contiguous(), sm, row, samples=1,
-                      max_depth=50)
+    # above the shallow stack's 64 bounces, and the north star's 50
+    for depth in (tk.STACK_SHALLOW + 1, 50):
+        tk.grad_reference(ids[:rk.PAD], ii[:rk.PAD], jj[:rk.PAD],
+                          rows[:, :rk.PAD].contiguous(), sm, row, samples=1,
+                          max_depth=depth)
 
 
 def _window_bytes(plan, lanes, n):
@@ -276,6 +291,8 @@ def _window_bytes(plan, lanes, n):
     (64 * 40, 4, 6, 512, "vmem", 3 * (128 * 4 * 24 + 4 * 512 * 36)),
     (24 * 128, 4, 8, 3000, "hbm", 1 << 22),              # warp accumulators
     (7 * 128, 2, 3, 8, "vmem", 128 * 4 * 6 * 3),         # in device memory
+    (1280 * 768, 100, 256, 512, "vmem", tk.PARK_BUDGET),  # the deepest
+    (64 * 40, 4, 256, 512, "vmem", 5 * (128 * 4 * 4 * 256 + 4 * 512 * 36)),
 ])
 def test_plan_park_windows_cover_lanes_within_budget(lanes, samples, depth, n,
                                                      layout, budget):
@@ -450,3 +467,46 @@ def test_grad_kernel_device_accumulators_on_card(cuda):
     for a, b, c in zip(got, windows, want):
         assert torch.equal(a, b)
         _close(a, c.cpu().numpy(), 1e-4, "kernel A, device accumulators")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rr", [None, 2])
+def test_deep_instance_on_card(cuda, rr):
+    """The reverse's 256-deep instance: at depth 64 it gives the 64-deep
+    instance's gradients bit for bit (kernels A and B); at depth 128 on
+    the deep scene of test_torch_deep.py, kernel A and B against their
+    plain versions (the image bit-equal, gradients within 1e-4 of the
+    largest entry), the same bits from run to run."""
+    from raytracingincuda_torch.models.scene import build_deep_scene
+
+    args = _card_inputs(cuda, 2)
+    kw = dict(samples=2, max_depth=tk.STACK_SHALLOW, rr_start=rr)
+    ids, ii, jj, tgt, sm, row = args
+    for stack in (tk.STACK_SHALLOW, tk.MAX_DEPTH):
+        a = tk.grad_kernel(ids, ii, jj, tgt, sm, row, stack=stack, **kw)
+        b = tk.fused_train_kernel(*args, num_pixels=64 * 40, stack=stack,
+                                  **kw)
+        if stack == tk.STACK_SHALLOW:
+            want_a, want_b = a, b
+        else:
+            assert all(torch.equal(x, y) for x, y in zip(a, want_a))
+            assert all(torch.equal(x, y) for x, y in zip(b, want_b))
+    s = build_deep_scene(device=cuda)
+    ids, ii, jj, _, sm, row = rk.regen_inputs(s, TCam.reference_default(),
+                                              64, 40, 2)
+    tgt = torch.rand((3, ids.shape[0]), generator=torch.Generator().manual_seed(
+        5)).to(cuda)
+    kw = dict(samples=2, max_depth=128, rr_start=rr)
+    got = tk.grad_kernel(ids, ii, jj, tgt, sm, row, **kw)
+    again = tk.grad_kernel(ids, ii, jj, tgt, sm, row, **kw)
+    want = tk.grad_reference(ids, ii, jj, tgt, sm, row, **kw)
+    for x, y, z in zip(got, again, want):
+        assert torch.equal(x, y)
+        _close(x, z.cpu().numpy(), 1e-4, "kernel A, deep")
+    f_kw = dict(kw, num_pixels=64 * 40)
+    got = tk.fused_train_kernel(ids, ii, jj, tgt, sm, row, **f_kw)
+    want = tk.fused_train_reference(ids, ii, jj, tgt, sm, row, **f_kw)
+    assert torch.equal(got[1], want[1])
+    np.testing.assert_allclose(float(got[0]), float(want[0]), rtol=1e-6)
+    _close(got[2], want[2].cpu().numpy(), 1e-4, "kernel B, deep")
+    _close(got[3], want[3].cpu().numpy(), 1e-4, "kernel B camera, deep")

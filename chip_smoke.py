@@ -210,6 +210,26 @@ CPU path):
              (bit-identical), peak memory (the largest window's records
              within the budget, the peak within it plus 256 MiB for that
              window's sort and the step's tensors), launches
+  26 large images  images of 2^24 pixels and more (up to
+             render_kernel.MAX_LANES lanes), each kernel held to its plain
+             version on sampled lanes with pixel ids >= 2^24 (the image's
+             last lanes and lanes drawn above 2^24): make_renderer at
+             7680x4320x4spp/25b parity, scene 1 (kernel 1: best of 3,
+             16,384 sampled lanes bit-equal to regen_reference, the count
+             mode's issues over the lanes' mean segments, peak memory);
+             write_ppm's time there and the CLI at the same config (its
+             render_ms,e2e_ms line; its PPM holds 33,177,600 pixels, the
+             bytes write_ppm gives for the phase's image); at 4096x4104:
+             make_mse_train 2spp/25b rr2 (park windows, the image
+             bit-equal to kernel 1's), render_kernel_grads with g zero but
+             on 16,384 sampled lanes against grad_reference there; on the
+             100k stream at 1spp/10b make_renderer(impl='stream') (4096
+             sampled lanes bit-equal to stream_reference),
+             render_stream_grads in lane-chunk record windows against
+             stream_grads_reference on sampled lanes, and
+             make_stream_train's step; make_renderer(dtype='float64') at
+             1spp/8b (sampled lanes' sums bit-equal to f64_reference); the
+             adaptive route (base 4, max 16)
 
 Then the kernels line (JSON, with each kernel's bound and, as
 bound_fmad_off_ms, the same bound with the operations at half the rate,
@@ -219,7 +239,7 @@ stream_segment_sum, f64_render and compact_render), the nvidia-smi line,
 and last {"ok": true, "device": {...}}. Everything measured is
 also written to chip_smoke.json in the output directory. Launch counts
 are set to 0 just before each main path (phases 4, 7, 8, 10, 12, 13, 14,
-16-21, 23-25) and read just after it: each path's own counts are in chip_smoke.json
+16-21, 23-26) and read just after it: each path's own counts are in chip_smoke.json
 (launches_by_phase) and their sums are the kernels line's launches; phase
 22's ranks count their own launches (each job's, in the worker) and their
 sums are added too.
@@ -360,6 +380,446 @@ def fmt_idle(idle: dict) -> str:
             f" ms busy of {idle['wall_ms']:.2f} ms; most device ms: {top})")
 
 
+def timed(fn, reps: int, warm: bool = True, each: bool = False):
+    """CUDA-event time of ``fn``, after one warm-up call (``warm``): the
+    mean ms of ``reps`` calls in one bracket, or with ``each`` the list of
+    ``reps`` per-call times. Returns (the last output, the time)."""
+    import torch
+
+    if warm:
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps if each else 1):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(1 if each else reps):
+            out = fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return out, (times if each else times[0] / reps)
+
+
+def grad_compare(kernel_out, plain_out, names) -> dict:
+    """Each named gradient of a kernel against its plain version: within
+    GRAD_RTOL of the entry plus GRAD_ATOL_FRAC of the largest, finite."""
+    import torch
+
+    res = {}
+    for name, k, pl in zip(names, kernel_out, plain_out):
+        k, pl = k.float(), pl.float()
+        scale = float(pl.abs().max())
+        err = float((k - pl).abs().max())
+        ok = bool(torch.isfinite(k).all()) and bool(torch.allclose(
+            k, pl, rtol=GRAD_RTOL, atol=GRAD_ATOL_FRAC * max(scale, 1e-30)))
+        res[name] = {"max_abs_err": err, "max_rel_to_largest":
+                     err / max(scale, 1e-30), "ok": ok}
+    return res
+
+
+def sampled_lanes(padded: int, n_last: int, n_drawn: int, seed: int, dev):
+    """Lane indices, sorted: the image's last ``n_last`` lanes and
+    ``n_drawn`` drawn from the other lanes at 2^24 and above."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    drawn = rng.choice(padded - n_last - (1 << 24), n_drawn,
+                       replace=False) + (1 << 24)
+    pick = np.concatenate([np.arange(padded - n_last, padded), drawn])
+    return torch.from_numpy(np.sort(pick)).to(dev)
+
+
+def large_images(dev, cam, reset_counts, read_counts) -> dict:
+    """Phase 26: images of 2^24 pixels and more on every kernel route (the
+    port's lanes stopped below 2^24 before), each kernel held to its plain
+    version on sampled lanes at pixel ids >= 2^24. Returns the record."""
+    import numpy as np
+    import torch
+
+    from raytracingincuda_torch.config import RenderConfig
+    from raytracingincuda_torch.models.camera import config_leaves, initialize
+    from raytracingincuda_torch.models.scene import (build_random_scene,
+                                                     build_scene, param_leaves)
+    from raytracingincuda_torch.ops import adaptive
+    from raytracingincuda_torch.ops import f64_kernel as fk
+    from raytracingincuda_torch.ops import grad as gradlib
+    from raytracingincuda_torch.ops import render_kernel as rk
+    from raytracingincuda_torch.ops import stream_kernel as sk
+    from raytracingincuda_torch.ops import stream_train_kernel as stk
+    from raytracingincuda_torch.ops import train_kernel as tk
+    from raytracingincuda_torch.ops.tracer import _linear_to_gamma
+    from raytracingincuda_torch.render_api import make_renderer
+    from raytracingincuda_torch.utils import ppm
+
+    phase = "26 large images"
+    t_phase = time.perf_counter()
+    out: dict = {}
+    scene1 = build_scene(1, device=dev)
+    n1 = scene1.num_slots
+
+    def peak_since(base):
+        return torch.cuda.max_memory_allocated() / 2**20 - base
+
+    def fresh_peak():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        return torch.cuda.memory_allocated() / 2**20
+
+    # kernel 1 through make_renderer at 8K UHD, parity, scene 1
+    w8, h8, spp8, d8 = 7680, 4320, 4, 25
+    n8 = w8 * h8
+    renderer = make_renderer(RenderConfig(scene_id=1, width=w8, height=h8,
+                                          samples=spp8, bounces=d8), dev)
+    base = fresh_peak()
+    reset_counts()
+    img8, times8 = timed(lambda: renderer(scene1, cam), 3, each=True)
+    counts8 = read_counts("26 8K UHD render (7680x4320x4spp/25b)")
+    peak8 = peak_since(base)
+    inputs8 = rk.regen_inputs(scene1, cam, w8, h8, spp8)
+    sel8 = sampled_lanes(n8, 8192, 8192, 26, dev)
+    sub8 = tuple(t[sel8].contiguous() for t in inputs8[:4])
+    plain8, plain8_ms = timed(lambda: rk.regen_reference(
+        *sub8, *inputs8[4:], samples=spp8, max_depth=d8,
+        finalize_scale=1.0 / spp8), 1, warm=False)
+    got8 = img8.reshape(-1, 3)[sel8].t()
+    # the count mode: segments per lane, and the warps' hit-test issues
+    # against their lanes' mean (a warp runs until its longest lane ends)
+    seg_lane, issues = rk.regen_counts(*inputs8, samples=spp8, max_depth=d8)
+    segs8 = float(seg_lane.double().sum())
+    issues_over_mean = float(issues.double().sum()) / float(
+        seg_lane.double().view(-1, 32).mean(1).sum())
+    del seg_lane, issues, inputs8, sub8
+    t0 = time.perf_counter()
+    arr8 = img8.cpu().numpy()
+    copy_s = time.perf_counter() - t0
+    render8 = {"shape": f"{w8}x{h8}x{spp8}spp/{d8}b", "render_ms": times8,
+               "launches": {k: v for k, v in counts8.items() if v},
+               "peak_over_base_mib": peak8,
+               "sampled_lanes": int(sel8.numel()),
+               "min_sampled_id": int(sel8.min()),
+               "bit_equal_to_plain": bool(torch.equal(got8, plain8)),
+               "max_abs_err": float((got8 - plain8).abs().max()),
+               "plain_ms_on_sampled_lanes": plain8_ms,
+               "segments": segs8, "issues_over_mean": issues_over_mean,
+               "bound": bound(segs8 * n1 * OPS_TEST_STAGED,
+                              n8 * 28 + n1 * rk.USED_COLS * 4 + 96)}
+    if not (render8["bit_equal_to_plain"] and counts8["regen_render"] == 4
+            and arr8.shape == (h8, w8, 3) and np.isfinite(arr8).all()
+            and 0.0 <= arr8.min() and arr8.max() <= 1.0):
+        raise AssertionError(f"8K render: {render8}")
+    say(phase, f"make_renderer {render8['shape']} parity (kernel 1, "
+        f"{n8} lanes): render_ms {', '.join(f'{t:.2f}' for t in times8)};"
+        f" bound {render8['bound'][0]:.3f} ms ({render8['bound'][1]}); the "
+        f"warps issue the scan {issues_over_mean:.3f}x their lanes' mean "
+        f"segments; peak "
+        f"{peak8:.1f} MiB above the {base:.1f} MiB held before; "
+        f"{sel8.numel()} sampled lanes (ids >= {int(sel8.min())}, the last "
+        f"8192 among them) bit-equal to regen_reference "
+        f"({plain8_ms:.1f} ms there)")
+
+    # the PPM writer at 8K, then the CLI at the same config: its bytes
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ppm.write_ppm(os.path.join(tmp, "phase.ppm"), arr8)
+        write_s = time.perf_counter() - t0
+        env = dict(os.environ, PYTHONPATH=str(ROOT))
+        cli_out = os.path.join(tmp, "cli")
+        os.mkdir(cli_out)
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "raytracingincuda_torch.cli", "--scene_id",
+             "1", "--width", str(w8), "--height", str(h8), "--samples",
+             str(spp8), "--bounces", str(d8), "--outdir", cli_out],
+            cwd=tmp, env=env, capture_output=True, text=True, timeout=600)
+        cli_s = time.perf_counter() - t0
+        if res.returncode != 0:
+            raise AssertionError(f"8K cli failed: {res.stderr[-2000:]}")
+        line = res.stdout.strip().splitlines()[-1]
+        render_ms, e2e_ms = (float(v) for v in line.split(","))
+        (name,) = os.listdir(cli_out)
+        with open(os.path.join(cli_out, name), "rb") as f:
+            data = f.read()
+        header = f"P3\n{w8} {h8}\n255\n".encode()
+        lines = data.count(b"\n") - 3
+        with open(os.path.join(tmp, "phase.ppm"), "rb") as f:
+            same = f.read() == data
+        cli8 = {"render_ms": render_ms, "e2e_ms": e2e_ms, "file": name,
+                "bytes": len(data), "pixels": lines,
+                "header_ok": data.startswith(header),
+                "equal_to_phase_write": same, "process_s": cli_s,
+                "write_ppm_s": write_s, "device_to_host_s": copy_s}
+        del data
+    if not (cli8["pixels"] == n8 and cli8["header_ok"] and same):
+        raise AssertionError(f"8K cli: {cli8}")
+    say(phase, f"cli --width {w8} --height {h8} --samples {spp8}: "
+        f"render_ms,e2e_ms {render_ms:.2f},{e2e_ms:.2f}; its PPM holds "
+        f"{lines} pixels ({cli8['bytes']} bytes), the bytes of write_ppm on "
+        f"the image above (write_ppm {write_s:.2f} s, the copy to the host "
+        f"{copy_s:.2f} s); the process took {cli_s:.1f} s")
+    del img8, arr8
+
+    # kernel 2 through make_mse_train at 4096x4104x2spp/25b rr2. The
+    # target is kernel 1's image but on sampled lanes >= 2^24; the step's
+    # image equals kernel 1's, so the loss's cotangent is exactly zero
+    # elsewhere and the step's gradients are those lanes' alone
+    w, h, spp, depth = 4096, 4104, 2, 25
+    n = w * h
+    gen = torch.Generator().manual_seed(26)
+    img1 = rk.render_kernel(scene1, cam, w, h, spp, depth, rr_start=2)
+    sel = sampled_lanes(n, 8192, 8192, 27, dev)
+    target = img1.reshape(-1, 3).clone()
+    target[sel] = torch.rand((sel.numel(), 3), generator=gen).to(dev)
+    target = target.reshape(h, w, 3)
+    step = tk.make_mse_train(scene1.mat_type, scene1.active, w, h, spp,
+                             depth, rr_start=2)
+    plan = tk.plan_park(n, spp, depth, n1)
+    base = fresh_peak()
+    reset_counts()
+    (loss, img, grads), step_ms = timed(
+        lambda: step(scene1.params, cam, target), 3, each=True)
+    train_counts = read_counts("26 train step (4096x4104x2spp/25b rr2)")
+    train_peak = peak_since(base)
+    ids, ii, jj, _, sm, row = rk.regen_inputs(scene1, cam, w, h, spp)
+    sub = (ids[sel].contiguous(), ii[sel].contiguous(), jj[sel].contiguous())
+    t_rows = target.reshape(-1, 3)[sel].t().contiguous()
+    (p_terms, _, p_scene, p_cam), p2_ms = timed(
+        lambda: tk.fused_train_reference(
+            *sub, t_rows, sm, row, samples=spp, max_depth=depth,
+            num_pixels=n, rr_start=2), 1, warm=False)
+    p_grads = tk.chain_to_params(p_scene, p_cam, scene1.params, cam,
+                                 scene1.mat_type, scene1.active, w, h)
+    p_loss = p_terms * tk.loss_constants(spp, n, 1.0)["w"]
+
+    def flat(g):
+        return (torch.stack(param_leaves(g[0])), torch.stack(
+            [torch.as_tensor(x, dtype=torch.float32, device=dev)
+             for x in config_leaves(g[1])]))
+
+    train = {"shape": f"{w}x{h}x{spp}spp/{depth}b rr2", "step_ms": step_ms,
+             "loss_value": float(loss), "park_windows": len(plan.windows),
+             "park_capacity": plan.capacity,
+             "acc_in_smem": plan.acc_in_smem,
+             "launches": {k: v for k, v in train_counts.items() if v},
+             "peak_over_base_mib": train_peak,
+             "image_equals_kernel1": bool(torch.equal(img, img1)),
+             "plain_ms_on_sampled_lanes": p2_ms,
+             **grad_compare((loss.reshape(1), *flat(grads)),
+                            (p_loss.reshape(1), *flat(p_grads)),
+                            ("loss", "d_params", "d_cam_cfg"))}
+    if not (train["image_equals_kernel1"] and train["loss"]["ok"]
+            and train["d_params"]["ok"] and train["d_cam_cfg"]["ok"]
+            and train_counts["fused_train_render"] == 8 * len(plan.windows)):
+        raise AssertionError(f"large train step: {train}")
+    del img, img1, grads, p_grads, target
+    say(phase, f"make_mse_train {train['shape']}: {len(plan.windows)} park "
+        f"windows of capacity {plan.capacity}; step ms "
+        f"{', '.join(f'{t:.2f}' for t in step_ms)}; peak {train_peak:.1f} MiB"
+        f"; image bit-equal to kernel 1's; the target kernel 1's image but on"
+        f" {sel.numel()} sampled lanes >= 2^24: against fused_train_reference"
+        f" there ({p2_ms:.1f} ms) loss rel "
+        f"{train['loss']['max_rel_to_largest']:.3g}, d_params max|d|/max "
+        f"{train['d_params']['max_rel_to_largest']:.3g}, d_cam_cfg "
+        f"{train['d_cam_cfg']['max_rel_to_largest']:.3g}; launches "
+        f"{train['launches']}")
+    # kernel 3 with g zero but on the sampled lanes
+    g_sel = (torch.randn((3, sel.numel()), generator=gen) * 1e-3).to(dev)
+    g_img = torch.zeros((n, 3), device=dev)
+    g_img[sel] = g_sel.t()
+    reset_counts()
+    k3, k3_ms = timed(lambda: tk.render_kernel_grads(
+        scene1, cam, g_img.reshape(h, w, 3), w, h, spp, depth, rr_start=2),
+        1, warm=False)
+    k3_counts = read_counts("26 render_kernel_grads (4096x4104x2spp/25b)")
+    p3, p3_ms = timed(lambda: tk.grad_reference(
+        *sub, g_sel, sm, row, samples=spp, max_depth=depth, rr_start=2), 1,
+        warm=False)
+    grad3 = {"kernel_ms": k3_ms, "plain_ms_on_sampled_lanes": p3_ms,
+             "launches": {k: v for k, v in k3_counts.items() if v},
+             **grad_compare(k3, p3, ("d_scene", "d_cam"))}
+    if not (grad3["d_scene"]["ok"] and grad3["d_cam"]["ok"]
+            and k3_counts["grad_render"] >= 1):
+        raise AssertionError(f"kernel 3 on sampled lanes: {grad3}")
+    say(phase, f"render_kernel_grads (kernel 3) at {w}x{h}x{spp}spp/{depth}b "
+        f"rr2 with g zero but on {sel.numel()} sampled lanes >= 2^24: "
+        f"{k3_ms:.2f} ms; against grad_reference on those lanes "
+        f"({p3_ms:.1f} ms): d_scene max|d|/max "
+        f"{grad3['d_scene']['max_rel_to_largest']:.3g}, d_cam "
+        f"{grad3['d_cam']['max_rel_to_largest']:.3g}")
+    del ids, ii, jj, g_img, k3, sub
+
+    # kernels 4 and 5 on the 100k scene at 4096x4104x1spp/10b
+    s100k = build_random_scene(100_000, seed=3, device=dev)
+    spp_s, d_s = 1, 10
+    srender = make_renderer(RenderConfig(scene_id=0, width=w, height=h,
+                                         samples=spp_s, bounces=d_s,
+                                         impl="stream"), dev)
+    st = srender.prepare(s100k, cam)
+    base = fresh_peak()
+    reset_counts()
+    simg, s_ms = timed(lambda: srender(s100k, cam), 3, each=True)
+    s_counts = read_counts("26 stream render (100k, 4096x4104x1spp/10b)")
+    s_peak = peak_since(base)
+    ssel = sampled_lanes(n, 2048, 2048, 28, dev)
+    sids, sii, sjj, sbud = rk._lane_setup(w, h, None, spp_s, 0, None, dev)
+    srow = rk.pack_camera(initialize(cam, w, h)).to(dev)
+    sub = tuple(t[ssel].contiguous() for t in (sids, sii, sjj, sbud))
+    sp, sp_ms = timed(lambda: sk.stream_reference(
+        *sub, st.scene_mat, st.bounds, srow, block=st.block, samples=spp_s,
+        max_depth=d_s, finalize_scale=1.0 / spp_s), 1, warm=False)
+    sgot = simg.reshape(-1, 3)[ssel].t()
+    stream4 = {"render_ms": s_ms, "peak_over_base_mib": s_peak,
+               "launches": {k: v for k, v in s_counts.items() if v},
+               "bit_equal_to_plain": bool(torch.equal(sgot, sp)),
+               "max_abs_err": float((sgot - sp).abs().max()),
+               "plain_ms_on_sampled_lanes": sp_ms}
+    if not (stream4["bit_equal_to_plain"] and s_counts["stream_render"] == 4):
+        raise AssertionError(f"stream render at 4096x4104: {stream4}")
+    say(phase, f"make_renderer(impl='stream') 100k {w}x{h}x{spp_s}spp/{d_s}b"
+        f" (kernel 4): render_ms {', '.join(f'{t:.2f}' for t in s_ms)}; "
+        f"peak {s_peak:.1f} MiB; {ssel.numel()} sampled lanes bit-equal to "
+        f"stream_reference ({sp_ms:.1f} ms there)")
+    del simg
+    windows = stk.plan_records(n, spp_s, d_s)
+    sg_sel = (torch.randn((3, ssel.numel()), generator=gen) * 1e-3).to(dev)
+    sg_img = torch.zeros((n, 3), device=dev)
+    sg_img[ssel] = sg_sel.t()
+    reset_counts()
+    k5, k5_ms = timed(lambda: stk.render_stream_grads(
+        st, cam, sg_img.reshape(h, w, 3), w, h, spp_s, d_s), 1, warm=False)
+    k5_counts = read_counts("26 render_stream_grads (100k, 4096x4104)")
+    p5, p5_ms = timed(lambda: stk.stream_grads_reference(
+        *sub[:3], sg_sel, st.scene_mat, st.bounds, srow, block=st.block,
+        samples=spp_s, max_depth=d_s), 1, warm=False)
+    grad5 = {"windows": len(windows), "kernel_ms": k5_ms,
+             "plain_ms_on_sampled_lanes": p5_ms,
+             "launches": {k: v for k, v in k5_counts.items() if v},
+             **grad_compare(k5, p5, ("d_stream", "d_cam"))}
+    if not (grad5["d_stream"]["ok"] and grad5["d_cam"]["ok"]
+            and k5_counts["stream_train"] == len(windows)
+            and all(x.lanes < n for x in windows)):
+        raise AssertionError(f"kernel 5 at 4096x4104: {grad5}")
+    say(phase, f"render_stream_grads (kernel 5) at 100k {w}x{h}x{spp_s}spp/"
+        f"{d_s}b in {len(windows)} lane-chunk record windows, g zero but on "
+        f"{ssel.numel()} sampled lanes: {k5_ms:.2f} ms; against "
+        f"stream_grads_reference on those lanes ({p5_ms:.1f} ms): d_stream "
+        f"max|d|/max {grad5['d_stream']['max_rel_to_largest']:.3g}, d_cam "
+        f"{grad5['d_cam']['max_rel_to_largest']:.3g}")
+    del sg_img, k5, sids, sii, sjj, sbud
+    init_fn, step_fn = gradlib.make_stream_train(st, w, h, spp_s, d_s)
+    state0 = init_fn(s100k.params)
+    starget = torch.rand((h, w, 3), generator=gen).to(dev)
+    base = fresh_peak()
+    reset_counts()
+    (state, sloss), sstep_ms = timed(lambda: step_fn(
+        state0, cam, s100k.mat_type, s100k.active, starget), 2, each=True)
+    ss_counts = read_counts("26 stream train step (100k, 4096x4104)")
+    ss_peak = peak_since(base)
+    sstep = {"step_ms": sstep_ms, "loss": float(sloss),
+             "windows": len(windows), "peak_over_base_mib": ss_peak,
+             "launches": {k: v for k, v in ss_counts.items() if v}}
+    if not (np.isfinite(sstep["loss"])
+            and ss_counts["stream_train"] == 3 * len(windows)
+            and ss_counts["stream_render"] == 3):
+        raise AssertionError(f"stream step at 4096x4104: {sstep}")
+    say(phase, f"make_stream_train 100k {w}x{h}x{spp_s}spp/{d_s}b: "
+        f"{len(windows)} windows; step ms "
+        f"{', '.join(f'{t:.2f}' for t in sstep_ms)}; peak {ss_peak:.1f} MiB;"
+        f" loss {sstep['loss']:.9g}; launches {sstep['launches']}")
+    del state, state0, starget, s100k, st
+
+    # kernel 6 through make_renderer(dtype='float64') at 4096x4104x1spp/8b
+    f_spp, f_d = 1, 8
+    frender = make_renderer(RenderConfig(scene_id=1, width=w, height=h,
+                                         samples=f_spp, bounces=f_d,
+                                         dtype="float64"), dev)
+    reset_counts()
+    fimg, f_ms = timed(lambda: frender(scene1, cam), 3, each=True)
+    f_counts = read_counts("26 f64 render (4096x4104x1spp/8b)")
+    fids, fii, fjj, fsm, frow = fk.f64_inputs(scene1, cam, w, h)
+    fp, fp_ms = timed(lambda: fk.f64_reference(
+        fids[sel].contiguous(), fii[sel].contiguous(), fjj[sel].contiguous(),
+        fsm, frow, samples=f_spp, max_depth=f_d), 1, warm=False)
+    fp = fk.finalize(fp.t(), f_spp)
+    fgot = fimg.reshape(-1, 3)[sel]
+    f64 = {"render_ms": f_ms, "plain_ms_on_sampled_lanes": fp_ms,
+           "launches": {k: v for k, v in f_counts.items() if v},
+           "bit_equal_to_plain": bool(torch.equal(fgot, fp)),
+           "max_abs_err": float((fgot - fp).abs().max())}
+    if not (f64["bit_equal_to_plain"] and f_counts["f64_render"] == 4
+            and fimg.dtype == torch.float64 and bool(
+                torch.isfinite(fimg).all())):
+        raise AssertionError(f"f64 at 4096x4104: {f64}")
+    say(phase, f"make_renderer(dtype='float64') {w}x{h}x{f_spp}spp/{f_d}b "
+        f"(kernel 6): render_ms {', '.join(f'{t:.2f}' for t in f_ms)}; its "
+        f"image on {sel.numel()} sampled lanes bit-equal to f64_reference's "
+        f"({fp_ms:.1f} ms there)")
+    del fimg, fids, fii, fjj
+
+    # the adaptive route (kernel 1 with budget rows), base 4, max 16; its
+    # image on the sampled lanes against regen_reference's sums of the
+    # probe's two half-buffers and of the refine at the same budgets
+    a_base, a_max = 4, 16
+    arender = make_renderer(RenderConfig(scene_id=1, width=w, height=h,
+                                         samples=a_base, bounces=d8,
+                                         impl="adaptive",
+                                         max_samples=a_max), dev)
+    base = fresh_peak()
+    reset_counts()
+    aimg, a_ms = timed(lambda: arender(scene1, cam), 1, warm=False)
+    a_counts = read_counts("26 adaptive (4096x4104, base 4, max 16)")
+    a_peak = peak_since(base)
+    spp_map = adaptive.render_adaptive(scene1, cam, w, h, d8, base_spp=a_base,
+                                       max_spp=a_max, tol=0.05).spp_map
+    extra = (spp_map - a_base).reshape(-1)
+    (r_spp, r_off), = adaptive.sample_windows(a_base, a_max, 1)[0]
+
+    def plain_sums(samples, offset, budgets=None):
+        inp = rk.regen_inputs(scene1, cam, w, h, samples,
+                              sample_offset=offset, sample_budgets=budgets)
+        return rk.regen_reference(
+            *(t[sel].contiguous() for t in inp[:4]), *inp[4:],
+            samples=samples, max_depth=d8, sample_offset=offset).t()
+
+    half = a_base // 2
+    pa = plain_sums(half, 0)
+    pb = plain_sums(half, half)
+    pc, pc_ms = timed(lambda: plain_sums(r_spp, r_off, extra), 1, warm=False)
+    counts = spp_map.reshape(-1)[sel]
+    aplain = _linear_to_gamma(((pa + pc) + pb) / counts[:, None].float())
+    aget = aimg.reshape(-1, 3)[sel]
+    adapt = {"render_ms": a_ms, "peak_over_base_mib": a_peak,
+             "launches": {k: v for k, v in a_counts.items() if v},
+             "mean_spp": float(spp_map.double().mean()),
+             "spp_range": [int(spp_map.min()), int(spp_map.max())],
+             "sampled_lanes_refined": int((counts > a_base).sum()),
+             "sampled_spp_range": [int(counts.min()), int(counts.max())],
+             "bit_equal_to_plain": bool(torch.equal(aget, aplain)),
+             "max_abs_err": float((aget - aplain).abs().max()),
+             "plain_refine_ms_on_sampled_lanes": pc_ms}
+    if not (adapt["bit_equal_to_plain"]
+            and a_base <= adapt["spp_range"][0] <= adapt["spp_range"][1]
+            <= a_max and a_counts["regen_render"] == 3
+            and adapt["sampled_lanes_refined"] > 0
+            and bool(torch.isfinite(aimg).all())):
+        raise AssertionError(f"adaptive at 4096x4104: {adapt}")
+    say(phase, f"make_renderer(impl='adaptive') {w}x{h}/{d8}b base {a_base} "
+        f"max {a_max}: {a_ms:.2f} ms; mean spp {adapt['mean_spp']:.3f} in "
+        f"{adapt['spp_range']}; its image on {sel.numel()} sampled lanes "
+        f"({adapt['sampled_lanes_refined']} refined, spp in "
+        f"{adapt['sampled_spp_range']}) bit-equal to "
+        f"regen_reference's at the same budgets ({pc_ms:.1f} ms for the "
+        f"refine there); peak {a_peak:.1f} MiB; launches {adapt['launches']}")
+    out.update(render_8k=render8, cli_8k=cli8, train=train, grad3=grad3,
+               stream_render=stream4, stream_grads=grad5,
+               stream_step=sstep, f64=f64, adaptive=adapt)
+    out["phase_s"] = time.perf_counter() - t_phase
+    say(phase, f"phase took {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -461,19 +921,6 @@ def main() -> int:
                     f"{v['exact']:.4f}" for k, v in record["goldens"].items()))
 
     # -- 3 kernel vs plain version ------------------------------------------
-    def timed(fn, reps, warm=True):
-        if warm:
-            fn()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            out = fn()
-        end.record()
-        end.synchronize()
-        return out, start.elapsed_time(end) / reps
-
     def compare(width, height, spp, bounces, rr, layout, reps, plain=None):
         scene = build_scene(1, device=dev)
         inputs = rk.regen_inputs(scene, cam, width, height, spp)
@@ -648,18 +1095,6 @@ def main() -> int:
     say("5 cli", f"render_ms,e2e_ms = {line.strip()} ; wrote {name}")
 
     # -- 6 the gradient kernels against their plain versions ----------------
-    def grad_compare(kernel_out, plain_out, names):
-        res = {}
-        for name, k, pl in zip(names, kernel_out, plain_out):
-            k, pl = k.float(), pl.float()
-            scale = float(pl.abs().max())
-            err = float((k - pl).abs().max())
-            ok = bool(torch.isfinite(k).all()) and bool(torch.allclose(
-                k, pl, rtol=GRAD_RTOL, atol=GRAD_ATOL_FRAC * max(scale, 1e-30)))
-            res[name] = {"max_abs_err": err, "max_rel_to_largest":
-                         err / max(scale, 1e-30), "ok": ok}
-        return res
-
     record["grads"] = []
     scene = build_scene(1, device=dev)
     inputs = rk.regen_inputs(scene, cam, 320, 192, 4)
@@ -2806,6 +3241,10 @@ def main() -> int:
         "forced_windows_step": forced_res, "refused_shape": refused}
     record["phase_s"]["25 deep and windows"] = time.perf_counter() - t_phase
     say(phase, f"phase took {record['phase_s']['25 deep and windows']:.1f} s")
+
+    # -- 26 large images -------------------------------------------------------
+    record["large_images"] = large_images(dev, cam, reset_counts, read_counts)
+    record["phase_s"]["26 large images"] = record["large_images"]["phase_s"]
 
     # -- result lines ---------------------------------------------------------
     record["main_path_launches"] = main_launches

@@ -57,6 +57,7 @@ struct Params {
   int n;
   const float* cam;
   float* out;          // (3, padded)
+  // at most render_kernel.MAX_LANES: 3 x lanes fits int, so the (3, lanes) rows index in int
   int padded;
   int samples, max_depth;
   uint32_t k0, k1;

@@ -113,6 +113,7 @@ struct Params {
   int n;
   const double* cam;   // (24,) double
   double* out;         // (3, padded)
+  // at most render_kernel.MAX_LANES: 3 x lanes fits int, so the (3, lanes) rows index in int
   int padded;
   int max_depth;
   uint32_t k0, k1;

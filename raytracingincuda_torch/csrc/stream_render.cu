@@ -65,6 +65,7 @@ struct StreamParams {
   int nb, block;
   const float* cam;
   float* out;           // (3, padded) radiance, or (3, padded) counts
+  // at most render_kernel.MAX_LANES: 3 x lanes fits int, so the (3, lanes) rows index in int
   int padded, max_depth;
   uint32_t k0, k1;
   int sample_offset, rr_start, finalize;

@@ -136,6 +136,7 @@ struct StreamTrainParams {
   const float* bounds;  // (nb, 8)
   int nb, block;
   const float* cam;
+  // at most render_kernel.MAX_LANES: 3 x lanes fits int, so the (3, lanes) rows index in int
   int padded, samples, max_depth;
   uint32_t k0, k1;
   int sample_offset, rr_start;

@@ -103,6 +103,7 @@ struct ParkParams {
   const float* scene;   // SoA (kNumCols, n)
   int n;
   const float* cam;
+  // at most render_kernel.MAX_LANES: 3 x lanes fits int, so the (3, lanes) rows index in int
   int lanes, stride, samples, max_depth;
   uint32_t k0, k1;
   int rr_start;
@@ -233,6 +234,7 @@ struct ReverseParams {
   const float* scene;      // SoA (kNumCols, n)
   int n;
   const float* cam;
+  // at most render_kernel.MAX_LANES: 3 x lanes fits int, so the (3, lanes) rows index in int
   int lanes, stride, samples, max_depth;
   uint32_t k0, k1;
   int sample_offset, rr_start;

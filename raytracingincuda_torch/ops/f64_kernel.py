@@ -350,8 +350,14 @@ def render_f64(scene: Scene, cam_cfg: CameraConfig, img_width: int,
     acc = acc[:img_width * img_height]
     if accumulate_only:
         return acc.reshape(img_height, img_width, 3)
-    img = acc * (1.0 / samples_per_pixel)
+    return finalize(acc, samples_per_pixel, gamma).reshape(img_height,
+                                                           img_width, 3)
+
+
+def finalize(acc: torch.Tensor, samples: int, gamma: bool = True):
+    """``render_f64``'s finish of raw double sums: 1/spp, then gamma 2."""
+    img = acc * (1.0 / samples)
     if gamma:
         pos = img > 0.0
         img = torch.where(pos, _sqrt(torch.where(pos, img, 1.0)), 0.0)
-    return img.reshape(img_height, img_width, 3)
+    return img

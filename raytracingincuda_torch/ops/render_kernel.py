@@ -61,8 +61,17 @@ PAD = 128
 # layout='vmem' stages the scene in shared memory (44 bytes a slot, about
 # 180 KB at this bound, inside the 227 KB a Hopper block may take).
 MAX_VMEM_SLOTS = 4096
-# Pixel ids and coordinates travel as f32 in the lane rows: exact below.
-MAX_PIXELS = 1 << 24
+# The most lanes (the padded pixels of every rank together) a call takes.
+# Lane ids are int32 and the kernels read them as uint32; coordinates are
+# f32, exact for widths and heights below 2^24. The bound is the kernels'
+# 32-bit index products: a (3, lanes) row array is indexed as
+# c * lanes + i in int (csrc/*.cu), which holds while 3 x lanes < 2^31.
+# Widening those products to size_t would raise the bound to the ids'
+# 2^31, but at this one a render's lane rows and image already take 20 GB.
+MAX_LANES = (2**31 - 1) // 3 // PAD * PAD
+# The JAX package renders mode='compact' as 'simple' from this many pixels
+# on (its compact kernel carries pixel ids as f32); the port keeps the rule.
+COMPACT_MAX_PIXELS = 1 << 24
 # The plain version bounds its (spheres x lanes) temporaries to this many
 # elements by tracing lanes in chunks (lanes are independent).
 _REFERENCE_CHUNK_ELEMS = 1 << 24
@@ -153,9 +162,10 @@ def _check_tensors(ids, ii, jj, scene_mat, others, *, layout):
                              f"got {tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if ids.dim() != 1 or ids.shape[0] % PAD or ids.shape[0] >= MAX_PIXELS:
-        raise ValueError(f"ids must be 1-D, a multiple of {PAD} long and "
-                         f"shorter than {MAX_PIXELS}; got {tuple(ids.shape)}")
+    if ids.dim() != 1 or ids.shape[0] % PAD or ids.shape[0] > MAX_LANES:
+        raise ValueError(f"ids must be 1-D, a multiple of {PAD} long and at "
+                         f"most MAX_LANES = {MAX_LANES} long; got "
+                         f"{tuple(ids.shape)}")
     if scene_mat.dim() != 2 or scene_mat.shape[1] != NUM_COLS:
         raise ValueError(f"scene_mat must be (N, {NUM_COLS}), got "
                          f"{tuple(scene_mat.shape)}")
@@ -508,11 +518,14 @@ def _lane_setup(img_width, img_height, pixel_order, samples_per_pixel,
     per-lane ABSOLUTE budgets (exclusive end sample ids). Returns (ids,
     ii, jj, budget) over all the ranks' lanes (``shard`` takes this
     rank's). An order over one process's lanes (``PAD``-padded) is
-    extended with the padding ids under a mesh."""
+    extended with the padding ids under a mesh. Raises where the lanes of
+    every rank together exceed ``MAX_LANES``."""
     num_pixels = img_width * img_height
     padded = meshlib.padded_lanes(num_pixels, mesh)
-    if padded >= MAX_PIXELS:
-        raise ValueError(f"images must have fewer than {MAX_PIXELS} pixels")
+    if padded > MAX_LANES:
+        raise ValueError(
+            f"a {img_width}x{img_height} image pads to {padded} lanes, above "
+            f"MAX_LANES = {MAX_LANES} (the kernels' 32-bit index products)")
     if pixel_order is not None:
         n = pixel_order.shape[0] if pixel_order.dim() == 1 else -1
         if n not in (_round_up(num_pixels, PAD), padded):
@@ -622,7 +635,8 @@ def render_kernel(
     runs the regeneration kernel too: one thread per pixel tracing each
     sample's bounces in turn is that schedule on a GPU. ``'compact'``:
     live-ray compaction (``ops/compact_kernel.py``); with ``legacy_sky``,
-    or at 2^24 pixels or more, it runs ``'simple'``, as in JAX.
+    or at ``COMPACT_MAX_PIXELS`` (2^24) pixels or more, it runs
+    ``'simple'``, as in JAX.
     ``return_depth``, ``sample_offset`` and ``sample_budgets`` need
     ``'regen'``. ``rr_start`` with ``'simple'`` or ``'compact'`` raises,
     where JAX silently renders the parity estimator.
@@ -642,8 +656,8 @@ def render_kernel(
             raise ValueError(
                 f"mode={mode!r} has no Russian-roulette estimator (JAX renders"
                 " parity there); rr_start requires mode='regen'")
-    if mode == "compact" and (legacy_sky
-                              or img_width * img_height >= MAX_PIXELS):
+    if mode == "compact" and (legacy_sky or img_width * img_height
+                              >= COMPACT_MAX_PIXELS):
         mode = "simple"
     inputs = regen_inputs(scene, cam_cfg, img_width, img_height,
                           samples_per_pixel, pixel_order=pixel_order,

@@ -143,7 +143,9 @@ def sharded(mesh: Optional[Mesh]) -> bool:
 
 
 def padded_lanes(num_lanes: int, mesh: Optional[Mesh]) -> int:
-    """``num_lanes`` padded to a multiple of PAD lanes on every rank."""
+    """``num_lanes`` padded to a multiple of PAD lanes on every rank: the
+    lanes of the whole world, which ``render_kernel._lane_setup`` holds to
+    ``render_kernel.MAX_LANES``."""
     m = PAD * (mesh.world if sharded(mesh) else 1)
     return -(-num_lanes // m) * m
 

@@ -8,7 +8,6 @@ P3 and P6 with comment lines. Numpy only (the JAX package's
 """
 from __future__ import annotations
 
-import io
 from typing import Tuple
 
 import numpy as np
@@ -20,16 +19,30 @@ def quantize(img) -> np.ndarray:
     return (256.0 * np.clip(img, 0.000, 0.999)).astype(np.int32)
 
 
+# Pixels a chunk of the writer (12 bytes each of token buffer)
+_WRITE_CHUNK = 1 << 20
+
+
+# (3, 256, 4) uint8: level v of channel c as its decimal digits and the
+# channel's separator (' ', ' ', newline), zero-padded to 4 bytes
+_TOKENS = np.array([[np.frombuffer(f"{v}{sep}".encode().ljust(4, b"\0"),
+                                   np.uint8) for v in range(256)]
+                    for sep in (" ", " ", "\n")])
+
+
 def write_ppm(path: str, img) -> None:
-    """Write a float (H, W, 3) image (already gamma-encoded) as P3."""
-    q = quantize(img)
-    h, w, _ = q.shape
-    buf = io.StringIO()
-    buf.write(f"P3\n{w} {h}\n255\n")
-    buf.write("\n".join(f"{r} {g} {b}" for r, g, b in q.reshape(-1, 3)))
-    buf.write("\n")
-    with open(path, "w") as f:
-        f.write(buf.getvalue())
+    """Write a float (H, W, 3) image (already gamma-encoded) as P3: a
+    ``r g b`` line a pixel, built from a table of each level's digits in
+    chunks of pixels (no text is formatted per pixel)."""
+    img = np.asarray(img)
+    h, w, _ = img.shape
+    flat = img.reshape(-1, 3)
+    chan = np.arange(3)
+    with open(path, "wb") as f:
+        f.write(f"P3\n{w} {h}\n255\n".encode())
+        for lo in range(0, flat.shape[0], _WRITE_CHUNK):
+            toks = _TOKENS[chan, quantize(flat[lo:lo + _WRITE_CHUNK])]
+            f.write(toks[toks != 0].tobytes())
 
 
 def _read_tokens(data: bytes):

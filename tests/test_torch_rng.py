@@ -88,6 +88,52 @@ def test_samplers_allclose():
                                    atol=1e-7)
 
 
+def _large_ids(seed):
+    """N pixel ids from 2^24 up to the port's lane cap: the ends, the last
+    pixel of 7680x4320, and draws between."""
+    from raytracingincuda_torch.ops.render_kernel import MAX_LANES
+
+    rng = np.random.default_rng(seed)
+    ends = [1 << 24, (1 << 24) + 1, 7680 * 4320 - 1, MAX_LANES - 1]
+    return np.concatenate([ends, rng.integers(1 << 24, MAX_LANES,
+                                              N - len(ends))]).astype(
+        np.uint32)
+
+
+@pytest.mark.parametrize("bounce, draw", [(0, jrng.DRAW_JITTER),
+                                          (0, jrng.DRAW_DEFOCUS),
+                                          (7, jrng.DRAW_SCATTER),
+                                          (255, jrng.DRAW_RR)])
+def test_uniform2_bit_equal_past_2_24(bounce, draw):
+    """Pixel ids of 2^24 and more, up to the lane cap, key the same words:
+    uniform2 bit-equal to JAX's."""
+    rng = np.random.default_rng(6)
+    ids, sample = _large_ids(6), _u32(rng, N, 1 << 21)
+    ju = jrng.uniform2(jrng.key_from_seed(1227), jnp.asarray(ids),
+                       jnp.asarray(sample), bounce, draw)
+    tu = trng.uniform2(trng.key_from_seed(1227), _t(ids), _t(sample), bounce,
+                       draw)
+    for a, b in zip(ju, tu):
+        np.testing.assert_array_equal(np.asarray(a), b.numpy())
+
+
+@pytest.mark.parametrize("sampler", ["random_unit_vector",
+                                     "random_in_unit_disk"])
+def test_samplers_bit_equal_past_2_24(sampler):
+    """The samplers at pixel ids from 2^24 up to the lane cap, eager JAX:
+    bit-equal (the sqrt/sin/cos of ops/f32math.py are XLA's op by op)."""
+    rng = np.random.default_rng(7)
+    ids, sample = _large_ids(7), _u32(rng, N, 1 << 21)
+    jk, tk = jrng.key_from_seed(1227), trng.key_from_seed(1227)
+    extra = (5, 0) if sampler == "random_unit_vector" else ()
+    with jax.disable_jit():
+        want = getattr(jrng, sampler)(jk, jnp.asarray(ids),
+                                      jnp.asarray(sample), *extra)
+    got = getattr(trng, sampler)(tk, _t(ids), _t(sample), *extra)
+    for a, b in zip(want, got):
+        np.testing.assert_array_equal(b.numpy(), np.asarray(a))
+
+
 @pytest.mark.parametrize("fn", ["sin", "cos", "sqrt"])
 def test_f32math_bit_equal_to_xla_cpu(fn):
     """XLA's CPU sin/cos are glibc's; sqrt is correctly rounded. The

@@ -357,11 +357,14 @@ DEPTH_DIVERGENCES = {
     for entry in ("make_mse_train", "make_train_step fused",
                   "render_kernel_grads", "make_stream_train fused")}
 PIXEL_LIMIT_DIVERGENCE = (
-    "The port's lanes stop below MAX_PIXELS = 2^24 pixels "
-    "(render_kernel.MAX_PIXELS) on every route; JAX's render_pallas at "
-    "pixels_per_lane=1 (its make_renderer below 8 spp) takes such an image, "
-    "and its make_renderer at 8 spp and more (16 pixels a lane) raises as "
-    "the port does.")
+    "Above render_kernel.MAX_LANES (715,827,840 lanes, the kernels' 32-bit "
+    "(3, lanes) index products) the port raises on every route; JAX's "
+    "render_pallas at pixels_per_lane=1 takes any image whose pixel ids "
+    "fit its uint32 ids. Below that cap both packages take an image at "
+    "one pixel a lane, and JAX's multi-pixel lanes and wave sweep (its "
+    "make_renderer at 8 spp and more, its train kernels' default sweep) "
+    "raise from 2^24 pixels on, where the port, which has neither, "
+    "renders.")
 
 
 def _port_train(entry, depth):
@@ -461,35 +464,124 @@ def test_train_entry_depth_limits(entry):
         assert isinstance(port, Exception) == (depth > 256), (entry, depth)
 
 
-def test_max_pixels_divergence():
-    """PIXEL_LIMIT_DIVERGENCE: at 4096x4096 (2^24 pixels) the port's
-    renderer and train entry points raise; JAX's render_pallas traces
-    (jax.eval_shape) at pixels_per_lane=1 and raises at 16, which its
-    make_renderer's kernel route takes at 8 spp and more."""
+class _Reached(Exception):
+    """Raised by a stand-in for a kernel dispatcher: the entry point got
+    there with these lanes."""
+
+    def __init__(self, ids, ii, jj):
+        super().__init__(tuple(ids.shape))
+        self.lanes = ids.shape[0]
+        self.last = (int(ids[-1]), float(ii[-1]), float(jj[-1]))
+
+
+def _port_large(entry, width, height, monkeypatch):
+    """Run the port's entry point at width x height up to its kernel
+    dispatcher, which raises ``_Reached`` with the lanes it was given
+    (nothing renders). Returns that exception."""
+    from raytracingincuda_torch.ops import f64_kernel as fk
+    from raytracingincuda_torch.ops import render_kernel as rk
+    from raytracingincuda_torch.ops import stream_kernel as sk
+    from raytracingincuda_torch.ops import stream_train_kernel as stk
+    from raytracingincuda_torch.ops import train_kernel as tk
+
+    def reached(ids, ii, jj, *args, **kw):
+        raise _Reached(ids, ii, jj)
+
+    for mod, name in ((rk, "_regen"), (sk, "_stream"), (fk, "_f64"),
+                      (tk, "_grad"), (tk, "_fused"), (stk, "_fused")):
+        monkeypatch.setattr(mod, name, reached)
+    s, cam = build_scene(2), CameraConfig.reference_default()
+    cfg = dict(scene_id=2, width=width, height=height, samples=1, bounces=2)
+    img = torch.zeros((height, width, 3))
+    runs = {
+        "render_pallas": lambda: make_renderer(RenderConfig(**cfg), "cpu")(
+            s, cam),
+        "render_pallas_stream": lambda: make_renderer(
+            RenderConfig(**cfg, impl="stream"), "cpu")(s, cam),
+        "render_pallas_df64": lambda: make_renderer(
+            RenderConfig(**cfg, dtype="float64"), "cpu")(s, cam),
+        "render_pallas_grads": lambda: tk.render_kernel_grads(
+            s, cam, img, width, height, 1, 2),
+        "mse_train_pallas": lambda: tk.make_mse_train(
+            s.mat_type, s.active, width, height, 1, 2)(s.params, cam, img),
+        "mse_train_stream": lambda: stk.mse_train_stream(
+            sk.prepare_stream_scene(s, block=32), cam, img, width, height, 1,
+            2),
+    }
+    with pytest.raises(_Reached) as got:
+        runs[entry]()
+    return got.value
+
+
+def test_max_pixels_divergence(monkeypatch):
+    """PIXEL_LIMIT_DIVERGENCE: at 4096x4104 (above 2^24 pixels) JAX's
+    render_pallas, render_pallas_stream, render_pallas_df64,
+    render_pallas_grads and mse_train_pallas (sweep 'sample') and
+    mse_train_stream (sweep 'sample') trace (jax.eval_shape, nothing
+    compiles) at pixels_per_lane=1 and raise at 16; each of the port's
+    counterparts reaches its kernel with every lane, the last pixel's
+    coordinates exact. Above MAX_LANES the port raises with the cap's
+    name, before any lane exists."""
     import jax
+    import jax.numpy as jnp
 
     from raytracingincuda_tpu.models.camera import CameraConfig as JCam
     from raytracingincuda_tpu.models.scene import build_scene as jbuild
+    from raytracingincuda_tpu.ops import pallas_backward as pb
+    from raytracingincuda_tpu.ops import pallas_df64 as pdf
     from raytracingincuda_tpu.ops import pallas_kernel as pk
+    from raytracingincuda_tpu.ops import pallas_stream as ps
+    from raytracingincuda_tpu.ops import pallas_stream_backward as psb
     from raytracingincuda_torch.ops import render_kernel as rk
     from raytracingincuda_torch.ops import train_kernel as tk
 
-    side = 4096
-    assert side * side == rk.MAX_PIXELS
-    s, cam = build_scene(2), CameraConfig.reference_default()
-    for spp in (1, 8):
-        with pytest.raises(ValueError, match="pixels"):
-            make_renderer(RenderConfig(scene_id=2, width=side, height=side,
-                                       samples=spp, bounces=2), "cpu")(s, cam)
-    with pytest.raises(ValueError, match="pixels"):
-        tk.render_kernel_grads(s, cam, torch.zeros((1, 1, 3)), side, side, 1,
-                               2)
+    w, h = 4096, 4104
+    assert w * h > 1 << 24 and w * h % rk.PAD == 0
     js, jcam = jbuild(2), JCam.reference_default()
+    jst = ps.prepare_stream_scene(js, block=32)
+    rows = jax.ShapeDtypeStruct((h, w, 3), jnp.float32)
 
-    def jax_render(kpl):
-        return jax.eval_shape(lambda: pk.render_pallas(
-            js, jcam, side, side, 1, 2, interpret=True, pixels_per_lane=kpl))
+    def sweep(kpl):
+        return "sample" if kpl == 1 else "wave"
 
-    assert jax_render(1).shape == (side, side, 3)
-    with pytest.raises(ValueError, match="16M pixels"):
-        jax_render(16)
+    jax_entries = {
+        "render_pallas": lambda kpl: jax.eval_shape(lambda: pk.render_pallas(
+            js, jcam, w, h, 1, 2, interpret=True, pixels_per_lane=kpl)),
+        "render_pallas_stream": lambda kpl: jax.eval_shape(
+            lambda: ps.render_pallas_stream(jst, jcam, w, h, 1, 2,
+                                            interpret=True,
+                                            pixels_per_lane=kpl)),
+        "render_pallas_df64": lambda kpl: jax.eval_shape(
+            lambda: pdf.render_pallas_df64(js, jcam, w, h, 1, 2,
+                                           interpret=True,
+                                           pixels_per_lane=kpl)),
+        "render_pallas_grads": lambda kpl: jax.eval_shape(
+            lambda g: pb.render_pallas_grads(js, jcam, g, w, h, 1, 2,
+                                             interpret=True, sweep=sweep(kpl),
+                                             pixels_per_lane=kpl), rows),
+        "mse_train_pallas": lambda kpl: jax.eval_shape(
+            lambda t: pb.mse_train_pallas(js, jcam, t, w, h, 1, 2,
+                                          interpret=True, sweep=sweep(kpl),
+                                          pixels_per_lane=kpl), rows),
+        "mse_train_stream": lambda kpl: jax.eval_shape(
+            lambda t: psb.mse_train_stream(jst, jcam, t, w, h, 1, 2,
+                                           interpret=True, sweep=sweep(kpl),
+                                           pixels_per_lane=kpl), rows),
+    }
+    for entry, run in jax_entries.items():
+        assert jax.tree_util.tree_leaves(run(1)), entry
+        with pytest.raises(ValueError, match="16M"):
+            run(16)
+        got = _port_large(entry, w, h, monkeypatch)
+        assert got.lanes == w * h, entry
+        assert got.last == (w * h - 1, w - 1.0, h - 1.0), entry
+    big = 32768
+    assert big * big > rk.MAX_LANES
+    for spp in (1, 8):
+        with pytest.raises(ValueError, match="MAX_LANES"):
+            make_renderer(RenderConfig(scene_id=2, width=big, height=big,
+                                       samples=spp, bounces=2), "cpu")(
+                build_scene(2), CameraConfig.reference_default())
+    with pytest.raises(ValueError, match="MAX_LANES"):
+        tk.render_kernel_grads(build_scene(2), CameraConfig.reference_default(),
+                               torch.zeros((1, 1, 3)), big, big, 1, 2)

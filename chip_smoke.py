@@ -230,6 +230,11 @@ CPU path):
              make_stream_train's step; make_renderer(dtype='float64') at
              1spp/8b (sampled lanes' sums bit-equal to f64_reference); the
              adaptive route (base 4, max 16)
+  27 defaults  build_scene(1) and build_random_scene(10_000, seed=3)
+             called with no device land on the card; render_kernel
+             (kernel 1) and render_stream (kernel 4) render them at
+             320x192x2spp/8b, and each image is bit-equal to the same
+             render of the scene built with device='cuda'
 
 Then the kernels line (JSON, with each kernel's bound and, as
 bound_fmad_off_ms, the same bound with the operations at half the rate,
@@ -239,7 +244,7 @@ stream_segment_sum, f64_render and compact_render), the nvidia-smi line,
 and last {"ok": true, "device": {...}}. Everything measured is
 also written to chip_smoke.json in the output directory. Launch counts
 are set to 0 just before each main path (phases 4, 7, 8, 10, 12, 13, 14,
-16-21, 23-26) and read just after it: each path's own counts are in chip_smoke.json
+16-21, 23-27) and read just after it: each path's own counts are in chip_smoke.json
 (launches_by_phase) and their sums are the kernels line's launches; phase
 22's ranks count their own launches (each job's, in the worker) and their
 sums are added too.
@@ -817,6 +822,60 @@ def large_images(dev, cam, reset_counts, read_counts) -> dict:
                stream_step=sstep, f64=f64, adaptive=adapt)
     out["phase_s"] = time.perf_counter() - t_phase
     say(phase, f"phase took {out['phase_s']:.1f} s")
+    return out
+
+
+def default_scenes(dev, cam, reset_counts, read_counts) -> dict:
+    """Phase 27: scenes built with no ``device`` land on the card, and the
+    kernels render them there. ``build_scene(1)`` goes through
+    ``render_kernel`` (kernel 1) and ``build_random_scene(10_000, seed=3)``
+    through ``render_stream`` (kernel 4) at 320x192x2spp/8b; each image
+    is bit-equal to the same render of the scene built with ``device=dev``.
+    Returns the record."""
+    import torch
+
+    from raytracingincuda_torch.models.scene import (build_random_scene,
+                                                     build_scene, param_leaves)
+    from raytracingincuda_torch.ops import render_kernel as rk
+    from raytracingincuda_torch.ops import stream_kernel as sk
+
+    phase = "27 defaults"
+    t_phase = time.perf_counter()
+    w, h, spp, depth = 320, 192, 2, 8
+
+    def on_card(scene) -> bool:
+        return all(t.is_cuda for t in (*param_leaves(scene.params),
+                                       scene.mat_type, scene.active))
+
+    def renders(s1, s10k):
+        return (rk.render_kernel(s1, cam, w, h, spp, depth),
+                sk.render_stream(sk.prepare_stream_scene(s10k), cam, w, h,
+                                 spp, depth))
+
+    s1, s10k = build_scene(1), build_random_scene(10_000, seed=3)
+    placed = {"scene1": on_card(s1), "random_10k": on_card(s10k)}
+    if not all(placed.values()):
+        raise AssertionError(f"default scenes off the card: {placed}")
+    reset_counts()
+    img1, img4 = renders(s1, s10k)
+    torch.cuda.synchronize()
+    counts = read_counts(phase)
+    want1, want4 = renders(build_scene(1, device=dev),
+                           build_random_scene(10_000, seed=3, device=dev))
+    out = {"on_card": placed, "launches": counts,
+           "kernel1_bit_equal": bool(torch.equal(img1, want1)),
+           "kernel4_bit_equal": bool(torch.equal(img4, want4)),
+           "finite": bool(torch.isfinite(img1).all()
+                          and torch.isfinite(img4).all())}
+    if not (counts["regen_render"] >= 1 and counts["stream_render"] >= 1
+            and out["kernel1_bit_equal"] and out["kernel4_bit_equal"]
+            and out["finite"] and img1.is_cuda and img4.is_cuda):
+        raise AssertionError(f"default-device renders: {out}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    say(phase, f"build_scene(1) and build_random_scene(10_000) with no "
+        f"device on {s1.mat_type.device}; render_kernel and render_stream "
+        f"at {w}x{h}x{spp}spp/{depth}b launched {counts}, images bit-equal "
+        f"to device={dev}'s; phase took {out['phase_s']:.1f} s")
     return out
 
 
@@ -2070,7 +2129,8 @@ def main() -> int:
         s = build_scene(1, device=dev)
         card = ad.render_adaptive(s, cam, 64, 40, 6, **kw)
         via_renderer = make_renderer(cfg, dev)(s, cam)
-        plain = ad.render_adaptive(build_scene(1), cam, 64, 40, 6, **kw)
+        plain = ad.render_adaptive(build_scene(1, device="cpu"), cam, 64, 40,
+                                   6, **kw)
         pa = rk.render_kernel(s, cam, 64, 40, 2, 6, gamma=False,
                               accumulate_only=True)
         pb = rk.render_kernel(s, cam, 64, 40, 2, 6, gamma=False,
@@ -2288,7 +2348,7 @@ def main() -> int:
             and float(spp.min()) >= 4 and float(spp.max()) <= 32):
         raise AssertionError(f"adaptive stream: {counts}, image equal "
                              f"{torch.equal(res.image, img)}")
-    small = build_random_scene(200, half_extent=10.0)
+    small = build_random_scene(200, half_extent=10.0, device="cpu")
     st_cpu = sk.prepare_stream_scene(small, block=64)
     st_dev = sk.StreamScene(st_cpu.scene_mat.to(dev), st_cpu.bounds.to(dev),
                             st_cpu.block, st_cpu.perm.to(dev))
@@ -2438,7 +2498,7 @@ def main() -> int:
     # gradients against f64 central differences at the JAX package's own
     # FD shape and tolerances (tests/test_df64.py: scene 2 in slots of 64,
     # 24x16x2spp/4b, h = 1e-6, where no silhouette is crossed)
-    sc2, cm2 = to_f64(build_scene(2, pad_to_multiple=64), dev)
+    sc2, cm2 = to_f64(build_scene(2, pad_to_multiple=64, device="cpu"), dev)
     wimg = torch.from_numpy(np.random.default_rng(3).standard_normal(
         (16, 24, 3))).to(dev)
 
@@ -2478,7 +2538,7 @@ def main() -> int:
     # the image within 1e-12 and the gradients within 1e-8 of each leaf's
     # largest entry plus 1e-15 (tests/test_torch_f64_grad.py's bounds; the
     # card's double sin/cos are not glibc's)
-    s1 = build_scene(1)
+    s1 = build_scene(1, device="cpu")
     tgt = torch.from_numpy(np.random.default_rng(3).uniform(0, 1, (20, 32,
                                                                    3)))
     on = {d: to_f64(s1, d) for d in ("cpu", dev)}
@@ -2778,7 +2838,8 @@ def main() -> int:
         cam64 = CameraConfig.reference_default(dtype=f64)
         got = make_renderer(cfg, dev)(build_scene(1, dtype=f64, device=dev),
                                       cam64).cpu()
-        want = make_renderer(cfg, "cpu")(build_scene(1, dtype=f64), cam64)
+        want = make_renderer(cfg, "cpu")(
+            build_scene(1, dtype=f64, device="cpu"), cam64)
         f64_routes[name] = float((got - want).abs().max())
         if not (got.dtype == f64 and f64_routes[name] <= 1e-12):
             raise AssertionError(f"f64 oracle {name} card vs CPU: "
@@ -3246,6 +3307,10 @@ def main() -> int:
     record["large_images"] = large_images(dev, cam, reset_counts, read_counts)
     record["phase_s"]["26 large images"] = record["large_images"]["phase_s"]
 
+    # -- 27 defaults -----------------------------------------------------------
+    record["defaults"] = default_scenes(dev, cam, reset_counts, read_counts)
+    record["phase_s"]["27 defaults"] = record["defaults"]["phase_s"]
+
     # -- result lines ---------------------------------------------------------
     record["main_path_launches"] = main_launches
     worst_err = max(r["max_abs_err"] for r in record["compare"] + [head])
@@ -3261,7 +3326,7 @@ def main() -> int:
                                      rr_start=rr, emit_depth=True)
                      .double().sum())
 
-    n1 = build_scene(1).num_slots
+    n1 = build_scene(1, device="cpu").num_slots
     scene_bytes = n1 * rk.USED_COLS * 4 + 96
     px_head = 1280 * 768
     px_small = 320 * 192

@@ -64,7 +64,7 @@ def main() -> int:
     torch.set_num_threads(4)
     w, h, depth = 1280, 768, 25
     cam_cfg = CameraConfig.reference_default()
-    scene = build_scene(1)
+    scene = build_scene(1, device="cpu")
     m = rk.pack_scene_matrix(scene).numpy().astype(np.float64)
     act = m[:, rk.COL_ACTIVE] > 0.5
     c_all, r_all = m[:, 0:3], m[:, rk.COL_RADIUS]

@@ -34,6 +34,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import torch
+
 from .ops.rng import DEFAULT_SEED
 
 DTYPE_NAMES = {"float32": "float", "float64": "double"}
@@ -131,6 +133,11 @@ class RenderConfig:
                 "dtype=float64 with impl='kernel' has no packed/stream "
                 "path; the f64 kernel reads the scene in layout vmem or "
                 "hbm (impl='oracle' ignores the layout)")
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        """The render's dtype (JAX's ``jnp_dtype``)."""
+        return torch.float64 if self.dtype == "float64" else torch.float32
 
     @property
     def effective_max_samples(self) -> int:

@@ -49,6 +49,7 @@ def run(args) -> list:
     """Fit and write the recovered image; returns the loss per step."""
     import torch
 
+    from ..device import resolve_device
     from ..models.camera import CameraConfig
     from ..models.scene import (Scene, SceneParams, build_random_scene,
                                 build_scene)
@@ -61,10 +62,7 @@ def run(args) -> list:
     if args.loss != "mse" and args.impl not in ("fused", "stream"):
         raise SystemExit(f"--loss {args.loss} needs impl=fused or stream "
                          "(the kernels' loss family)")
-    dev = torch.device(args.device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda but torch.cuda.is_available() is "
-                           "False")
+    dev = resolve_device(args.device)
     W, H = args.width, args.height
     stream = None
     if args.impl == "stream" and args.n_spheres:

@@ -58,6 +58,7 @@ def run(args) -> bool:
     import numpy as np
     import torch
 
+    from ..device import resolve_device
     from ..models.camera import CameraConfig
     from ..models.scene import Scene, SceneParams, build_scene
     from ..ops import grad as gradlib
@@ -65,10 +66,7 @@ def run(args) -> bool:
     from ..ops.render_kernel import render_kernel
     from ..ops.vec import Vec3
 
-    dev = torch.device(args.device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda but torch.cuda.is_available() is "
-                           "False")
+    dev = resolve_device(args.device)
     W, H, SPP, D = args.width, args.height, args.samples, args.bounces
     true_scene = build_scene(2, pad_to_multiple=64, device=dev)
     true_cam = CameraConfig.reference_default()

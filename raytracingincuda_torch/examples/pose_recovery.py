@@ -48,15 +48,13 @@ def run(args) -> float:
     """Recover the pose; returns the final lookfrom error."""
     import torch
 
+    from ..device import resolve_device
     from ..models.camera import CameraConfig
     from ..models.scene import build_scene
     from ..ops import pose as poselib
     from ..ops.render_kernel import render_kernel
 
-    dev = torch.device(args.device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda but torch.cuda.is_available() is "
-                           "False")
+    dev = resolve_device(args.device)
     W, H = args.width, args.height
     scene = build_scene(2, device=dev)
     cam = CameraConfig.reference_default()

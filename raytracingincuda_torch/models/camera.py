@@ -29,6 +29,9 @@ class CameraConfig(NamedTuple):
 
     @staticmethod
     def reference_default(dtype=torch.float32, device="cpu") -> "CameraConfig":
+        """The reference's camera. Host data by default, unlike the scene
+        factories: the renderers derive the camera row and move it to the
+        scene's device."""
         def s(v):
             return torch.tensor(v, dtype=dtype, device=device)
 

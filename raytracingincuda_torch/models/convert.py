@@ -3,6 +3,11 @@
 The JAX package's ``Scene`` and ``CameraConfig`` are pytrees; their
 leaves, each taken with ``np.asarray`` in ``jax.tree_util.tree_leaves``
 order, are all that crosses. Nothing here imports JAX.
+
+Scene and train state land on the card unless the caller passes
+``device='cpu'`` (``device.resolve_device``). The camera config and the
+packed camera row stay host data by default: the renderers move the
+camera row to the scene's device themselves.
 """
 from __future__ import annotations
 
@@ -11,6 +16,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..ops.vec import Vec3
 from .camera import CameraConfig
 from .scene import Scene, SceneParams, param_leaves, params_from_leaves
@@ -21,9 +27,11 @@ def _t(a, device, dtype=None) -> torch.Tensor:
                                                         dtype=dtype)
 
 
-def scene_from_numpy(arrays: Sequence[np.ndarray], device="cpu") -> Scene:
-    """Scene from the 11 leaves of a JAX ``Scene``: center x/y/z, radius,
-    albedo x/y/z, fuzz, ior, mat_type, active."""
+def scene_from_numpy(arrays: Sequence[np.ndarray], device=None) -> Scene:
+    """Scene on ``device`` (None: the card) from the 11 leaves of a JAX
+    ``Scene``: center x/y/z, radius, albedo x/y/z, fuzz, ior, mat_type,
+    active."""
+    device = resolve_device(device)
     if len(arrays) != 11:
         raise ValueError(f"a Scene has 11 leaves, got {len(arrays)}")
     cx, cy, cz, radius, ar, ag, ab, fuzz, ior, mat, active = arrays
@@ -43,7 +51,9 @@ def scene_from_numpy(arrays: Sequence[np.ndarray], device="cpu") -> Scene:
 def camera_config_from_numpy(arrays: Sequence[np.ndarray],
                              device="cpu") -> CameraConfig:
     """CameraConfig from the 12 leaves of a JAX ``CameraConfig``: vfov,
-    lookfrom x/y/z, lookat x/y/z, vup x/y/z, defocus_angle, focus_dist."""
+    lookfrom x/y/z, lookat x/y/z, vup x/y/z, defocus_angle, focus_dist.
+    Host data by default, as ``CameraConfig.reference_default``: the
+    renderers derive the camera row and move it to the scene's device."""
     if len(arrays) != 12:
         raise ValueError(f"a CameraConfig has 12 leaves, got {len(arrays)}")
     t = [_t(a, device) for a in arrays]
@@ -59,20 +69,24 @@ def camera_config_from_numpy(arrays: Sequence[np.ndarray],
 
 def camera_row_from_numpy(row: np.ndarray, device="cpu") -> torch.Tensor:
     """A packed (1, 24) f32 camera row (the JAX ``pack_camera`` layout),
-    so both packages can be fed one identical derived camera."""
+    so both packages can be fed one identical derived camera. Host data
+    by default: the kernel wrappers move the row to their lanes'
+    device."""
     row = np.asarray(row, np.float32)
     if row.shape != (1, 24):
         raise ValueError(f"camera row must have shape (1, 24), got {row.shape}")
     return _t(row, device)
 
 
-def f64_inputs_from_numpy(sm_hi, sm_lo, cam_rows, device="cpu") -> tuple:
-    """The f64 render's scene and camera from the JAX df64 inputs:
+def f64_inputs_from_numpy(sm_hi, sm_lo, cam_rows, device=None) -> tuple:
+    """The f64 render's scene and camera, on ``device`` (None: the card),
+    from the JAX df64 inputs:
     ``pack_scene_matrix_df64``'s (N, 16) f32 (hi, lo) matrices and
     ``initialize_f64``'s (2, 24) hi/lo camera rows. Returns (scene_mat
     (N, 16) f32, cam_row (24,) float64), each the hi + lo of its pair in
     float64. The port's scene matrix is f32, so ``sm_lo`` must be 0 (it
     is for every scene the JAX package builds: its params are f32)."""
+    device = resolve_device(device)
     hi = np.asarray(sm_hi, np.float32)
     lo = np.asarray(sm_lo, np.float32)
     rows = np.asarray(cam_rows, np.float32)
@@ -90,8 +104,9 @@ def f64_inputs_from_numpy(sm_hi, sm_lo, cam_rows, device="cpu") -> tuple:
 
 
 def train_state_from_numpy(arrays: Sequence[np.ndarray], trainable=None,
-                           device="cpu"):
-    """The port's ``ops.grad.TrainState`` from the leaves of a JAX
+                           device=None):
+    """The port's ``ops.grad.TrainState``, on ``device`` (None: the card),
+    from the leaves of a JAX
     ``TrainState`` built by ``make_train_step`` with ``optax.adam``: the
     9 SceneParams leaves, optax's ``count``, ``mu`` and ``nu``, and
     ``step``. With a ``trainable`` mask (a SceneParams of bools, as the
@@ -99,6 +114,7 @@ def train_state_from_numpy(arrays: Sequence[np.ndarray], trainable=None,
     only; the frozen leaves' moments are zeros here, and stay so."""
     from ..ops.grad import AdamState, TrainState
 
+    device = resolve_device(device)
     mask = ([True] * 9 if trainable is None
             else [bool(t) for t in param_leaves(trainable)])
     k = sum(mask)
@@ -123,12 +139,14 @@ def train_state_from_numpy(arrays: Sequence[np.ndarray], trainable=None,
 
 
 def stream_scene_from_numpy(scene_mat, bounds, block: int, perm,
-                            device="cpu"):
-    """The port's ``StreamScene`` from a JAX ``StreamScene``'s arrays:
-    the matrix's columns 0-15 (the JAX matrix pads its rows to 128 lanes),
-    the (nb, 8) bounds, the block size and ``perm``."""
+                            device=None):
+    """The port's ``StreamScene``, on ``device`` (None: the card), from a
+    JAX ``StreamScene``'s arrays: the matrix's columns 0-15 (the JAX
+    matrix pads its rows to 128 lanes), the (nb, 8) bounds, the block
+    size and ``perm``."""
     from ..ops.stream_kernel import StreamScene
 
+    device = resolve_device(device)
     mat = np.asarray(scene_mat, np.float32)
     if mat.ndim != 2 or mat.shape[1] < 16 or mat.shape[0] % block:
         raise ValueError(f"stream matrix {mat.shape} is not whole blocks of "

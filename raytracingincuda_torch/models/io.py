@@ -16,7 +16,8 @@ packages read each other's files. Two formats:
 (to a multiple of 128 slots by default, as ``build_scene`` pads), so the
 slot count, which picks the adaptive and stream routes (more than 4096
 slots), is the JAX package's. Files are read and written as host numpy;
-the scene is then made on ``device``.
+the scene is then made on ``device``, the card unless the caller passes
+``device='cpu'``.
 """
 from __future__ import annotations
 
@@ -46,10 +47,10 @@ def scene_from_arrays(
     active: Optional[np.ndarray] = None,   # (N,) bool
     dtype=torch.float32,
     pad_to_multiple: Optional[int] = 128,
-    device="cpu",
+    device=None,
 ) -> Scene:
-    """A padded Scene on ``device`` from host arrays (the programmatic
-    import path; the file loaders call it)."""
+    """A padded Scene on ``device`` (None: the card) from host arrays (the
+    programmatic import path; the file loaders call it)."""
     center = np.asarray(center, np.float64).reshape(-1, 3)
     n = center.shape[0]
     radius = np.asarray(radius, np.float64).reshape(n)
@@ -141,9 +142,9 @@ def save_scene(path: str, scene: Scene) -> None:
 
 def load_scene(path: str, dtype=torch.float32,
                pad_to_multiple: Optional[int] = 128,
-               device="cpu") -> Scene:
+               device=None) -> Scene:
     """Load a scene asset (``.npz`` or ``.csv``) into a padded Scene on
-    ``device``."""
+    ``device`` (None: the card)."""
     ext = os.path.splitext(path)[1].lower()
     kw = dict(dtype=dtype, pad_to_multiple=pad_to_multiple, device=device)
     if ext == ".npz":

@@ -122,9 +122,9 @@ def serial_scene1_arrays():
 
 def build_serial_reference_scene(dtype=torch.float32,
                                  pad_to_multiple: Optional[int] = 128,
-                                 device="cpu") -> Scene:
-    """The serial baseline's scene as a padded Scene on ``device`` (487
-    spheres in 512 slots by default)."""
+                                 device=None) -> Scene:
+    """The serial baseline's scene as a padded Scene on ``device`` (None:
+    the card; 487 spheres in 512 slots by default)."""
     from .io import scene_from_arrays
 
     center, radius, mat, albedo, fuzz, ior = serial_scene1_arrays()

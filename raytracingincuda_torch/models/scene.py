@@ -8,6 +8,11 @@ padding) sit far below the world with an explicit ``active`` mask.
 
 Scene ids: 1 — book cover, 22x22 grid (488 slots); 2 — off-center 6x6
 patch (40 slots); any other — 11x11 quadrant (125 slots).
+
+Every factory builds on the card unless the caller asks for the CPU:
+``device`` None is ``'cuda'``, and without CUDA it raises and names
+``device='cpu'`` (``device.resolve_device``), as the JAX package's
+``jnp.asarray`` leaves land on its default accelerator.
 """
 from __future__ import annotations
 
@@ -16,6 +21,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..ops.rng import DEFAULT_SEED
 from ..ops.vec import Vec3
 
@@ -112,6 +118,8 @@ def num_slots_for_scene(scene_id: int) -> int:
 
 def _to_scene(center, radius, albedo, fuzz, ior, mat, active, dtype,
               device) -> Scene:
+    device = resolve_device(device)
+
     def t(a):  # float64 -> dtype rounds to nearest, as numpy and JAX do
         return torch.from_numpy(np.ascontiguousarray(a)).to(device, dtype)
 
@@ -133,11 +141,11 @@ def build_scene(
     seed: int = DEFAULT_SEED,
     dtype=torch.float32,
     pad_to_multiple: Optional[int] = 128,
-    device="cpu",
+    device=None,
 ) -> Scene:
     """One of the three reference scenes as a padded SoA scene on
-    ``device``; ``pad_to_multiple`` rounds the slot count up with
-    inactive padding."""
+    ``device`` (None: the card); ``pad_to_multiple`` rounds the slot count
+    up with inactive padding."""
     n = num_slots_for_scene(scene_id)
     n_padded = _round_up(n, pad_to_multiple) if pad_to_multiple else n
     b = _Builder(n_padded)
@@ -174,11 +182,12 @@ def build_random_scene(
     dtype=torch.float32,
     pad_to_multiple: Optional[int] = 128,
     half_extent: float = 50.0,
-    device="cpu",
+    device=None,
 ) -> Scene:
     """A large random scene with the reference's material mix, scattered
     uniformly over a [-half_extent, half_extent]^2 ground patch, plus the
-    ground sphere (the same vectorized numpy draws as the JAX package)."""
+    ground sphere (the same vectorized numpy draws as the JAX package), on
+    ``device`` (None: the card)."""
     n = n_spheres + 1
     n_padded = _round_up(n, pad_to_multiple) if pad_to_multiple else n
     rng = np.random.default_rng(seed)
@@ -220,8 +229,9 @@ def build_random_scene(
 
 
 def build_deep_scene(dtype=torch.float32, pad_to_multiple: Optional[int] = 8,
-                     device="cpu") -> Scene:
-    """A scene whose paths run deep, for the train kernels' deep stack: a
+                     device=None) -> Scene:
+    """A scene on ``device`` (None: the card) whose paths run deep, for
+    the train kernels' deep stack: a
     diffuse core (radius 2, albedo 0.99/0.96/0.93) inside a concentric
     glass shell (radius 2.2, ior 4), centred 2.1 from the reference
     camera's eye along its view, so that the camera looks from the gap

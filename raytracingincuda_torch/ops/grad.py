@@ -87,7 +87,8 @@ def make_loss_fn(img_width: int, img_height: int, samples_per_pixel: int,
                  pixels_per_lane: Optional[int] = None, loss: str = "mse",
                  huber_delta: float = 1.0):
     """``loss(params, cam_cfg, mat_type, active, target) -> scalar``,
-    differentiable by autograd.
+    differentiable by autograd, computed on the params' device (the
+    kernels on a card, their plain versions on the CPU).
 
     The loss is taken in linear radiance by default (``gamma=False``):
     sqrt-gamma has an unbounded slope at black, and absorbed paths are
@@ -159,7 +160,8 @@ def _value_and_grad(loss_fn, params, cam_cfg, mat_type, active, target):
 def render_grads(scene: Scene, cam_cfg: CameraConfig, target,
                  img_width: int, img_height: int, samples_per_pixel: int,
                  max_depth: int, **kw):
-    """(loss, (scene-param grads, camera grads)) for one target image."""
+    """(loss, (scene-param grads, camera grads)) for one target image, on
+    the scene's device."""
     loss_fn = make_loss_fn(img_width, img_height, samples_per_pixel,
                            max_depth, **kw)
     return _value_and_grad(loss_fn, scene.params, cam_cfg, scene.mat_type,
@@ -344,7 +346,8 @@ def make_train_step(img_width: int, img_height: int, samples_per_pixel: int,
                     learning_rate: float = 1e-2, trainable=None, **kw):
     """Build ``(init_fn, step_fn)`` for inverse rendering;
     ``step_fn(state, cam_cfg, mat_type, active, target) -> (state,
-    loss)``.
+    loss)``, run on the state's device (that of the params ``init_fn``
+    was given).
 
     ``impl`` (in ``kw``): 'oracle' (default), 'kernel' or 'fused'; the
     other keywords go to ``make_loss_fn`` or, for 'fused', to
@@ -416,7 +419,8 @@ def make_stream_train(stream, img_width: int, img_height: int,
                       huber_delta: float = 1.0, budget: int = RECORD_BUDGET):
     """Inverse rendering for streamed scenes: ``(init_fn, step_fn)`` with
     ``step_fn(state, cam_cfg, mat_type, active, target) -> (state,
-    loss)``, as ``make_train_step``.
+    loss)``, as ``make_train_step``, on the device of ``stream`` and the
+    state.
 
     ``fused=True`` runs render, loss and gradients in one launch
     (``stream_train_kernel.mse_train_stream``); ``fused=False`` renders

@@ -197,7 +197,7 @@ def recover_pose(scene: Scene, target: torch.Tensor, init_cam: CameraConfig,
                  pyramid: tuple = (4, 2, 1), optimize_lookat: bool = True,
                  objective: str = "mse"):
     """Camera-pose recovery by gradient descent on the surrogate against
-    an (H, W, 3) target.
+    an (H, W, 3) target, on the scene's device.
 
     With a ``soft_render`` target use ``objective="mse"``. With a real
     path-traced target use ``objective="edges"``: the surrogate's shading
@@ -257,7 +257,7 @@ def refine_pose_fd(scene: Scene, target: torch.Tensor, init_cam: CameraConfig,
                    optimize_lookat: bool = True, render_fn=None,
                    log_every: int = 5):
     """Pose refinement on the real path-traced MSE by central finite
-    differences.
+    differences, on the scene's device.
 
     The render is deterministic given (config, seed), so the MSE against
     a fixed target is a noise-free function of the pose, and central

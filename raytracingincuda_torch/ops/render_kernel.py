@@ -619,8 +619,10 @@ def render_kernel(
     mode: str = "regen",
     mesh=None,
 ) -> torch.Tensor:
-    """Render on the scene's device; (H, W, 3) f32, or with
-    ``return_depth`` the (padded,) per-lane traced-segment totals.
+    """Render on the scene's device (kernel 1 on a card, which is where a
+    scene factory called with no ``device`` puts it; the plain version on
+    the CPU); (H, W, 3) f32, or with ``return_depth`` the (padded,)
+    per-lane traced-segment totals.
 
     ``pixel_order``: optional (padded,) permutation of pixel ids; lanes
     take pixels in this order and the output is un-permuted, so it
@@ -718,9 +720,10 @@ def make_diff_render(mat_type, active, img_width: int, img_height: int,
                      layout: str = "vmem", ray_tile=None, bwd_ray_tile=None,
                      bwd_sweep=None, bwd_window: int = 0,
                      bwd_pixels_per_lane=None):
-    """Differentiable render: ``f(params, cam_cfg) -> (H, W, 3)`` whose
-    forward is ``render_kernel`` (the regen kernel on a card) and whose
-    gradient reaches every float leaf of ``params`` and ``cam_cfg``.
+    """Differentiable render: ``f(params, cam_cfg) -> (H, W, 3)`` on the
+    params' device, whose forward is ``render_kernel`` (the regen kernel
+    on a card) and whose gradient reaches every float leaf of ``params``
+    and ``cam_cfg``.
 
     The counterpart of ``pallas_kernel.make_diff_render``, as a
     ``torch.autograd.Function``. ``backward='kernel'`` chains gamma and

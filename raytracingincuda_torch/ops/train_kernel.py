@@ -838,7 +838,9 @@ def make_mse_train(mat_type, active, img_width: int, img_height: int,
                    layout: str = "vmem", ray_tile=None, park_residuals=None,
                    sweep=None, window: int = 0, pixels_per_lane=None):
     """The fused train step builder: ``f(params, cam_cfg, target) ->
-    (loss, image, (d_params, d_cam_cfg))``. ``pixel_order`` (e.g. a
+    (loss, image, (d_params, d_cam_cfg))``, run on the device of
+    ``mat_type``, ``active`` and the params (kernel 2 on a card, its plain
+    version on the CPU). ``pixel_order`` (e.g. a
     frozen difficulty order) changes speed only. ``mesh``: as
     ``fused_train``, one ``all_reduce`` a step. ``ray_tile``,
     ``park_residuals``, ``sweep``, ``window`` and ``pixels_per_lane`` are

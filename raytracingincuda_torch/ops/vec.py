@@ -15,8 +15,11 @@ PyTorch version are held to each other bit for bit on the card:
     pass half, and gradients are held to JAX's.
 
 Reference parity map (the CUDA book code's ``vec3.h``): operators
-:18-91, dot/cross :93-103, unit_vector :105-107, near_zero :48-52,
-reflect :129-131, refract :133-138.
+:18-91, dot/cross :93-103, unit_vector :105-107, length/length_squared
+:40-46, near_zero :48-52, reflect :129-131, refract :133-138.
+
+``Vec3.full``, ``Vec3.zeros`` and ``Vec3.of`` take the ``device`` of the
+data they join; every caller in the package passes it.
 """
 from __future__ import annotations
 
@@ -57,8 +60,29 @@ class Vec3(NamedTuple):
         inv = 1.0 / t
         return Vec3(self.x * inv, self.y * inv, self.z * inv)
 
+    @property
+    def shape(self):
+        return self.x.shape
+
+    @property
+    def dtype(self):
+        return self.x.dtype
+
+    def astype(self, dtype) -> "Vec3":
+        return Vec3(self.x.to(dtype), self.y.to(dtype), self.z.to(dtype))
+
+    def reshape(self, *shape) -> "Vec3":
+        return Vec3(self.x.reshape(*shape), self.y.reshape(*shape),
+                    self.z.reshape(*shape))
+
     def stack(self, dim: int = -1) -> torch.Tensor:
+        """A dense (..., 3) tensor (``dim`` is JAX's ``axis``)."""
         return torch.stack([self.x, self.y, self.z], dim=dim)
+
+    @staticmethod
+    def from_stacked(a: torch.Tensor, dim: int = -1) -> "Vec3":
+        """Inverse of ``stack``: the three slices of ``a`` along ``dim``."""
+        return Vec3(*torch.unbind(a, dim))
 
     @staticmethod
     def full(shape, cx, cy, cz, dtype=torch.float32, device="cpu") -> "Vec3":
@@ -72,6 +96,12 @@ class Vec3(NamedTuple):
     def zeros(shape, dtype=torch.float32, device="cpu") -> "Vec3":
         z = torch.zeros(shape, dtype=dtype, device=device)
         return Vec3(z, z, z)
+
+    @staticmethod
+    def of(cx, cy, cz, dtype=torch.float32, device="cpu") -> "Vec3":
+        """A Vec3 of 0-d tensors (camera constants and the like)."""
+        return Vec3(*(torch.tensor(c, dtype=dtype, device=device)
+                      for c in (cx, cy, cz)))
 
 
 def _bound(x: torch.Tensor, v: float) -> torch.Tensor:
@@ -99,6 +129,10 @@ def dot(u: Vec3, v: Vec3) -> torch.Tensor:
 
 def length_sq(v: Vec3) -> torch.Tensor:
     return dot(v, v)
+
+
+def length(v: Vec3) -> torch.Tensor:
+    return torch.sqrt(length_sq(v))
 
 
 def cross(u: Vec3, v: Vec3) -> Vec3:

@@ -36,6 +36,8 @@ from typing import NamedTuple, Optional, Sequence
 import torch
 import torch.distributed as dist
 
+from ..device import resolve_device
+
 # Lanes per CUDA block (render_kernel.PAD): every rank's slice is a
 # multiple of it, so padding goes to PAD * world.
 PAD = 128
@@ -83,14 +85,11 @@ def maybe_initialize_distributed(backend: Optional[str] = None) -> None:
 def rank_device(device=None) -> torch.device:
     """This rank's device: ``cuda:{LOCAL_RANK % device_count}`` for a CUDA
     device given without an index (or None, which means 'cuda'), the CPU
-    for 'cpu', else ``device`` as given. Nothing falls back to the CPU: a
-    CUDA device without CUDA raises."""
-    device = torch.device("cuda" if device is None else device)
+    for 'cpu', else ``device`` as given. The port's one device rule
+    (``device.resolve_device``) applies: a CUDA device without CUDA
+    raises, and nothing falls back to the CPU."""
+    device = resolve_device(device)
     if device.type == "cuda" and device.index is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("a CUDA device was asked for but "
-                               "torch.cuda.is_available() is False: pass "
-                               "device='cpu' to run on the CPU")
         device = torch.device("cuda", _local()[0] % torch.cuda.device_count())
     return device
 

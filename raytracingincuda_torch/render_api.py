@@ -39,6 +39,7 @@ from typing import Callable
 import torch
 
 from .config import RenderConfig
+from .device import resolve_device
 from .models.camera import CameraConfig, initialize
 from .models.scene import Scene, _round_up, param_leaves
 from .ops import f64_kernel, render_kernel, stream_kernel, tracer
@@ -231,12 +232,8 @@ def _route(cfg: RenderConfig) -> str:
 
 def _scene_check(device) -> Callable:
     """``check(scene)``: raises unless the scene is on ``device``'s type;
-    a CUDA device without CUDA raises here."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {device} requested but torch.cuda.is_available() is "
-            "False: there is no CUDA device here")
+    a CUDA device without CUDA raises here (``device.resolve_device``)."""
+    device = resolve_device(device)
 
     def check(scene: Scene):
         if scene.mat_type.device.type != device.type:
@@ -261,7 +258,7 @@ def make_renderer(cfg: RenderConfig, device, n_devices: int = 0) -> Callable:
     route = _route(cfg)
 
     if route == "oracle":
-        dtype = torch.float64 if cfg.dtype == "float64" else torch.float32
+        dtype = cfg.torch_dtype
 
         def oracle_renderer(scene, cam_cfg):
             check(scene)
@@ -316,7 +313,7 @@ def make_sum_renderer(cfg: RenderConfig, device) -> Callable:
         raise ValueError("impl=stream has no legacy_sky variant")
     check = _scene_check(device)
     stream_of = _stream_preparer(cfg)
-    dtype = torch.float64 if cfg.dtype == "float64" else torch.float32
+    dtype = cfg.torch_dtype
 
     def render_sum(scene, cam_cfg, n, sample_offset):
         check(scene)

@@ -189,7 +189,7 @@ def test_render_adaptive_matches_jax_composition(rounds, monkeypatch):
     from raytracingincuda_tpu.ops.pallas_kernel import render_pallas
 
     plans = _spy_plans(monkeypatch)
-    scene, cam = build_scene(2, pad_to_multiple=64), \
+    scene, cam = build_scene(2, pad_to_multiple=64, device="cpu"), \
         CameraConfig.reference_default()
     res = ad.render_adaptive(scene, cam, W, H, D, base_spp=BASE, max_spp=MAX,
                              tol=TOL, rounds=rounds)
@@ -232,7 +232,7 @@ def test_adaptive_on_stream_scene():
     the same image and counts as the regen kernel's route (the walk's
     winner equals the brute-force one but at exact ties between blocks),
     and the invariants against the stream probes."""
-    scene, cam = build_random_scene(200, half_extent=10.0), \
+    scene, cam = build_random_scene(200, half_extent=10.0, device="cpu"), \
         CameraConfig.reference_default()
     stream = sk.prepare_stream_scene(scene, block=64)
     assert stream.n_blocks > 1
@@ -275,10 +275,10 @@ def test_make_renderer_routes_by_slots(monkeypatch):
                        impl="adaptive", adaptive_rounds=2, stream_block=128)
     r = make_renderer(cfg, "cpu")
     cam = CameraConfig.reference_default()
-    small = build_scene(1)
+    small = build_scene(1, device="cpu")
     r.prepare(small)
     r(small, cam)
-    big = build_random_scene(5000, seed=3)
+    big = build_random_scene(5000, seed=3, device="cpu")
     assert big.num_slots > 4096
     r.prepare(big)
     r(big, cam)
@@ -302,12 +302,12 @@ def test_make_renderer_routes_by_slots(monkeypatch):
 ])
 def test_render_adaptive_rejects(kw, match):
     with pytest.raises(ValueError, match=match):
-        ad.render_adaptive(build_scene(2), CameraConfig.reference_default(),
-                           W, H, 2, **kw)
+        ad.render_adaptive(build_scene(2, device="cpu"),
+                           CameraConfig.reference_default(), W, H, 2, **kw)
 
 
 def test_adaptive_refusals_and_config():
-    scene, cam = build_scene(2), CameraConfig.reference_default()
+    scene, cam = build_scene(2, device="cpu"), CameraConfig.reference_default()
     with pytest.raises(TypeError, match="Mesh"):
         ad.render_adaptive(scene, cam, W, H, 2, mesh=object())
     with pytest.raises(ValueError, match="counter field"):
@@ -328,7 +328,7 @@ def test_make_renderer_adaptive_image():
     cfg = RenderConfig(scene_id=2, width=W, height=H, samples=BASE,
                        bounces=D, impl="adaptive", max_samples=MAX,
                        adaptive_tol=TOL)
-    scene, cam = build_scene(2), CameraConfig.reference_default()
+    scene, cam = build_scene(2, device="cpu"), CameraConfig.reference_default()
     want = ad.render_adaptive(scene, cam, W, H, D, base_spp=BASE,
                               max_spp=MAX, tol=TOL).image
     assert torch.equal(make_renderer(cfg, "cpu")(scene, cam), want)
@@ -343,10 +343,11 @@ def test_adaptive_card_equals_plain(cuda, rounds):
     kw = dict(base_spp=BASE, max_spp=MAX, tol=TOL, rounds=rounds)
     got = ad.render_adaptive(build_scene(1, device=cuda), cam, 64, 40, D,
                              **kw)
-    want = ad.render_adaptive(build_scene(1), cam, 64, 40, D, **kw)
+    want = ad.render_adaptive(build_scene(1, device="cpu"), cam, 64, 40, D,
+                              **kw)
     assert torch.equal(got.image.cpu(), want.image)
     assert torch.equal(got.spp_map.cpu(), want.spp_map)
-    small = build_random_scene(200, half_extent=10.0)
+    small = build_random_scene(200, half_extent=10.0, device="cpu")
     st = sk.prepare_stream_scene(small, block=64)
     st_card = sk.StreamScene(st.scene_mat.to(cuda), st.bounds.to(cuda),
                              st.block, st.perm.to(cuda))

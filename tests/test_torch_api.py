@@ -31,7 +31,7 @@ def test_make_renderer_cpu_equals_plain_version(rr_start, monkeypatch):
     version's."""
     cfg = RenderConfig(scene_id=2, width=20, height=12, samples=8, bounces=5,
                        rr_start=rr_start)
-    scene, cam = build_scene(2), CameraConfig.reference_default()
+    scene, cam = build_scene(2, device="cpu"), CameraConfig.reference_default()
     calls = []
     real = rk.measure_difficulty
     monkeypatch.setattr(rk, "measure_difficulty",
@@ -48,7 +48,7 @@ def test_make_renderer_cpu_equals_plain_version(rr_start, monkeypatch):
 def test_make_renderer_oracle_impl():
     cfg = RenderConfig(scene_id=3, width=16, height=8, samples=2, bounces=4,
                        impl="oracle")
-    scene, cam = build_scene(3), CameraConfig.reference_default()
+    scene, cam = build_scene(3, device="cpu"), CameraConfig.reference_default()
     want = tracer.render(scene, cam, 16, 8, 2, 4)
     assert torch.equal(make_renderer(cfg, "cpu")(scene, cam), want)
 
@@ -64,9 +64,9 @@ def test_make_renderer_order_cache_by_shape(monkeypatch):
     real = rk.measure_difficulty
     monkeypatch.setattr(rk, "measure_difficulty",
                         lambda *a, **k: calls.append(1) or real(*a, **k))
-    first = r(build_scene(2), cam)
+    first = r(build_scene(2, device="cpu"), cam)
     assert calls == [1]
-    assert torch.equal(r(build_scene(2), cam), first)
+    assert torch.equal(r(build_scene(2, device="cpu"), cam), first)
     assert calls == [1]
 
 
@@ -100,7 +100,7 @@ def test_stream_configs_render_on_cpu(kw, block):
     file name says 'tex' for packed."""
     cfg = RenderConfig(scene_id=2, width=20, height=12,
                        **{"samples": 8, "bounces": 5, **kw})
-    scene, cam = build_scene(2), CameraConfig.reference_default()
+    scene, cam = build_scene(2, device="cpu"), CameraConfig.reference_default()
     r = make_renderer(cfg, "cpu")
     r.prepare(scene)
     img = r(scene, cam)
@@ -134,7 +134,7 @@ def test_adaptive_packed_renders_adaptively(legacy_sky, monkeypatch):
     real = adaptive.render_adaptive
     monkeypatch.setattr(adaptive, "render_adaptive",
                         lambda *a, **k: calls.append(1) or real(*a, **k))
-    scene, cam = build_scene(2), CameraConfig.reference_default()
+    scene, cam = build_scene(2, device="cpu"), CameraConfig.reference_default()
     img = make_renderer(_adaptive_cfg(layout="packed", legacy_sky=legacy_sky),
                         "cpu")(scene, cam)
     assert calls == [1]
@@ -212,7 +212,7 @@ def test_cli_scene_file_renders_the_asset(tmp_path, capsys):
     CLI names it); without either flag the CLI refuses."""
     from raytracingincuda_torch.models.io import save_scene
 
-    save_scene(str(tmp_path / "s2.npz"), build_scene(2))
+    save_scene(str(tmp_path / "s2.npz"), build_scene(2, device="cpu"))
     common = ["--width", "24", "--height", "16", "--samples", "2",
               "--bounces", "4", "--device", "cpu", "--no-warmup"]
     for flags, out in ((["--scene_file", str(tmp_path / "s2.npz")], "f"),
@@ -243,7 +243,7 @@ def test_cli_adaptive_renders(tmp_path, capsys):
     cfg = RenderConfig(scene_id=2, width=16, height=8, samples=4, bounces=4,
                        impl="adaptive", max_samples=12, adaptive_tol=0.2,
                        adaptive_rounds=2)
-    want = make_renderer(cfg, "cpu")(build_scene(2),
+    want = make_renderer(cfg, "cpu")(build_scene(2, device="cpu"),
                                      CameraConfig.reference_default())
     assert (got == ppm.quantize(want.numpy())).all()
 

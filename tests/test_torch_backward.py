@@ -85,7 +85,8 @@ def lanes():
                     rng.uniform(-1.5, 1.5, R)]).astype(np.float32)
     d = (tgt - o).astype(np.float32)
     scene = scene_from_numpy([np.asarray(x) for x in
-                              jax.tree_util.tree_leaves(_jscene())])
+                              jax.tree_util.tree_leaves(_jscene())],
+                             device="cpu")
     w = tb.hit_winner(scene, _tv(o), _tv(d))
     atten = rng.uniform(0.2, 1.0, (3, R)).astype(np.float32)
     atten[:, :400] = 1.0                  # max channel 1: the clip's tie

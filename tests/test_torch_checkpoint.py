@@ -57,7 +57,7 @@ W, H, SPP, DEPTH = 16, 8, 2, 3
 def test_render_incremental_resumes(tmp_path, impl):
     cfg = RenderConfig(scene_id=2, width=W, height=H, samples=4, bounces=4,
                        impl=impl, rr_start=1)
-    s, cam = build_scene(2), CameraConfig.reference_default()
+    s, cam = build_scene(2, device="cpu"), CameraConfig.reference_default()
     single = ck.render_incremental(s, cam, cfg)
     path = str(tmp_path / "render")
     part = rk.render_kernel(s, cam, W, H, 2, 4, rr_start=1,
@@ -108,7 +108,7 @@ def test_render_incremental_float64_renders_in_double(tmp_path):
     resumes."""
     cfg = RenderConfig(scene_id=2, width=24, height=16, samples=4, bounces=4,
                        impl="oracle", dtype="float64")
-    s = build_scene(2, dtype=torch.float64)
+    s = build_scene(2, dtype=torch.float64, device="cpu")
     cam = CameraConfig.reference_default(dtype=torch.float64)
     path = str(tmp_path / "render64")
     img = ck.render_incremental(s, cam, cfg, samples_per_round=2,
@@ -150,7 +150,7 @@ def test_render_incremental_packed_takes_stream_kernel(tmp_path, monkeypatch,
                         or real(*a, **k))
     cfg = RenderConfig(scene_id=2, width=24, height=16, samples=4, bounces=4,
                        impl=impl, layout=layout)
-    s, cam = build_scene(2), CameraConfig.reference_default()
+    s, cam = build_scene(2, device="cpu"), CameraConfig.reference_default()
     img = ck.render_incremental(s, cam, cfg, samples_per_round=2)
     assert calls == [0, 2]
     assert img.dtype == np.float32 and img.shape == (16, 24, 3)
@@ -183,7 +183,7 @@ def test_render_incremental_adaptive_takes_regen_kernel(monkeypatch):
     real = rk.render_kernel
     monkeypatch.setattr(rk, "render_kernel", lambda *a, **k: calls.append(
         (k["sample_offset"], k["layout"])) or real(*a, **k))
-    s, cam = build_scene(2), CameraConfig.reference_default()
+    s, cam = build_scene(2, device="cpu"), CameraConfig.reference_default()
     cfg = RenderConfig(scene_id=2, width=W, height=H, samples=4, bounces=4,
                        impl="adaptive", layout="packed", legacy_sky=True)
     img = ck.render_incremental(s, cam, cfg, samples_per_round=2)
@@ -213,7 +213,7 @@ def test_render_incremental_float64_kernel_renders_in_rounds(tmp_path,
         "a float64 kernel round ran the oracle"))
     cfg = RenderConfig(scene_id=2, width=W, height=H, samples=4, bounces=4,
                        impl="kernel", layout=layout, dtype="float64")
-    s, cam = build_scene(2), CameraConfig.reference_default()
+    s, cam = build_scene(2, device="cpu"), CameraConfig.reference_default()
     path = str(tmp_path / "render64")
     img = ck.render_incremental(s, cam, cfg, samples_per_round=2,
                                 checkpoint_path=path)
@@ -234,7 +234,7 @@ def test_render_incremental_float64_kernel_renders_in_rounds(tmp_path,
 
 
 def _setup():
-    s = build_scene(2, pad_to_multiple=64)
+    s = build_scene(2, pad_to_multiple=64, device="cpu")
     gray = torch.full_like(s.params.albedo.x, 0.5)
     start = s.params._replace(albedo=Vec3(gray, gray, gray))
     init_fn, step_fn = tgrad.make_train_step(

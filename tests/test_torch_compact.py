@@ -46,7 +46,7 @@ def _carried(tiny_scene, default_camera):
 
     leaves = lambda t: [np.asarray(x)  # noqa: E731
                         for x in jax.tree_util.tree_leaves(t)]
-    return (scene_from_numpy(leaves(tiny_scene)),
+    return (scene_from_numpy(leaves(tiny_scene), device="cpu"),
             camera_config_from_numpy(leaves(default_camera)))
 
 
@@ -78,7 +78,7 @@ def test_modes_equal_regen_bit_for_bit(mode, kw, tiny_scene, default_camera):
 
 
 def test_compact_pixel_order_changes_nothing():
-    s, cam = t_build(1), TCam.reference_default()
+    s, cam = t_build(1, device="cpu"), TCam.reference_default()
     base = rk.render_kernel(s, cam, 24, 16, 2, 8)
     perm = torch.from_numpy(np.random.default_rng(2).permutation(384))
     assert torch.equal(base, rk.render_kernel(s, cam, 24, 16, 2, 8,
@@ -89,7 +89,7 @@ def test_compact_pixel_order_changes_nothing():
 def test_compact_reference_equals_regen_reference():
     """The plain versions on the same lanes, raw sums and the fused
     finalize, with lanes split over several pools."""
-    s, cam = t_build(3), TCam.reference_default()
+    s, cam = t_build(3, device="cpu"), TCam.reference_default()
     ids, ii, jj, bud, sm, row = rk.regen_inputs(s, cam, 40, 16, 3)
     for scale in (None, 1.0 / 3):
         want = rk.regen_reference(ids, ii, jj, bud, sm, row, samples=3,
@@ -101,7 +101,7 @@ def test_compact_reference_equals_regen_reference():
 
 def test_compact_with_legacy_sky_runs_simple(monkeypatch):
     """As in JAX: compact has no legacy-sky rows, so it runs 'simple'."""
-    s, cam = t_build(2), TCam.reference_default()
+    s, cam = t_build(2, device="cpu"), TCam.reference_default()
     monkeypatch.setattr(ck, "_compact", lambda *a, **k: pytest.fail(
         "compact ran with legacy_sky"))
     got = rk.render_kernel(s, cam, 16, 8, 2, 5, mode="compact",
@@ -119,13 +119,13 @@ def test_compact_with_legacy_sky_runs_simple(monkeypatch):
     (dict(rr_start=2), "rr_start requires mode='regen'"),
 ])
 def test_mode_rules_raise(mode, kw, match):
-    s, cam = t_build(2), TCam.reference_default()
+    s, cam = t_build(2, device="cpu"), TCam.reference_default()
     with pytest.raises(ValueError, match=match):
         rk.render_kernel(s, cam, 16, 8, 2, 4, mode=mode, **kw)
 
 
 def test_wrapper_checks_raise():
-    s, cam = t_build(2), TCam.reference_default()
+    s, cam = t_build(2, device="cpu"), TCam.reference_default()
     with pytest.raises(ValueError, match="mode"):
         rk.render_kernel(s, cam, 16, 8, 2, 4, mode="wavefront")
     ids, ii, jj, _, sm, row = rk.regen_inputs(s, cam, 16, 8, 2)
@@ -203,7 +203,8 @@ def test_block_schedules_on_plain_segments():
     pool in every block (not a law: on made-up segments it can issue one
     warp scan more)."""
     spp = 6
-    inputs = rk.regen_inputs(t_build(1), TCam.reference_default(), 48, 40, spp)
+    inputs = rk.regen_inputs(t_build(1, device="cpu"),
+                             TCam.reference_default(), 48, 40, spp)
     seg = rk.sample_segments(*inputs, samples=spp, max_depth=12)
     assert seg.shape == (spp, 1920) and bool((seg >= 1).all())
     compact = rk.warp_iterations(seg, "compact")

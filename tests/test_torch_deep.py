@@ -60,8 +60,9 @@ def deep(tmp_path_factory):
     from raytracingincuda_tpu.models.io import load_scene as jload
 
     path = str(tmp_path_factory.mktemp("deep") / "deep.npz")
-    save_scene(path, build_deep_scene())
-    return jload(path, pad_to_multiple=8), load_scene(path, pad_to_multiple=8)
+    save_scene(path, build_deep_scene(device="cpu"))
+    return jload(path, pad_to_multiple=8), load_scene(path, pad_to_multiple=8,
+                                                      device="cpu")
 
 
 @pytest.fixture(scope="module")

@@ -56,7 +56,7 @@ def _leaves(tree):
 
 
 def _carried(tiny_scene, default_camera):
-    return (scene_from_numpy(_leaves(tiny_scene)),
+    return (scene_from_numpy(_leaves(tiny_scene), device="cpu"),
             camera_config_from_numpy(_leaves(default_camera)))
 
 
@@ -109,7 +109,8 @@ def test_plain_version_vs_jax_df64_kernel(tiny_scene, default_camera):
     want = dd.to_f64(render_pallas_df64(tiny_scene, default_camera, W, H,
                                         SPP, DEPTH, interpret=True))
     sm, row = f64_inputs_from_numpy(*pack_scene_matrix_df64(tiny_scene),
-                                    jinit_f64(default_camera, W, H))
+                                    jinit_f64(default_camera, W, H),
+                                    device="cpu")
     ids, ii, jj, _ = rk._lane_setup(W, H, None, SPP, 0, None, "cpu")
     acc = fk.f64_reference(ids, ii, jj, sm, row, samples=SPP,
                            max_depth=DEPTH)
@@ -164,7 +165,7 @@ def test_sample_window_vs_jax_f64_oracle(tiny_scene, default_camera,
 def test_two_windows_sum_to_one():
     """[0, 2) + [2, 4) is [0, 4) up to summation order, with the lanes in
     any order (the sums come back un-permuted)."""
-    s, cam = t_build(3), TCam.reference_default()
+    s, cam = t_build(3, device="cpu"), TCam.reference_default()
     kw = dict(seed=5, accumulate_only=True)
     one = fk.render_f64(s, cam, 24, 16, 4, 5, **kw)
     perm = torch.from_numpy(np.random.default_rng(2).permutation(384))
@@ -179,7 +180,7 @@ def test_two_windows_sum_to_one():
 def test_offset_zero_is_the_default_call():
     """At ``sample_offset=0`` every output is the call without it, bit
     for bit: the raw sums, the image, and the image from the sums."""
-    s, cam = t_build(1), TCam.reference_default()
+    s, cam = t_build(1, device="cpu"), TCam.reference_default()
     inputs = fk.f64_inputs(s, cam, 20, 12)
     kw = dict(samples=2, max_depth=6)
     assert torch.equal(fk.f64_reference(*inputs, sample_offset=0, **kw),
@@ -198,7 +199,8 @@ def test_sample_window_is_validated_at_its_end():
     as kernel 1's wrapper does; a negative offset raises."""
     from raytracingincuda_torch.ops import rng as rtrng
 
-    inputs = fk.f64_inputs(t_build(2), TCam.reference_default(), W, H)
+    inputs = fk.f64_inputs(t_build(2, device="cpu"),
+                           TCam.reference_default(), W, H)
     kw = dict(samples=2, max_depth=2)
     fk.f64_reference(*inputs, sample_offset=rtrng.MAX_SAMPLE_ID - 2, **kw)
     with pytest.raises(ValueError, match="exceed the counter field"):
@@ -225,7 +227,7 @@ def test_f64_is_closer_to_the_oracle_than_f32(tiny_scene, default_camera,
 
 @pytest.mark.parametrize("layout", ["vmem", "hbm"])
 def test_pixel_order_and_layout_change_nothing(layout):
-    s, cam = t_build(3), TCam.reference_default()
+    s, cam = t_build(3, device="cpu"), TCam.reference_default()
     base = fk.render_f64(s, cam, 24, 16, 2, 5)
     perm = torch.from_numpy(np.random.default_rng(1).permutation(384))
     assert torch.equal(base, fk.render_f64(s, cam, 24, 16, 2, 5,
@@ -237,7 +239,7 @@ def test_make_renderer_f64_cpu(monkeypatch):
     ``prepare`` packs the scene ahead."""
     cfg = RenderConfig(scene_id=2, width=20, height=12, samples=8, bounces=5,
                        dtype="float64")
-    scene, cam = t_build(2), TCam.reference_default()
+    scene, cam = t_build(2, device="cpu"), TCam.reference_default()
     monkeypatch.setattr(rk, "measure_difficulty", lambda *a, **k: pytest.fail(
         "the f64 renderer ran the f32 prepass"))
     r = make_renderer(cfg, "cpu")
@@ -261,7 +263,7 @@ def test_f64_scope_refusals(kw, match):
 
 
 def test_wrapper_checks_raise():
-    s, cam = t_build(2), TCam.reference_default()
+    s, cam = t_build(2, device="cpu"), TCam.reference_default()
     ids, ii, jj, sm, row = fk.f64_inputs(s, cam, W, H)
     kw = dict(samples=1, max_depth=2)
     with pytest.raises(ValueError, match="CUDA"):
@@ -284,7 +286,8 @@ def test_cli_cpu_float64_writes_double_file(tmp_path, capsys):
     name = "const_double_scene2_16x8_1samples_3bounces_8threadsPerBlockRow.ppm"
     assert os.listdir(tmp_path) == [name]
     got, _ = ppm.read_ppm(str(tmp_path / name))
-    want = fk.render_f64(t_build(2), TCam.reference_default(), 16, 8, 1, 3)
+    want = fk.render_f64(t_build(2, device="cpu"),
+                         TCam.reference_default(), 16, 8, 1, 3)
     np.testing.assert_array_equal(got, ppm.quantize(want.numpy()))
 
 
@@ -295,7 +298,7 @@ def test_f64_inputs_from_numpy_round_trip(tiny_scene, default_camera):
 
     hi, lo = pack_scene_matrix_df64(tiny_scene)
     rows = jinit_f64(default_camera, W, H)
-    sm, row = f64_inputs_from_numpy(hi, lo, rows)
+    sm, row = f64_inputs_from_numpy(hi, lo, rows, device="cpu")
     scene, cam = _carried(tiny_scene, default_camera)
     assert torch.equal(sm, rk.pack_scene_matrix(scene))
     own = initialize_f64(cam, W, H)
@@ -307,9 +310,9 @@ def test_f64_inputs_from_numpy_round_trip(tiny_scene, default_camera):
     bad = np.asarray(lo).copy()
     bad[0, 0] = 1e-9
     with pytest.raises(ValueError, match="lo words"):
-        f64_inputs_from_numpy(hi, bad, rows)
+        f64_inputs_from_numpy(hi, bad, rows, device="cpu")
     with pytest.raises(ValueError):
-        f64_inputs_from_numpy(hi, lo, rows[:1])
+        f64_inputs_from_numpy(hi, lo, rows[:1], device="cpu")
 
 
 @pytest.mark.cuda

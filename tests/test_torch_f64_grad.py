@@ -94,7 +94,7 @@ def _cast64(tree):
 @pytest.fixture(scope="module")
 def carried(tiny_scene, default_camera):
     """(port scene, port camera) in float64, from the JAX leaves."""
-    return (scene_from_numpy(_f64_np(_leaves(tiny_scene))),
+    return (scene_from_numpy(_f64_np(_leaves(tiny_scene)), device="cpu"),
             camera_config_from_numpy(_f64_np(_leaves(default_camera))))
 
 
@@ -191,7 +191,7 @@ def test_f64_oracle_image_matches_jax(tiny_scene, default_camera, carried):
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=IMG_ATOL)
     cfg = RenderConfig(scene_id=2, width=W, height=H, samples=SPP,
                        bounces=DEPTH, impl="oracle", dtype="float64")
-    f32_scene = scene_from_numpy(_leaves(tiny_scene))
+    f32_scene = scene_from_numpy(_leaves(tiny_scene), device="cpu")
     img = make_renderer(cfg, "cpu")(f32_scene, camera_config_from_numpy(
         _leaves(default_camera)))
     assert img.dtype == F64 and img.shape == (H, W, 3)
@@ -341,9 +341,9 @@ def test_f64_carried_train_step_matches_jax(tiny_scene, default_camera,
         nxt, jloss = step_fn(state, jc, js.mat_type, js.active, jt)
         carried_np, want_np = _leaves(state), _leaves(nxt)
         jloss = float(jloss)
-    carried_state = train_state_from_numpy(carried_np)
-    want = train_state_from_numpy(want_np)
-    scene = scene_from_numpy(_f64_np(_leaves(tiny_scene)))
+    carried_state = train_state_from_numpy(carried_np, device="cpu")
+    want = train_state_from_numpy(want_np, device="cpu")
+    scene = scene_from_numpy(_f64_np(_leaves(tiny_scene)), device="cpu")
     cam = camera_config_from_numpy(_f64_np(_leaves(default_camera)))
     _, step = tgrad.make_train_step(W, H, SPP, DEPTH, learning_rate=1e-2,
                                     impl="oracle", dtype=F64)
@@ -383,7 +383,7 @@ def test_cli_oracle_float64_writes_double_file(tmp_path, capsys):
     from raytracingincuda_torch.models.camera import CameraConfig
     from raytracingincuda_torch.models.scene import build_scene
 
-    img = make_renderer(cfg, "cpu")(build_scene(2, dtype=F64),
+    img = make_renderer(cfg, "cpu")(build_scene(2, dtype=F64, device="cpu"),
                                     CameraConfig.reference_default(F64))
     ppm.write_ppm(str(tmp_path / "want.ppm"), img.numpy())
     assert ((tmp_path / name).read_bytes()

@@ -76,7 +76,7 @@ def _mixed():
 
 def _port(jscene):
     return scene_from_numpy([np.asarray(x) for x in
-                             jax.tree_util.tree_leaves(jscene)])
+                             jax.tree_util.tree_leaves(jscene)], device="cpu")
 
 
 def _leaves_np(tree):
@@ -229,7 +229,8 @@ def test_carried_train_step_matches_jax(target, masked):
                             albedo=TV(True, True, True), fuzz=True,
                             ior=False)
     state, nxt, jloss = _jax_state_after(js, jmask, 1, jtgt)
-    carried = train_state_from_numpy(_leaves_np(state), trainable=tmask)
+    carried = train_state_from_numpy(_leaves_np(state), trainable=tmask,
+                                     device="cpu")
     s = _port(js)
     init_fn, step_fn = tgrad.make_train_step(W, H, SPP, DEPTH,
                                              learning_rate=1e-2,
@@ -239,7 +240,8 @@ def test_carried_train_step_matches_jax(target, masked):
     new, tloss = step_fn(carried, TCam.reference_default(), s.mat_type,
                          s.active, torch.from_numpy(target))
     np.testing.assert_allclose(float(tloss), float(jloss), rtol=1e-5)
-    want = train_state_from_numpy(_leaves_np(nxt), trainable=tmask)
+    want = train_state_from_numpy(_leaves_np(nxt), trainable=tmask,
+                                  device="cpu")
     got_p, want_p = param_leaves(new.params), param_leaves(want.params)
     for k, (g, w) in enumerate(zip(got_p, want_p)):
         np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-6,

@@ -86,7 +86,7 @@ def _jax_and_port_scene(kind):
     js = jbs(1) if kind == "scene 1" else jbrs(300, pad_to_multiple=128,
                                                half_extent=10.0)
     return js, scene_from_numpy([np.asarray(x) for x in
-                                 jax.tree_util.tree_leaves(js)])
+                                 jax.tree_util.tree_leaves(js)], device="cpu")
 
 
 def _jax_trace(js, ids, rr, g=None):

@@ -62,7 +62,7 @@ def _rec(status, tag):
 
 def _single(impl):
     cfg = RenderConfig(impl=impl, **TINY)
-    return make_renderer(cfg, "cpu")(build_scene(2),
+    return make_renderer(cfg, "cpu")(build_scene(2, device="cpu"),
                                      CameraConfig.reference_default()).numpy()
 
 
@@ -86,7 +86,8 @@ def test_multihost_oracle_render_stitch_grads(probe):
     norm = sum(float((z[k] ** 2).sum()) for k in z.files if k != "out.0")
     assert np.isfinite(norm) and norm > 0.0
     loss, (gp, gc) = gradlib.render_grads(
-        build_scene(2), CameraConfig.reference_default(), _target(),
+        build_scene(2, device="cpu"), CameraConfig.reference_default(),
+        _target(),
         TINY["width"], TINY["height"], TINY["samples"], TINY["bounces"])
     np.testing.assert_allclose(z["out.0"], loss.numpy(), rtol=1e-6)
     np.testing.assert_allclose(z["out.1.0.radius"], gp.radius.numpy(),
@@ -104,7 +105,7 @@ def test_multihost_kernel_fused_step(probe):
     assert float(np.abs(got - _single("kernel")).max()) == 0.0
     assert all(_rec(s, "fused")["all_reduces_a_step"] == 1 for s in status)
     z = np.load(os.path.join(out, "fused_r0.npz"))
-    s = build_scene(2)
+    s = build_scene(2, device="cpu")
     step = tk.make_mse_train(s.mat_type, s.active, TINY["width"],
                              TINY["height"], TINY["samples"],
                              TINY["bounces"], gamma=True)

@@ -99,7 +99,8 @@ def test_sgd_momentum_steps_match_jax(masked):
                                      jnp.asarray(target))
 
     s = scene_from_numpy([np.asarray(x)
-                          for x in jax.tree_util.tree_leaves(js)])
+                          for x in jax.tree_util.tree_leaves(js)],
+                         device="cpu")
     init_t, step_t = tgrad.make_train_step(
         W, H, SPP, DEPTH, functools.partial(torch.optim.SGD, lr=LR,
                                             momentum=MOMENTUM),
@@ -138,7 +139,7 @@ def test_optimizer_state_is_functional_and_refused_by_checkpoints(tmp_path):
     from raytracingincuda_torch.models.scene import build_random_scene
     from raytracingincuda_torch.ops import stream_kernel as sk
 
-    scene = build_random_scene(200, half_extent=10.0)
+    scene = build_random_scene(200, half_extent=10.0, device="cpu")
     target = torch.zeros((H, W, 3))
     sgd = functools.partial(torch.optim.SGD, lr=LR, momentum=MOMENTUM)
     mask = SceneParams(center=TV(False, False, False), radius=False,
@@ -221,12 +222,13 @@ def _train(entry, optimizer):
     cam = TCam.reference_default()
     if entry == "train":
         scene = scene_from_numpy([np.asarray(x) for x in
-                                  jax.tree_util.tree_leaves(_scene())])
+                                  jax.tree_util.tree_leaves(_scene())],
+                                 device="cpu")
         init_fn, step_fn = tgrad.make_train_step(
             W, H, SPP, DEPTH, OPTIMIZERS[optimizer], trainable=mask,
             impl="fused")
     else:
-        scene = build_random_scene(200, half_extent=10.0)
+        scene = build_random_scene(200, half_extent=10.0, device="cpu")
         init_fn, step_fn = tgrad.make_stream_train(
             sk.prepare_stream_scene(scene, block=64), W, H, SPP, DEPTH,
             OPTIMIZERS[optimizer], trainable=mask)
@@ -288,7 +290,8 @@ def test_sgd_resumed_from_file_matches_optax(tmp_path):
             str(tmp_path / "jax"), init_j(js.params), token="sgd"), 2)
 
     s = scene_from_numpy([np.asarray(x)
-                          for x in jax.tree_util.tree_leaves(js)])
+                          for x in jax.tree_util.tree_leaves(js)],
+                         device="cpu")
     init_t, step_t = tgrad.make_train_step(W, H, SPP, DEPTH,
                                            OPTIMIZERS["sgd_momentum"])
 
@@ -332,7 +335,7 @@ def test_adam_file_in_the_29_leaf_layout_loads(tmp_path):
     writes exactly those arrays."""
     init_fn, step_fn = tgrad.make_train_step(W, H, SPP, DEPTH, impl="fused")
     s = scene_from_numpy([np.asarray(x) for x in
-                          jax.tree_util.tree_leaves(_scene())])
+                          jax.tree_util.tree_leaves(_scene())], device="cpu")
     target = torch.zeros((H, W, 3))
     state, _ = step_fn(init_fn(s.params), TCam.reference_default(),
                        s.mat_type, s.active, target)

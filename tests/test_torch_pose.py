@@ -68,8 +68,8 @@ def test_soft_render_matches_jax(monkeypatch):
     (``f32math.rsqrt``), within atol 2.4e-7 (2 ulp at 1)."""
     from raytracingincuda_tpu.ops import vec as jvec
 
-    img = tpose.soft_render(build_scene(2), CameraConfig.reference_default(),
-                            W, H).numpy()
+    img = tpose.soft_render(build_scene(2, device="cpu"),
+                            CameraConfig.reference_default(), W, H).numpy()
     assert img.shape == (H, W, 3) and np.isfinite(img).all()
     assert img.min() >= 0.0 and img.max() <= 1.0 and img.std() > 0.01
 
@@ -102,7 +102,7 @@ def test_pose_gradient_matches_jax_and_fd():
     loss (the JAX test's bound: 2e-3 + 5% of the difference), the
     silhouette term included."""
     w, h = 64, 40
-    scene, cam = build_scene(2), CameraConfig.reference_default()
+    scene, cam = build_scene(2, device="cpu"), CameraConfig.reference_default()
     target = tpose.soft_render(scene, cam, w, h)
     pp = _shifted(tpose.pose_of(cam), SHIFT)
     lf = pp.lookfrom.clone().requires_grad_(True)
@@ -143,7 +143,7 @@ def test_recover_pose_steps_match_jax():
     against a soft target, as JAX takes them: poses within 2e-5 world
     units, losses within rtol 1e-3 (torch's Adam adds eps after the
     bias correction, optax before: a last-bit difference a step)."""
-    scene, cam = build_scene(2), CameraConfig.reference_default()
+    scene, cam = build_scene(2, device="cpu"), CameraConfig.reference_default()
     target = tpose.soft_render(scene, cam, W, H)
     init = tpose._cam_with_pose(cam, _shifted(tpose.pose_of(cam),
                                               (0.1, -0.05, 0.08)))
@@ -174,7 +174,7 @@ def test_refine_pose_fd_first_step_as_jax():
     the packages share although the images differ in a few last bits
     (amplified by 1 / (2 eps) = 25); within 1e-6 world units. The lookat
     stays put with optimize_lookat=False."""
-    scene, cam = build_scene(2), CameraConfig.reference_default()
+    scene, cam = build_scene(2, device="cpu"), CameraConfig.reference_default()
     target = rk.render_kernel(scene, cam, W, H, 2, 3)
     init = tpose._cam_with_pose(cam, _shifted(tpose.pose_of(cam),
                                               (0.12, -0.08, 0.1)))
@@ -200,7 +200,7 @@ def test_refine_pose_fd_converges_on_real_target():
     lookfrom error to under half (the JAX test's bounds, at 40x24x2spp/4b
     and 20 steps here). Its default forward model is that render."""
     w, h, spp, depth = 40, 24, 2, 4
-    scene, cam = build_scene(2), CameraConfig.reference_default()
+    scene, cam = build_scene(2, device="cpu"), CameraConfig.reference_default()
     calls = []
 
     def render(c):

@@ -57,7 +57,8 @@ def test_plain_version_matches_production_golden(scene_id):
     make_renderer on the CPU, against the JAX kernel's own output."""
     cfg = RenderConfig(scene_id=scene_id, width=64, height=40, samples=8,
                        bounces=6, rr_start=2)
-    img = make_renderer(cfg, "cpu")(t_build(scene_id), TCam.reference_default())
+    img = make_renderer(cfg, "cpu")(t_build(scene_id, device="cpu"),
+                                    TCam.reference_default())
     golden, _ = ppm.read_ppm(os.path.join(
         GOLDEN_DIR, f"scene{scene_id}_prod_64x40_8spp_6b_rr2.ppm"))
     st = ppm.diff_stats(img.numpy(), golden)
@@ -66,7 +67,8 @@ def test_plain_version_matches_production_golden(scene_id):
 
 def test_plain_version_vs_pallas_radiance_rr2():
     want = np.asarray(_pallas(1, 4, 6, rr_start=2))
-    got = rk.render_kernel(t_build(1), TCam.reference_default(), W, H, 4, 6,
+    got = rk.render_kernel(t_build(1, device="cpu"),
+                           TCam.reference_default(), W, H, 4, 6,
                            rr_start=2).numpy()
     st = ppm.diff_stats(got, ppm.quantize(want))
     assert ppm.passes_cross_framework_gate(st), st
@@ -74,7 +76,8 @@ def test_plain_version_vs_pallas_radiance_rr2():
 
 def test_plain_version_vs_pallas_segments():
     _, seg = _pallas(1, 6, 8, gamma=False, return_depth=True)
-    got = rk.measure_difficulty(t_build(1), TCam.reference_default(), W, H, 8, 6)
+    got = rk.measure_difficulty(t_build(1, device="cpu"),
+                                TCam.reference_default(), W, H, 8, 6)
     assert got.shape == (W * H,)
     assert (got.numpy() == np.asarray(seg)).mean() >= 0.95
 
@@ -85,7 +88,8 @@ def test_plain_version_vs_pallas_budgets_accumulate_only():
     nb = np.where(np.arange(W * H) % 2 == 0, 1, 3).astype(np.int32)
     kw = dict(sample_offset=2, accumulate_only=True, gamma=False)
     want = np.asarray(_pallas(2, 3, 6, sample_budgets=nb, **kw))
-    got = rk.render_kernel(t_build(2), TCam.reference_default(), W, H, 3, 6,
+    got = rk.render_kernel(t_build(2, device="cpu"),
+                           TCam.reference_default(), W, H, 3, 6,
                            sample_budgets=torch.from_numpy(nb), **kw).numpy()
     per = nb.reshape(H, W, 1).astype(np.float32)
     st = ppm.diff_stats(np.sqrt(got / per), ppm.quantize(np.sqrt(want / per)))
@@ -95,7 +99,7 @@ def test_plain_version_vs_pallas_budgets_accumulate_only():
 def test_budgets_and_offsets_add_up_exactly():
     """Sample ids are global counters: per-pixel passes [0, 2) and [2, 4)
     sum to the one-pass raw sum."""
-    s, cam = t_build(2), TCam.reference_default()
+    s, cam = t_build(2, device="cpu"), TCam.reference_default()
     kw = dict(accumulate_only=True, gamma=False)
     full = rk.render_kernel(s, cam, W, H, 4, 5, **kw)
     a = rk.render_kernel(s, cam, W, H, 2, 5, **kw)
@@ -119,7 +123,8 @@ def test_difficulty_order_bit_equal_to_jax():
         got = rk.difficulty_order(torch.from_numpy(seg), probe_depth,
                                   probe_samples)
         np.testing.assert_array_equal(got.numpy(), want.astype(np.int64))
-    real = rk.measure_difficulty(t_build(1), TCam.reference_default(), 32, 24)
+    real = rk.measure_difficulty(t_build(1, device="cpu"),
+                                 TCam.reference_default(), 32, 24)
     want = np.asarray(jpk.difficulty_order(jnp.asarray(real.numpy())))
     np.testing.assert_array_equal(rk.difficulty_order(real).numpy(), want)
 
@@ -135,16 +140,18 @@ def test_legacy_sky_vs_eager_jax_oracle():
         want = np.asarray(jtr.render(build_scene(2),
                                      CameraConfig.reference_default(), W, H,
                                      2, 6, legacy_sky=True))
-    got = rk.render_kernel(t_build(2), TCam.reference_default(), W, H, 2, 6,
+    got = rk.render_kernel(t_build(2, device="cpu"),
+                           TCam.reference_default(), W, H, 2, 6,
                            legacy_sky=True).numpy()
     st = ppm.diff_stats(got, ppm.quantize(want))
     assert ppm.passes_golden_gate(st), st
-    plain = rk.render_kernel(t_build(2), TCam.reference_default(), W, H, 2, 6)
+    plain = rk.render_kernel(t_build(2, device="cpu"),
+                             TCam.reference_default(), W, H, 2, 6)
     assert not torch.equal(plain, torch.from_numpy(got))
 
 
 def test_pixel_order_and_layout_change_nothing():
-    s, cam = t_build(3), TCam.reference_default()
+    s, cam = t_build(3, device="cpu"), TCam.reference_default()
     base = rk.render_kernel(s, cam, 24, 16, 2, 6, rr_start=2)
     perm = torch.from_numpy(np.random.default_rng(1).permutation(384))
     assert torch.equal(base, rk.render_kernel(s, cam, 24, 16, 2, 6,
@@ -154,7 +161,7 @@ def test_pixel_order_and_layout_change_nothing():
 
 
 def test_wrapper_checks_raise():
-    s, cam = t_build(2), TCam.reference_default()
+    s, cam = t_build(2, device="cpu"), TCam.reference_default()
     ids, ii, jj, bud, sm, row = rk.regen_inputs(s, cam, W, H, 2)
     kw = dict(samples=2, max_depth=4)
     with pytest.raises(TypeError):
@@ -208,7 +215,7 @@ def test_kernel_matches_goldens_on_card(cuda, scene_id):
         os.path.join(GOLDEN_DIR, f"scene{scene_id}_48x30_4spp_8b.ppm"))
     st = ppm.diff_stats(img.cpu().numpy(), golden)
     assert ppm.passes_cross_framework_gate(st), st
-    cpu = ttr.render(t_build(scene_id), cam, 48, 30, 4, 8)
+    cpu = ttr.render(t_build(scene_id, device="cpu"), cam, 48, 30, 4, 8)
     assert torch.equal(img.cpu(), cpu)
 
 
@@ -227,7 +234,8 @@ def test_plain_counts_vs_segments_and_pallas(rr_start):
     end a path at another bounce, as in the prepass test) agree."""
     spp, depth = 4, 8
     nb = _budgets(3, spp)
-    inputs = rk.regen_inputs(t_build(1), TCam.reference_default(), W, H, spp,
+    inputs = rk.regen_inputs(t_build(1, device="cpu"),
+                             TCam.reference_default(), W, H, spp,
                              sample_budgets=torch.from_numpy(nb))
     kw = dict(samples=spp, max_depth=depth, rr_start=rr_start)
     seg, regen = rk.regen_counts_reference(*inputs, **kw)
@@ -282,7 +290,7 @@ def test_kernel_equals_plain_legacy_budgets_prepass_on_card(cuda, layout):
                            rk.regen_reference(*inputs, **kw))
     seg = rk.measure_difficulty(s, cam, 64, 40, 8, 6, layout=layout)
     assert torch.equal(seg.cpu(), rk.measure_difficulty(
-        t_build(1), cam, 64, 40, 8, 6, layout=layout))
+        t_build(1, device="cpu"), cam, 64, 40, 8, 6, layout=layout))
 
 
 @pytest.mark.cuda

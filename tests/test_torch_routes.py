@@ -150,7 +150,8 @@ def _port_cfg(impl, layout, est, dtype):
 
 def _port_inputs(scene_dtype):
     dt = getattr(torch, scene_dtype)
-    return build_scene(2, dtype=dt), CameraConfig.reference_default(dtype=dt)
+    return (build_scene(2, dtype=dt, device="cpu"),
+            CameraConfig.reference_default(dtype=dt))
 
 
 def _jax_inputs(dtype):
@@ -373,7 +374,7 @@ def _port_train(entry, depth):
     from raytracingincuda_torch.ops import stream_kernel as sk
     from raytracingincuda_torch.ops import train_kernel as tk
 
-    s, cam = build_scene(2), CameraConfig.reference_default()
+    s, cam = build_scene(2, device="cpu"), CameraConfig.reference_default()
     tgt = torch.zeros((TH, TW, 3))
     if entry == "make_mse_train":
         return tk.make_mse_train(s.mat_type, s.active, TW, TH, 1, depth)(
@@ -490,7 +491,7 @@ def _port_large(entry, width, height, monkeypatch):
     for mod, name in ((rk, "_regen"), (sk, "_stream"), (fk, "_f64"),
                       (tk, "_grad"), (tk, "_fused"), (stk, "_fused")):
         monkeypatch.setattr(mod, name, reached)
-    s, cam = build_scene(2), CameraConfig.reference_default()
+    s, cam = build_scene(2, device="cpu"), CameraConfig.reference_default()
     cfg = dict(scene_id=2, width=width, height=height, samples=1, bounces=2)
     img = torch.zeros((height, width, 3))
     runs = {
@@ -581,7 +582,8 @@ def test_max_pixels_divergence(monkeypatch):
         with pytest.raises(ValueError, match="MAX_LANES"):
             make_renderer(RenderConfig(scene_id=2, width=big, height=big,
                                        samples=spp, bounces=2), "cpu")(
-                build_scene(2), CameraConfig.reference_default())
+                build_scene(2, device="cpu"), CameraConfig.reference_default())
     with pytest.raises(ValueError, match="MAX_LANES"):
-        tk.render_kernel_grads(build_scene(2), CameraConfig.reference_default(),
+        tk.render_kernel_grads(build_scene(2, device="cpu"),
+                               CameraConfig.reference_default(),
                                torch.zeros((1, 1, 3)), big, big, 1, 2)

@@ -43,36 +43,37 @@ def _assert_scene_equal(jax_scene, torch_scene):
 @pytest.mark.parametrize("scene_id", [1, 2, 3])
 def test_build_scene_bit_equal(scene_id):
     _assert_scene_equal(jscene.build_scene(scene_id),
-                        tscene.build_scene(scene_id))
+                        tscene.build_scene(scene_id, device="cpu"))
 
 
 @pytest.mark.parametrize("kw", [dict(pad_to_multiple=64), dict(seed=7),
                                 dict(pad_to_multiple=None)])
 def test_build_scene_options_bit_equal(kw):
     _assert_scene_equal(jscene.build_scene(2, **kw),
-                        tscene.build_scene(2, **kw))
+                        tscene.build_scene(2, **kw, device="cpu"))
 
 
 def test_build_random_scene_bit_equal():
     _assert_scene_equal(jscene.build_random_scene(300, seed=5),
-                        tscene.build_random_scene(300, seed=5))
+                        tscene.build_random_scene(300, seed=5, device="cpu"))
 
 
 @pytest.mark.parametrize("scene_id", [1, 3])
 def test_pack_scene_matrix_bit_equal(scene_id):
     want = np.asarray(jpk.pack_scene_matrix(jscene.build_scene(scene_id)))
-    got = rk.pack_scene_matrix(tscene.build_scene(scene_id)).numpy()
+    got = rk.pack_scene_matrix(
+        tscene.build_scene(scene_id, device="cpu")).numpy()
     np.testing.assert_array_equal(got, want)
 
 
 def test_scene_from_numpy_equals_build_scene():
     js = jscene.build_scene(1)
-    got = convert.scene_from_numpy(_jax_leaves(js))
-    want = tscene.build_scene(1)
+    got = convert.scene_from_numpy(_jax_leaves(js), device="cpu")
+    want = tscene.build_scene(1, device="cpu")
     for a, b in zip(_torch_leaves(got), _torch_leaves(want)):
         assert torch.equal(a, b)
     with pytest.raises(ValueError):
-        convert.scene_from_numpy(_jax_leaves(js)[:10])
+        convert.scene_from_numpy(_jax_leaves(js)[:10], device="cpu")
 
 
 @pytest.mark.parametrize("wh", [(48, 30), (1280, 768), (17, 5)])

@@ -47,10 +47,10 @@ def _all_arrays(scene):
 
 @pytest.mark.parametrize("ext", ["npz", "csv"])
 def test_round_trip(tmp_path, ext):
-    scene = build_scene(2)
+    scene = build_scene(2, device="cpu")
     path = str(tmp_path / f"scene2.{ext}")
     tio.save_scene(path, scene)
-    loaded = tio.load_scene(path)
+    loaded = tio.load_scene(path, device="cpu")
     a, b = _active_arrays(scene), _active_arrays(loaded)
     for k in a:     # f32 storage and 9 significant digits are exact
         np.testing.assert_array_equal(a[k], b[k])
@@ -69,7 +69,7 @@ def test_csv_hand_written(tmp_path):
         "2,1,0,1,1,0.9,0.9,0.9,0.2,1\n"     # integer mat id
         "-2,1,0,1,Dieletric,0,0,0,3.0,1.3\n"  # the reference's spelling
     )
-    a = _active_arrays(tio.load_scene(str(path)))
+    a = _active_arrays(tio.load_scene(str(path), device="cpu"))
     assert a["mat"].tolist() == [LAMBERTIAN, DIELECTRIC, METAL, METAL,
                                  DIELECTRIC]
     np.testing.assert_allclose(a["ior"], [1.0, 1.5, 1.0, 1.0, 1.3],
@@ -83,30 +83,32 @@ def test_csv_errors(tmp_path):
     bad = tmp_path / "bad.csv"
     bad.write_text("1,2,3\n")
     with pytest.raises(ValueError, match="expected 10 fields"):
-        tio.load_scene(str(bad))
+        tio.load_scene(str(bad), device="cpu")
     empty = tmp_path / "empty.csv"
     empty.write_text("# nothing\n")
     with pytest.raises(ValueError, match="no spheres"):
-        tio.load_scene(str(empty))
+        tio.load_scene(str(empty), device="cpu")
     with pytest.raises(ValueError, match="unsupported scene format"):
-        tio.load_scene(str(tmp_path / "scene.obj"))
+        tio.load_scene(str(tmp_path / "scene.obj"), device="cpu")
     with pytest.raises(ValueError, match="unsupported scene format"):
-        tio.save_scene(str(tmp_path / "scene.obj"), build_scene(2))
+        tio.save_scene(str(tmp_path / "scene.obj"),
+                       build_scene(2, device="cpu"))
 
 
 def test_scene_from_arrays_defaults_and_validation():
     s = tio.scene_from_arrays(center=[[0, 0, -1]], radius=[0.5],
-                              mat_type=[LAMBERTIAN], pad_to_multiple=8)
+                              mat_type=[LAMBERTIAN], pad_to_multiple=8,
+                              device="cpu")
     assert s.num_slots == 8
     assert int(s.active.sum()) == 1
     # parked padding never hits: far below the world
     assert float(s.params.center.y[-1]) == -1.0e6
     with pytest.raises(ValueError, match="mat_type"):
-        tio.scene_from_arrays([[0, 0, 0]], [1.0], [7])
+        tio.scene_from_arrays([[0, 0, 0]], [1.0], [7], device="cpu")
     with pytest.raises(ValueError, match="radius"):
-        tio.scene_from_arrays([[0, 0, 0]], [0.0], [0])
+        tio.scene_from_arrays([[0, 0, 0]], [0.0], [0], device="cpu")
     with pytest.raises(ValueError, match="ior"):
-        tio.scene_from_arrays([[0, 0, 0]], [1.0], [2], ior=[0.0])
+        tio.scene_from_arrays([[0, 0, 0]], [1.0], [2], ior=[0.0], device="cpu")
 
 
 def test_scene_from_arrays_equals_jax():
@@ -122,13 +124,13 @@ def test_scene_from_arrays_equals_jax():
                   mat_type=rng.integers(0, 3, n),
                   albedo=rng.random((n, 3)), fuzz=rng.uniform(0, 2, n),
                   ior=rng.uniform(1, 2, n), active=rng.random(n) < 0.9)
-    got = _all_arrays(tio.scene_from_arrays(**arrays))
+    got = _all_arrays(tio.scene_from_arrays(**arrays, device="cpu"))
     want = _all_arrays(jio.scene_from_arrays(dtype=jnp.float32, **arrays))
     for g, w in zip(got, want):
         assert g.dtype == w.dtype
         np.testing.assert_array_equal(g, w)
     got = tio.scene_from_arrays(dtype=torch.float64, pad_to_multiple=None,
-                                **arrays)
+                                **arrays, device="cpu")
     assert got.num_slots == n and got.params.fuzz.dtype == torch.float64
     np.testing.assert_array_equal(got.params.fuzz.numpy(),
                                   np.minimum(arrays["fuzz"], 1.0))
@@ -146,17 +148,17 @@ def test_files_cross_between_packages(tmp_path, ext, writer):
     if writer == "jax":
         jio.save_scene(path, j_build(1))
     else:
-        tio.save_scene(path, build_scene(1))
-    got, want = tio.load_scene(path), jio.load_scene(path)
+        tio.save_scene(path, build_scene(1, device="cpu"))
+    got, want = tio.load_scene(path, device="cpu"), jio.load_scene(path)
     assert got.num_slots == want.num_slots == 512
     for g, w in zip(_all_arrays(got), _all_arrays(want)):
         np.testing.assert_array_equal(g, w)
-    a, b = _active_arrays(got), _active_arrays(build_scene(1))
+    a, b = _active_arrays(got), _active_arrays(build_scene(1, device="cpu"))
     for k in a:
         np.testing.assert_array_equal(a[k], b[k])
     if ext == "csv":
         other = str(tmp_path / "other.csv")
-        (tio.save_scene(other, build_scene(1)) if writer == "jax"
+        (tio.save_scene(other, build_scene(1, device="cpu")) if writer == "jax"
          else jio.save_scene(other, j_build(1)))
         with open(path, "rb") as f1, open(other, "rb") as f2:
             assert f1.read() == f2.read()
@@ -166,10 +168,10 @@ def test_loaded_scene_renders_identically(tmp_path):
     """A saved and loaded scene 1 (its inactive grid slots dropped, the
     active ones in the same order) renders the same bits as the built one
     on the plain version."""
-    scene, cam = build_scene(1), CameraConfig.reference_default()
+    scene, cam = build_scene(1, device="cpu"), CameraConfig.reference_default()
     path = str(tmp_path / "s.npz")
     tio.save_scene(path, scene)
-    loaded = tio.load_scene(path)
+    loaded = tio.load_scene(path, device="cpu")
     assert int(loaded.active.sum()) == int(scene.active.sum())
     assert not torch.equal(loaded.active, scene.active)  # slots moved
     assert torch.equal(rk.render_kernel(loaded, cam, 32, 20, 2, 4),
@@ -190,7 +192,7 @@ def test_serial_scene_equals_jax_and_pin():
     assert h.hexdigest() == tref.SERIAL_SCENE1_SHA256
     assert tref.SERIAL_SCENE1_SHA256 == (
         "aca58f22a147bd5a5c86f8d347b33f22026bd110e6ba19a99e47d5b83016a0f8")
-    scene = tref.build_serial_reference_scene()
+    scene = tref.build_serial_reference_scene(device="cpu")
     assert got[0].shape[0] == 487
     assert int(scene.active.sum()) == 487 and scene.num_slots == 512
     for g, w in zip(_all_arrays(scene),

@@ -168,7 +168,7 @@ def test_fused_step_collective_profile(runs):
     from raytracingincuda_torch.models.scene import build_scene
 
     _, status, _ = runs
-    slots = build_scene(2).num_slots
+    slots = build_scene(2, device="cpu").num_slots
     padded = meshlib.padded_lanes(W * H, meshlib.Mesh(None, 0, 2, None,
                                                       ("dp",), (2,)))
     assert _rec(status, 0, "fused")["all_reduce_numel"] == [

@@ -42,7 +42,8 @@ def _both(jscene):
     from raytracingincuda_torch.models.convert import scene_from_numpy
 
     return jscene, scene_from_numpy([np.asarray(x) for x in
-                                     jax.tree_util.tree_leaves(jscene)])
+                                     jax.tree_util.tree_leaves(jscene)],
+                                    device="cpu")
 
 
 def _jax_scene(kind):
@@ -71,7 +72,7 @@ def test_prepare_matches_jax(kind, kw):
     want = prepare_stream_scene(js, **kw)
     got = sk.prepare_stream_scene(ts, **kw)
     carried = stream_scene_from_numpy(want.scene_mat, want.bounds,
-                                      want.block, want.perm)
+                                      want.block, want.perm, device="cpu")
     for st in (got, carried):
         assert st.block == want.block
         np.testing.assert_array_equal(st.scene_mat.numpy(),

@@ -61,7 +61,7 @@ def spread():
 
     js = jbrs(90, seed=7, pad_to_multiple=32, half_extent=8.0)
     return js, scene_from_numpy([np.asarray(x) for x in
-                                 jax.tree_util.tree_leaves(js)])
+                                 jax.tree_util.tree_leaves(js)], device="cpu")
 
 
 @pytest.fixture(scope="module")

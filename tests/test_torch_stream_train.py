@@ -87,7 +87,7 @@ def small():
              albedo=(0.7, 0.6, 0.5), fuzz=0.1),
     ], pad_to=8)
     return js, scene_from_numpy([np.asarray(x) for x in
-                                 jax.tree_util.tree_leaves(js)])
+                                 jax.tree_util.tree_leaves(js)], device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -146,7 +146,7 @@ def _carry(s, trainable=None):
 
     return train_state_from_numpy(
         [np.asarray(x) for x in jax.tree_util.tree_leaves(s)],
-        trainable=trainable)
+        trainable=trainable, device="cpu")
 
 
 def _hold_to_jax(new, want, carried, tloss, jloss, tmask):
@@ -289,7 +289,8 @@ def oracle_step(small, target):
 
     def carry(s):
         return train_state_from_numpy(
-            [np.asarray(x) for x in jax.tree_util.tree_leaves(s)])
+            [np.asarray(x) for x in jax.tree_util.tree_leaves(s)],
+            device="cpu")
 
     return carry(state), carry(nxt), float(loss)
 
@@ -336,7 +337,8 @@ def test_fused_stream_losses(loss):
     1e-6), and its gradients are the two-program path's (the render's
     loss gradient through the gradient mode) to 1e-5 of the largest
     entry: summation order."""
-    s = build_random_scene(60, seed=2, pad_to_multiple=32, half_extent=6.0)
+    s = build_random_scene(60, seed=2, pad_to_multiple=32, half_extent=6.0,
+                           device="cpu")
     cam = TCam.reference_default()
     st = sk.prepare_stream_scene(s, block=32)
     tgt = torch.from_numpy(np.random.default_rng(6).uniform(
@@ -359,7 +361,8 @@ def test_stream_training_entry_points():
     """make_loss_fn / make_train_step refuse impl='stream' and name
     make_stream_train; the fused and two-program steps lower the loss
     together; the VMEM train functions refuse layout='packed'."""
-    s = build_random_scene(60, seed=2, pad_to_multiple=32, half_extent=6.0)
+    s = build_random_scene(60, seed=2, pad_to_multiple=32, half_extent=6.0,
+                           device="cpu")
     cam = TCam.reference_default()
     with pytest.raises(ValueError, match="make_stream_train"):
         tgrad.make_loss_fn(W, H, SPP, DEPTH, impl="stream")

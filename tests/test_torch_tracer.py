@@ -59,7 +59,7 @@ def _tv(a):
 def test_hit_world_bit_equal_to_eager_jax(scene_id):
     o, d = _rays(scene_id)
     jh = jint.hit_world(j_build(scene_id), _jv(o), _jv(d))
-    th = tint.hit_world(t_build(scene_id), _tv(o), _tv(d))
+    th = tint.hit_world(t_build(scene_id, device="cpu"), _tv(o), _tv(d))
     hit = np.asarray(jh.hit)
     assert 0.2 < hit.mean() < 0.8
     np.testing.assert_array_equal(th.hit.numpy(), hit)
@@ -107,7 +107,8 @@ def test_oracle_vs_jax_oracle(scene_id, rr_start):
     """Against JAX run op by op: the JAX package's own golden gate."""
     kw = dict(sample_offset=3, rr_start=rr_start)
     args = (JCam.reference_default(), 24, 16, 2, 6)
-    got = ttr.render(t_build(scene_id), TCam.reference_default(), 24, 16, 2,
+    got = ttr.render(t_build(scene_id, device="cpu"),
+                     TCam.reference_default(), 24, 16, 2,
                      6, **kw).numpy()
     with jax.disable_jit():
         eager = np.asarray(jtr.render(j_build(scene_id), *args, **kw))
@@ -120,7 +121,8 @@ def test_oracle_matches_golden(scene_id):
     golden, maxval = ppm.read_ppm(
         os.path.join(GOLDEN_DIR, f"scene{scene_id}_48x30_4spp_8b.ppm"))
     assert maxval == 255
-    img = ttr.render(t_build(scene_id), TCam.reference_default(), 48, 30, 4, 8)
+    img = ttr.render(t_build(scene_id, device="cpu"),
+                     TCam.reference_default(), 48, 30, 4, 8)
     st = ppm.diff_stats(img.numpy(), golden)
     assert ppm.passes_cross_framework_gate(st), st
 
@@ -128,7 +130,7 @@ def test_oracle_matches_golden(scene_id):
 def test_oracle_chunking_and_offsets_exact():
     """Counter-based streams: any chunk size gives the same bits, and two
     accumulate-only passes add up to the one-pass sum."""
-    s, cam = t_build(2), TCam.reference_default()
+    s, cam = t_build(2, device="cpu"), TCam.reference_default()
     full = ttr.render(s, cam, 20, 12, 4, 5, accumulate_only=True)
     chunked = ttr.render(s, cam, 20, 12, 4, 5, accumulate_only=True,
                          chunk_pixels=64)
@@ -143,7 +145,7 @@ def test_oracle_chunking_and_offsets_exact():
 def test_oracle_equals_regen_reference(legacy_sky):
     """The oracle and the kernel's plain version trace the same paths in
     another order; every float op is the same, so the images are equal."""
-    s, cam = t_build(1), TCam.reference_default()
+    s, cam = t_build(1, device="cpu"), TCam.reference_default()
     kw = dict(legacy_sky=legacy_sky, rr_start=1)
     want = ttr.render(s, cam, 16, 8, 3, 6, **kw)
     got = rk.render_kernel(s, cam, 16, 8, 3, 6, **kw)

@@ -58,7 +58,7 @@ def mixed():
              albedo=(0.7, 0.6, 0.5), fuzz=0.1),
     ], pad_to=8)
     return js, scene_from_numpy([np.asarray(x) for x in
-                                 jax.tree_util.tree_leaves(js)])
+                                 jax.tree_util.tree_leaves(js)], device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -207,7 +207,7 @@ def test_chain_to_params_matches_jax(mixed):
 def test_sample_windows_add_up():
     """Cotangents are sums over samples: windows [0, 2) and [2, 4) add up
     to [0, 4) (to 1e-5 of the largest entry: summation order)."""
-    s, cam = build_scene(2), TCam.reference_default()
+    s, cam = build_scene(2, device="cpu"), TCam.reference_default()
     g = torch.from_numpy(np.random.default_rng(5).standard_normal(
         (H, W, 3)).astype(np.float32))
     full = tk.render_kernel_grads(s, cam, g, W, H, 4, DEPTH, rr_start=1)
@@ -222,7 +222,7 @@ def test_tile_chunks_and_pixel_order(target):
     """The fused step in three tile chunks and in a permuted lane order:
     the image bit-equal, loss and cotangents within 1e-5 (relative, of
     the largest entry): partial sums in another order."""
-    s, cam = build_scene(2), TCam.reference_default()
+    s, cam = build_scene(2, device="cpu"), TCam.reference_default()
     w, h = 24, 16                       # three 128-lane tiles
     tgt = torch.from_numpy(np.random.default_rng(6).random(
         (h, w, 3)).astype(np.float32))
@@ -252,7 +252,7 @@ def test_depth_cap_and_arguments_raise():
     DEPTH_DIVERGENCES)."""
     from raytracingincuda_tpu.ops.rng import validate_stream_ids
 
-    s, cam = build_scene(2), TCam.reference_default()
+    s, cam = build_scene(2, device="cpu"), TCam.reference_default()
     ids, ii, jj, _, sm, row = rk.regen_inputs(s, cam, W, H, SPP)
     rows = torch.zeros((3, ids.shape[0]))
     assert tk.MAX_DEPTH == 256

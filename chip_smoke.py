@@ -252,9 +252,10 @@ fused_train_render counts its two launches a window (the park render,
 then the reverse; one window at the headline), grad_render its reverse,
 one a window; stream_segment_sum counts its two kernels (tile_sums_kernel,
 then cross_sums_kernel), two per call; stream_train counts walk_counts'
-launch too (outside the main paths); stream_scan_table (no row of its own)
-counts the scan-table kernel that runs before each launch of kernels 4
-and 5. The stream rows' times and bounds
+launch too (outside the main paths); the scan-table kernel that runs
+before each launch of kernels 4 and 5 is stream_render + stream_train.
+The counts are the port's ``launch.<kernel>`` counters
+(``utils/trace.py``). The stream rows' times and bounds
 are those of the 100k comparisons in phase 12; the f64 and compact rows'
 those of the headline-width comparisons in phases 15 and 17.
 """
@@ -902,33 +903,28 @@ def main() -> int:
     from raytracingincuda_torch.ops import train_kernel as tk
     from raytracingincuda_torch.render_api import make_renderer
     from raytracingincuda_torch.utils import ppm
+    from raytracingincuda_torch.utils import trace
     from raytracingincuda_torch.utils.timing import RenderTimer, device_record
 
     global CARD
     dev = torch.device("cuda")
     record: dict = {}
     cam = CameraConfig.reference_default()
-    counters = {"stream_scan_table": (sk, "SCAN_LAUNCHES"),
-                "regen_render": (rk, "LAUNCHES"),
-                "grad_render": (tk, "GRAD_LAUNCHES"),
-                "fused_train_render": (tk, "FUSED_LAUNCHES"),
-                "stream_render": (sk, "LAUNCHES"),
-                "stream_train": (stk, "LAUNCHES"),
-                "stream_segment_sum": (stk, "SEGMENT_LAUNCHES"),
-                "f64_render": (fk, "LAUNCHES"),
-                "compact_render": (ck, "LAUNCHES")}
-    main_launches = {name: 0 for name in counters}
+    kernels = ("regen_render", "grad_render", "fused_train_render",
+               "stream_render", "stream_train", "stream_segment_sum",
+               "f64_render", "compact_render")
+    main_launches = {name: 0 for name in kernels}
     record["launches_by_phase"] = {}
 
     def reset_counts():
-        for mod, attr in counters.values():
-            setattr(mod, attr, 0)
+        trace.reset()
 
     def read_counts(path: str) -> dict:
-        """The counts since the last reset, kept under this main path's
-        name and added to the kernels line's sums."""
-        got = {name: getattr(mod, attr)
-               for name, (mod, attr) in counters.items()}
+        """The launches counted since the last reset (``launch.<kernel>``),
+        kept under this main path's name and added to the kernels line's
+        sums."""
+        got = trace.counts()
+        got = {name: got.get(f"launch.{name}", 0) for name in kernels}
         for name, n in got.items():
             main_launches[name] += n
         record["launches_by_phase"][path] = nonzero(got)
@@ -1085,9 +1081,10 @@ def main() -> int:
             with RenderTimer(dev) as t:
                 img = renderer(scene, cam)
             times.append(t.ms)
-        if read_counts("4 headline " + ("parity" if rr is None else
-                                        f"rr{rr}"))["regen_render"] < 4:
-            raise AssertionError(f"{rk.LAUNCHES} kernel launches for 4 renders")
+        launched = read_counts("4 headline " + ("parity" if rr is None else
+                                                f"rr{rr}"))["regen_render"]
+        if launched < 4:
+            raise AssertionError(f"{launched} kernel launches for 4 renders")
         arr = img.cpu().numpy()
         if not (arr.shape == (768, 1280, 3) and np.isfinite(arr).all()
                 and arr.min() >= 0.0 and arr.max() <= 1.0):
@@ -1305,7 +1302,8 @@ def main() -> int:
     train_launches = read_counts("7 train")
     train_peak = torch.cuda.max_memory_allocated() / 2**20
     # 4 steps, each a park render and a reverse in one window
-    if tk.FUSED_LAUNCHES < 8 or rk.LAUNCHES < 1:
+    if (train_launches["fused_train_render"] < 8
+            or train_launches["regen_render"] < 1):
         raise AssertionError(f"train headline launches {train_launches}")
     grads = param_leaves(d_params) + config_leaves(d_cam)
     finite = all(bool(torch.isfinite(x).all()) for x in grads)
@@ -1388,7 +1386,8 @@ def main() -> int:
     record["trainer"] = {"losses": losses, "kernel_step_loss": float(k_loss),
                          "launches": trainer_launches}
     if not (losses[-1] < losses[0] and all(np.isfinite(losses))
-            and tk.FUSED_LAUNCHES >= 40 and tk.GRAD_LAUNCHES >= 1
+            and trainer_launches["fused_train_render"] >= 40
+            and trainer_launches["grad_render"] >= 1
             and float(k_loss) > 0.0 and np.isfinite(float(k_loss))
             and all(bool(torch.isfinite(x).all())
                     for x in state.params.albedo)):
@@ -3190,11 +3189,11 @@ def main() -> int:
     w_kw = dict(block=64, samples=4, max_depth=6, rr_start=2,
                 budget=w_budget)
     n_win = len(stk.plan_records(ids.shape[0], 4, 6, w_budget))
-    before = stk.LAUNCHES
+    before = trace.counts().get("launch.stream_train", 0)
     win_out = stk.stream_grads_kernel(*w_args, **w_kw)
     win_again = stk.stream_grads_kernel(*w_args, **w_kw)
     torch.cuda.synchronize()
-    win_launches = stk.LAUNCHES - before
+    win_launches = trace.counts().get("launch.stream_train", 0) - before
     win_plain = stk.stream_grads_reference(*w_args, **w_kw)
     win_res = {"windows": n_win, "launches": win_launches,
                "run_to_run_identical": all(torch.equal(a, b) for a, b in

@@ -34,14 +34,12 @@ from typing import Optional
 
 import torch
 
+from ..utils import trace
 from . import render_kernel as rk
 from . import rng as rtrng
 from . import vec
 from .tracer import _linear_to_gamma, _sky_color, primary_rays_from_ij, shade_hit
 from .vec import Vec3
-
-# Launches of the CUDA kernel (``compact_kernel`` adds one per launch).
-LAUNCHES = 0
 
 
 def _check(ids, ii, jj, scene_mat, cam_row, *, samples, max_depth, layout):
@@ -161,6 +159,7 @@ _C_ARGTYPES = [
 ]
 
 
+@trace.spanned("rt.launch.compact_render")
 def compact_kernel(ids, ii, jj, scene_mat, cam_row, *, samples: int,
                    max_depth: int, seed: int = rtrng.DEFAULT_SEED,
                    finalize_scale: Optional[float] = None,
@@ -168,7 +167,6 @@ def compact_kernel(ids, ii, jj, scene_mat, cam_row, *, samples: int,
     """Launch the CUDA compact kernel; same contract as
     ``compact_reference``. Launches on the current stream without
     synchronising."""
-    global LAUNCHES
     if ids.device.type != "cuda":
         raise ValueError(f"compact_kernel takes CUDA tensors, got {ids.device}")
     _check(ids, ii, jj, scene_mat, cam_row, samples=samples,
@@ -188,7 +186,7 @@ def compact_kernel(ids, ii, jj, scene_mat, cam_row, *, samples: int,
                  torch.cuda.current_stream(ids.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"compact_render launch failed: CUDA error {err}")
-    LAUNCHES += 1
+    trace.count("launch.compact_render")
     return out
 
 

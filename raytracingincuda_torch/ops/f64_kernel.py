@@ -40,6 +40,7 @@ import torch
 
 from ..models.camera import CameraConfig, initialize_f64
 from ..models.scene import LAMBERTIAN, METAL, DIELECTRIC, Scene
+from ..utils import trace
 from . import render_kernel as rk
 from . import f32math
 from . import rng as rtrng
@@ -51,9 +52,6 @@ from .vec import Vec3
 F64 = torch.float64
 # (spheres x lanes) double temporaries of the plain version per chunk
 _REFERENCE_CHUNK_ELEMS = 1 << 23
-
-# Launches of the CUDA kernel (``f64_kernel`` adds one per launch).
-LAUNCHES = 0
 
 
 def _check(ids, ii, jj, scene_mat, cam_row, *, samples, max_depth,
@@ -267,13 +265,13 @@ _C_ARGTYPES = [
 ]
 
 
+@trace.spanned("rt.launch.f64_render")
 def f64_kernel(ids, ii, jj, scene_mat, cam_row, *, samples: int,
                max_depth: int, seed: int = rtrng.DEFAULT_SEED,
                sample_offset: int = 0,
                layout: str = "vmem") -> torch.Tensor:
     """Launch the CUDA f64 kernel; same contract as ``f64_reference``.
     Launches on the current stream without synchronising."""
-    global LAUNCHES
     if ids.device.type != "cuda":
         raise ValueError(f"f64_kernel takes CUDA tensors, got {ids.device}")
     _check(ids, ii, jj, scene_mat, cam_row, samples=samples,
@@ -291,7 +289,7 @@ def f64_kernel(ids, ii, jj, scene_mat, cam_row, *, samples: int,
                  torch.cuda.current_stream(ids.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"f64_render launch failed: CUDA error {err}")
-    LAUNCHES += 1
+    trace.count("launch.f64_render")
     return out
 
 

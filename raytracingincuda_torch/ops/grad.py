@@ -44,6 +44,7 @@ from ..models.camera import (CameraConfig, config_from_leaves, config_leaves,
                              initialize)
 from ..models.scene import Scene, SceneParams, param_leaves, params_from_leaves
 from ..parallel import mesh as meshlib
+from ..utils import trace
 from . import tracer
 from .render_kernel import make_diff_render
 from .stream_train_kernel import RECORD_BUDGET
@@ -177,7 +178,8 @@ def front_to_back_border(stream, cam_cfg: CameraConfig, img_width: int,
     (``camdist_from``), so each row's canonical index comes from its
     first-row column. Speed only: the image and gradients are the same
     but for exact ties between blocks."""
-    bn = stream.bounds.detach().cpu().numpy()
+    with trace.sync():
+        bn = stream.bounds.detach().cpu().numpy()
     dev = stream.bounds.device
     if bn.shape[0] <= 1:
         return torch.arange(bn.shape[0], dtype=torch.int32, device=dev)
@@ -186,7 +188,8 @@ def front_to_back_border(stream, cam_cfg: CameraConfig, img_width: int,
     order = front_to_back(bn, initialize(cam_cfg, img_width,
                                          img_height).center)
     canon = np.rint(bn[:, 4] / stream.block).astype(np.int64)
-    return torch.from_numpy(canon[order].astype(np.int32)).to(dev)
+    with trace.sync():
+        return torch.from_numpy(canon[order].astype(np.int32)).to(dev)
 
 
 class AdamState(NamedTuple):
@@ -263,6 +266,7 @@ def _adam(learning_rate: float, trainable):
             step=torch.zeros((), dtype=torch.int32, device=dev),
         )
 
+    @trace.spanned("rt.optim")
     def apply(state: TrainState, d_params: SceneParams):
         leaves = [t.detach().clone() for t in param_leaves(state.params)]
         mu = [t.clone() for t in param_leaves(state.opt_state.mu)]
@@ -272,7 +276,8 @@ def _adam(learning_rate: float, trainable):
         if train:
             opt = torch.optim.Adam([leaves[i] for i in train],
                                    lr=learning_rate)
-            count = float(state.opt_state.count)
+            with trace.sync():
+                count = float(state.opt_state.count)
             for i in train:
                 leaves[i].grad = grads[i].detach().to(leaves[i].dtype)
                 opt.state[leaves[i]] = {
@@ -312,6 +317,7 @@ def _torch_optimizer(factory: Callable, trainable):
             step=torch.zeros((), dtype=torch.int32, device=dev),
         )
 
+    @trace.spanned("rt.optim")
     def apply(state: TrainState, d_params: SceneParams):
         leaves = [t.detach().clone() for t in param_leaves(state.params)]
         per_leaf = list(state.opt_state.per_leaf)
@@ -379,6 +385,7 @@ def make_train_step(img_width: int, img_height: int, samples_per_pixel: int,
                     if k in kw}
         gamma = kw.get("gamma", False)
 
+        @trace.spanned("rt.train_step")
         def fused_step(state: TrainState, cam_cfg: CameraConfig, mat_type,
                        active, target):
             scene = Scene(params=state.params, mat_type=mat_type,
@@ -400,6 +407,7 @@ def make_train_step(img_width: int, img_height: int, samples_per_pixel: int,
     loss_fn = make_loss_fn(img_width, img_height, samples_per_pixel,
                            max_depth, **kw)
 
+    @trace.spanned("rt.train_step")
     def step_fn(state: TrainState, cam_cfg: CameraConfig, mat_type, active,
                 target):
         loss, (d_params, _) = _value_and_grad(loss_fn, state.params, cam_cfg,
@@ -457,6 +465,7 @@ def make_stream_train(stream, img_width: int, img_height: int,
                                          border=border["b"])
         return StreamScene(sm, bounds, block, perm)
 
+    @trace.spanned("rt.stream_step")
     def step_fn(state: TrainState, cam_cfg: CameraConfig, mat_type, active,
                 target):
         st = stream_of(state.params, mat_type, active, cam_cfg)

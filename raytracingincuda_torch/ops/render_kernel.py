@@ -43,6 +43,7 @@ from ..models.camera import (Camera, CameraConfig, config_from_leaves,
 from ..models.scene import (Scene, SceneParams, _round_up, param_leaves,
                             params_from_leaves)
 from ..parallel import mesh as meshlib
+from ..utils import trace
 from . import rng as rtrng
 from . import tracer, vec
 from .tracer import _linear_to_gamma, _sky_color, primary_rays_from_ij, shade_hit
@@ -75,9 +76,6 @@ COMPACT_MAX_PIXELS = 1 << 24
 # The plain version bounds its (spheres x lanes) temporaries to this many
 # elements by tracing lanes in chunks (lanes are independent).
 _REFERENCE_CHUNK_ELEMS = 1 << 24
-
-# Launches of the CUDA kernel (``regen_kernel`` adds one per launch).
-LAUNCHES = 0
 
 
 def pack_scene_matrix(scene: Scene) -> torch.Tensor:
@@ -329,6 +327,7 @@ _C_ARGTYPES = [
 ]
 
 
+@trace.spanned("rt.launch.regen_render")
 def regen_kernel(ids, ii, jj, budget, scene_mat, cam_row, *, samples: int,
                  max_depth: int, seed: int = rtrng.DEFAULT_SEED,
                  legacy_sky: bool = False, emit_depth: bool = False,
@@ -337,8 +336,8 @@ def regen_kernel(ids, ii, jj, budget, scene_mat, cam_row, *, samples: int,
                  layout: str = "vmem") -> torch.Tensor:
     """Launch the CUDA regeneration kernel; same contract as
     ``regen_reference``. Launches on the current stream without
-    synchronising; the kernel traces each lane's whole budget."""
-    global LAUNCHES
+    synchronising; the kernel traces each lane's whole budget. Counts
+    ``launch.regen_render``."""
     if ids.device.type != "cuda":
         raise ValueError(f"regen_kernel takes CUDA tensors, got {ids.device}")
     rr_start = _check_args(ids, ii, jj, budget, scene_mat, cam_row,
@@ -366,7 +365,7 @@ def regen_kernel(ids, ii, jj, budget, scene_mat, cam_row, *, samples: int,
     )
     if err != 0:
         raise RuntimeError(f"regen_render launch failed: CUDA error {err}")
-    LAUNCHES += 1
+    trace.count("launch.regen_render")
     return out
 
 
@@ -511,6 +510,7 @@ def _regen(ids, *args, **kw) -> torch.Tensor:
     raise ValueError(f"no regen implementation for device {ids.device}")
 
 
+@trace.spanned("rt.lanes")
 def _lane_setup(img_width, img_height, pixel_order, samples_per_pixel,
                 sample_offset, sample_budgets, device, mesh=None):
     """Lane -> pixel plumbing: padding to ``PAD`` lanes on every rank of
@@ -545,7 +545,8 @@ def _lane_setup(img_width, img_height, pixel_order, samples_per_pixel,
         nb = torch.as_tensor(sample_budgets).reshape(-1)
         if tuple(nb.shape) != (num_pixels,):
             raise ValueError(f"sample_budgets must have shape ({num_pixels},)")
-        lo, hi = torch.stack(torch.aminmax(nb)).tolist()   # one host sync
+        with trace.sync():
+            lo, hi = torch.stack(torch.aminmax(nb)).tolist()
         if lo < 0 or hi > samples_per_pixel:
             raise ValueError(
                 f"sample_budgets must lie in [0, {samples_per_pixel}]")
@@ -558,6 +559,17 @@ def _lane_setup(img_width, img_height, pixel_order, samples_per_pixel,
     return ids, ii, jj, budget
 
 
+def camera_row(cam_cfg: CameraConfig, img_width: int, img_height: int,
+               device) -> torch.Tensor:
+    """The (1, 24) camera row on ``device``, derived from ``cam_cfg`` where
+    that lives (the host, by default): span ``rt.camera``, its copy to the
+    card a host sync."""
+    with trace.span("rt.camera"), torch.no_grad():
+        row = pack_camera(initialize(cam_cfg, img_width, img_height))
+        with trace.sync():
+            return row.to(device)
+
+
 def regen_inputs(scene: Scene, cam_cfg: CameraConfig, img_width: int,
                  img_height: int, samples_per_pixel: int, *,
                  pixel_order=None, sample_offset: int = 0,
@@ -568,7 +580,7 @@ def regen_inputs(scene: Scene, cam_cfg: CameraConfig, img_width: int,
     lives (the host, by default)."""
     scene_mat = pack_scene_matrix(scene)
     dev = scene_mat.device
-    cam_row = pack_camera(initialize(cam_cfg, img_width, img_height)).to(dev)
+    cam_row = camera_row(cam_cfg, img_width, img_height, dev)
     lanes = _lane_setup(img_width, img_height, pixel_order, samples_per_pixel,
                         sample_offset, sample_budgets, dev, mesh)
     return (*lanes, scene_mat, cam_row)
@@ -580,6 +592,7 @@ def shard(mesh, *lanes) -> tuple:
     return tuple(t[..., sl].contiguous() for t in lanes)
 
 
+@trace.spanned("rt.finalize")
 def _finalize_output(acc, ids, use_sort, img_width, img_height,
                      samples_per_pixel, gamma, accumulate_only,
                      already_finalized):

@@ -37,9 +37,10 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..models.camera import CameraConfig, initialize
+from ..models.camera import CameraConfig
 from ..models.scene import Scene, _round_up
 from ..parallel import mesh as meshlib
+from ..utils import trace
 from . import f32math
 from . import render_kernel as rk
 from . import rng as rtrng
@@ -53,12 +54,6 @@ STREAM_COL_SID = 11
 # The TPU kernel kept the bounds table in SMEM and capped the block count;
 # the cap stays so that block sizes (and so arrays) match the JAX package's.
 _MAX_BLOCKS = 1792
-
-# Launches of the CUDA kernel (``stream_kernel`` adds one per launch), and
-# of the scan-table kernel that builds the walk's input before each launch
-# of kernel 4 or kernel 5 (``stream_train_kernel``).
-LAUNCHES = 0
-SCAN_LAUNCHES = 0
 
 
 class StreamScene(NamedTuple):
@@ -169,6 +164,7 @@ def prepare_stream_scene(scene: Scene, block: int = DEFAULT_BLOCK,
                        torch.from_numpy(act_idx.astype(np.int32)).to(dev))
 
 
+@trace.spanned("rt.stream.rebuild")
 def build_stream_arrays(scene: Scene, perm: torch.Tensor, block: int,
                         n_pad: int, border=None):
     """(scene_mat, bounds) rebuilt on the scene's device from the current
@@ -191,7 +187,8 @@ def build_stream_arrays(scene: Scene, perm: torch.Tensor, block: int,
         c = out[:, rk.COL_CX:rk.COL_CZ + 1].reshape(nb, block, 3)
         r = out[:, rk.COL_RADIUS].reshape(nb, block)
         act = out[:, rk.COL_ACTIVE].reshape(nb, block) > 0.5
-        big = torch.tensor(1e30, dtype=torch.float32, device=dev)
+        with trace.sync():
+            big = torch.tensor(1e30, dtype=torch.float32, device=dev)
         lo = torch.where(act[..., None], c, big).amin(1)
         hi = torch.where(act[..., None], c, -big).amax(1)
         any_act = act.any(1)
@@ -304,8 +301,11 @@ def _check(ids, ii, jj, budget, scene_mat, bounds, cam_row, *, block,
         raise ValueError(f"{bounds.shape[0]} bounds rows for "
                          f"{scene_mat.shape[0] // block} blocks")
     first = bounds[:, 4]  # each row's first matrix row: the walk reads there
-    if not bool(((first >= 0) & (first + block <= scene_mat.shape[0])
-                 & (torch.remainder(first, block) == 0)).all()):
+    ok = ((first >= 0) & (first + block <= scene_mat.shape[0])
+          & (torch.remainder(first, block) == 0)).all()
+    with trace.sync():
+        ok = bool(ok)
+    if not ok:
         raise ValueError("bounds column 4 must hold each block's first "
                          "matrix row, a multiple of the block inside the "
                          "matrix")
@@ -382,6 +382,7 @@ def scan_buffer(scene_mat: torch.Tensor) -> torch.Tensor:
                        device=scene_mat.device)
 
 
+@trace.spanned("rt.launch.stream_render")
 def stream_kernel(ids, ii, jj, budget, scene_mat, bounds, cam_row, *,
                   block: int, samples: int, max_depth: int,
                   seed: int = rtrng.DEFAULT_SEED, rr_start=None,
@@ -390,8 +391,8 @@ def stream_kernel(ids, ii, jj, budget, scene_mat, bounds, cam_row, *,
                   emit_stats: bool = False) -> torch.Tensor:
     """Launch the CUDA stream kernel, after the scan-table kernel that
     builds its walk's input; same contract as ``stream_reference``.
-    Launches on the current stream without synchronising."""
-    global LAUNCHES, SCAN_LAUNCHES
+    Launches on the current stream without synchronising. Counts
+    ``launch.stream_render``."""
     if ids.device.type != "cuda":
         raise ValueError(f"stream_kernel takes CUDA tensors, got {ids.device}")
     rr_start = _check(ids, ii, jj, budget, scene_mat, bounds, cam_row,
@@ -417,8 +418,7 @@ def stream_kernel(ids, ii, jj, budget, scene_mat, bounds, cam_row, *,
     )
     if err != 0:
         raise RuntimeError(f"stream_render launch failed: CUDA error {err}")
-    LAUNCHES += 1
-    SCAN_LAUNCHES += 1
+    trace.count("launch.stream_render")
     return out
 
 
@@ -453,7 +453,7 @@ def render_stream(stream: StreamScene, cam_cfg: CameraConfig, img_width: int,
 
     refuse_unported(dtype)
     dev = stream.scene_mat.device
-    cam_row = rk.pack_camera(initialize(cam_cfg, img_width, img_height)).to(dev)
+    cam_row = rk.camera_row(cam_cfg, img_width, img_height, dev)
     ids, ii, jj, budget = rk._lane_setup(img_width, img_height, pixel_order,
                                          samples_per_pixel, sample_offset,
                                          sample_budgets, dev, mesh)

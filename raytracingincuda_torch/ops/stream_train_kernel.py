@@ -55,8 +55,9 @@ from typing import NamedTuple
 
 import torch
 
-from ..models.camera import CameraConfig, initialize
+from ..models.camera import CameraConfig
 from ..parallel import mesh as meshlib
+from ..utils import trace
 from . import render_kernel as rk
 from . import rng as rtrng
 from . import stream_kernel as sk
@@ -74,9 +75,9 @@ _WARP = 32
 RECORD_BUDGET = 2 << 30
 RECORD_BYTES = 4 + 4 * tk.GRAD_COLS
 
-# Launches of the CUDA kernels (the wrappers add one per launch).
-LAUNCHES = 0            # stream_train_render (both modes), stream_walk_counts
-SEGMENT_LAUNCHES = 0    # segment_sum's two kernels, two per call
+# The wrappers count their launches (utils/trace.py): launch.stream_train
+# (stream_train_render in both modes, stream_walk_counts) and
+# launch.stream_segment_sum (segment_sum's two kernels, two per call).
 
 
 class RecordWindow(NamedTuple):
@@ -130,7 +131,8 @@ def record_order(rec_row: torch.Tensor):
     """(keys, src) of the written records (row >= 0), sorted stably by
     row: ``keys`` int32 rows, ``src`` int64 record indices, so each row's
     records stay in record order."""
-    src = torch.nonzero(rec_row >= 0).squeeze(1)
+    with trace.sync():
+        src = torch.nonzero(rec_row >= 0).squeeze(1)
     keys = rec_row[src]
     order = torch.argsort(keys, stable=True)
     return keys[order].contiguous(), src[order].contiguous()
@@ -231,10 +233,10 @@ def segment_sum_reference(keys, src, vals, n_rows: int) -> torch.Tensor:
     return out
 
 
+@trace.spanned("rt.launch.stream_segment_sum")
 def segment_sum_kernel(keys, src, vals, n_rows: int) -> torch.Tensor:
     """Launch the segmented-sum kernels (``csrc/stream_train.cu``); same
     contract as ``segment_sum_reference``, the same bits."""
-    global SEGMENT_LAUNCHES
     if keys.device.type != "cuda":
         raise ValueError(f"segment_sum_kernel takes CUDA tensors, got "
                          f"{keys.device}")
@@ -259,7 +261,7 @@ def segment_sum_kernel(keys, src, vals, n_rows: int) -> torch.Tensor:
                         part.data_ptr(), out.data_ptr(), tk._stream(keys)),
                  "segment_sum")
     if m:   # tile_sums_kernel, then cross_sums_kernel
-        SEGMENT_LAUNCHES += 2
+        trace.count("launch.stream_segment_sum", 2)
     return out
 
 
@@ -272,6 +274,7 @@ def _segment_sum(keys, *args) -> torch.Tensor:
     raise ValueError(f"no segmented sum for device {keys.device}")
 
 
+@trace.spanned("rt.records")
 def scatter_records(rec_row, rec_val, n_rows: int) -> torch.Tensor:
     """(records,) rows (-1: none) and (records, 9) cotangents -> (n_rows,
     9) per-row sums, each row's records added in record order."""
@@ -411,6 +414,7 @@ def _scan_table(scene_mat):
     return sk.soa(scene_mat), sk.scan_buffer(scene_mat)
 
 
+@trace.spanned("rt.launch.stream_train")
 def train_records(ids, ii, jj, rows, scene_mat, bounds, cam_row, *, block,
                   samples, max_depth, seed, rr_start, sample_offset, fused,
                   num_pixels=0, gamma=False, loss="mse", huber_delta=1.0):
@@ -420,7 +424,6 @@ def train_records(ids, ii, jj, rows, scene_mat, bounds, cam_row, *, block,
     (blocks, 1)). Record ((sample, bounce), lane) is at index (sample *
     max_depth + bounce) * padded + lane. ``scatter_records`` and
     ``_reduce_rows`` finish them."""
-    global LAUNCHES
     from . import _build
 
     launch = _build.function("stream_train_render", _C_ARGTYPES)
@@ -447,8 +450,7 @@ def train_records(ids, ii, jj, rows, scene_mat, bounds, cam_row, *, block,
                  image.data_ptr(), rec_row.data_ptr(), rec_val.data_ptr(),
                  cam_part.data_ptr(), loss_part.data_ptr(), tk._stream(ids))
     tk._raise_on(err, "stream_train_render")
-    LAUNCHES += 1
-    sk.SCAN_LAUNCHES += 1
+    trace.count("launch.stream_train")
     return image, rec_row, rec_val, cam_part, loss_part
 
 
@@ -460,7 +462,6 @@ def walk_counts(ids, ii, jj, scene_mat, bounds, cam_row, *, block: int,
     (padded,) int32, equal to the stream kernel's count; blocks tested per
     warp (padded // 32,) int32, the union of its 32 lanes' opened
     blocks)."""
-    global LAUNCHES
     tk._cuda_only(ids, "walk_counts")
     budget = torch.full(ids.shape, float(samples), dtype=torch.float32,
                         device=ids.device)
@@ -482,8 +483,7 @@ def walk_counts(ids, ii, jj, scene_mat, bounds, cam_row, *, block: int,
                         cam_row.data_ptr(), padded, samples, max_depth, k0,
                         k1, opened.data_ptr(), fetched.data_ptr(),
                         tk._stream(ids)), "stream_walk_counts")
-    LAUNCHES += 1
-    sk.SCAN_LAUNCHES += 1
+    trace.count("launch.stream_train")
     return opened, fetched
 
 
@@ -521,6 +521,7 @@ def stream_grads_kernel(ids, ii, jj, g_rows, scene_mat, bounds, cam_row, *,
     return d_stream, d_cam
 
 
+@trace.spanned("rt.launch.fused_stream")
 def fused_stream_kernel(ids, ii, jj, target_rows, scene_mat, bounds, cam_row,
                         *, block: int, samples: int, max_depth: int,
                         num_pixels: int, seed: int = rtrng.DEFAULT_SEED,
@@ -598,7 +599,7 @@ def _lanes(stream: StreamScene, cam_cfg, img_width, img_height,
     """The lanes of every rank of ``mesh`` with ``img``'s lane rows, then
     this rank's slice of each: (ids, ii, jj, rows, cam_row)."""
     dev = stream.scene_mat.device
-    cam_row = rk.pack_camera(initialize(cam_cfg, img_width, img_height)).to(dev)
+    cam_row = rk.camera_row(cam_cfg, img_width, img_height, dev)
     ids, ii, jj, _ = rk._lane_setup(img_width, img_height, pixel_order,
                                     samples_per_pixel, sample_offset, None,
                                     dev, mesh)
@@ -668,6 +669,7 @@ def mse_train_stream(stream: StreamScene, cam_cfg: CameraConfig, target,
     return total * w, d_stream, d_cam
 
 
+@trace.spanned("rt.records")
 def stream_grads_to_scene_mat(d_stream: torch.Tensor, stream: StreamScene,
                               n_slots: int) -> torch.Tensor:
     """Stream-order cotangents (rows, 16) -> scene slot order (n_slots,

@@ -56,6 +56,7 @@ from ..models.camera import (CameraConfig, config_from_leaves, config_leaves,
                              initialize)
 from ..models.scene import Scene, param_leaves, params_from_leaves
 from ..parallel import mesh as meshlib
+from ..utils import trace
 from . import render_kernel as rk
 from . import rng as rtrng
 from .backward import (N_CAM, bounce_draws, hit_winner, primary_ray_vjp,
@@ -100,11 +101,10 @@ _WARPS = 4
 _REVERSE_STATIC_SMEM = 4 * GRAD_COLS * 128
 _STAGE_BYTES_PER_SLOT = 44
 
-# Launches of the CUDA train kernels (the wrappers add one per launch):
-# kernel A one reverse a window, kernel B a park render and a reverse a
-# window (one window unless the park's budget needs more).
-GRAD_LAUNCHES = 0
-FUSED_LAUNCHES = 0
+# The wrappers count their launches (utils/trace.py): launch.grad_render
+# one reverse a window of kernel A, launch.fused_train_render a park render
+# and a reverse a window of kernel B (one window unless the park's budget
+# needs more).
 
 
 def refuse_unported(dtype=torch.float32, layout: str = "vmem") -> None:
@@ -449,6 +449,7 @@ def _at(t: Optional[torch.Tensor], row: int = 0, col: int = 0) -> int:
     return t.data_ptr() + (row * stride + col) * t.element_size()
 
 
+@trace.spanned("rt.launch.reduce_rows")
 def _reduce_rows(partials: torch.Tensor) -> torch.Tensor:
     """Sum a (rows, cols) partials buffer over rows in a fixed order:
     passes of ``_REDUCE_CHUNK``-row groups, each summed in row order, so
@@ -467,6 +468,7 @@ def _reduce_rows(partials: torch.Tensor) -> torch.Tensor:
     return x[0]
 
 
+@trace.spanned("rt.launch.reverse")
 def _reverse(ids, ii, jj, g_rows, soa, cam_row, window, *, samples,
              max_depth, key, sample_offset, rr_start, layout, stack, park,
              parked, warp_acc, scene_part, cam_part):
@@ -498,6 +500,7 @@ def _warp_acc(plan: ParkPlan, n: int, dev):
                        device=dev)
 
 
+@trace.spanned("rt.launch.grad_render")
 def grad_kernel(ids, ii, jj, g_rows, scene_mat, cam_row, *, samples: int,
                 max_depth: int, seed: int = rtrng.DEFAULT_SEED,
                 rr_start=None, sample_offset: int = 0,
@@ -508,7 +511,6 @@ def grad_kernel(ids, ii, jj, g_rows, scene_mat, cam_row, *, samples: int,
     current stream without synchronising. ``stack`` (STACK_SHALLOW or
     MAX_DEPTH) forces the reverse's instance, for tests and measurements;
     by default the smaller one that holds ``max_depth``."""
-    global GRAD_LAUNCHES
     _cuda_only(ids, "grad_kernel")
     rr_start = rk._check_args(ids, ii, jj, g_rows, scene_mat, cam_row,
                               samples=samples, max_depth=max_depth,
@@ -530,7 +532,7 @@ def grad_kernel(ids, ii, jj, g_rows, scene_mat, cam_row, *, samples: int,
                  sample_offset=sample_offset, rr_start=rr_start,
                  layout=layout, stack=stack, park=None, parked=None,
                  warp_acc=warp_acc, scene_part=scene_part, cam_part=cam_part)
-        GRAD_LAUNCHES += 1
+        trace.count("launch.grad_render")
     return _outputs(_reduce_rows(scene_part).view(n, GRAD_COLS),
                     _reduce_rows(cam_part))
 
@@ -546,6 +548,7 @@ class FusedParts(NamedTuple):
     plan: ParkPlan
 
 
+@trace.spanned("rt.launch.fused_train_render")
 def fused_train_parts(ids, ii, jj, target_rows, scene_mat, cam_row, *,
                       samples: int, max_depth: int, num_pixels: int,
                       seed: int = rtrng.DEFAULT_SEED, rr_start=None,
@@ -558,7 +561,6 @@ def fused_train_parts(ids, ii, jj, target_rows, scene_mat, cam_row, *,
     """Kernel B's launches (per window of ``plan_park``: the park render,
     then the reverse), before the block partials are summed; ``stack`` as
     ``grad_kernel``'s."""
-    global FUSED_LAUNCHES
     _cuda_only(ids, "fused_train_kernel")
     if loss not in LOSSES:
         raise ValueError(f"unknown loss {loss!r}; one of {LOSSES}")
@@ -599,16 +601,16 @@ def fused_train_parts(ids, ii, jj, target_rows, scene_mat, cam_row, *,
                      _at(loss_part, w0 // rk.PAD), _at(park), plan.capacity,
                      _at(parked, col=w0), _stream(ids))
         _raise_on(err, "fused_park_render")
-        FUSED_LAUNCHES += 1
         _reverse(ids, ii, jj, g, soa, cam_row, window, samples=samples,
                  max_depth=max_depth, key=key, sample_offset=0,
                  rr_start=rr_start, layout=layout, stack=stack, park=park,
                  parked=None if park is None else parked, warp_acc=warp_acc,
                  scene_part=scene_part, cam_part=cam_part)
-        FUSED_LAUNCHES += 1
+        trace.count("launch.fused_train_render", 2)
     return FusedParts(loss_part, image, g, scene_part, cam_part, parked, plan)
 
 
+@trace.spanned("rt.launch.fused_train")
 def fused_train_kernel(ids, ii, jj, target_rows, scene_mat, cam_row, *,
                        samples: int, max_depth: int, num_pixels: int,
                        seed: int = rtrng.DEFAULT_SEED, rr_start=None,
@@ -651,6 +653,7 @@ def _fused(ids, *args, **kw):
 
 # -- entry points -------------------------------------------------------------
 
+@trace.spanned("rt.lanes")
 def _lane_rows(img, ids, num_pixels: int) -> torch.Tensor:
     """(H, W, 3) per-pixel data -> (3, padded) lane rows: lane i carries
     pixel ids[i]'s values, zeros for padding."""
@@ -666,8 +669,8 @@ def _packed(scene: Scene, cam_cfg: CameraConfig, img_width, img_height):
     """Detached packed scene matrix and camera row on the scene's device."""
     with torch.no_grad():
         scene_mat = rk.pack_scene_matrix(scene)
-        cam_row = rk.pack_camera(initialize(cam_cfg, img_width, img_height))
-    return scene_mat, cam_row.to(scene_mat.device)
+    return scene_mat, rk.camera_row(cam_cfg, img_width, img_height,
+                                    scene_mat.device)
 
 
 def render_kernel_grads(scene: Scene, cam_cfg: CameraConfig, g_acc,
@@ -863,23 +866,32 @@ def make_mse_train(mat_type, active, img_width: int, img_height: int,
     return f
 
 
+@trace.spanned("rt.chain")
 def chain_to_params(d_scene_mat, d_cam_row, params, cam_cfg, mat_type,
                     active, img_width: int, img_height: int):
     """Packed-matrix and camera-row cotangents -> (SceneParams,
-    CameraConfig) cotangents: autograd through ``pack_scene_matrix`` and
-    ``pack_camera(initialize(...))``."""
+    CameraConfig) cotangents: autograd through ``pack_scene_matrix`` (span
+    ``rt.chain.scene``, on the scene's device) and
+    ``pack_camera(initialize(...))`` (``rt.chain.camera``, where the camera
+    lives: the host, by default; its forward pass ``rt.camera``, as
+    ``render_kernel.camera_row``'s)."""
     p_leaves = [t.detach().requires_grad_(True) for t in param_leaves(params)]
     c_leaves = [t.detach().requires_grad_(True)
                 for t in config_leaves(cam_cfg)]
     with torch.enable_grad():
-        m = rk.pack_scene_matrix(Scene(params_from_leaves(p_leaves),
-                                       mat_type, active))
-        row = rk.pack_camera(initialize(config_from_leaves(c_leaves),
-                                        img_width, img_height))
-        dp = torch.autograd.grad(m, p_leaves, d_scene_mat.to(m.device),
-                                 allow_unused=True)
-        dc = torch.autograd.grad(row, c_leaves, d_cam_row.to(row.device),
-                                 allow_unused=True)
+        with trace.span("rt.chain.scene"):
+            m = rk.pack_scene_matrix(Scene(params_from_leaves(p_leaves),
+                                           mat_type, active))
+            dp = torch.autograd.grad(m, p_leaves, d_scene_mat.to(m.device),
+                                     allow_unused=True)
+        with trace.span("rt.chain.camera"):
+            with trace.span("rt.camera"):
+                row = rk.pack_camera(initialize(
+                    config_from_leaves(c_leaves), img_width, img_height))
+            with trace.sync():
+                d_cam = d_cam_row.to(row.device)
+            dc = torch.autograd.grad(row, c_leaves, d_cam,
+                                     allow_unused=True)
     fill = lambda gs, ls: [torch.zeros_like(l) if g is None else g  # noqa: E731
                            for g, l in zip(gs, ls)]
     return (params_from_leaves(fill(dp, p_leaves)),

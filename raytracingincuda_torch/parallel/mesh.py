@@ -24,6 +24,9 @@ bounce, draw), so sharded and single-process images are the same bits.
     every tensor given, flattened into one buffer), and ``reduce_grads``
     does the same for the gradients reaching a set of leaves.
 
+Both collectives' sites are span ``rt.all_reduce`` and count
+``all_reduce.calls`` and ``all_reduce.numel`` (``utils/trace.py``).
+
 The backend is explicit: ``nccl`` for ranks on distinct cards, ``gloo``
 for the CPU and for ranks that share one card; ``nccl`` with two ranks on
 one card (or none) raises and names ``gloo``.
@@ -37,6 +40,7 @@ import torch
 import torch.distributed as dist
 
 from ..device import resolve_device
+from ..utils import trace
 
 # Lanes per CUDA block (render_kernel.PAD): every rank's slice is a
 # multiple of it, so padding goes to PAD * world.
@@ -172,9 +176,10 @@ class _Gather(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, rows, group, lanes, padded):
-        full = rows.new_zeros((*rows.shape[:-1], padded))
-        full[..., lanes] = rows
-        dist.all_reduce(full, group=group)
+        with trace.span("rt.all_reduce"):
+            full = rows.new_zeros((*rows.shape[:-1], padded))
+            full[..., lanes] = rows
+            _all_reduce(full, group)
         ctx.lanes = lanes
         return full
 
@@ -198,13 +203,21 @@ def all_reduce_sum(mesh: Optional[Mesh], *tensors: torch.Tensor) -> tuple:
     flat buffer (they share a dtype and a device)."""
     if not sharded(mesh):
         return tensors
-    flat = torch.cat([t.reshape(-1) for t in tensors])
-    dist.all_reduce(flat, group=mesh.group)
-    out, at = [], 0
-    for t in tensors:
-        out.append(flat[at:at + t.numel()].view(t.shape))
-        at += t.numel()
+    with trace.span("rt.all_reduce"):
+        flat = torch.cat([t.reshape(-1) for t in tensors])
+        _all_reduce(flat, mesh.group)
+        out, at = [], 0
+        for t in tensors:
+            out.append(flat[at:at + t.numel()].view(t.shape))
+            at += t.numel()
     return tuple(out)
+
+
+def _all_reduce(flat: torch.Tensor, group) -> None:
+    """``dist.all_reduce`` (a sum, in place), counted."""
+    trace.count("all_reduce.calls")
+    trace.count("all_reduce.numel", flat.numel())
+    dist.all_reduce(flat, group=group)
 
 
 class _ReduceGrads(torch.autograd.Function):

@@ -31,9 +31,10 @@ Every job saves its outputs as ``{tag}_r{rank}.npz`` under ``--outdir``;
 the gradient jobs (``grads``, ``fused``, ``train``, ``stream_train``) run
 twice and report whether the two runs gave the same bits, and the
 ``all_reduce`` calls a step made, their sizes and the seconds spent in
-them (a counting wrapper around ``torch.distributed.all_reduce``) and
-each run's seconds. Each job reports the kernel launches this rank made,
-its wall seconds and, on a card, its peak device memory. Every rank writes
+them (the port's ``all_reduce.*`` counters and ``rt.all_reduce`` spans,
+``utils/trace.py``, read under ``recording()``) and each run's seconds.
+Each job reports the kernel launches this rank made, its wall seconds
+and, on a card, its peak device memory. Every rank writes
 ``status_r{rank}.json``; rank 0 prints the JSON line of all of them.
 """
 from __future__ import annotations
@@ -44,47 +45,28 @@ import os
 import time
 
 
-def _counts() -> dict:
-    from ..ops import compact_kernel as ck
-    from ..ops import f64_kernel as fk
-    from ..ops import render_kernel as rk
-    from ..ops import stream_kernel as sk
-    from ..ops import stream_train_kernel as stk
-    from ..ops import train_kernel as tk
+def _launches() -> dict:
+    """The kernel launches counted so far, by kernel."""
+    from ..utils import trace
 
-    return {"regen_render": rk.LAUNCHES, "grad_render": tk.GRAD_LAUNCHES,
-            "fused_train_render": tk.FUSED_LAUNCHES,
-            "stream_render": sk.LAUNCHES,
-            "stream_scan_table": sk.SCAN_LAUNCHES,
-            "stream_train": stk.LAUNCHES,
-            "stream_segment_sum": stk.SEGMENT_LAUNCHES,
-            "f64_render": fk.LAUNCHES, "compact_render": ck.LAUNCHES}
+    return {k[len("launch."):]: n for k, n in trace.counts().items()
+            if k.startswith("launch.")}
 
 
-class _AllReduceSpy:
-    """Counts ``torch.distributed.all_reduce`` calls while installed."""
+def _all_reduces(step) -> tuple:
+    """Run ``step()`` with the port's spans on: (its result, the
+    ``all_reduce`` calls it made, each call's elements, the seconds in
+    the ``rt.all_reduce`` spans)."""
+    from ..utils import trace
 
-    def __enter__(self):
-        import torch.distributed as dist
-
-        self.calls, self.numel, self.secs = 0, [], 0.0
-        self._orig = dist.all_reduce
-
-        def counted(tensor, *a, **k):
-            self.calls += 1
-            self.numel.append(tensor.numel())
-            t0 = time.perf_counter()
-            out = self._orig(tensor, *a, **k)
-            self.secs += time.perf_counter() - t0
-            return out
-
-        dist.all_reduce = counted
-        return self
-
-    def __exit__(self, *exc):
-        import torch.distributed as dist
-
-        dist.all_reduce = self._orig
+    first = len(trace.records())
+    calls = trace.counts().get("all_reduce.calls", 0)
+    with trace.recording():
+        out = step()
+    spans = [r for r in trace.records()[first:] if r.name == "rt.all_reduce"]
+    return (out, trace.counts().get("all_reduce.calls", 0) - calls,
+            [r.counts["all_reduce.numel"] for r in spans],
+            sum(r.end_ns - r.start_ns for r in spans) / 1e9)
 
 
 def _scene(job, device):
@@ -292,7 +274,7 @@ def run_job(job: dict, defaults: dict, device, outdir: str,
     dev = mesh.device
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    before = _counts()
+    before = _launches()
     t0 = time.perf_counter()
     rec = {"job": job["job"], "tag": job["tag"]}
     if job["job"] in _FORWARD:
@@ -304,21 +286,21 @@ def run_job(job: dict, defaults: dict, device, outdir: str,
         runs = []
         for _ in range(2):
             t1 = time.perf_counter()
-            with _AllReduceSpy() as spy:
-                runs.append(_numpy(step()))
+            out, calls, numel, secs = _all_reduces(step)
+            runs.append(_numpy(out))
             rec.setdefault("run_secs", []).append(time.perf_counter() - t1)
-            rec.setdefault("all_reduce_secs", []).append(spy.secs)
-            rec.setdefault("all_reduces_a_step", spy.calls)
-            rec.setdefault("all_reduce_numel", spy.numel)
+            rec.setdefault("all_reduce_secs", []).append(secs)
+            rec.setdefault("all_reduces_a_step", calls)
+            rec.setdefault("all_reduce_numel", numel)
         rec["runs_bit_identical"] = _same(*runs)
         arrays = runs[0]
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
         rec["peak_mib"] = torch.cuda.max_memory_allocated(dev) / 2**20
     rec["secs"] = time.perf_counter() - t0
-    after = _counts()
-    rec["launches"] = {k: after[k] - before[k] for k in after
-                       if after[k] != before[k]}
+    after = _launches()
+    rec["launches"] = {k: n - before.get(k, 0) for k, n in after.items()
+                       if n != before.get(k, 0)}
     rec["mesh_shape"] = list(mesh.shape)
     np.savez(os.path.join(outdir, f"{job['tag']}_r{mesh.rank}.npz"), **arrays)
     return rec

@@ -44,6 +44,7 @@ from .models.camera import CameraConfig, initialize
 from .models.scene import Scene, _round_up, param_leaves
 from .ops import f64_kernel, render_kernel, stream_kernel, tracer
 from .parallel import mesh as meshlib
+from .utils import trace
 
 
 def _leaf_key(scene: Scene, cam_cfg: CameraConfig) -> tuple:
@@ -251,7 +252,15 @@ def make_renderer(cfg: RenderConfig, device, n_devices: int = 0) -> Callable:
     device=...)``); the camera config is host data. ``n_devices``: 0 (the
     launched world) or the world's size; under a world of more than one
     rank each rank renders its slice of the pixels
-    (``parallel.mesh.make_mesh``) and every rank gets the whole image."""
+    (``parallel.mesh.make_mesh``) and every rank gets the whole image.
+    The construction is span ``rt.make_renderer``, each render
+    ``rt.render`` (``utils/trace.py``)."""
+    with trace.span("rt.make_renderer"):
+        renderer = _make_renderer(cfg, device, n_devices)
+    return trace.spanned("rt.render")(renderer)
+
+
+def _make_renderer(cfg: RenderConfig, device, n_devices: int) -> Callable:
     check = _scene_check(device)
     mesh = meshlib.make_mesh(n_devices, device=torch.device(device))
     mesh = mesh if mesh.world > 1 else None

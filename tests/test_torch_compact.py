@@ -25,7 +25,7 @@ from raytracingincuda_torch.models.scene import DIELECTRIC, Scene
 from raytracingincuda_torch.models.scene import build_scene as t_build
 from raytracingincuda_torch.ops import compact_kernel as ck
 from raytracingincuda_torch.ops import render_kernel as rk
-from raytracingincuda_torch.utils import ppm
+from raytracingincuda_torch.utils import ppm, trace
 
 # One intra-op thread: the suite runs in several worker processes, and
 # torch's default of one thread per core oversubscribes the CPU.
@@ -143,10 +143,10 @@ def test_kernel_equals_plain_version_and_kernel_1_on_card(cuda, layout):
     ids, ii, jj, bud, sm, row = rk.regen_inputs(s, TCam.reference_default(),
                                                 72, 40, 3)
     kw = dict(samples=3, max_depth=12, layout=layout, finalize_scale=1 / 3)
-    before = ck.LAUNCHES
+    before = trace.counts().get("launch.compact_render", 0)
     got = ck.compact_kernel(ids, ii, jj, sm, row, **kw)
     torch.cuda.synchronize()
-    assert ck.LAUNCHES == before + 1
+    assert trace.counts().get("launch.compact_render", 0) == before + 1
     assert torch.equal(got, ck.compact_reference(ids, ii, jj, sm, row, **kw))
     assert torch.equal(got, rk.regen_kernel(ids, ii, jj, bud, sm, row, **kw))
     assert torch.equal(got, ck.compact_kernel(ids, ii, jj, sm, row, **kw))

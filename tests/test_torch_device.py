@@ -23,6 +23,7 @@ from raytracingincuda_torch.models.camera import CameraConfig
 from raytracingincuda_torch.models.scene import param_leaves
 from raytracingincuda_torch.ops import render_kernel as rk
 from raytracingincuda_torch.ops import stream_kernel as sk
+from raytracingincuda_torch.utils import trace
 
 torch.set_num_threads(1)
 
@@ -164,12 +165,14 @@ def test_default_scenes_render_on_the_kernels(cuda):
     render_stream on a default stream scene kernel 4: not the plain
     versions."""
     cam = CameraConfig.reference_default()
-    before = rk.LAUNCHES
+    before = trace.counts().get("launch.regen_render", 0)
     img = rk.render_kernel(tscene.build_scene(1), cam, 64, 40, 2, 8)
     torch.cuda.synchronize()
-    assert rk.LAUNCHES > before and img.is_cuda
+    assert img.is_cuda
+    assert trace.counts().get("launch.regen_render", 0) > before
     stream = sk.prepare_stream_scene(tscene.build_random_scene(2000, seed=3))
-    before = sk.LAUNCHES
+    before = trace.counts().get("launch.stream_render", 0)
     img = sk.render_stream(stream, cam, 64, 40, 2, 8)
     torch.cuda.synchronize()
-    assert sk.LAUNCHES > before and img.is_cuda
+    assert img.is_cuda
+    assert trace.counts().get("launch.stream_render", 0) > before

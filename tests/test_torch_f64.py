@@ -31,7 +31,7 @@ from raytracingincuda_torch.models.scene import build_scene as t_build
 from raytracingincuda_torch.ops import f64_kernel as fk
 from raytracingincuda_torch.ops import render_kernel as rk
 from raytracingincuda_torch.render_api import make_renderer
-from raytracingincuda_torch.utils import ppm
+from raytracingincuda_torch.utils import ppm, trace
 
 # One intra-op thread: the suite runs in several worker processes, and
 # torch's default of one thread per core oversubscribes the CPU.
@@ -321,10 +321,10 @@ def test_kernel_equals_plain_version_on_card(cuda, layout):
     s = t_build(1, device=cuda)
     inputs = fk.f64_inputs(s, TCam.reference_default(), 64, 40)
     kw = dict(samples=2, max_depth=10, layout=layout)
-    before = fk.LAUNCHES
+    before = trace.counts().get("launch.f64_render", 0)
     got = fk.f64_kernel(*inputs, **kw)
     torch.cuda.synchronize()
-    assert fk.LAUNCHES == before + 1
+    assert trace.counts().get("launch.f64_render", 0) == before + 1
     assert got.dtype == torch.float64
     assert torch.equal(got, fk.f64_reference(*inputs, **kw))
     assert torch.equal(got, fk.f64_kernel(*inputs, **kw))

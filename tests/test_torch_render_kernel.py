@@ -23,7 +23,7 @@ from raytracingincuda_torch.models.scene import build_scene as t_build
 from raytracingincuda_torch.ops import render_kernel as rk
 from raytracingincuda_torch.ops import tracer as ttr
 from raytracingincuda_torch.render_api import make_renderer
-from raytracingincuda_torch.utils import ppm
+from raytracingincuda_torch.utils import ppm, trace
 
 # One intra-op thread: the suite runs in several worker processes, and
 # torch's default of one thread per core oversubscribes the CPU.
@@ -194,10 +194,10 @@ def test_kernel_equals_plain_version_on_card(cuda, rr_start, layout):
     inputs = rk.regen_inputs(s, TCam.reference_default(), 64, 40, 4)
     kw = dict(samples=4, max_depth=12, rr_start=rr_start, layout=layout,
               finalize_scale=0.25)
-    before = rk.LAUNCHES
+    before = trace.counts().get("launch.regen_render", 0)
     got = rk.regen_kernel(*inputs, **kw)
     torch.cuda.synchronize()
-    assert rk.LAUNCHES == before + 1
+    assert trace.counts().get("launch.regen_render", 0) == before + 1
     assert torch.equal(got, rk.regen_reference(*inputs, **kw))
     cpu = rk.regen_reference(*(t.cpu() for t in inputs), **kw)
     assert torch.equal(got.cpu(), cpu)

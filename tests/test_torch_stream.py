@@ -20,6 +20,7 @@ from raytracingincuda_torch.models.camera import initialize
 from raytracingincuda_torch.models.scene import build_random_scene, build_scene
 from raytracingincuda_torch.ops import render_kernel as rk
 from raytracingincuda_torch.ops import stream_kernel as sk
+from raytracingincuda_torch.utils import trace
 
 # One intra-op thread: the suite runs in several worker processes, and
 # torch's default of one thread per core oversubscribes the CPU.
@@ -278,11 +279,11 @@ def test_stream_kernel_equals_plain_version_on_card(cuda, rr):
     args = (ids, ii, jj, bud, st.scene_mat, st.bounds, row)
     kw = dict(block=st.block, samples=2, max_depth=6, rr_start=rr,
               finalize_scale=0.5)
-    before = sk.LAUNCHES
+    before = trace.counts().get("launch.stream_render", 0)
     got = sk.stream_kernel(*args, **kw)
     again = sk.stream_kernel(*args, **kw)
     torch.cuda.synchronize()
-    assert sk.LAUNCHES == before + 2
+    assert trace.counts().get("launch.stream_render", 0) == before + 2
     assert torch.equal(got, again)
     assert torch.equal(got, sk.stream_reference(*args, **kw))
     counts = sk.stream_kernel(*args, emit_stats=True, **kw)

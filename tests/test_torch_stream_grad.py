@@ -25,6 +25,7 @@ from raytracingincuda_torch.ops import render_kernel as rk
 from raytracingincuda_torch.ops import stream_kernel as sk
 from raytracingincuda_torch.ops import stream_train_kernel as stk
 from raytracingincuda_torch.ops import train_kernel as tk
+from raytracingincuda_torch.utils import trace
 
 # One intra-op thread: the suite runs in several worker processes, and
 # torch's default of one thread per core oversubscribes the CPU.
@@ -369,11 +370,11 @@ def test_stream_grads_kernel_equals_plain_version_on_card(cuda, rr):
                      .manual_seed(0)) * 1e-3).to(cuda)
     args = (ids, ii, jj, g, st.scene_mat, st.bounds, row)
     kw = dict(block=64, samples=2, max_depth=6, rr_start=rr)
-    before = stk.LAUNCHES
+    before = trace.counts().get("launch.stream_train", 0)
     got = stk.stream_grads_kernel(*args, **kw)
     again = stk.stream_grads_kernel(*args, **kw)
     torch.cuda.synchronize()
-    assert stk.LAUNCHES == before + 2
+    assert trace.counts().get("launch.stream_train", 0) == before + 2
     want = stk.stream_grads_reference(*args, **kw)
     for a, b, c in zip(got, again, want):
         assert torch.equal(a, b)
@@ -388,10 +389,11 @@ def test_segment_sum_kernel_equals_plain_version_on_card(cuda):
     vals = torch.from_numpy(rng.standard_normal((100_000, 9)).astype(
         np.float32))
     keys, src = stk.record_order(rows)
-    before = stk.SEGMENT_LAUNCHES
+    before = trace.counts().get("launch.stream_segment_sum", 0)
     got = stk.segment_sum_kernel(keys.to(cuda), src.to(cuda), vals.to(cuda),
                                  500)
-    assert stk.SEGMENT_LAUNCHES == before + 2      # its two kernels
+    # its two kernels
+    assert trace.counts().get("launch.stream_segment_sum", 0) == before + 2
     assert torch.equal(got.cpu(), stk.segment_sum_reference(keys, src, vals,
                                                             500))
 
@@ -452,11 +454,12 @@ def test_stream_grads_kernel_in_record_windows_on_card(cuda, rr):
     kw = dict(block=64, samples=4, max_depth=6, rr_start=rr, budget=budget)
     args = (ids, ii, jj, g, st.scene_mat, st.bounds, row)
     n = len(stk.plan_records(ids.shape[0], 4, 6, budget))
-    before = stk.LAUNCHES
+    before = trace.counts().get("launch.stream_train", 0)
     got = stk.stream_grads_kernel(*args, **kw)
     again = stk.stream_grads_kernel(*args, **kw)
     torch.cuda.synchronize()
-    assert n == 12 and stk.LAUNCHES == before + 2 * n
+    assert n == 12
+    assert trace.counts().get("launch.stream_train", 0) == before + 2 * n
     want = stk.stream_grads_reference(*args, **kw)
     for a, b, c in zip(got, again, want):
         assert torch.equal(a, b)

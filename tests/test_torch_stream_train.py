@@ -25,6 +25,7 @@ from raytracingincuda_torch.ops import render_kernel as rk
 from raytracingincuda_torch.ops import stream_kernel as sk
 from raytracingincuda_torch.ops import stream_train_kernel as stk
 from raytracingincuda_torch.ops import train_kernel as tk
+from raytracingincuda_torch.utils import trace
 
 # One intra-op thread: the suite runs in several worker processes, and
 # torch's default of one thread per core oversubscribes the CPU.
@@ -406,10 +407,10 @@ def test_fused_stream_kernel_equals_plain_version_on_card(cuda, loss):
     args = (ids, ii, jj, tgt, st.scene_mat, st.bounds, row)
     kw = dict(block=64, samples=4, max_depth=6, rr_start=2,
               num_pixels=64 * 40, gamma=True, loss=loss, huber_delta=0.25)
-    before = stk.LAUNCHES
+    before = trace.counts().get("launch.stream_train", 0)
     got = stk.fused_stream_kernel(*args, **kw)
     torch.cuda.synchronize()
-    assert stk.LAUNCHES == before + 1
+    assert trace.counts().get("launch.stream_train", 0) == before + 1
     want = stk.fused_stream_reference(*args, **kw)
     assert torch.equal(got[1], want[1])
     assert torch.equal(got[1], sk.stream_kernel(
@@ -441,10 +442,13 @@ def test_fused_stream_kernel_in_record_windows_on_card(cuda, loss):
               huber_delta=0.25)
     budget = ids.shape[0] * 6 * stk.RECORD_BYTES   # one sample a window
     one = stk.fused_stream_kernel(*args, **kw)
-    before = (stk.LAUNCHES, sk.LAUNCHES)
+    before = trace.counts()
     got = stk.fused_stream_kernel(*args, budget=budget, **kw)
     torch.cuda.synchronize()
-    assert (stk.LAUNCHES, sk.LAUNCHES) == (before[0] + 4, before[1] + 1)
+    after = trace.counts()
+    assert (after["launch.stream_train"], after["launch.stream_render"]) == (
+        before.get("launch.stream_train", 0) + 4,
+        before.get("launch.stream_render", 0) + 1)
     want = stk.fused_stream_reference(*args, budget=budget, **kw)
     assert torch.equal(got[1], one[1]) and torch.equal(got[0], one[0])
     for a, b, c, what in zip(got[2:], one[2:], want[2:],

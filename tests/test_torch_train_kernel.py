@@ -22,6 +22,7 @@ from raytracingincuda_torch.models.camera import config_leaves
 from raytracingincuda_torch.models.scene import build_scene, param_leaves
 from raytracingincuda_torch.ops import render_kernel as rk
 from raytracingincuda_torch.ops import train_kernel as tk
+from raytracingincuda_torch.utils import trace
 
 # One intra-op thread: the suite runs in several worker processes, and
 # torch's default of one thread per core oversubscribes the CPU.
@@ -355,11 +356,11 @@ def test_grad_kernel_equals_plain_version_on_card(cuda, rr, layout):
     g = torch.randn((3, ids.shape[0]), generator=torch.Generator().manual_seed(
         0)).to(cuda)
     kw = dict(samples=2, max_depth=8, rr_start=rr, layout=layout)
-    before = tk.GRAD_LAUNCHES
+    before = trace.counts().get("launch.grad_render", 0)
     got = tk.grad_kernel(ids, ii, jj, g, sm, row, **kw)
     again = tk.grad_kernel(ids, ii, jj, g, sm, row, **kw)
     torch.cuda.synchronize()
-    assert tk.GRAD_LAUNCHES == before + 2
+    assert trace.counts().get("launch.grad_render", 0) == before + 2
     want = tk.grad_reference(ids, ii, jj, g, sm, row, **kw)
     for a, b, c in zip(got, again, want):
         assert torch.equal(a, b)
@@ -380,10 +381,10 @@ def test_fused_kernel_equals_plain_version_on_card(cuda, loss):
         1)).to(cuda)
     kw = dict(samples=4, max_depth=6, rr_start=2, num_pixels=64 * 40,
               loss=loss, huber_delta=0.25)
-    before = tk.FUSED_LAUNCHES
+    before = trace.counts().get("launch.fused_train_render", 0)
     got = tk.fused_train_kernel(ids, ii, jj, tgt, sm, row, **kw)
     torch.cuda.synchronize()
-    assert tk.FUSED_LAUNCHES == before + 2
+    assert trace.counts().get("launch.fused_train_render", 0) == before + 2
     want = tk.fused_train_reference(ids, ii, jj, tgt, sm, row, **kw)
     assert torch.equal(got[1], want[1])
     assert torch.equal(got[1], rk.regen_kernel(ids, ii, jj, bud, sm, row,

@@ -301,6 +301,8 @@ F64_SOURCE = "raytracingincuda_torch/csrc/f64_render.cu"
 F64_REPLACES = "raytracingincuda_tpu/ops/pallas_df64.py:48"
 COMPACT_SOURCE = "raytracingincuda_torch/csrc/compact_render.cu"
 COMPACT_REPLACES = "raytracingincuda_tpu/ops/pallas_kernel.py:488"
+GROUP_TABLE_SOURCE = "raytracingincuda_torch/csrc/group_table.cu"
+GROUP_TABLE_REPLACES = "none: the port's own (the two-level scan's table)"
 # The reference's own CUDA figure for its double variant at the headline
 # (RTX 3070 Laptop, README.md's fp64 table)
 REFERENCE_F64_HEADLINE_MS = 40270.4
@@ -318,6 +320,10 @@ FP64_PER_S = 34e12
 BYTES_PER_S = 3.35e12
 OPS_TEST_STAGED = 18
 OPS_TEST = 25
+# the two-level scan's bound test (path_common.cuh: group_can_improve): a
+# sphere test's 18, plus widening R by the lane's kPad |o| and forming
+# |C|^2 - R^2, which a sphere test takes from the scene
+OPS_BOUND_TEST = 26
 # --fmad=false: a multiply and an add are two instructions, so counted
 # operations issue at half the FP32 rate (FP64 likewise)
 FMAD_OFF = 0.5
@@ -493,7 +499,7 @@ def large_images(dev, cam, reset_counts, read_counts) -> dict:
     got8 = img8.reshape(-1, 3)[sel8].t()
     # the count mode: segments per lane, and the warps' hit-test issues
     # against their lanes' mean (a warp runs until its longest lane ends)
-    seg_lane, issues = rk.regen_counts(*inputs8, samples=spp8, max_depth=d8)
+    seg_lane, issues, *_ = rk.regen_counts(*inputs8, samples=spp8, max_depth=d8)
     segs8 = float(seg_lane.double().sum())
     issues_over_mean = float(issues.double().sum()) / float(
         seg_lane.double().view(-1, 32).mean(1).sum())
@@ -880,6 +886,92 @@ def default_scenes(dev, cam, reset_counts, read_counts) -> dict:
     return out
 
 
+def group_tables(dev, cam, reset_counts, read_counts) -> dict:
+    """Phase 28: the two-level scan's group table (``csrc/group_table.cu``)
+    on the card against its plain twin ``group_table_reference``, word for
+    word, at the main path's inputs (scene 1's 512 slots, the headline's
+    camera row at 1280x768) and after three fused train steps of
+    ``make_train_step`` (96x58x4spp/6b, centres and radii trained) moved
+    the scene; its device time (the profiler's, 20 launches), the twin's
+    time and its bound. Returns the record."""
+    import torch
+
+    from raytracingincuda_torch.models.scene import (Scene, SceneParams,
+                                                     build_scene)
+    from raytracingincuda_torch.ops import grad as gradlib
+    from raytracingincuda_torch.ops import group_scan as gs
+    from raytracingincuda_torch.ops import render_kernel as rk
+    from raytracingincuda_torch.ops.vec import Vec3
+
+    phase = "28 group table"
+    t_phase = time.perf_counter()
+    scene = build_scene(1, device=dev)
+    row = rk.regen_inputs(scene, cam, 1280, 768, 1)[5]
+
+    @torch.no_grad()
+    def table_pair(sc):
+        sm = rk.pack_scene_matrix(sc)
+        soa = sm[:, :rk.USED_COLS].t().contiguous()
+        got = gs.group_table_kernel(soa, row)
+        want = gs.group_table_reference(sm, row)
+        return sm, soa, got, want
+
+    reset_counts()
+    sm, soa, got, want = table_pair(scene)
+    torch.cuda.synchronize()
+    counts = read_counts(phase)
+    head = gs.unpack(got, sm.shape[0])
+    # three train steps over centres and radii move the scene
+    trainable = SceneParams(Vec3(True, True, True), True,
+                            Vec3(False, False, False), False, False)
+    init_fn, step_fn = gradlib.make_train_step(
+        96, 58, 4, 6, learning_rate=2e-2, impl="fused", trainable=trainable)
+    gen = torch.Generator().manual_seed(28)
+    target = torch.rand((58, 96, 3), generator=gen).to(dev)
+    state = init_fn(scene.params)
+    for _ in range(3):
+        state, _ = step_fn(state, cam, scene.mat_type, scene.active, target)
+    moved_scene = Scene(state.params, scene.mat_type, scene.active)
+    sm2, soa2, got2, want2 = table_pair(moved_scene)
+    moved = int((sm2[:, 0:4] != sm[:, 0:4]).any(1).sum())
+    # device time of one launch, the twin's, and the bound: the scene's
+    # columns read, the camera row read and the table written; operations
+    # |C|^2 - r^2 a slot (7), below the bytes' time
+    n = sm.shape[0]
+    idle = profiled_idle(lambda: [gs.group_table_kernel(soa, row)
+                                  for _ in range(20)])
+    dev_ms = sum(ms for name, ms in idle["top_device_ms"].items()
+                 if "group_table" in name)
+    kernel_ms = dev_ms / 20 if dev_ms else timed(
+        lambda: gs.group_table_kernel(soa, row), 20)[1]
+    _, plain_ms = timed(lambda: gs.group_table_reference(sm, row), 1)
+    bnd = bound(7 * n, (rk.USED_COLS * n + row.numel()
+                        + gs.table_words(n)) * 4)
+    out = {"slots": n, "launches": counts,
+           "equal": bool(torch.equal(got.cpu(), want.cpu())),
+           "moved_slots": moved,
+           "moved_equal": bool(torch.equal(got2.cpu(), want2.cpu())),
+           "moved_table_differs": not bool(torch.equal(got2.cpu(),
+                                                       got.cpu())),
+           "large": head.large, "small": head.small,
+           "groups": head.n_groups,
+           "kernel_ms": kernel_ms, "kernel_ms_from": "profiler" if dev_ms
+           else "events", "plain_ms": plain_ms,
+           "bound": bnd}
+    if not (out["equal"] and out["moved_equal"] and moved > 0
+            and out["moved_table_differs"] and counts["group_table"] == 1):
+        raise AssertionError(f"group table on the card: {out}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    say(phase, f"scene 1 ({n} slots: {head.large} large, {head.small} small "
+        f"in {head.n_groups} groups) at the headline's camera row: the "
+        f"card's table equals the twin word for word; after 3 train steps "
+        f"moved {moved} slots, equal again (and unlike the first) | kernel "
+        f"{kernel_ms * 1e3:.2f} us ({out['kernel_ms_from']}), plain "
+        f"{plain_ms:.2f} ms, bound {bnd[0] * 1e3:.4f} us ({bnd[1]}); phase "
+        f"took {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -912,7 +1004,7 @@ def main() -> int:
     cam = CameraConfig.reference_default()
     kernels = ("regen_render", "grad_render", "fused_train_render",
                "stream_render", "stream_train", "stream_segment_sum",
-               "f64_render", "compact_render")
+               "f64_render", "compact_render", "group_table")
     main_launches = {name: 0 for name in kernels}
     record["launches_by_phase"] = {}
 
@@ -1033,8 +1125,8 @@ def main() -> int:
         before it regenerated (each sample waits for its longest path)."""
         per = rk.sample_segments(*inputs, samples=spp, max_depth=bounces,
                                  rr_start=rr)
-        seg, issues = rk.regen_counts(*inputs, samples=spp, max_depth=bounces,
-                                      rr_start=rr)
+        seg, issues, *_ = rk.regen_counts(*inputs, samples=spp,
+                                          max_depth=bounces, rr_start=rr)
         mean = float(seg.double().view(-1, 32).mean(1).sum())
         nested = float(rk.warp_iterations(per, "nested").sum())
         out = {"warp_issues": int(issues.long().sum()),
@@ -3310,6 +3402,10 @@ def main() -> int:
     record["defaults"] = default_scenes(dev, cam, reset_counts, read_counts)
     record["phase_s"]["27 defaults"] = record["defaults"]["phase_s"]
 
+    # -- 28 the group table ----------------------------------------------------
+    record["group_table"] = group_tables(dev, cam, reset_counts, read_counts)
+    record["phase_s"]["28 group table"] = record["group_table"]["phase_s"]
+
     # -- result lines ---------------------------------------------------------
     record["main_path_launches"] = main_launches
     worst_err = max(r["max_abs_err"] for r in record["compare"] + [head])
@@ -3325,24 +3421,43 @@ def main() -> int:
                                      rr_start=rr, emit_depth=True)
                      .double().sum())
 
+    def scan_ops(width, height, spp, bounces, rr):
+        """Operations of the two-level scans at these inputs (scene 1), as
+        kernel 1's count mode measures them: a lane that scans runs its
+        warp's slot tests of that scan (the large entries and GROUP an
+        opened group), OPS_TEST_STAGED each, and every group's bound test,
+        OPS_BOUND_TEST each. A warp's tests a scan are its tests over its
+        issues; its lanes' scans are their segments."""
+        inputs = rk.regen_inputs(build_scene(1, device=dev), cam, width,
+                                 height, spp)
+        seg, issues, _, tests = rk.regen_counts(
+            *inputs, samples=spp, max_depth=bounces, rr_start=rr)
+        lane_scans = seg.double().view(-1, 32).sum(1)
+        slot_tests = float((tests.double() / issues.double().clamp_min(1)
+                            * lane_scans).sum())
+        groups = record["group_table"]["groups"]
+        return (slot_tests * OPS_TEST_STAGED
+                + float(lane_scans.sum()) * groups * OPS_BOUND_TEST)
+
     n1 = build_scene(1, device="cpu").num_slots
     scene_bytes = n1 * rk.USED_COLS * 4 + 96
     px_head = 1280 * 768
     px_small = 320 * 192
-    head_tests = segments(1280, 768, 2, 25, None) * n1
-    regen_bound = bound(head_tests * OPS_TEST_STAGED,
-                        px_head * 28 + scene_bytes)
-    # the f64 and compact kernels at the same shape: kernel 1's count of
-    # sphere tests (the f64 paths part from the f32 ones only at knife
-    # edges); ids, ii and jj read, the image written (double for f64)
-    f64_bound = bound(head_tests * OPS_TEST_STAGED,
+    # kernels 1 and 7 and kernel 2's park render scan in two levels (the
+    # count mode's work); kernel 3's reverse and kernel 6 test every slot
+    head_ops = scan_ops(1280, 768, 2, 25, None)
+    regen_bound = bound(head_ops, px_head * 28 + scene_bytes)
+    # the f64 kernel at the same shape: kernel 1's segments, every slot
+    # tested (the f64 paths part from the f32 ones only at knife edges);
+    # ids, ii and jj read, the image written (double for f64)
+    f64_bound = bound(segments(1280, 768, 2, 25, None) * n1 * OPS_TEST_STAGED,
                       px_head * (12 + 24) + scene_bytes + 24 * 8, FP64_PER_S)
-    compact_bound = bound(head_tests * OPS_TEST_STAGED,
-                          px_head * (12 + 12) + scene_bytes)
+    compact_bound = bound(head_ops, px_head * (12 + 12) + scene_bytes)
     grad_bound = bound(segments(320, 192, 4, 8, 2) * n1 * OPS_TEST_STAGED,
                        px_small * 24 + scene_bytes + n1 * 64)
-    fused_bound = bound(segments(1280, 768, 2, 25, 2) * n1 * OPS_TEST_STAGED,
+    fused_bound = bound(scan_ops(1280, 768, 2, 25, 2),
                         px_head * 36 + scene_bytes + n1 * 64)
+    gt = record["group_table"]
 
     def kernel_row(name, source, replaces, max_abs_err, ms, plain_ms, bnd,
             library_ms=None):
@@ -3385,6 +3500,8 @@ def main() -> int:
             max(r["max_abs_err"] for r in record["compact_compare"]),
             compact_head["kernel_ms"], compact_head["plain_ms"],
             compact_bound),
+        kernel_row("group_table", GROUP_TABLE_SOURCE, GROUP_TABLE_REPLACES,
+            0.0, gt["kernel_ms"], gt["plain_ms"], gt["bound"]),
     ]}
     if min(k["launches"] for k in kernels["kernels"]) < 1:
         raise AssertionError(f"a kernel did not launch on the main path: "

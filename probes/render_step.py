@@ -132,8 +132,8 @@ def main() -> int:
         """Hit-test issues summed over warps, the warps' lanes' mean
         segments summed over warps, and the nested loop's per-sample count
         of the same segments."""
-        seg, issues = rk.regen_counts(*inputs, samples=samples,
-                                      max_depth=depth, rr_start=rr)
+        seg, issues, *_ = rk.regen_counts(*inputs, samples=samples,
+                                          max_depth=depth, rr_start=rr)
         per = rk.sample_segments(*inputs, samples=samples, max_depth=depth,
                                  rr_start=rr)
         mean = float(seg.double().view(-1, 32).mean(1).sum())

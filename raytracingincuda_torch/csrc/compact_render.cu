@@ -36,6 +36,10 @@
 // at 128, 72 registers and 7 blocks (28 warps), level with kernel 1 at
 // 100 spp and faster at 2 spp (PERF.md).
 //
+// The closest hit is ScanHit's: the two-level scan where the wrapper passes
+// a group table (staged beside the scene), the lanes in the scan voting on
+// each group among themselves.
+//
 // Exactness. Each segment is path_common.cuh's primary_ray, ScanHit and
 // scatter_bounce, the arithmetic of regen_render.cu, in the statements'
 // order of its regen_lane; a sample's radiance is added only on a miss,
@@ -63,6 +67,7 @@ struct Params {
   uint32_t k0, k1;
   int finalize;
   float scale;
+  const int32_t* groups;  // the group table, or null: the one-level scan
 };
 
 // The pool: each live entry's state, read and written only in the waves
@@ -80,9 +85,13 @@ __global__ void __launch_bounds__(kTile) compact_kernel(Params p) {
   __shared__ Pool pool;
   const int n = p.n;
   float* gath = reinterpret_cast<float*>(smem + n);  // (kGather, n)
-  if (!kHbm) stage_scene(p.scene, n, smem, gath);
+  Groups gr;
+  if (!kHbm) {
+    stage_scene(p.scene, n, smem, gath);
+    gr = stage_groups(p.groups, n, reinterpret_cast<char*>(smem) + stage_offset(n));
+  }
   __syncthreads();
-  const ScanHit<kHbm> hit{SceneView{p.scene, smem, kHbm ? p.scene + kRadius * n : gath, n}};
+  const ScanHit<kHbm> hit{SceneView{p.scene, smem, kHbm ? p.scene + kRadius * n : gath, n}, gr};
   const Cam cam = load_cam(p.cam);
   const int t = threadIdx.x, warp = t / 32, wl = t % 32;
   const int first = blockIdx.x * kTile;
@@ -169,14 +178,16 @@ __global__ void __launch_bounds__(kTile) compact_kernel(Params p) {
 extern "C" int compact_render(const int32_t* ids, const float* ii, const float* jj,
                               const float* scene, int n, const float* cam, float* out,
                               int padded, int samples, int max_depth, uint32_t k0, uint32_t k1,
-                              int finalize, float scale, int hbm, void* stream) {
+                              int finalize, float scale, int hbm, const int32_t* groups,
+                              void* stream) {
+  if (hbm && groups) return (int)cudaErrorInvalidValue;
   const Params p{ids, ii, jj, scene, n, cam, out, padded, samples, max_depth, k0, k1,
-                 finalize, scale};
+                 finalize, scale, groups};
   const dim3 grid((padded + kTile - 1) / kTile);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   // static (the pool) plus dynamic (the staged scene) above 48 KB needs
   // the attribute even when the dynamic part alone is below it
-  const size_t smem = hbm ? 0 : (size_t)n * (sizeof(float4) + kGather * sizeof(float));
+  const size_t smem = staged_bytes(n, hbm, groups != nullptr);
   if (smem + sizeof(Pool) > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         hbm ? compact_kernel<true> : compact_kernel<false>,

@@ -2,7 +2,7 @@
 // compact_render.cu, stream_render.cu) and the train kernels
 // (train_render.cu, stream_train.cu): vector math, the device-exact f32
 // functions, the Threefry streams, the camera, the scene as a kernel sees
-// it, the brute-force closest hit and the stream walk's bound test, one
+// it, the closest hit (one- or two-level) and the stream walk's bound test, one
 // bounce's scatter, the trace of one sample's path (trace_sample) and the
 // regenerating loop over a lane's samples (regen_lane). One copy, so that
 // a train kernel's forward and the compact kernel's bounces are the regen
@@ -15,6 +15,48 @@
 // ops/stream_kernel.py:stream_reference) and of the JAX kernels. The build
 // uses --fmad=false and no fast math, and sqrt, rsqrt, sin and cos are the
 // fixed IEEE sequences of ops/f32math.py.
+//
+// The two-level scan (ScanHit with a group table, layout 'vmem'; the table
+// is group_table.cu's, its plain twin ops/group_scan.py's). It tests the
+// large slots, then walks groups of kGroup small slots in the table's
+// order, and a warp tests a group's slots when any of its lanes' bound
+// tests (group_can_improve) says the lane's best root numerator can
+// improve there. Why the winner is the brute-force scan's, bit for bit:
+//   1. Each slot's root numerator is slot_disc/take_root's arithmetic, as
+//      in the one-level scan. A root replaces the best on root < best, or
+//      root == best with a lower slot: over any set of tested slots the
+//      scan keeps the least (root, slot) pair, and the one-level scan, in
+//      slot order with a strict '<', keeps the least pair over all slots.
+//      So it is enough that the group holding that pair is never skipped.
+//   2. A warp skips a group only when every lane's own test fails, so it
+//      is enough that a lane's test passes whenever a member k of the group
+//      has a root Z with tmin_a < Z <= best (the lane's best so far, which
+//      is at least its final best).
+//   3. The slot test's rounding (u = 2^-24). Let S = |c_k| + |r_k| + |o|
+//      and A the computed |d|^2, within 3u of the exact one. The 16 rounded
+//      operations of slot_disc leave disc within 22 u A S^2 of the exact
+//      A (r^2 - rho^2), rho the distance from c_k to the ray's line; so the
+//      point P at t = Z / A, which the root places on the sphere, lies
+//      within r_k + sqrt(40 u) S = r_k + 1.55e-3 S of c_k (the sqrt bounds
+//      a grazing ray, where disc is near 0).
+//   4. The bound. Every member lies within R of the bound's centre C
+//      (R: the largest centre distance plus |r|, rounded up by the slack
+//      below), so |P - C| <= R + 1.55e-3 S', S' = |C| + R + |o| >= S. The
+//      test widens R to R + kPad S' (kPad |C| + R on the table, kPad |o|
+//      a lane) plus kSlack: P lies inside the widened sphere by at least
+//      (kPad - 1.55e-3) S' = 6.3e-3 S'.
+//   5. The bound test's own rounding moves its chord ends h -/+ sqrt(disc)
+//      by at most sqrt(22 u) (|C| + |o| + R_widened) |d| <= 2.3e-3 S' |d|,
+//      and P's depth inside the widened sphere puts the exact chord ends at
+//      least 6.3e-3 S' |d| from Z: the computed h - sq stays below Z <= best,
+//      h + sq above Z > tmin_a, and disc above 0.
+//   6. Where the argument's magnitudes do not hold the lane tests every
+//      group: a ray with |d|^2 below 1e-12 (A is clamped there) or |d|^2 or
+//      |o|^2 above kSafe. A slot with |c|^2 + r^2 above kSafe, or not
+//      finite, is tested with the large slots. Within kSafe no product
+//      overflows, and kSlack covers any underflow.
+// A lane whose own test fails still tests a group its warp opens; by 1 that
+// changes nothing.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -33,6 +75,13 @@ enum { kCx, kCy, kCz, kRadius, kAlbR, kAlbG, kAlbB, kFuzz, kIor, kMat,
 constexpr int kGather = 7;  // radius, albedo rgb, fuzz, ior, mat
 constexpr int kDrawScatter = 0, kDrawCoin = 1, kDrawRR = 2;
 constexpr int kDrawJitter = 4, kDrawDefocus = 5;
+// The two-level scan (see above; ops/group_scan.py reads these lines).
+constexpr int kGroup = 16;              // small slots a group
+constexpr float kLargeScale = 2.0f;     // large: |r| above this times the median |r|
+constexpr float kPad = 0x1p-7f;         // bound widening per unit of |C| + R + |o|
+constexpr float kSlack = 1.0e-4f;       // and absolute
+constexpr float kSafe = 0x1p40f;        // magnitudes the argument covers
+constexpr int kTableHead = 4;           // ints: large entries (padded to 4), groups, large, small
 
 struct V3 {
   float x, y, z;
@@ -261,42 +310,186 @@ __device__ __forceinline__ void test_slot(const float4 e, V3 o, V3 d, float a,
   take_root(slot_disc(e, o, d, a, d_dot_o, o2), tmin_a, k, best, win);
 }
 
-// The closest hit over every slot of a SceneView (the regen and train
-// kernels): true on a hit, with the winning slot and t = numerator / a.
-// Four slots a step: their entries are loaded and their discriminants
-// computed before any root, so the four tests' loads and arithmetic are
-// independent work for the scheduler, and one branch (taken where any of
-// the four discriminants is positive) guards the roots, which then run in
-// slot order: the same slot wins as in a one-slot loop.
-template <bool kHbm_>
+// The two-level table's geometry for n slots: scan entries (the large
+// slots padded to 4, then the groups' members padded to kGroup), their
+// slots, and one bound a group. In device memory (group_table.cu) after
+// kTableHead ints: entries, bounds, slots; a block stages the same three
+// after its gather columns.
+__host__ __device__ __forceinline__ int group_entries(int n) { return (n + kGroup + 5) & ~3; }
+__host__ __device__ __forceinline__ int group_bounds(int n) { return (n + kGroup - 1) / kGroup; }
+__host__ __device__ __forceinline__ size_t group_bytes(int n) {
+  return (size_t)group_entries(n) * (sizeof(float4) + sizeof(int)) +
+         (size_t)group_bounds(n) * sizeof(float4);
+}
+// Shared memory a block stages: the scan table, the gather columns and,
+// with a group table, the table (16-byte aligned after the columns).
+__host__ __device__ __forceinline__ size_t stage_offset(int n) {
+  return ((size_t)n * (sizeof(float4) + kGather * sizeof(float)) + 15) & ~(size_t)15;
+}
+__host__ __device__ __forceinline__ size_t staged_bytes(int n, bool hbm, bool groups) {
+  if (hbm) return 0;
+  return groups ? stage_offset(n) + group_bytes(n) : (size_t)n * (sizeof(float4) + kGather * sizeof(float));
+}
+
+// The two-level table as a kernel reads it; entry null: the one-level scan.
+struct Groups {
+  const float4* entry = nullptr;  // (n_large + n_groups * kGroup) scan entries
+  const int* slot = nullptr;      // their slots (-1: padding, never hits)
+  const float4* bound = nullptr;  // (n_groups) centre, R widened by kPad (|C| + R) + kSlack
+  int n_large = 0, n_groups = 0;
+};
+
+// All threads of the block copy the used part of the table in device
+// memory (group_table.cu's words; null: none, the one-level scan) to `dst`
+// (the shared memory after the staged scene), then the caller syncs.
+__device__ __forceinline__ Groups stage_groups(const int32_t* table, int n, void* dst) {
+  Groups g;
+  if (!table) return g;
+  const float4* src_e = reinterpret_cast<const float4*>(table + kTableHead);
+  const float4* src_b = src_e + group_entries(n);
+  const int* src_s = reinterpret_cast<const int*>(src_b + group_bounds(n));
+  g.n_large = table[0];
+  g.n_groups = table[1];
+  float4* e = static_cast<float4*>(dst);
+  float4* b = e + group_entries(n);
+  int* s = reinterpret_cast<int*>(b + group_bounds(n));
+  const int used = g.n_large + g.n_groups * kGroup;
+  for (int k = threadIdx.x; k < used; k += blockDim.x) {
+    e[k] = src_e[k];
+    s[k] = src_s[k];
+  }
+  for (int k = threadIdx.x; k < g.n_groups; k += blockDim.x) b[k] = src_b[k];
+  g.entry = e;
+  g.bound = b;
+  g.slot = s;
+  return g;
+}
+
+// take_root for the two-level scan, whose slots come out of order: a root
+// equal to the best replaces it when its slot is lower (the one-level
+// scan's first slot). The slot is read only for a root at or below best.
+__device__ __forceinline__ void take_root_at(SlotDisc q, float tmin_a, const int* slot, int p,
+                                             float& best, int& win) {
+  if (q.disc > 0.0f) {
+    const float sq = sqrtf(q.disc);
+    const float near = q.h - sq;
+    const float root = near > tmin_a ? near : q.h + sq;
+    if (root > tmin_a && root <= best) {
+      const int k = slot[p];
+      if (root < best || k < win) {
+        best = root;
+        win = k;
+      }
+    }
+  }
+}
+
+// Entries p..p+3 of the table, as the one-level scan's four-slot step.
+__device__ __forceinline__ void test_four(const Groups& gr, int p, V3 o, V3 d, float a,
+                                          float d_dot_o, float o2, float tmin_a, float& best,
+                                          int& win) {
+  const SlotDisc q0 = slot_disc(gr.entry[p], o, d, a, d_dot_o, o2);
+  const SlotDisc q1 = slot_disc(gr.entry[p + 1], o, d, a, d_dot_o, o2);
+  const SlotDisc q2 = slot_disc(gr.entry[p + 2], o, d, a, d_dot_o, o2);
+  const SlotDisc q3 = slot_disc(gr.entry[p + 3], o, d, a, d_dot_o, o2);
+  if (q0.disc > 0.0f || q1.disc > 0.0f || q2.disc > 0.0f || q3.disc > 0.0f) {
+    take_root_at(q0, tmin_a, gr.slot, p, best, win);
+    take_root_at(q1, tmin_a, gr.slot, p + 1, best, win);
+    take_root_at(q2, tmin_a, gr.slot, p + 2, best, win);
+    take_root_at(q3, tmin_a, gr.slot, p + 3, best, win);
+  }
+}
+
+// Can the lane's best root numerator improve inside group bound b, widened
+// by pad_o = kPad |o|? The half-b quadratic of the widened sphere, in the
+// numerator domain: its chord must overlap (tmin_a, best).
+__device__ __forceinline__ bool group_can_improve(const float4 b, float pad_o, V3 o, V3 d,
+                                                  float a, float d_dot_o, float o2,
+                                                  float tmin_a, float best) {
+  const float r = b.w + pad_o;
+  const float h = (b.x * d.x + b.y * d.y + b.z * d.z) - d_dot_o;
+  const float c2r2 = (b.x * b.x + b.y * b.y + b.z * b.z) - r * r;
+  const float cc = (c2r2 + o2) - 2.0f * (b.x * o.x + b.y * o.y + b.z * o.z);
+  const float disc = h * h - a * cc;
+  if (!(disc > 0.0f)) return false;
+  const float sq = sqrtf(disc);
+  return h + sq > tmin_a && h - sq < best;
+}
+
+// The closest hit over every slot of a SceneView (the regen, compact and
+// train kernels): true on a hit, with the winning slot and t = numerator /
+// a. Without a group table (layout 'hbm', or a launch whose wrapper built
+// none) the one-level scan: four slots a step, their entries loaded and
+// their discriminants computed before any root, so the four tests' loads
+// and arithmetic are independent work for the scheduler, and one branch
+// (taken where any of the four discriminants is positive) guards the
+// roots, which then run in slot order: the same slot wins as in a one-slot
+// loop. With a table, the two-level scan (header): the large slots four a
+// step, then each group whose bound any lane of the warp can improve in
+// (__any_sync over the lanes in the scan), its members four a step. kCount
+// (the count mode): the leader of the lanes in the scan adds the warp's
+// opened groups and slot tests of the two-level scan to its own `opened`
+// and `tests`, which the kernel sums over the warp's lanes (a one-level
+// scan tests every slot; its wrapper counts those). Registers, not a
+// pointer to shared memory in this struct: with one there, nvcc read the
+// gather columns of layout 'hbm' as shared memory (an illegal instruction).
+// Built with no table (Groups{}), the two-level code folds away.
+template <bool kHbm_, bool kCount = false>
 struct ScanHit {
   static constexpr bool kHbm = kHbm_;
   static constexpr bool kLockstep = false;
   SceneView sc;
+  Groups gr;
+  mutable int opened = 0, tests = 0;
   __device__ __forceinline__ bool operator()(V3 o, V3 d, int& win, float& t) const {
-    const float a = fmaxf(dot(d, d), 1e-12f);
+    const float dd = dot(d, d);
+    const float a = fmaxf(dd, 1e-12f);
     const float d_dot_o = dot(d, o);
     const float o2 = dot(o, o);
     const float tmin_a = kTMin * a;
     float best = kTMiss;
     win = 0;
-    int k = 0;
-    for (; k + 4 <= sc.n; k += 4) {
-      const float4 e0 = slot_entry<kHbm>(sc, k), e1 = slot_entry<kHbm>(sc, k + 1);
-      const float4 e2 = slot_entry<kHbm>(sc, k + 2), e3 = slot_entry<kHbm>(sc, k + 3);
-      const SlotDisc q0 = slot_disc(e0, o, d, a, d_dot_o, o2);
-      const SlotDisc q1 = slot_disc(e1, o, d, a, d_dot_o, o2);
-      const SlotDisc q2 = slot_disc(e2, o, d, a, d_dot_o, o2);
-      const SlotDisc q3 = slot_disc(e3, o, d, a, d_dot_o, o2);
-      if (q0.disc > 0.0f || q1.disc > 0.0f || q2.disc > 0.0f || q3.disc > 0.0f) {
-        take_root(q0, tmin_a, k, best, win);
-        take_root(q1, tmin_a, k + 1, best, win);
-        take_root(q2, tmin_a, k + 2, best, win);
-        take_root(q3, tmin_a, k + 3, best, win);
+    if (!kHbm && gr.entry) {
+      bool lead = false;
+      if (kCount) {
+        lead = (threadIdx.x & 31) == __ffs(__activemask()) - 1;
+        if (lead) tests += gr.n_large;
       }
+      for (int p = 0; p < gr.n_large; p += 4)
+        test_four(gr, p, o, d, a, d_dot_o, o2, tmin_a, best, win);
+      const bool wide = !(dd >= 1e-12f && dd <= kSafe && o2 <= kSafe);
+      const float pad_o = kPad * sqrtf(o2);
+      for (int g = 0, p = gr.n_large; g < gr.n_groups; ++g, p += kGroup) {
+        const bool can =
+            wide || group_can_improve(gr.bound[g], pad_o, o, d, a, d_dot_o, o2, tmin_a, best);
+        if (!__any_sync(__activemask(), can)) continue;
+        if (kCount && lead) {
+          ++opened;
+          tests += kGroup;
+        }
+#pragma unroll
+        for (int j = 0; j < kGroup; j += 4)
+          test_four(gr, p + j, o, d, a, d_dot_o, o2, tmin_a, best, win);
+      }
+    } else {
+      int k = 0;
+      for (; k + 4 <= sc.n; k += 4) {
+        const float4 e0 = slot_entry<kHbm>(sc, k), e1 = slot_entry<kHbm>(sc, k + 1);
+        const float4 e2 = slot_entry<kHbm>(sc, k + 2), e3 = slot_entry<kHbm>(sc, k + 3);
+        const SlotDisc q0 = slot_disc(e0, o, d, a, d_dot_o, o2);
+        const SlotDisc q1 = slot_disc(e1, o, d, a, d_dot_o, o2);
+        const SlotDisc q2 = slot_disc(e2, o, d, a, d_dot_o, o2);
+        const SlotDisc q3 = slot_disc(e3, o, d, a, d_dot_o, o2);
+        if (q0.disc > 0.0f || q1.disc > 0.0f || q2.disc > 0.0f || q3.disc > 0.0f) {
+          take_root(q0, tmin_a, k, best, win);
+          take_root(q1, tmin_a, k + 1, best, win);
+          take_root(q2, tmin_a, k + 2, best, win);
+          take_root(q3, tmin_a, k + 3, best, win);
+        }
+      }
+      for (; k < sc.n; ++k)
+        test_slot(slot_entry<kHbm>(sc, k), o, d, a, d_dot_o, o2, tmin_a, k, best, win);
     }
-    for (; k < sc.n; ++k)
-      test_slot(slot_entry<kHbm>(sc, k), o, d, a, d_dot_o, o2, tmin_a, k, best, win);
     if (!(best < kTMiss)) return false;
     t = best * (1.0f / a);
     return true;

@@ -16,10 +16,10 @@
 // With emit_depth the lane instead sums (bounce + 1) at each path's death
 // (the difficulty prepass).
 //
-// What bounds it. The FP32 hit loop: 18 operations per sphere per traced
-// segment, every thread scanning all N slots (about 21 instructions a
-// slot: --fmad=false keeps each multiply and add apart), and warp
-// divergence from unequal path lengths. What the design does about that:
+// What bounds it. The FP32 hit loop: 18 operations per sphere test per
+// traced segment (about 21 instructions: --fmad=false keeps each multiply
+// and add apart), and warp divergence from unequal path lengths. What the
+// design does about that:
 //   * the loop regenerates (path_common.cuh's regen_lane), as the TPU
 //     kernel does: one segment an iteration, and a lane whose path ended
 //     starts its pixel's next sample at the next iteration. A warp then
@@ -30,7 +30,14 @@
 //   * the scene sits in shared memory as one float4 per slot for the scan
 //     (a broadcast load: every thread of a warp reads the same slot), with
 //     |C|^2 - r^2 computed once per block while staging, and ScanHit tests
-//     four slots a step, their loads and discriminants ahead of the roots.
+//     four slots a step, their loads and discriminants ahead of the roots;
+//   * with a group table (group_table.cu, one launch before this one; the
+//     wrapper builds it from 2 * kGroup slots on, layout 'vmem') the block
+//     stages it beside the scene and ScanHit runs the two-level scan
+//     (path_common.cuh): the large slots, then only the groups of small
+//     slots that some lane of the warp can improve in. At the headline a
+//     warp then tests 0.43 of the 512 slots an iteration (count mode),
+//     and the render takes 0.62 of the one-level scan's time.
 // No minimum of blocks an SM is asked of the compiler: at 7 the four-slot
 // step spills, and 6 blocks without spills render faster. The host's
 // difficulty order is not used: raster neighbours share their depth, and
@@ -39,8 +46,10 @@
 // more than max_depth bounces.
 //
 // The count mode (count_kernel) runs the same loop and writes each lane's
-// traced segments and, per warp, the times the hit test was issued: the
-// leader of each group of lanes that runs it together adds one.
+// traced segments and, per warp, the times the hit test was issued, the
+// groups it opened and the slot tests it issued (the large slots and
+// kGroup an opened group; every slot a scan without a table): the leader
+// of each group of lanes that runs the scan together adds them.
 //
 // Exactness. The device code is path_common.cuh's, one copy for this
 // kernel and the train kernels: the association of the plain PyTorch
@@ -75,17 +84,21 @@ struct Params {
   int rr_start;        // < 0: off
   int legacy_sky, emit_depth, finalize;
   float scale;
+  const int32_t* groups;  // the group table, or null: the one-level scan
 };
 
-template <bool kHbm>
-__device__ __forceinline__ ScanHit<kHbm> staged_hit(const Params& p, float4* smem) {
+template <bool kHbm, bool kCount = false>
+__device__ __forceinline__ ScanHit<kHbm, kCount> staged_hit(const Params& p, float4* smem) {
   const int n = p.n;
   float* gath = reinterpret_cast<float*>(smem + n);  // (kGather, n)
+  Groups gr;
   if (!kHbm) {
     stage_scene(p.scene, n, smem, gath);
+    gr = stage_groups(p.groups, n, reinterpret_cast<char*>(smem) + stage_offset(n));
     __syncthreads();
   }
-  return ScanHit<kHbm>{SceneView{p.scene, smem, kHbm ? p.scene + kRadius * n : gath, n}};
+  return ScanHit<kHbm, kCount>{
+      SceneView{p.scene, smem, kHbm ? p.scene + kRadius * n : gath, n}, gr};
 }
 
 template <bool kHbm>
@@ -115,17 +128,23 @@ __global__ void __launch_bounds__(kBlock) regen_kernel(Params p) {
   p.out[2 * p.padded + i] = acc.z;
 }
 
-// The count mode: out (1, padded) gets each lane's segments and issues
-// (padded / 32) the hit-test issues of each warp.
+// The count mode: out (1, padded) gets each lane's segments, and per warp
+// (padded / 32 each) issues the hit-test issues, opened the groups opened
+// and tests the slot tests.
 template <bool kHbm>
-__global__ void __launch_bounds__(kBlock) count_kernel(Params p, int32_t* issues) {
+__global__ void __launch_bounds__(kBlock) count_kernel(Params p, int32_t* issues,
+                                                       int32_t* opened, int32_t* tests) {
   extern __shared__ float4 smem[];
   __shared__ int warp_issues[kBlock / 32];
-  if (threadIdx.x < kBlock / 32) warp_issues[threadIdx.x] = 0;
-  const ScanHit<kHbm> hit = staged_hit<kHbm>(p, smem);
-  __syncthreads();
+  __shared__ int warp_cnt[kBlock / 32][2];
+  if (threadIdx.x < kBlock / 32) {
+    warp_issues[threadIdx.x] = 0;
+    warp_cnt[threadIdx.x][0] = warp_cnt[threadIdx.x][1] = 0;
+  }
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const ScanHit<kHbm, true> hit = staged_hit<kHbm, true>(p, smem);
+  __syncthreads();
   const Cam cam = load_cam(p.cam);
   const Stream st{p.k0, p.k1, (uint32_t)p.ids[i]};
   float seg = 0.0f;
@@ -136,14 +155,21 @@ __global__ void __launch_bounds__(kBlock) count_kernel(Params p, int32_t* issues
              },
              [&](const PathEnd& e) { seg += (float)e.bounce + 1.0f; });
   p.out[i] = seg;
+  if (hit.opened) atomicAdd(&warp_cnt[warp][0], hit.opened);
+  if (hit.tests) atomicAdd(&warp_cnt[warp][1], hit.tests);
   __syncwarp();
-  if (lane == 0) issues[i / 32] = warp_issues[warp];
+  if (lane == 0) {
+    issues[i / 32] = warp_issues[warp];
+    opened[i / 32] = warp_cnt[warp][0];
+    tests[i / 32] = warp_cnt[warp][1];
+  }
 }
 
-// Dynamic shared memory for the staged scene, allowed above 48 KB.
+// Dynamic shared memory for the staged scene (and group table), allowed
+// above 48 KB.
 template <class K>
-int stage_bytes(K kernel, int n, int hbm, size_t* smem) {
-  *smem = hbm ? 0 : (size_t)n * (sizeof(float4) + kGather * sizeof(float));
+int stage_bytes(K kernel, int n, int hbm, const int32_t* groups, size_t* smem) {
+  *smem = staged_bytes(n, hbm, groups != nullptr);
   if (*smem <= 48 * 1024) return 0;
   return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    (int)*smem);
@@ -152,36 +178,41 @@ int stage_bytes(K kernel, int n, int hbm, size_t* smem) {
 }  // namespace
 
 // C entries: each launches on `stream` and returns cudaGetLastError().
+// `groups`: the group table (group_table.cu) for the two-level scan, or
+// null; layout 'hbm' takes none.
 extern "C" int regen_render(const int32_t* ids, const float* ii, const float* jj,
                             const float* budget, const float* scene, int n,
                             const float* cam, float* out, int padded, int max_depth,
                             uint32_t k0, uint32_t k1, int sample_offset, int rr_start,
                             int legacy_sky, int emit_depth, int finalize, float scale,
-                            int hbm, void* stream) {
+                            int hbm, const int32_t* groups, void* stream) {
+  if (hbm && groups) return (int)cudaErrorInvalidValue;
   const Params p{ids, ii, jj, budget, scene, n, cam, out, padded, max_depth, k0, k1,
-                 sample_offset, rr_start, legacy_sky, emit_depth, finalize, scale};
+                 sample_offset, rr_start, legacy_sky, emit_depth, finalize, scale, groups};
   auto kernel = hbm ? regen_kernel<true> : regen_kernel<false>;
   size_t smem;
-  const int e = stage_bytes(kernel, n, hbm, &smem);
+  const int e = stage_bytes(kernel, n, hbm, groups, &smem);
   if (e) return e;
   kernel<<<(padded + kBlock - 1) / kBlock, kBlock, smem, static_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();
 }
 
 // The count mode over `padded` lanes (a multiple of kBlock): segments per
-// lane into seg, hit-test issues per warp into issues.
+// lane into seg; hit-test issues, opened groups and slot tests per warp.
 extern "C" int regen_counts(const int32_t* ids, const float* ii, const float* jj,
                             const float* budget, const float* scene, int n,
-                            const float* cam, float* seg, int32_t* issues, int padded,
-                            int max_depth, uint32_t k0, uint32_t k1, int sample_offset,
-                            int rr_start, int legacy_sky, int hbm, void* stream) {
-  if (padded % kBlock) return (int)cudaErrorInvalidValue;
+                            const float* cam, float* seg, int32_t* issues, int32_t* opened,
+                            int32_t* tests, int padded, int max_depth, uint32_t k0,
+                            uint32_t k1, int sample_offset, int rr_start, int legacy_sky,
+                            int hbm, const int32_t* groups, void* stream) {
+  if (padded % kBlock || (hbm && groups)) return (int)cudaErrorInvalidValue;
   const Params p{ids, ii, jj, budget, scene, n, cam, seg, padded, max_depth, k0, k1,
-                 sample_offset, rr_start, legacy_sky, 1, 0, 0.0f};
+                 sample_offset, rr_start, legacy_sky, 1, 0, 0.0f, groups};
   auto kernel = hbm ? count_kernel<true> : count_kernel<false>;
   size_t smem;
-  const int e = stage_bytes(kernel, n, hbm, &smem);
+  const int e = stage_bytes(kernel, n, hbm, groups, &smem);
   if (e) return e;
-  kernel<<<padded / kBlock, kBlock, smem, static_cast<cudaStream_t>(stream)>>>(p, issues);
+  kernel<<<padded / kBlock, kBlock, smem, static_cast<cudaStream_t>(stream)>>>(p, issues, opened,
+                                                                            tests);
   return (int)cudaGetLastError();
 }

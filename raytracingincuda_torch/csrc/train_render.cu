@@ -65,7 +65,12 @@
 // and any window.
 //
 // What bounds it. The render: the FP32 hit loop (18 operations a sphere
-// test, every slot each bounce), as kernel 1. The park: 4 bytes written
+// test), as kernel 1: kernel 2's park render with kernel 1's two-level
+// scan where the wrapper passes a group table (staged beside the scene),
+// the reverse (kernels 2 and 3) with the one-level scan over every slot
+// (kernel 2's replays its park and re-traces only the samples that
+// overflow it; with the two-level code its instance took 2 ms, 5.7%, more
+// a headline step). The park: 4 bytes written
 // and read per bounce. The reverse: a few hundred FP32 operations per
 // bounce (replay and adjoint), and the warp's rounds, which wait for its
 // longest path.
@@ -114,6 +119,7 @@ struct ParkParams {
   int32_t* park;        // (capacity, lanes); null when capacity is 0
   int capacity;
   int32_t* parked;      // (2, stride): samples parked, entries used
+  const int32_t* groups;  // the group table, or null: the one-level scan
 };
 
 template <bool kHbm>
@@ -122,13 +128,15 @@ __global__ void __launch_bounds__(kBlock) park_render_kernel(ParkParams p) {
   __shared__ float red[1][kBlock];
   const int n = p.n;
   float* gath = reinterpret_cast<float*>(smem + n);
+  Groups gr;
   if (!kHbm) {
     stage_scene(p.scene, n, smem, gath);
+    gr = stage_groups(p.groups, n, reinterpret_cast<char*>(smem) + stage_offset(n));
     __syncthreads();
   }
   const int tid = threadIdx.x;
   const int i = blockIdx.x * kBlock + tid;  // lanes is a multiple of kBlock
-  const ScanHit<kHbm> hit{SceneView{p.scene, smem, kHbm ? p.scene + kRadius * n : gath, n}};
+  const ScanHit<kHbm> hit{SceneView{p.scene, smem, kHbm ? p.scene + kRadius * n : gath, n}, gr};
   const Cam cam = load_cam(p.cam);
   const Stream st{p.k0, p.k1, (uint32_t)p.ids[i]};
   const float fi = p.ii[i], fj = p.jj[i];
@@ -380,8 +388,9 @@ extern "C" int fused_park_render(const int32_t* ids, const float* ii, const floa
                                  int loss, int num_pixels, float inv_spp, float w,
                                  float two_w, float hd, float half_hd, float* image, float* g,
                                  float* loss_part, int32_t* park, int capacity,
-                                 int32_t* parked, void* stream) {
-  if (lanes % kBlock || max_depth > kMaxBounce || capacity < 0 || (capacity && !park))
+                                 int32_t* parked, const int32_t* groups, void* stream) {
+  if (lanes % kBlock || max_depth > kMaxBounce || capacity < 0 || (capacity && !park) ||
+      (hbm && groups))
     return (int)cudaErrorInvalidValue;
   ParkParams p{};
   p.ids = ids; p.ii = ii; p.jj = jj; p.target = target; p.scene = scene; p.n = n;
@@ -390,8 +399,9 @@ extern "C" int fused_park_render(const int32_t* ids, const float* ii, const floa
   p.lk = LossConsts{gamma, loss, num_pixels, inv_spp, w, two_w, hd, half_hd};
   p.image = image; p.g = g; p.loss_part = loss_part; p.park = park; p.capacity = capacity;
   p.parked = parked;
+  p.groups = groups;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = hbm ? 0 : (size_t)n * (sizeof(float4) + kGather * sizeof(float));
+  const size_t smem = staged_bytes(n, hbm, groups != nullptr);
   auto kernel = hbm ? park_render_kernel<true> : park_render_kernel<false>;
   const int e = allow_smem(kernel, smem, sizeof(float) * kBlock);
   if (e) return e;

@@ -35,6 +35,7 @@ from typing import Optional
 import torch
 
 from ..utils import trace
+from . import group_scan
 from . import render_kernel as rk
 from . import rng as rtrng
 from . import vec
@@ -155,6 +156,7 @@ _C_ARGTYPES = [
     ctypes.c_int,      # fused finalize
     ctypes.c_float,    # finalize scale
     ctypes.c_int,      # hbm layout
+    ctypes.c_void_p,   # group table (null: the one-level scan)
     ctypes.c_void_p,   # cudaStream_t
 ]
 
@@ -166,7 +168,7 @@ def compact_kernel(ids, ii, jj, scene_mat, cam_row, *, samples: int,
                    layout: str = "vmem") -> torch.Tensor:
     """Launch the CUDA compact kernel; same contract as
     ``compact_reference``. Launches on the current stream without
-    synchronising."""
+    synchronising; scans as kernel 1 does (``group_scan``)."""
     if ids.device.type != "cuda":
         raise ValueError(f"compact_kernel takes CUDA tensors, got {ids.device}")
     _check(ids, ii, jj, scene_mat, cam_row, samples=samples,
@@ -178,15 +180,17 @@ def compact_kernel(ids, ii, jj, scene_mat, cam_row, *, samples: int,
     soa = scene_mat[:, :rk.USED_COLS].t().contiguous()
     out = torch.empty((3, padded), dtype=torch.float32, device=ids.device)
     k0, k1 = rtrng.key_from_seed(seed)
+    groups = group_scan.group_table(soa, cam_row, layout)
     err = launch(ids.data_ptr(), ii.data_ptr(), jj.data_ptr(), soa.data_ptr(),
                  n, cam_row.data_ptr(), out.data_ptr(), padded, samples,
                  max_depth, k0, k1, int(finalize_scale is not None),
                  0.0 if finalize_scale is None else finalize_scale,
-                 int(layout == "hbm"),
+                 int(layout == "hbm"), group_scan.pointer(groups),
                  torch.cuda.current_stream(ids.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"compact_render launch failed: CUDA error {err}")
     trace.count("launch.compact_render")
+    group_scan.count_path(groups)
     return out
 
 

@@ -14,10 +14,12 @@ Two implementations share one signature:
     ``_regen_body`` recurrence, one wave at a time over all lanes.
 
 ``_regen`` picks the kernel for CUDA tensors and the plain version only
-for CPU tensors; nothing falls back from one to the other. The kernel's
-count mode (``regen_counts``, with ``regen_counts_reference``,
-``sample_segments`` and ``warp_iterations`` beside it) counts what each
-warp's loop runs instead of rendering.
+for CPU tensors; nothing falls back from one to the other. The kernel
+finds the closest hit with the two-level scan where its launch builds a
+group table (``ops/group_scan.py``). The kernel's count mode
+(``regen_counts``, with ``regen_counts_reference``, ``sample_segments``,
+``warp_iterations`` and ``wave_rays`` beside it) counts what each warp's
+loop runs instead of rendering.
 
 Around them sit the host plumbing (``_lane_setup``, ``_finalize_output``),
 ``render_kernel`` (the ``render_pallas`` counterpart), the difficulty
@@ -44,6 +46,7 @@ from ..models.scene import (Scene, SceneParams, _round_up, param_leaves,
                             params_from_leaves)
 from ..parallel import mesh as meshlib
 from ..utils import trace
+from . import group_scan
 from . import rng as rtrng
 from . import tracer, vec
 from .tracer import _linear_to_gamma, _sky_color, primary_rays_from_ij, shade_hit
@@ -323,6 +326,7 @@ _C_ARGTYPES = [
     ctypes.c_int,      # fused finalize
     ctypes.c_float,    # finalize scale
     ctypes.c_int,      # hbm layout
+    ctypes.c_void_p,   # group table (null: the one-level scan)
     ctypes.c_void_p,   # cudaStream_t
 ]
 
@@ -337,7 +341,9 @@ def regen_kernel(ids, ii, jj, budget, scene_mat, cam_row, *, samples: int,
     """Launch the CUDA regeneration kernel; same contract as
     ``regen_reference``. Launches on the current stream without
     synchronising; the kernel traces each lane's whole budget. Counts
-    ``launch.regen_render``."""
+    ``launch.regen_render``, and its scan (``group_scan``): with a group
+    table, built by one launch before it, ``scan.two_level``, else
+    ``scan.one_level``."""
     if ids.device.type != "cuda":
         raise ValueError(f"regen_kernel takes CUDA tensors, got {ids.device}")
     rr_start = _check_args(ids, ii, jj, budget, scene_mat, cam_row,
@@ -353,6 +359,7 @@ def regen_kernel(ids, ii, jj, budget, scene_mat, cam_row, *, samples: int,
     out = torch.empty((1 if emit_depth else 3, padded), dtype=torch.float32,
                       device=ids.device)
     k0, k1 = rtrng.key_from_seed(seed)
+    groups = group_scan.group_table(soa, cam_row, layout)
     stream = torch.cuda.current_stream(ids.device).cuda_stream
     err = launch(
         ids.data_ptr(), ii.data_ptr(), jj.data_ptr(), budget.data_ptr(),
@@ -361,11 +368,12 @@ def regen_kernel(ids, ii, jj, budget, scene_mat, cam_row, *, samples: int,
         -1 if rr_start is None else rr_start, int(legacy_sky),
         int(emit_depth), int(finalize_scale is not None),
         0.0 if finalize_scale is None else finalize_scale,
-        int(layout == "hbm"), stream,
+        int(layout == "hbm"), group_scan.pointer(groups), stream,
     )
     if err != 0:
         raise RuntimeError(f"regen_render launch failed: CUDA error {err}")
     trace.count("launch.regen_render")
+    group_scan.count_path(groups)
     return out
 
 
@@ -377,6 +385,8 @@ _COUNT_ARGTYPES = [
     ctypes.c_void_p,   # cam row
     ctypes.c_void_p,   # segments per lane (padded,) f32
     ctypes.c_void_p,   # hit-test issues per warp (padded // 32,) int32
+    ctypes.c_void_p,   # groups opened per warp (padded // 32,) int32
+    ctypes.c_void_p,   # slot tests per warp (padded // 32,) int32
     ctypes.c_int,      # padded
     ctypes.c_int,      # max_depth
     ctypes.c_uint32, ctypes.c_uint32,   # key words
@@ -384,6 +394,7 @@ _COUNT_ARGTYPES = [
     ctypes.c_int,      # rr_start (-1 = off)
     ctypes.c_int,      # legacy_sky
     ctypes.c_int,      # hbm layout
+    ctypes.c_void_p,   # group table (null: the one-level scan)
     ctypes.c_void_p,   # cudaStream_t
 ]
 LOOPS = ("regen", "nested", "compact", "pool")
@@ -397,11 +408,13 @@ def regen_counts(ids, ii, jj, budget, scene_mat, cam_row, *, samples: int,
                  legacy_sky: bool = False, rr_start=None,
                  sample_offset: int = 0, layout: str = "vmem"):
     """The kernel's count mode on the card: the render's loop, counting
-    instead of rendering. Returns (segments per lane (padded,) f32,
-    hit-test issues per warp of 32 lanes (padded // 32,) int32): the times
-    the warp ran the closest-hit scan, as the leader of each group of lanes
-    that ran it together counted them. ``regen_counts_reference`` is its
-    plain version."""
+    instead of rendering. Returns (segments per lane (padded,) f32, and per
+    warp of 32 lanes, each (padded // 32,) int32: hit-test issues, the
+    times the warp ran the closest-hit scan, as the leader of each group of
+    lanes that ran it together counted them; the groups the two-level scan
+    opened; the slot tests it issued: the large entries and ``GROUP`` an
+    opened group a scan, or every slot a scan of the one-level scan).
+    ``regen_counts_reference`` is its plain version."""
     if ids.device.type != "cuda":
         raise ValueError(f"regen_counts takes CUDA tensors, got {ids.device}")
     rr_start = _check_args(ids, ii, jj, budget, scene_mat, cam_row,
@@ -414,19 +427,24 @@ def regen_counts(ids, ii, jj, budget, scene_mat, cam_row, *, samples: int,
     padded = ids.shape[0]
     soa = scene_mat[:, :USED_COLS].t().contiguous()
     seg = torch.empty((padded,), dtype=torch.float32, device=ids.device)
-    issues = torch.empty((padded // WARP,), dtype=torch.int32,
-                         device=ids.device)
+    per_warp = [torch.empty((padded // WARP,), dtype=torch.int32,
+                            device=ids.device) for _ in range(3)]
     k0, k1 = rtrng.key_from_seed(seed)
+    groups = group_scan.group_table(soa, cam_row, layout)
     err = launch(ids.data_ptr(), ii.data_ptr(), jj.data_ptr(),
                  budget.data_ptr(), soa.data_ptr(), scene_mat.shape[0],
-                 cam_row.data_ptr(), seg.data_ptr(), issues.data_ptr(), padded,
+                 cam_row.data_ptr(), seg.data_ptr(),
+                 *(t.data_ptr() for t in per_warp), padded,
                  max_depth, k0, k1, sample_offset,
                  -1 if rr_start is None else rr_start, int(legacy_sky),
-                 int(layout == "hbm"),
+                 int(layout == "hbm"), group_scan.pointer(groups),
                  torch.cuda.current_stream(ids.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"regen_counts launch failed: CUDA error {err}")
-    return seg, issues
+    group_scan.count_path(groups)
+    if groups is None:      # the one-level scan tests every slot an issue
+        per_warp[2] = per_warp[0] * scene_mat.shape[0]
+    return (seg, *per_warp)
 
 
 def sample_segments(ids, ii, jj, budget, scene_mat, cam_row, *, samples: int,
@@ -488,8 +506,14 @@ def regen_counts_reference(ids, ii, jj, budget, scene_mat, cam_row, *,
                            legacy_sky: bool = False, rr_start=None,
                            sample_offset: int = 0, layout: str = "vmem"):
     """Plain version of the count mode: (segments per lane (padded,) f32,
-    iterations per warp (padded // 32,) int32), the second from the lanes'
-    per-sample segments (``sample_segments``, ``warp_iterations``)."""
+    and per warp (padded // 32,) int32: iterations, groups opened, slot
+    tests). The first two from the lanes' per-sample segments
+    (``sample_segments``, ``warp_iterations``); the others from the
+    regenerating recurrence wave by wave (a wave is one iteration of every
+    warp's loop, and a warp's lanes in the scan are those that trace in it),
+    each wave's rays through ``group_scan.model_scan`` on the table the
+    launch would build (``group_table_reference``), or ``scene_mat``'s
+    slots a scan where the launch scans in one level."""
     seg = sample_segments(ids, ii, jj, budget, scene_mat, cam_row,
                           samples=samples, sample_offset=sample_offset,
                           max_depth=max_depth, seed=seed,
@@ -498,7 +522,55 @@ def regen_counts_reference(ids, ii, jj, budget, scene_mat, cam_row, *,
     total = seg[0]
     for row in seg[1:]:     # in sample order, as the kernel adds them
         total = total + row
-    return total, warp_iterations(seg).to(torch.int32)
+    issues = warp_iterations(seg).to(torch.int32)
+    n = scene_mat.shape[0]
+    if not group_scan.uses_groups(n, layout):
+        zero = torch.zeros_like(issues)
+        return total, issues, zero, (issues.long() * n).to(torch.int32)
+    table = group_scan.unpack(
+        group_scan.group_table_reference(scene_mat, cam_row), n)
+    opened = torch.zeros(issues.shape, dtype=torch.int64)
+    tests = torch.zeros(issues.shape, dtype=torch.int64)
+
+    def count(o, d, active):
+        nonlocal opened, tests
+        res = group_scan.model_scan(table, o, d, active)
+        opened = opened + res.opened
+        tests = tests + res.tests
+        return None
+
+    wave_rays(ids, ii, jj, budget, scene_mat, cam_row, count,
+              samples=samples, max_depth=max_depth, seed=seed,
+              legacy_sky=legacy_sky, rr_start=rr_start,
+              sample_offset=sample_offset)
+    dev = issues.device
+    return (total, issues, opened.to(dev, torch.int32),
+            tests.to(dev, torch.int32))
+
+
+def wave_rays(ids, ii, jj, budget, scene_mat, cam_row, fn, *, samples: int,
+              max_depth: int, seed: int = rtrng.DEFAULT_SEED,
+              legacy_sky: bool = False, rr_start=None,
+              sample_offset: int = 0) -> None:
+    """Run the plain version's regenerating recurrence over all lanes and
+    call ``fn(o, d, active)`` with each wave's rays (``Vec3`` over the
+    lanes) and the lanes that trace in it; the wave's closest hit is
+    ``hit_world``'s. Lane i of a wave is the i-th lane of the kernel's
+    loop at that iteration."""
+    from .intersect import hit_world
+
+    scene = scene_from_matrix(scene_mat)
+
+    def hit(o, d, active):
+        fn(o, d, active)
+        return hit_world(scene, o, d)
+
+    rr_start = rtrng.validate_rr_start(rr_start)
+    _regen_lanes(ids, ii, jj, budget, scene, unpack_camera(cam_row),
+                 samples=samples, max_depth=max_depth, seed=seed,
+                 legacy_sky=legacy_sky, emit_depth=True, rr_start=rr_start,
+                 sample_offset=sample_offset, finalize_scale=None,
+                 hit_fn=hit)
 
 
 def _regen(ids, *args, **kw) -> torch.Tensor:

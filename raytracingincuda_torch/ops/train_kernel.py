@@ -57,6 +57,7 @@ from ..models.camera import (CameraConfig, config_from_leaves, config_leaves,
 from ..models.scene import Scene, param_leaves, params_from_leaves
 from ..parallel import mesh as meshlib
 from ..utils import trace
+from . import group_scan
 from . import render_kernel as rk
 from . import rng as rtrng
 from .backward import (N_CAM, bounce_draws, hit_winner, primary_ray_vjp,
@@ -347,6 +348,7 @@ _PARK_ARGTYPES = [
     _P, _P, _P,     # image, g (3, padded), loss partials (blocks, 1)
     _P, _I,         # park (capacity, window lanes) int32, capacity
     _P,             # parked (2, padded) int32
+    _P,             # group table (null: the one-level scan)
     _P,             # cudaStream_t
 ]
 _REVERSE_ARGTYPES = [
@@ -472,7 +474,8 @@ def _reduce_rows(partials: torch.Tensor) -> torch.Tensor:
 def _reverse(ids, ii, jj, g_rows, soa, cam_row, window, *, samples,
              max_depth, key, sample_offset, rr_start, layout, stack, park,
              parked, warp_acc, scene_part, cam_part):
-    """One launch of the reverse over one window of lanes."""
+    """One launch of the reverse over one window of lanes; its re-traced
+    samples scan in one level."""
     from . import _build
 
     launch = _build.function("reverse_render", _REVERSE_ARGTYPES)
@@ -486,6 +489,7 @@ def _reverse(ids, ii, jj, g_rows, soa, cam_row, window, *, samples,
                  _at(warp_acc), _at(scene_part, w0 // rk.PAD),
                  _at(cam_part, w0 // rk.PAD), _stream(ids))
     _raise_on(err, "reverse_render")
+    group_scan.count_path(None)
 
 
 def _soa(scene_mat):
@@ -590,6 +594,7 @@ def fused_train_parts(ids, ii, jj, target_rows, scene_mat, cam_row, *,
     k = loss_constants(samples, num_pixels, huber_delta)
     key = rtrng.key_from_seed(seed)
     rr = -1 if rr_start is None else rr_start
+    groups = group_scan.group_table(soa, cam_row, layout)
     for window in plan.windows:
         w0, lanes = window
         err = render(_at(ids, col=w0), _at(ii, col=w0), _at(jj, col=w0),
@@ -599,8 +604,10 @@ def fused_train_parts(ids, ii, jj, target_rows, scene_mat, cam_row, *,
                      num_pixels, k["inv_spp"], k["w"], k["two_w"], k["hd"],
                      k["half_hd"], _at(image, col=w0), _at(g, col=w0),
                      _at(loss_part, w0 // rk.PAD), _at(park), plan.capacity,
-                     _at(parked, col=w0), _stream(ids))
+                     _at(parked, col=w0), group_scan.pointer(groups),
+                     _stream(ids))
         _raise_on(err, "fused_park_render")
+        group_scan.count_path(groups)
         _reverse(ids, ii, jj, g, soa, cam_row, window, samples=samples,
                  max_depth=max_depth, key=key, sample_offset=0,
                  rr_start=rr_start, layout=layout, stack=stack, park=park,

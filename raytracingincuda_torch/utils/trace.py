@@ -1,9 +1,12 @@
 """The port's spans and counters: one registry, on torch's profiler clock.
 
 Counters are always on. ``count(name, n)`` adds ``n`` to a dict that
-``counts()`` reads: the kernel launches (``launch.<kernel>``), the places
-where the host waits for the card (``host_sync``) and the collectives
-(``all_reduce.calls``, ``all_reduce.numel``).
+``counts()`` reads: the kernel launches (``launch.<kernel>``, the group
+table's ``launch.group_table`` among them), the closest-hit scan each
+scanning launch ran (``scan.two_level``, ``scan.one_level``;
+``ops/group_scan.py``), the places where the host waits for the card
+(``host_sync``) and the collectives (``all_reduce.calls``,
+``all_reduce.numel``).
 
 Spans are on while a torch profiler records
 (``torch.autograd._profiler_enabled()``) or inside ``recording()``. A span

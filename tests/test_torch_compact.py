@@ -152,6 +152,27 @@ def test_kernel_equals_plain_version_and_kernel_1_on_card(cuda, layout):
     assert torch.equal(got, ck.compact_kernel(ids, ii, jj, sm, row, **kw))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["cover", "tie", "random2000"])
+def test_two_level_scan_in_compact_kernel_on_card(cuda, name, monkeypatch):
+    """Kernel 7 scanning in two levels (its lanes in the scan vote on each
+    group) against its plain version and kernel 1, bit for bit, and against
+    its own launch scanning in one level."""
+    from group_scenes import one_level, scene_named
+
+    ids, ii, jj, bud, sm, row = rk.regen_inputs(
+        scene_named(name, cuda), TCam.reference_default(), 72, 40, 3)
+    kw = dict(samples=3, max_depth=12, finalize_scale=1 / 3)
+    before = trace.counts().get("scan.two_level", 0)
+    got = ck.compact_kernel(ids, ii, jj, sm, row, **kw)
+    torch.cuda.synchronize()
+    assert trace.counts().get("scan.two_level", 0) == before + 1
+    assert torch.equal(got, ck.compact_reference(ids, ii, jj, sm, row, **kw))
+    assert torch.equal(got, rk.regen_kernel(ids, ii, jj, bud, sm, row, **kw))
+    one_level(monkeypatch)
+    assert torch.equal(got, ck.compact_kernel(ids, ii, jj, sm, row, **kw))
+
+
 def test_block_schedules_by_hand():
     """One block of 64 lanes, three samples: the per-sample pool waits for
     each sample's longest path, the refilling pool for the longest total."""

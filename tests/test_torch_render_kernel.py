@@ -238,7 +238,7 @@ def test_plain_counts_vs_segments_and_pallas(rr_start):
                              TCam.reference_default(), W, H, spp,
                              sample_budgets=torch.from_numpy(nb))
     kw = dict(samples=spp, max_depth=depth, rr_start=rr_start)
-    seg, regen = rk.regen_counts_reference(*inputs, **kw)
+    seg, regen, *_ = rk.regen_counts_reference(*inputs, **kw)
     per = rk.sample_segments(*inputs, **kw)
     nested = rk.warp_iterations(per, "nested")
     want = rk.regen_reference(*inputs, emit_depth=True, **kw)[0]
@@ -299,12 +299,48 @@ def test_kernel_equals_plain_legacy_budgets_prepass_on_card(cuda, layout):
 def test_count_mode_equals_plain_count_on_card(cuda, layout, rr_start):
     """The card's hit-test issues per warp equal the plain count from
     per-sample segments: the regenerating loop's warps issue the scan once
-    for each segment of their longest lane."""
+    for each segment of their longest lane. Its groups opened and slot
+    tests per warp equal the plain count's (the two-level scan's vote wave
+    by wave in layout 'vmem'; every slot a scan in 'hbm')."""
     nb = torch.from_numpy(np.random.default_rng(5).integers(0, 7, 64 * 40))
     inputs = rk.regen_inputs(t_build(1, device=cuda), TCam.reference_default(),
                              64, 40, 6, sample_budgets=nb)
     kw = dict(samples=6, max_depth=12, rr_start=rr_start, layout=layout)
-    seg, issues = rk.regen_counts(*inputs, **kw)
-    p_seg, p_iter = rk.regen_counts_reference(*inputs, **kw)
+    seg, issues, opened, tests = rk.regen_counts(*inputs, **kw)
+    p_seg, p_iter, p_opened, p_tests = rk.regen_counts_reference(*inputs, **kw)
     assert torch.equal(seg, p_seg)
     assert torch.equal(issues, p_iter)
+    assert torch.equal(opened.cpu(), p_opened.cpu())
+    assert torch.equal(tests.cpu(), p_tests.cpu())
+    assert bool((opened > 0).any()) == (layout == "vmem")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["cover", "tie", "random2000"])
+def test_two_level_scan_equals_plain_version_on_card(cuda, name, monkeypatch):
+    """Kernel 1 scanning in two levels (layout 'vmem', a group table a
+    launch) against the plain version bit for bit, at parity, at rr2 and as
+    the prepass, and against the same launches scanning in one level; its
+    count mode's groups and slot tests equal the plain count's."""
+    from group_scenes import one_level, scene_named
+
+    inputs = rk.regen_inputs(scene_named(name, cuda), TCam.reference_default(),
+                             64, 40, 4)
+    cases = (dict(samples=4, max_depth=12, finalize_scale=0.25),
+             dict(samples=4, max_depth=12, rr_start=2),
+             dict(samples=4, max_depth=8, emit_depth=True))
+    two = []
+    for kw in cases:
+        before = trace.counts().get("scan.two_level", 0)
+        two.append(rk.regen_kernel(*inputs, **kw))
+        torch.cuda.synchronize()
+        assert trace.counts().get("scan.two_level", 0) == before + 1
+        assert torch.equal(two[-1], rk.regen_reference(*inputs, **kw))
+    kw = dict(samples=4, max_depth=8, rr_start=2)
+    counts = rk.regen_counts(*inputs, **kw)
+    want = rk.regen_counts_reference(*inputs, **kw)
+    for a, b in zip(counts, want):
+        assert torch.equal(a.cpu(), b.cpu())
+    one_level(monkeypatch)
+    for kw, got in zip(cases, two):
+        assert torch.equal(got, rk.regen_kernel(*inputs, **kw))

@@ -447,6 +447,51 @@ def test_fused_gradients_equal_grad_kernel_on_its_g_on_card(cuda, rr):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name", ["cover", "tie", "random2000"])
+def test_two_level_scan_in_kernels_2_and_3_on_card(cuda, name, monkeypatch):
+    """Kernel 2's park render scans in two levels (layout 'vmem'), the
+    reverse (kernel 2's and kernel 3) in one: the image is the plain
+    version's bit for bit, and the park's counts, the image, g, the loss
+    and the gradients are the same bits as the launches scanning in one
+    level, with the default park and with nothing parked (every sample
+    re-traced in the reverse); kernel 3's gradients likewise; the
+    gradients are the plain version's within 1e-4 of the largest entry."""
+    from group_scenes import one_level, scene_named
+
+    ids, ii, jj, bud, sm, row = rk.regen_inputs(
+        scene_named(name, cuda), TCam.reference_default(), 64, 40, 2)
+    tgt = torch.rand((3, ids.shape[0]), generator=torch.Generator().manual_seed(
+        2)).to(cuda)
+    kw = dict(samples=2, max_depth=8, rr_start=2, num_pixels=64 * 40)
+    before = (trace.counts().get("scan.two_level", 0),
+              trace.counts().get("scan.one_level", 0))
+    parts = [tk.fused_train_parts(ids, ii, jj, tgt, sm, row, capacity=c, **kw)
+             for c in (None, 0)]
+    fused = tk.fused_train_kernel(ids, ii, jj, tgt, sm, row, **kw)
+    grad = tk.grad_kernel(ids, ii, jj, tgt, sm, row, samples=2, max_depth=8,
+                          rr_start=2)
+    torch.cuda.synchronize()
+    assert (trace.counts().get("scan.two_level", 0),
+            trace.counts().get("scan.one_level", 0)) == (before[0] + 3,
+                                                         before[1] + 4)
+    want = tk.fused_train_reference(ids, ii, jj, tgt, sm, row, **kw)
+    assert torch.equal(fused[1], want[1])
+    _close(fused[2], want[2].cpu().numpy(), 1e-4, "d_scene_mat")
+    _close(fused[3], want[3].cpu().numpy(), 1e-4, "d_cam_row")
+    one_level(monkeypatch)
+    for c, got in zip((None, 0), parts):
+        one = tk.fused_train_parts(ids, ii, jj, tgt, sm, row, capacity=c, **kw)
+        for a, b in zip(got[:6], one[:6]):
+            assert torch.equal(a, b), c
+    for a, b in zip(fused, tk.fused_train_kernel(ids, ii, jj, tgt, sm, row,
+                                                 **kw)):
+        assert torch.equal(a, b)
+    for a, b in zip(grad, tk.grad_kernel(ids, ii, jj, tgt, sm, row, samples=2,
+                                         max_depth=8, rr_start=2)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
 def test_grad_kernel_device_accumulators_on_card(cuda):
     """Above about 1,500 slots (layout hbm) the warps' accumulators live in
     device memory: kernel A against its plain version, 1e-4 of the largest

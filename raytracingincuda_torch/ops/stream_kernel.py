@@ -173,7 +173,8 @@ def build_stream_arrays(scene: Scene, perm: torch.Tensor, block: int,
     block (to an ulp of the numpy ones: another summation order and
     sqrt). A stale sort only loosens culling. ``border`` (a permutation of
     the canonical block order, ``grad.front_to_back_border``) reorders the
-    bounds rows."""
+    bounds rows. Counts ``stream.rows`` by the matrix rows it writes."""
+    trace.count("stream.rows", n_pad)
     with torch.no_grad():
         mat = rk.pack_scene_matrix(scene)
         dev = mat.device
@@ -392,7 +393,8 @@ def stream_kernel(ids, ii, jj, budget, scene_mat, bounds, cam_row, *,
     """Launch the CUDA stream kernel, after the scan-table kernel that
     builds its walk's input; same contract as ``stream_reference``.
     Launches on the current stream without synchronising. Counts
-    ``launch.stream_render``."""
+    ``launch.stream_render``, and ``stream.blocks`` by the bounds rows its
+    walk reads."""
     if ids.device.type != "cuda":
         raise ValueError(f"stream_kernel takes CUDA tensors, got {ids.device}")
     rr_start = _check(ids, ii, jj, budget, scene_mat, bounds, cam_row,
@@ -419,6 +421,7 @@ def stream_kernel(ids, ii, jj, budget, scene_mat, bounds, cam_row, *,
     if err != 0:
         raise RuntimeError(f"stream_render launch failed: CUDA error {err}")
     trace.count("launch.stream_render")
+    trace.count("stream.blocks", bounds.shape[0])
     return out
 
 

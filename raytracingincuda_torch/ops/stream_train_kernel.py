@@ -77,7 +77,8 @@ RECORD_BYTES = 4 + 4 * tk.GRAD_COLS
 
 # The wrappers count their launches (utils/trace.py): launch.stream_train
 # (stream_train_render in both modes, stream_walk_counts) and
-# launch.stream_segment_sum (segment_sum's two kernels, two per call).
+# launch.stream_segment_sum (segment_sum's two kernels, two per call); each
+# walk launch also adds its bounds rows to stream.blocks.
 
 
 class RecordWindow(NamedTuple):
@@ -451,6 +452,7 @@ def train_records(ids, ii, jj, rows, scene_mat, bounds, cam_row, *, block,
                  cam_part.data_ptr(), loss_part.data_ptr(), tk._stream(ids))
     tk._raise_on(err, "stream_train_render")
     trace.count("launch.stream_train")
+    trace.count("stream.blocks", bounds.shape[0])
     return image, rec_row, rec_val, cam_part, loss_part
 
 
@@ -484,6 +486,7 @@ def walk_counts(ids, ii, jj, scene_mat, bounds, cam_row, *, block: int,
                         k1, opened.data_ptr(), fetched.data_ptr(),
                         tk._stream(ids)), "stream_walk_counts")
     trace.count("launch.stream_train")
+    trace.count("stream.blocks", bounds.shape[0])
     return opened, fetched
 
 
@@ -669,7 +672,7 @@ def mse_train_stream(stream: StreamScene, cam_cfg: CameraConfig, target,
     return total * w, d_stream, d_cam
 
 
-@trace.spanned("rt.records")
+@trace.spanned("rt.stream.to_slots")
 def stream_grads_to_scene_mat(d_stream: torch.Tensor, stream: StreamScene,
                               n_slots: int) -> torch.Tensor:
     """Stream-order cotangents (rows, 16) -> scene slot order (n_slots,

@@ -4,9 +4,11 @@ Counters are always on. ``count(name, n)`` adds ``n`` to a dict that
 ``counts()`` reads: the kernel launches (``launch.<kernel>``, the group
 table's ``launch.group_table`` among them), the closest-hit scan each
 scanning launch ran (``scan.two_level``, ``scan.one_level``;
-``ops/group_scan.py``), the places where the host waits for the card
-(``host_sync``) and the collectives (``all_reduce.calls``,
-``all_reduce.numel``).
+``ops/group_scan.py``), a streamed scene's size (``stream.rows``, the
+matrix rows ``build_stream_arrays`` writes; ``stream.blocks``, the bounds
+rows each walk launch of the stream kernels reads), the places where the
+host waits for the card (``host_sync``) and the collectives
+(``all_reduce.calls``, ``all_reduce.numel``).
 
 Spans are on while a torch profiler records
 (``torch.autograd._profiler_enabled()``) or inside ``recording()``. A span
@@ -25,8 +27,9 @@ device.
 
 Names: ``rt.<layer>`` for the port's host layers (``rt.render``,
 ``rt.train_step``, ``rt.stream_step`` and ``rt.make_renderer`` at the
-entry; ``rt.lanes``, ``rt.stream.rebuild``, ``rt.chain``, ``rt.optim``,
-``rt.records``, ``rt.finalize``, ``rt.all_reduce`` below them),
+entry; ``rt.lanes``, ``rt.stream.rebuild``, ``rt.stream.to_slots``,
+``rt.chain``, ``rt.optim``, ``rt.records``, ``rt.finalize``,
+``rt.all_reduce`` below them),
 ``rt.launch.<kernel>`` around a kernel wrapper's checks, plan and launch,
 and ``rt.sync`` around a place where the host waits for the card
 (``sync()``).

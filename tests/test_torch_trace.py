@@ -233,7 +233,7 @@ CPU_TREES = {
     # gradients and the step), the kernel's once
     "stream": ([("rt.stream_step", 0), ("rt.stream.rebuild", 1), S2,
                 *CAMERA, ("rt.lanes", 1), ("rt.lanes", 1), S1, S1, S1, S1,
-                ("rt.records", 1), *CHAIN, ("rt.optim", 1), S2], 8),
+                ("rt.stream.to_slots", 1), *CHAIN, ("rt.optim", 1), S2], 8),
 }
 CARD_TREES = {
     "render": ([("rt.make_renderer", 0), ("rt.render", 0), *CAMERA,
@@ -249,8 +249,8 @@ CARD_TREES = {
                 ("rt.launch.fused_stream", 1), S2,
                 ("rt.launch.stream_train", 2), ("rt.records", 2), S3,
                 ("rt.launch.stream_segment_sum", 3),
-                *[("rt.launch.reduce_rows", 2)] * 2, ("rt.records", 1),
-                *CHAIN, ("rt.optim", 1), S2], 6),
+                *[("rt.launch.reduce_rows", 2)] * 2,
+                ("rt.stream.to_slots", 1), *CHAIN, ("rt.optim", 1), S2], 6),
 }
 
 

@@ -75,14 +75,18 @@ CPU path):
              version (bit for bit) and index_add_; the warp-union count of
              the step's walk (stream_train_kernel.walk_counts: blocks
              opened per lane, equal to the stream kernel's count, and
-             blocks tested per warp) beside the stream kernel's own union
-             at the same shape; on the step's own stream (100k
+             blocks walked and rows tested per warp) beside the stream
+             kernel's own union at the same shape; the walk's tables
+             (scan_table_kernel) on the step's stream against their
+             twin (walk_groups_reference) word for word; on the step's own
+             stream (100k
              spheres, blocks of 256 front to back) at 640x384x1spp/3b,
              the stream kernel (bit for bit) and both modes of the stream
              train kernel against their plain versions
   13 stream scale  1M spheres: the block after _auto_block, one forward
              at 640x384x1spp/10b and one fused step at 1spp/6b, finite
-             gradients, peak memory; the stream kernel and the fused mode
+             gradients, peak memory; the walk's tables against their
+             twin; the stream kernel and the fused mode
              against their plain versions on its blocks of 1024 at
              64x40x1spp/6b
   14 stream cli  the CLI with --impl stream and --layout packed at scene
@@ -240,7 +244,8 @@ Then the kernels line (JSON, with each kernel's bound and, as
 bound_fmad_off_ms, the same bound with the operations at half the rate,
 since --fmad=false issues each multiply and add alone: regen_render,
 grad_render, fused_train_render, stream_render, stream_train,
-stream_segment_sum, f64_render and compact_render), the nvidia-smi line,
+stream_segment_sum, f64_render, compact_render, group_table and
+walk_tables), the nvidia-smi line,
 and last {"ok": true, "device": {...}}. Everything measured is
 also written to chip_smoke.json in the output directory. Launch counts
 are set to 0 just before each main path (phases 4, 7, 8, 10, 12, 13, 14,
@@ -252,8 +257,9 @@ fused_train_render counts its two launches a window (the park render,
 then the reverse; one window at the headline), grad_render its reverse,
 one a window; stream_segment_sum counts its two kernels (tile_sums_kernel,
 then cross_sums_kernel), two per call; stream_train counts walk_counts'
-launch too (outside the main paths); the scan-table kernel that runs
-before each launch of kernels 4 and 5 is stream_render + stream_train.
+launch too (outside the main paths); walk_tables counts the walk's table
+kernel (scan_table_kernel), one launch before each launch of kernels 4
+and 5 and walk_counts' (``launch.walk_tables``).
 The counts are the port's ``launch.<kernel>`` counters
 (``utils/trace.py``). The stream rows' times and bounds
 are those of the 100k comparisons in phase 12; the f64 and compact rows'
@@ -324,6 +330,9 @@ OPS_TEST = 25
 # sphere test's 18, plus widening R by the lane's kPad |o| and forming
 # |C|^2 - R^2, which a sphere test takes from the scene
 OPS_BOUND_TEST = 26
+# the stream walk's group box test (staged_walk.cuh: box_can_improve): six
+# operations an axis, two maxima, two minima and three comparisons
+OPS_BOX_TEST = 25
 # --fmad=false: a multiply and an add are two instructions, so counted
 # operations issue at half the FP32 rate (FP64 likewise)
 FMAD_OFF = 0.5
@@ -972,6 +981,40 @@ def group_tables(dev, cam, reset_counts, read_counts) -> dict:
     return out
 
 
+def walk_tables(st) -> dict:
+    """Kernels 4 and 5's tables (``csrc/staged_walk.cuh``'s
+    ``scan_table_kernel``, the launch before every walk) built on the card
+    from stream ``st``, against their plain twin (``walk_groups_reference``)
+    word for word; the launch's device time (the profiler's, 20 launches),
+    the twin's time and the bound (bytes: five columns read a row, the scan
+    table and the group table written). Returns the record."""
+    import torch
+
+    from raytracingincuda_torch.ops import stream_kernel as sk
+
+    rows, block = st.scene_mat.shape[0], st.block
+    _, groups = sk.walk_tables_kernel(st.scene_mat, block)
+    want, plain_ms = timed(lambda: sk.walk_groups_reference(st.scene_mat,
+                                                            block), 1)
+    idle = profiled_idle(lambda: [sk.walk_tables_kernel(st.scene_mat, block)
+                                  for _ in range(20)])
+    dev_ms = sum(ms for name, ms in idle["top_device_ms"].items()
+                 if "scan_table_kernel" in name)
+    kernel_ms = dev_ms / 20 if dev_ms else timed(
+        lambda: sk.walk_tables_kernel(st.scene_mat, block), 20)[1]
+    n_groups = groups.shape[0]
+    out = {"rows": rows, "block": block, "groups": n_groups,
+           "equal": bool(torch.equal(groups.cpu().view(torch.int32),
+                                     want.cpu().view(torch.int32))),
+           "kernel_ms": kernel_ms,
+           "kernel_ms_from": "profiler" if dev_ms else "events",
+           "plain_ms": plain_ms,
+           "bound": bound(0, rows * 5 * 4 + rows * 16 + n_groups * 32)}
+    if not out["equal"]:
+        raise AssertionError(f"the walk's group table on the card: {out}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1004,7 +1047,7 @@ def main() -> int:
     cam = CameraConfig.reference_default()
     kernels = ("regen_render", "grad_render", "fused_train_render",
                "stream_render", "stream_train", "stream_segment_sum",
-               "f64_render", "compact_render", "group_table")
+               "f64_render", "compact_render", "group_table", "walk_tables")
     main_launches = {name: 0 for name in kernels}
     record["launches_by_phase"] = {}
 
@@ -1499,16 +1542,24 @@ def main() -> int:
         return ids, ii, jj, bud, row
 
     def walk_stats(st, width, height, spp, bounces, rr):
-        """(traced segments, opened blocks, blocks the warps tested) of the
-        walk at these inputs, from the kernel's own counts."""
+        """(traced segments, opened blocks, blocks the warps walked, rows
+        the warps tested) of the walk at these inputs, from the kernel's
+        own counts."""
         ids, ii, jj, bud, row = lanes(width, height, spp)
         c = sk.stream_kernel(ids, ii, jj, bud, st.scene_mat, st.bounds, row,
                              block=st.block, samples=spp, max_depth=bounces,
                              rr_start=rr, emit_stats=True).double().sum(1)
-        return float(c[0]), float(c[1]), float(c[2])
+        return tuple(float(v) for v in c)
 
-    def walk_ops(st, segs, opened):
-        return (segs * st.bounds.shape[0] + opened * st.block) * OPS_TEST_STAGED
+    def walk_ops(st, segs, opened, fetched, tested):
+        """The walk's operations: every lane's bound test of every bounds
+        row a segment and its box tests of the groups of every block it
+        opens, and the warps' tested rows times the mean count of their
+        lanes that opened those blocks (opened / walked), a sphere test
+        each."""
+        return ((segs * st.bounds.shape[0] + tested * opened / max(fetched, 1))
+                * OPS_TEST_STAGED
+                + opened * sk.block_groups(st.block) * OPS_BOX_TEST)
 
     def stream_compare(st, width, height, spp, bounces, rr, reps=5):
         ids, ii, jj, bud, row = lanes(width, height, spp)
@@ -1521,7 +1572,8 @@ def main() -> int:
                             warm=False)
         k_stats = sk.stream_kernel(*args, emit_stats=True, **kw)
         p_stats = sk.stream_reference(*args, emit_stats=True, **kw)
-        segs, opened, fetched = (float(v) for v in k_stats.double().sum(1))
+        segs, opened, fetched, tested = (float(v)
+                                         for v in k_stats.double().sum(1))
         padded = ids.shape[0]
         res = {"shape": f"{width}x{height}x{spp}spp/{bounces}b",
                "rows": st.scene_mat.shape[0], "block": st.block,
@@ -1534,9 +1586,11 @@ def main() -> int:
                "opened_per_segment": opened / max(segs, 1.0),
                "warp_tested_blocks": fetched,
                "lane_tests_over_opened": 32 * fetched / max(opened, 1.0),
+               "rows_tested": tested,
+               "rows_tested_share": tested / max(fetched * st.block, 1.0),
                "kernel_ms": k_ms, "plain_ms": p_ms}
         res["bound_ms"], res["bound_by"], res["bound_fmad_off_ms"] = bound(
-            walk_ops(st, segs, opened),
+            walk_ops(st, segs, opened, fetched, tested),
             padded * 28 + st.scene_mat.shape[0] * rk.USED_COLS * 4
             + st.bounds.numel() * 4 + 96)
         if not (res["bit_equal"] and res["run_to_run_identical"]
@@ -1610,8 +1664,8 @@ def main() -> int:
         rk.render_kernel(s100k, cam, w, h, 2, 10, layout="hbm")
     st_head = sk.reorder_front_to_back(sk.prepare_stream_scene(s100k),
                                        initialize(cam, w, h).center)
-    segs, opened, fetched = walk_stats(st_head, w, h, 10, 10, None)
-    head_bound = bound(walk_ops(st_head, segs, opened), 0)[0]
+    segs, opened, fetched, tested = walk_stats(st_head, w, h, 10, 10, None)
+    head_bound = bound(walk_ops(st_head, segs, opened, fetched, tested), 0)[0]
     segs2 = float(rk.regen_kernel(*rk.regen_inputs(s100k, cam, w, h, 2),
                                   samples=2, max_depth=10, emit_depth=True,
                                   layout="hbm").double().sum())
@@ -1623,6 +1677,7 @@ def main() -> int:
         "segments": segs, "opened_blocks": opened,
         "opened_per_segment": opened / segs, "warp_tested_blocks": fetched,
         "lane_tests_over_opened": 32 * fetched / opened,
+        "rows_tested_share": tested / (fetched * st_head.block),
         "bound_ms": head_bound,
         "brute_force_2spp_bound_ms": brute_bound,
         "mrays_per_s": w * h * 10 / best / 1e3}
@@ -1717,9 +1772,10 @@ def main() -> int:
     def stream_train_bound(st, width, height, spp, bounces, rr):
         """The fused step's bound: one walk per sample, its inputs read and
         its outputs written once."""
-        segs, opened, _ = walk_stats(st, width, height, spp, bounces, rr)
+        segs, opened, fetched, tested = walk_stats(st, width, height, spp,
+                                                   bounces, rr)
         padded = lanes(width, height, spp)[0].shape[0]
-        return bound(walk_ops(st, segs, opened),
+        return bound(walk_ops(st, segs, opened, fetched, tested),
                      padded * 36 + st.scene_mat.shape[0]
                      * (rk.USED_COLS + 16) * 4 + st.bounds.numel() * 4 + 192)
 
@@ -1796,16 +1852,21 @@ def main() -> int:
     # one more fused step in a profiler window: device time over wall time
     idle = profiled_idle(lambda: step_fn(state, cam, s100k.mat_type,
                                          s100k.active, target))
-    segs, opened, k4_fetched = walk_stats(st0, w, h, spp, bounces, None)
-    step_bound = bound(walk_ops(st0, segs, opened), 0)[0]
-    # the warp union of the step's walk: blocks tested per warp against the
-    # blocks each lane opened (kernel 4's count)
+    segs, opened, k4_fetched, k4_rows = walk_stats(st0, w, h, spp, bounces,
+                                                   None)
+    step_bound = bound(walk_ops(st0, segs, opened, k4_fetched, k4_rows), 0)[0]
+    # the warp union of the step's walk: blocks walked per warp against the
+    # blocks each lane opened (kernel 4's count), and the rows it tested
     ids, ii, jj, _, row = lanes(w, h, spp)
-    lane_open, warp_tested = stk.walk_counts(
+    lane_open, warp_tested, warp_rows = stk.walk_counts(
         ids, ii, jj, st0.scene_mat, st0.bounds, row, block=st0.block,
         samples=spp, max_depth=bounces)
     union = {"opened_per_lane": int(lane_open.long().sum()),
-             "tested_per_warp": int(warp_tested.long().sum())}
+             "tested_per_warp": int(warp_tested.long().sum()),
+             "rows_tested_share": float(warp_rows.double().sum())
+             / max(float(warp_tested.double().sum()) * st0.block, 1.0),
+             "stream_kernel_rows_tested_share": k4_rows / max(
+                 k4_fetched * st0.block, 1.0)}
     union["lane_tests_over_opened"] = (32 * union["tested_per_warp"]
                                        / max(union["opened_per_lane"], 1))
     union["stream_kernel_tested_per_warp"] = int(k4_fetched)
@@ -1846,6 +1907,14 @@ def main() -> int:
     # samples and depth cut for the plain versions' time
     phase = "12 stream train"
     cspp, cb = 1, 3
+    tables_100k = record["walk_tables_100k"] = walk_tables(st0)
+    say(phase, f"the walk's tables on the step's stream ({tables_100k['rows']}"
+        f" rows, {tables_100k['groups']} groups): the card's group table "
+        f"equals the twin word for word | kernel "
+        f"{tables_100k['kernel_ms'] * 1e3:.2f} us "
+        f"({tables_100k['kernel_ms_from']}), plain "
+        f"{tables_100k['plain_ms']:.1f} ms, bound "
+        f"{tables_100k['bound'][0] * 1e3:.2f} us")
     render_100k, _ = stream_compare(st0, w, h, cspp, cb, None, reps=3)
     record["stream_compare"].append(render_100k)
     say(phase, f"stream kernel 100k spheres block {st0.block} "
@@ -1932,6 +2001,10 @@ def main() -> int:
                       for x in param_leaves(state.params)))
     # blocks of 1024 against the plain walk, front to back, few pixels
     st1m_front = sk.reorder_front_to_back(st1m, initialize(cam, w, h).center)
+    tables_1m = record["walk_tables_1m"] = walk_tables(st1m)
+    say(phase, f"the walk's tables at 1M ({tables_1m['groups']} groups of "
+        f"blocks of {tables_1m['block']}): equal to the twin word for word; "
+        f"kernel {tables_1m['kernel_ms'] * 1e3:.2f} us")
     render_1m, _ = stream_compare(st1m_front, 64, 40, 1, 6, None, reps=3)
     record["stream_compare"].append(render_1m)
     say(phase, f"stream kernel 1M spheres block {st1m.block} "
@@ -3502,6 +3575,11 @@ def main() -> int:
             compact_bound),
         kernel_row("group_table", GROUP_TABLE_SOURCE, GROUP_TABLE_REPLACES,
             0.0, gt["kernel_ms"], gt["plain_ms"], gt["bound"]),
+        kernel_row("walk_tables",
+            "raytracingincuda_torch/csrc/staged_walk.cuh", "none: the "
+            "port's own (the walk's tables: scan_table_kernel, before each "
+            "kernel-4 and kernel-5 launch)", 0.0, tables_100k["kernel_ms"],
+            tables_100k["plain_ms"], tables_100k["bound"]),
     ]}
     if min(k["launches"] for k in kernels["kernels"]) < 1:
         raise AssertionError(f"a kernel did not launch on the main path: "

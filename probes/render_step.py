@@ -243,7 +243,7 @@ def main() -> int:
             c = c.double().sum(1)
             opened, fetched = stk.walk_counts(
                 ids, ii, jj, st.scene_mat, st.bounds, row, block=st.block,
-                samples=samples, max_depth=depth)
+                samples=samples, max_depth=depth)[:2]
             return {"segments": float(c[0]), "opened": float(c[1]),
                     "kernel4_fetched": float(c[2]),
                     "kernel4_lane_tests_over_opened":

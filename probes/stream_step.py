@@ -153,7 +153,7 @@ def main() -> int:
         ids, ii, jj, _ = rk._lane_setup(w, h, None, spp, 0, None, dev)
         opened, fetched = stk.walk_counts(ids, ii, jj, st0.scene_mat,
                                           st0.bounds, row, block=st0.block,
-                                          samples=spp, max_depth=bounces)
+                                          samples=spp, max_depth=bounces)[:2]
         res["opened_per_lane_sum"] = int(opened.long().sum())
         res["fetched_per_warp_sum"] = int(fetched.long().sum())
     if args.scale:

@@ -16,20 +16,30 @@
 // reordering the rows (front to back from the camera) reorders the walk
 // without moving the matrix.
 //
-// What bounds it. FP32 arithmetic: a bound test per block per traced
-// segment and an 18-operation sphere test per row of every block opened;
-// the f64 sqrt/sin/cos recipes of ops/f32math.py per scatter; and
-// divergence, since a warp tests the union of its lanes' opened blocks.
-// Not bytes: the scan table is 16 bytes a row (1.6 MB at 100k spheres,
-// 16 MB at 1M), in the 50 MB L2 after the first touch. What the design does
-// about it:
-//   * culling: a block is opened only where the lane's ray can beat its
-//     current best inside the block's bound, and the front-to-back order
-//     tightens the best early so that far blocks cull;
-//   * kernel 5's walk (staged_walk.cuh's StagedWalk): a packed scan table
-//     (one launch of scan_table_kernel before the render), the lanes'
-//     ballot over each bounds row, and each opened block staged per warp in
-//     shared memory by cp.async with the next one in flight;
+// What bounds it. FP32 arithmetic in the walk, issued warp-wide: a bound
+// test and a ballot per bounds row per traced segment; 16 group box tests
+// per piece of 256 rows of a block that some lane of the warp opens (until
+// a piece with a group to test); an 18-operation sphere test per row of the
+// groups the warp opens; the f64 sqrt/sin/cos recipes of ops/f32math.py per
+// scatter; and divergence, since a warp walks the union of its lanes'
+// blocks and tests the union of their groups. At the 100k stream render's
+// shape (640x384, 10 spp, 10 bounces) a warp iteration tests 392 bounds
+// rows and the boxes of 26.7 blocks, and the rows it tests are 3.9% of
+// those blocks' rows (1 before the groups), so the bound rows and the boxes
+// now take most of the walk. Not bytes: the tables are 16 bytes a row and
+// 32 a group (1.8 MB at 100k spheres, 18 MB at 1M), in the 50 MB L2 after
+// the first touch.
+// What the design does about it:
+//   * culling in two levels: a block is opened only where the lane's ray
+//     can beat its current best inside the block's bound, and a group of
+//     the block's rows only where the ray can beat min(its best in the
+//     block, t_cur) inside the group's box (staged_walk.cuh's header); the
+//     front-to-back order tightens t_cur early so that far blocks cull;
+//   * kernel 5's walk (staged_walk.cuh's StagedWalk): the scan table and
+//     the group table (one launch of scan_table_kernel before the render),
+//     the lanes' ballots over each bounds row and each group, and each
+//     piece with an opened group staged per warp in shared memory by
+//     cp.async with the next one in flight;
 //   * the regenerating loop (path_common.cuh's regen_lane), which gives the
 //     walk what it needs, every lane of the warp at each call: one segment
 //     an iteration, a lane whose path ended starting its next sample at the
@@ -46,8 +56,9 @@
 //
 // With kStats the kernel writes, instead of radiance, each lane's traced
 // segments and the blocks its walk opened, and at each warp's lane 0 the
-// blocks the warp tested (the union of its lanes' at each iteration): the
-// work counts behind the bound that chip_smoke.py reports.
+// blocks the warp walked (the union of its lanes' at each iteration) and
+// the rows it tested in them: the work counts behind the bound that
+// chip_smoke.py reports.
 
 #include "staged_walk.cuh"
 
@@ -60,11 +71,11 @@ struct StreamParams {
   const float* budget;
   const float* scene;   // SoA (kNumCols, rows) of the stream matrix
   int rows;
-  const float4* scan;   // (rows) scan table, built by scan_table_kernel
+  const float4* scan;   // (rows) scan table, then the group table
   const float* bounds;  // (nb, 8)
   int nb, block;
   const float* cam;
-  float* out;           // (3, padded) radiance, or (3, padded) counts
+  float* out;           // (3, padded) radiance, or (4, padded) counts
   // at most render_kernel.MAX_LANES: 3 x lanes fits int, so the (3, lanes) rows index in int
   int padded, max_depth;
   uint32_t k0, k1;
@@ -94,6 +105,7 @@ __global__ void __launch_bounds__(kBlock) stream_kernel(StreamParams p) {
     p.out[i] = seg;
     p.out[p.padded + i] = (float)walk.opened;
     p.out[2 * p.padded + i] = (tid & 31) ? 0.0f : (float)walk.fetched;
+    p.out[3 * p.padded + i] = (tid & 31) ? 0.0f : (float)walk.tested;
     return;
   }
   if (p.finalize) acc = gamma2(acc * p.scale);  // 1/spp, then gamma 2
@@ -104,8 +116,15 @@ __global__ void __launch_bounds__(kBlock) stream_kernel(StreamParams p) {
 
 }  // namespace
 
-// C entry: the scan table, then the render, on `stream`; returns
-// cudaGetLastError().
+// C entries: each launches on `stream` and returns cudaGetLastError().
+// The walk's tables (scan_table_kernel) alone, into `table` (n scan rows,
+// then two float4 a group).
+extern "C" int stream_tables(const float* scene, int rows, int block, float* table,
+                             void* stream) {
+  return (int)launch_tables(scene, rows, block, table, static_cast<cudaStream_t>(stream));
+}
+
+// The walk's tables, then the render.
 extern "C" int stream_render(const int32_t* ids, const float* ii, const float* jj,
                              const float* budget, const float* scene, int rows, float* scan,
                              const float* bounds, int nb, int block, const float* cam,
@@ -114,10 +133,9 @@ extern "C" int stream_render(const int32_t* ids, const float* ii, const float* j
                              int stats, void* stream) {
   if (padded % kBlock) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float4* table = reinterpret_cast<float4*>(scan);
-  scan_table_kernel<<<(rows + 255) / 256, 256, 0, st>>>(scene, rows, table);
-  const cudaError_t e = cudaGetLastError();
+  const cudaError_t e = launch_tables(scene, rows, block, scan, st);
   if (e != cudaSuccess) return (int)e;
+  const float4* table = reinterpret_cast<const float4*>(scan);
   const StreamParams p{ids,  ii,        jj,       budget,   scene,  rows,          table,
                        bounds, nb,      block,    cam,      out,    padded,        max_depth,
                        k0,   k1,        sample_offset, rr_start, finalize, scale};

@@ -28,9 +28,11 @@
 // render marks its first row -2 so that the reverse knows the sample ended
 // black, and the reverse sets it to -1); the miss entry's row is -1.
 //
-// The walk is staged_walk.cuh's StagedWalk, kernel 4's walk: a packed
-// scan table built per launch by scan_table_kernel, each warp's opened
-// blocks staged in shared memory with cp.async. StagedWalk's slots in shared
+// The walk is staged_walk.cuh's StagedWalk, kernel 4's walk in two levels
+// (blocks, then groups of kGroup rows inside them): the scan table and the
+// group table built per launch by scan_table_kernel, each warp's pieces
+// with an opened group staged in shared memory with cp.async. StagedWalk's
+// slots in shared
 // memory have one owner only if every lane of the warp calls it together,
 // so trace_parked runs the bounce loop in lockstep across the warp: a lane
 // whose path has ended rides along to the warp's last bounce of the sample,
@@ -61,14 +63,16 @@
 // block, as in train_render.cu, and reduce_rows sums the block partials in
 // order.
 //
-// What bounds it. The walk: one pass per sample, FP32 arithmetic (a bound
-// test per bounds row per traced segment, 18 operations per sphere test of
-// an opened block), and divergence, since the warp tests the union of its
-// lanes' opened blocks (the count mode measures that union). Then the
-// reverse, about one scatter_vjp (a few hundred FP32 operations) per
-// record; the park moves 40 bytes per traced segment twice. The segmented
-// sum is bound by bytes: each record's 36 bytes gathered once, its key and
-// index read once.
+// What bounds it. The walk: one pass per sample, FP32 arithmetic issued
+// warp-wide (a bound test per bounds row per traced segment, 16 group box
+// tests per piece of a block some lane opens, 18 operations per sphere test
+// of the groups the warp opens: 4.2% of the rows of the blocks it walks at
+// the 100k train cell's shape, 2.2% at the 1M cell's), and divergence,
+// since the warp walks the union of its lanes' blocks and tests the union
+// of their groups (the count mode measures both). Then the reverse, about
+// one scatter_vjp (a few hundred FP32 operations) per record; the park
+// moves 40 bytes per traced segment twice. The segmented sum is bound by
+// bytes: each record's 36 bytes gathered once, its key and index read once.
 
 #include "staged_walk.cuh"
 #include "train_common.cuh"
@@ -132,7 +136,7 @@ struct StreamTrainParams {
   const float* rows;    // g (gradients) or the target (fused), (3, padded)
   const float* scene;   // SoA (kNumCols, n_rows) of the stream matrix
   int n_rows;
-  const float4* scan;   // (n_rows) scan table, built by scan_table_kernel
+  const float4* scan;   // (n_rows) scan table, then the group table
   const float* bounds;  // (nb, 8)
   int nb, block;
   const float* cam;
@@ -147,7 +151,8 @@ struct StreamTrainParams {
   float* cam_part;      // (blocks, kNCam)
   float* loss_part;     // fused: (blocks, 1)
   int32_t* opened;      // count mode: (padded) blocks opened per lane
-  int32_t* fetched;     // count mode: (padded / 32) blocks tested per warp
+  int32_t* fetched;     // count mode: (padded / 32) blocks walked per warp
+  int32_t* tested;      // count mode: (padded / 32) rows tested per warp
 };
 
 template <int kMode>
@@ -186,7 +191,10 @@ __global__ void __launch_bounds__(kBlock) stream_train_kernel(StreamTrainParams 
     }
     if (kMode == kCount) {
       p.opened[i] = walk.opened;
-      if ((tid & 31) == 0) p.fetched[i / 32] = walk.fetched;
+      if ((tid & 31) == 0) {
+        p.fetched[i / 32] = walk.fetched;
+        p.tested[i / 32] = walk.tested;
+      }
       return;
     }
     V3 img;
@@ -358,12 +366,10 @@ __global__ void cross_sums_kernel(const int32_t* keys, long long m, long long ti
     for (int c = 0; c < kGradCols; ++c) out[(size_t)key * kGradCols + c] = v[c];
 }
 
-// The scan table, then kernel 5 in `mode` on `stream`.
+// The walk's tables, then kernel 5 in `mode` on `stream`.
 int launch(StreamTrainParams& p, float* scan, int mode, cudaStream_t stream) {
   if (p.padded % kBlock) return (int)cudaErrorInvalidValue;
-  scan_table_kernel<<<(p.n_rows + 255) / 256, 256, 0, stream>>>(p.scene, p.n_rows,
-                                                                reinterpret_cast<float4*>(scan));
-  cudaError_t e = cudaGetLastError();
+  const cudaError_t e = launch_tables(p.scene, p.n_rows, p.block, scan, stream);
   if (e != cudaSuccess) return (int)e;
   p.scan = reinterpret_cast<const float4*>(scan);
   const dim3 grid(p.padded / kBlock);
@@ -401,18 +407,19 @@ extern "C" int stream_train_render(const int32_t* ids, const float* ii, const fl
 }
 
 // The fused mode's walk alone (no Russian roulette), counting: blocks
-// opened per lane and blocks tested per warp (the union of its lanes').
+// opened per lane, blocks walked per warp (the union of its lanes') and
+// rows tested per warp.
 extern "C" int stream_walk_counts(const int32_t* ids, const float* ii, const float* jj,
                                   const float* scene, int n_rows, float* scan,
                                   const float* bounds, int nb, int block, const float* cam,
                                   int padded, int samples, int max_depth, uint32_t k0,
                                   uint32_t k1, int32_t* opened, int32_t* fetched,
-                                  void* stream) {
+                                  int32_t* tested, void* stream) {
   StreamTrainParams p{};
   p.ids = ids; p.ii = ii; p.jj = jj; p.scene = scene; p.n_rows = n_rows;
   p.bounds = bounds; p.nb = nb; p.block = block; p.cam = cam;
   p.padded = padded; p.samples = samples; p.max_depth = max_depth; p.k0 = k0; p.k1 = k1;
-  p.rr_start = -1; p.opened = opened; p.fetched = fetched;
+  p.rr_start = -1; p.opened = opened; p.fetched = fetched; p.tested = tested;
   return launch(p, scan, kCount, static_cast<cudaStream_t>(stream));
 }
 

@@ -38,6 +38,17 @@ def hit_world(scene: Scene, origin: Vec3, direction: Vec3,
               t_min: float = T_MIN) -> HitResult:
     """Closest hit over all slots for a flat batch of R rays; inactive
     slots never hit."""
+    t_num_all, a = root_numerators(scene, origin, direction, t_min)
+    t_num, idx = torch.min(t_num_all, dim=0)
+    hit = t_num < T_MISS
+    t = torch.where(hit, t_num * (1.0 / a[0]), torch.full_like(t_num, T_MISS))
+    return HitResult(hit=hit, t=t, idx=idx)
+
+
+def root_numerators(scene: Scene, origin: Vec3, direction: Vec3,
+                    t_min: float = T_MIN):
+    """(each slot's root numerator for each ray (N, R), ``T_MISS`` where
+    it does not hit; the clamped ``a`` (1, R))."""
     p = scene.params
     cx, cy, cz = p.center.x[:, None], p.center.y[:, None], p.center.z[:, None]
     rc = p.radius[:, None]
@@ -64,11 +75,7 @@ def hit_world(scene: Scene, origin: Vec3, direction: Vec3,
     root_num = torch.where(near_num > tmin_a, near_num, h + sqrtd)
     valid = disc_pos & (root_num > tmin_a) & active
 
-    t_num_all = torch.where(valid, root_num, torch.full_like(root_num, T_MISS))
-    t_num, idx = torch.min(t_num_all, dim=0)
-    hit = t_num < T_MISS
-    t = torch.where(hit, t_num * (1.0 / a[0]), torch.full_like(t_num, T_MISS))
-    return HitResult(hit=hit, t=t, idx=idx)
+    return torch.where(valid, root_num, torch.full_like(root_num, T_MISS)), a
 
 
 class HitParams(NamedTuple):

@@ -6,7 +6,9 @@ its active spheres Morton-sorted into blocks of ``block`` matrix rows,
 with one conservative bound sphere per block (``prepare_stream_scene``).
 The closest hit then walks the blocks in the order of the bounds rows and
 opens a block only where the ray can beat its current best inside the
-block's bound.
+block's bound; the kernels then test only the groups of ``GROUP`` rows
+whose box the ray can improve in (``walk_groups_reference``), which gives
+the same hit.
 
 Two implementations share one signature:
 
@@ -42,10 +44,11 @@ from ..models.scene import Scene, _round_up
 from ..parallel import mesh as meshlib
 from ..utils import trace
 from . import f32math
+from . import group_scan as gs
 from . import render_kernel as rk
 from . import rng as rtrng
 from . import vec
-from .intersect import T_MIN, T_MISS, HitResult, hit_world
+from .intersect import T_MIN, T_MISS, HitResult, hit_world, root_numerators
 
 DEFAULT_BLOCK = 256
 # stream-row id (the matrix row, as f32, exact below 2^24): the gradient
@@ -54,6 +57,12 @@ STREAM_COL_SID = 11
 # The TPU kernel kept the bounds table in SMEM and capped the block count;
 # the cap stays so that block sizes (and so arrays) match the JAX package's.
 _MAX_BLOCKS = 1792
+# The walk's second level (csrc/staged_walk.cuh): groups of GROUP matrix
+# rows inside each block, each behind a box widened by BOX_PAD per unit of
+# |M| + R + |o| and by SLACK; a lane whose ray lies outside SAFE tests every
+# group with an active row.
+GROUP, SAFE, SLACK = gs.GROUP, gs.SAFE, gs.SLACK
+BOX_PAD = gs._constants(gs._CSRC / "staged_walk.cuh")["kBoxPad"]
 
 
 class StreamScene(NamedTuple):
@@ -238,29 +247,139 @@ def _block_bound_any_hit(b, o, d, a, d_dot_o, o2, t_cur):
             & (br > 0.0))
 
 
+def block_groups(block: int) -> int:
+    """Groups of the walk's second level in a block of ``block`` rows."""
+    return -(-block // GROUP)
+
+
+def walk_groups(rows: int, block: int) -> int:
+    """Groups in a stream matrix of ``rows`` rows in blocks of ``block``."""
+    return rows // block * block_groups(block)
+
+
+def walk_groups_reference(scene_mat: torch.Tensor, block: int) -> torch.Tensor:
+    """The plain twin of ``staged_walk.cuh``'s group table: (walk_groups,
+    8) f32 on the matrix's device, a group's box centre C, 0, then its
+    half-extents E, 0 (``group_box``: E = -inf for a group with no active
+    row, +inf with an active row outside ``SAFE``, C = 0 for both),
+    computed on the CPU in f32 with the kernel's association. Group g of
+    block b holds rows [b block + g GROUP, min(that + GROUP, (b + 1)
+    block))."""
+    m = scene_mat.detach().to("cpu", torch.float32)
+    n, per = m.shape[0], block_groups(block)
+    nb = n // block
+    first = (torch.arange(nb)[:, None] * block
+             + torch.arange(per)[None, :] * GROUP).reshape(-1, 1)
+    k = first + torch.arange(GROUP)[None, :]                  # (ng, GROUP)
+    end = (first // block + 1) * block
+    have = k < end
+    rows = m[torch.where(have, k, torch.zeros_like(k))]
+    c, r = rows[..., 0:3], rows[..., 3]
+    act = have & (rows[..., 10] > 0.5)
+    inside = (((c[..., 0] * c[..., 0] + c[..., 1] * c[..., 1])
+               + c[..., 2] * c[..., 2]) + r * r) <= SAFE
+    inf = torch.tensor(float("inf"))
+    lo = torch.where(act[..., None], c, inf).amin(1) + 0.0
+    hi = torch.where(act[..., None], c, -inf).amax(1) + 0.0
+    rmax = torch.where(act, r.abs(), torch.zeros_like(r)).amax(1)
+    ctr = (lo + hi) * 0.5
+    mm = torch.maximum(lo.abs(), hi.abs())
+    cn = f32math.sqrt((mm[:, 0] * mm[:, 0] + mm[:, 1] * mm[:, 1])
+                      + mm[:, 2] * mm[:, 2])
+    w = (rmax + BOX_PAD * (cn + rmax)) + SLACK
+    out = torch.zeros((k.shape[0], 8), dtype=torch.float32)
+    out[:, 0:3] = ctr
+    out[:, 4:7] = torch.maximum(hi - ctr, ctr - lo) + w[:, None]
+    empty = ~act.any(1)
+    outside = ~empty & (act & ~inside).any(1)
+    out[empty | outside, 0:3] = 0.0
+    out[empty, 4:7] = -inf
+    out[outside, 4:7] = inf
+    return out.to(scene_mat.device)
+
+
+def _box_ray(o, d):
+    """What the box test reads of each lane's ray (staged_walk.cuh's
+    ``WalkRay``): o, a / d an axis, BOX_PAD |o|, T_MIN a and ``wide``."""
+    dd, o2 = vec.length_sq(d), vec.length_sq(o)
+    a = vec.maximum(dd, 1e-12)
+    wide = ~((dd >= 1e-12) & (dd <= SAFE) & (o2 <= SAFE))
+    return ((o.x, o.y, o.z), (a / d.x, a / d.y, a / d.z),
+            BOX_PAD * f32math.sqrt(o2), T_MIN * a, wide)
+
+
+def _box_can_improve(g, ray, cap):
+    """Per lane: can the ray's root numerator improve on ``cap`` inside the
+    group box ``g`` (a row of ``walk_groups_reference``)? staged_walk.cuh's
+    ``box_can_improve``: the slab test, NaN ends dropped (``fmax``)."""
+    o, s, pad_o, tmin_a, wide = ray
+    m = [(g[i] - oi) * si for i, (oi, si) in enumerate(zip(o, s))]
+    h = [(g[4 + i] + pad_o) * si.abs() for i, si in enumerate(s)]
+    near = torch.fmax(torch.fmax(m[0] - h[0], m[1] - h[1]), m[2] - h[2])
+    far = torch.fmin(torch.fmin(m[0] + h[0], m[1] + h[1]), m[2] + h[2])
+    return torch.where(wide, g[4] >= 0.0,
+                       (near <= torch.minimum(far, cap)) & (far > tmin_a))
+
+
 class _Walk:
     """The stream walk's closest hit, plain version: ``hit_world``'s
     contract over the stream rows. Per bounds row in order, the bound test
     per lane; the lanes that pass (and trace this wave) merge the block's
-    hit (``hit_world`` on its rows) where ``t_b < t_cur``. After
-    ``count(lanes, device)`` it counts the kernel's work: the blocks each
-    lane opened, and per warp of 32 lanes the blocks any of its lanes opened at
-    each call, the union that the kernel's warp tests (a call is one wave,
-    one traced segment per tracing lane, as one iteration of the kernel's
-    regenerating loop)."""
+    hit where ``t_b < t_cur``. The block's hit is ``hit_world`` on its rows;
+    with ``groups`` (a ``walk_groups_reference`` table), the kernel's two
+    levels: its groups in row order, a warp of 32 lanes testing a group's
+    rows where some lane that opened the block passes the group's box at
+    min(its best in the block, t_cur a), which gives the same hit
+    (``staged_walk.cuh``'s header). After ``count(lanes, device)`` it counts
+    the kernel's work: the blocks each lane opened; per warp the blocks any
+    of its lanes opened at each call, the union that the kernel's warp walks
+    (a call is one wave, one traced segment per tracing lane, as one
+    iteration of the kernel's regenerating loop); and with ``groups`` the
+    rows each warp tested."""
 
     def __init__(self, scene_mat: torch.Tensor, bounds: torch.Tensor,
-                 block: int):
+                 block: int, groups: Optional[torch.Tensor] = None):
         self.bounds = [tuple(row) for row in bounds[:, :4].unbind(0)]
         self.first = [int(v) for v in bounds[:, 4].tolist()]
         self.blocks = [rk.scene_from_matrix(scene_mat[k:k + block])
                        for k in self.first]
-        self.opened = self.fetched = None
+        self.block = block
+        self.groups = None
+        if groups is not None:
+            per = block_groups(block)
+            self.groups = [groups[k // block * per:(k // block + 1) * per]
+                           for k in self.first]
+        self.opened = self.fetched = self.tested = None
 
     def count(self, lanes: int, device):
         self.opened = torch.zeros(lanes, dtype=torch.int64, device=device)
         self.fetched = torch.zeros(lanes // rk.WARP, dtype=torch.int64,
                                    device=device)
+        self.tested = torch.zeros_like(self.fetched)
+
+    def _grouped(self, blk, table, k0, can, o, d, a, t_cur):
+        """The block's least root numerator and its row over the groups a
+        warp tests (the kernel's second level)."""
+        t_num, _ = root_numerators(blk, o, d)
+        per, R = table.shape[0], t_num.shape[1]
+        pad = per * GROUP - self.block
+        if pad:
+            t_num = torch.cat([t_num, t_num.new_full((pad, R), T_MISS)])
+        gmin, garg = torch.min(t_num.view(per, GROUP, R), dim=1)
+        ray = _box_ray(o, d)
+        tca = t_cur * a
+        best = torch.full_like(a, T_MISS)
+        win = torch.zeros(a.shape, dtype=torch.int64, device=a.device)
+        for g in range(per):
+            cap = torch.minimum(best, tca)
+            warp = (can & _box_can_improve(table[g], ray, cap)).view(
+                -1, rk.WARP).any(1)
+            if self.tested is not None:
+                self.tested += warp * min(GROUP, self.block - g * GROUP)
+            take = can & warp.repeat_interleave(rk.WARP) & (gmin[g] < best)
+            best = torch.where(take, gmin[g], best)
+            win = torch.where(take, garg[g] + (k0 + g * GROUP), win)
+        return best, win
 
     def __call__(self, o, d, active) -> HitResult:
         a = vec.maximum(vec.length_sq(d), 1e-12)
@@ -268,17 +387,25 @@ class _Walk:
         o2 = vec.length_sq(o)
         t_cur = torch.full_like(a, T_MISS)
         win = torch.zeros(a.shape, dtype=torch.int64, device=a.device)
-        for b, k0, blk in zip(self.bounds, self.first, self.blocks):
+        for j, (b, k0, blk) in enumerate(zip(self.bounds, self.first,
+                                             self.blocks)):
             can = active & _block_bound_any_hit(b, o, d, a, d_dot_o, o2, t_cur)
             if not bool(can.any()):
                 continue
             if self.opened is not None:
                 self.opened += can
                 self.fetched += can.view(-1, rk.WARP).any(1)
-            h = hit_world(blk, o, d)
-            better = can & h.hit & (h.t < t_cur)
-            t_cur = torch.where(better, h.t, t_cur)
-            win = torch.where(better, h.idx + k0, win)
+            if self.groups is None:
+                h = hit_world(blk, o, d)
+                h_t, h_idx = h.t, h.idx + k0
+                better = can & h.hit & (h_t < t_cur)
+            else:
+                best, h_idx = self._grouped(blk, self.groups[j], k0, can, o,
+                                            d, a, t_cur)
+                h_t = best * (1.0 / a)
+                better = can & (best < T_MISS) & (h_t < t_cur)
+            t_cur = torch.where(better, h_t, t_cur)
+            win = torch.where(better, h_idx, win)
         return HitResult(hit=t_cur < T_MISS, t=t_cur, idx=win)
 
 
@@ -321,16 +448,19 @@ def stream_reference(ids, ii, jj, budget, scene_mat, bounds, cam_row, *,
                      emit_stats: bool = False) -> torch.Tensor:
     """Plain PyTorch version of the stream kernel; ``regen_reference``'s
     contract with the stream matrix and its bounds in place of the scene.
-    With ``emit_stats`` it returns the work instead of the image, a (3,
+    With ``emit_stats`` it returns the work instead of the image, a (4,
     padded) f32 tensor: each lane's traced segments, the blocks its walk
     opened, and at each warp's first lane the blocks that the warp of 32
-    lanes tested (at each iteration of the regenerating loop, the union of
-    its lanes' opened blocks; 0 at the other lanes)."""
+    lanes walked (at each iteration of the regenerating loop, the union of
+    its lanes' opened blocks) and the rows it tested in them (the walk's
+    two levels, ``_Walk`` with ``walk_groups_reference``'s table); 0 at the
+    other lanes."""
     rr_start = _check(ids, ii, jj, budget, scene_mat, bounds, cam_row,
                       block=block, samples=samples, max_depth=max_depth,
                       rr_start=rr_start, sample_offset=sample_offset)
     chunk = max(rk.PAD, rk._REFERENCE_CHUNK_ELEMS // block // rk.PAD * rk.PAD)
-    walk = _Walk(scene_mat, bounds, block)
+    walk = _Walk(scene_mat, bounds, block, groups=(
+        walk_groups_reference(scene_mat, block) if emit_stats else None))
     scene = rk.scene_from_matrix(scene_mat)
     cam = rk.unpack_camera(cam_row)
     outs = []
@@ -344,11 +474,12 @@ def stream_reference(ids, ii, jj, budget, scene_mat, bounds, cam_row, *,
                               rr_start=rr_start, sample_offset=sample_offset,
                               finalize_scale=finalize_scale, hit_fn=walk)
         if emit_stats:
-            fetched = torch.zeros((walk.fetched.shape[0], rk.WARP),
-                                  device=out.device)
-            fetched[:, 0] = walk.fetched.float()
+            warps = torch.zeros((2, walk.fetched.shape[0], rk.WARP),
+                                device=out.device)
+            warps[0, :, 0] = walk.fetched.float()
+            warps[1, :, 0] = walk.tested.float()
             out = torch.cat([out, walk.opened.float()[None],
-                             fetched.reshape(1, -1)])
+                             warps.reshape(2, -1)])
         outs.append(out)
     return torch.cat(outs, dim=1)
 
@@ -359,7 +490,7 @@ _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
 _C_ARGTYPES = [
     _P, _P, _P, _P,     # ids (int32), ii, jj, budget
     _P, _I,             # stream matrix SoA (11, rows), rows
-    _P,                 # scan table (rows, 4), written by the call
+    _P,                 # the walk's tables (scan_buffer), written by the call
     _P, _I, _I,         # bounds (nb, 8), nb, block
     _P,                 # cam row
     _P, _I, _I,         # out, padded, max_depth
@@ -376,11 +507,44 @@ def soa(scene_mat: torch.Tensor) -> torch.Tensor:
     return scene_mat[:, :rk.USED_COLS].t().contiguous()
 
 
-def scan_buffer(scene_mat: torch.Tensor) -> torch.Tensor:
-    """Room for the (rows, 4) scan table that each kernel-4 or kernel-5
-    call builds from the stream matrix (cx, cy, cz, |C|^2 - r^2 or NaN)."""
-    return torch.empty((scene_mat.shape[0], 4), dtype=torch.float32,
-                       device=scene_mat.device)
+def scan_buffer(scene_mat: torch.Tensor, block: int) -> torch.Tensor:
+    """Room for the walk's tables that each kernel-4 or kernel-5 launch
+    builds from the stream matrix (``scan_table_kernel``): the (rows, 4) scan
+    table (cx, cy, cz, |C|^2 - r^2 or NaN), then the group table, two rows
+    a group (C, 0 and E, 0)."""
+    rows = scene_mat.shape[0]
+    return torch.empty((rows + 2 * walk_groups(rows, block), 4),
+                       dtype=torch.float32, device=scene_mat.device)
+
+
+def walk_tables_kernel(scene_mat: torch.Tensor, block: int):
+    """The walk's tables built on the card (``stream_tables``, the launch
+    before every walk): (the (rows, 4) scan table, the (walk_groups, 8)
+    group table), for the tests and ``chip_smoke.py``. Counts
+    ``launch.walk_tables``."""
+    if scene_mat.device.type != "cuda":
+        raise ValueError(f"walk_tables_kernel takes CUDA tensors, got "
+                         f"{scene_mat.device}")
+    from . import _build
+
+    launch = _build.function("stream_tables", [_P, _I, _I, _P, _P])
+    rows, table = soa(scene_mat), scan_buffer(scene_mat, block)
+    err = launch(rows.data_ptr(), scene_mat.shape[0], block, table.data_ptr(),
+                 torch.cuda.current_stream(scene_mat.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"stream_tables launch failed: CUDA error {err}")
+    trace.count("launch.walk_tables")
+    n = scene_mat.shape[0]
+    return table[:n], table[n:].reshape(-1, 8)
+
+
+def count_walk(bounds: torch.Tensor, block: int) -> None:
+    """Count a walk launch's table launch (``launch.walk_tables``), its
+    bounds rows (``stream.blocks``) and the group-table rows the table
+    launch builds for their blocks (``stream.groups``)."""
+    trace.count("launch.walk_tables")
+    trace.count("stream.blocks", bounds.shape[0])
+    trace.count("stream.groups", bounds.shape[0] * block_groups(block))
 
 
 @trace.spanned("rt.launch.stream_render")
@@ -390,11 +554,11 @@ def stream_kernel(ids, ii, jj, budget, scene_mat, bounds, cam_row, *,
                   sample_offset: int = 0,
                   finalize_scale: Optional[float] = None,
                   emit_stats: bool = False) -> torch.Tensor:
-    """Launch the CUDA stream kernel, after the scan-table kernel that
-    builds its walk's input; same contract as ``stream_reference``.
-    Launches on the current stream without synchronising. Counts
-    ``launch.stream_render``, and ``stream.blocks`` by the bounds rows its
-    walk reads."""
+    """Launch the CUDA stream kernel, after the table kernel that builds
+    its walk's input; same contract as ``stream_reference``. Launches on
+    the current stream without synchronising. Counts
+    ``launch.stream_render``, its table launch and its rows
+    (``count_walk``)."""
     if ids.device.type != "cuda":
         raise ValueError(f"stream_kernel takes CUDA tensors, got {ids.device}")
     rr_start = _check(ids, ii, jj, budget, scene_mat, bounds, cam_row,
@@ -404,8 +568,9 @@ def stream_kernel(ids, ii, jj, budget, scene_mat, bounds, cam_row, *,
 
     launch = _build.function("stream_render", _C_ARGTYPES)
     padded = ids.shape[0]
-    rows, scan = soa(scene_mat), scan_buffer(scene_mat)
-    out = torch.empty((3, padded), dtype=torch.float32, device=ids.device)
+    rows, scan = soa(scene_mat), scan_buffer(scene_mat, block)
+    out = torch.empty((4 if emit_stats else 3, padded), dtype=torch.float32,
+                      device=ids.device)
     k0, k1 = rtrng.key_from_seed(seed)
     err = launch(
         ids.data_ptr(), ii.data_ptr(), jj.data_ptr(), budget.data_ptr(),
@@ -421,7 +586,7 @@ def stream_kernel(ids, ii, jj, budget, scene_mat, bounds, cam_row, *,
     if err != 0:
         raise RuntimeError(f"stream_render launch failed: CUDA error {err}")
     trace.count("launch.stream_render")
-    trace.count("stream.blocks", bounds.shape[0])
+    count_walk(bounds, block)
     return out
 
 

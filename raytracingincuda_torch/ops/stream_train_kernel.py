@@ -78,7 +78,7 @@ RECORD_BYTES = 4 + 4 * tk.GRAD_COLS
 # The wrappers count their launches (utils/trace.py): launch.stream_train
 # (stream_train_render in both modes, stream_walk_counts) and
 # launch.stream_segment_sum (segment_sum's two kernels, two per call); each
-# walk launch also adds its bounds rows to stream.blocks.
+# walk launch also counts its table launch and rows (stream_kernel.count_walk).
 
 
 class RecordWindow(NamedTuple):
@@ -384,7 +384,7 @@ _C_ARGTYPES = [
     _P, _P, _P,         # ids, ii, jj
     _P,                 # g or target rows (3, padded)
     _P, _I,             # stream matrix SoA (11, rows), rows
-    _P,                 # scan table (rows, 4), written by the launch
+    _P,                 # the walk's tables (scan_buffer), written by it
     _P, _I, _I,         # bounds (nb, 8), nb, block
     _P,                 # cam row
     _I, _I, _I,         # padded, samples, max_depth
@@ -404,15 +404,15 @@ _COUNT_ARGTYPES = [
     _P,                 # cam row
     _I, _I, _I,         # padded, samples, max_depth
     _U, _U,             # key words
-    _P, _P,             # opened per lane, tested per warp
+    _P, _P, _P,         # opened per lane, walked and tested per warp
     _P,                 # cudaStream_t
 ]
 
 
-def _scan_table(scene_mat):
+def _scan_table(scene_mat, block):
     """The kernels' inputs from a stream matrix: its SoA, and room for the
-    (rows, 4) scan table that each launch builds from it."""
-    return sk.soa(scene_mat), sk.scan_buffer(scene_mat)
+    walk's tables that each launch builds from it."""
+    return sk.soa(scene_mat), sk.scan_buffer(scene_mat, block)
 
 
 @trace.spanned("rt.launch.stream_train")
@@ -438,7 +438,7 @@ def train_records(ids, ii, jj, rows, scene_mat, bounds, cam_row, *, block,
                         device=dev)
     cam_part = torch.empty((blocks, N_CAM), dtype=torch.float32, device=dev)
     loss_part = torch.empty((blocks, 1), dtype=torch.float32, device=dev)
-    scene, scan = _scan_table(scene_mat)
+    scene, scan = _scan_table(scene_mat, block)
     k = tk.loss_constants(samples, max(num_pixels, 1), huber_delta)
     k0, k1 = rtrng.key_from_seed(seed)
     err = launch(ids.data_ptr(), ii.data_ptr(), jj.data_ptr(),
@@ -452,7 +452,7 @@ def train_records(ids, ii, jj, rows, scene_mat, bounds, cam_row, *, block,
                  cam_part.data_ptr(), loss_part.data_ptr(), tk._stream(ids))
     tk._raise_on(err, "stream_train_render")
     trace.count("launch.stream_train")
-    trace.count("stream.blocks", bounds.shape[0])
+    sk.count_walk(bounds, block)
     return image, rec_row, rec_val, cam_part, loss_part
 
 
@@ -460,10 +460,10 @@ def walk_counts(ids, ii, jj, scene_mat, bounds, cam_row, *, block: int,
                 samples: int, max_depth: int):
     """The fused mode's walk alone on the card (``stream_walk_counts``),
     with the train step's seed and estimator (``DEFAULT_SEED``, no
-    Russian roulette), counting its work: (blocks opened per lane
-    (padded,) int32, equal to the stream kernel's count; blocks tested per
-    warp (padded // 32,) int32, the union of its 32 lanes' opened
-    blocks)."""
+    Russian roulette), counting its work as the stream kernel's count
+    mode does: (blocks opened per lane (padded,) int32; blocks walked per
+    warp (padded // 32,) int32, the union of its 32 lanes' opened blocks;
+    rows tested per warp (padded // 32,) int32)."""
     tk._cuda_only(ids, "walk_counts")
     budget = torch.full(ids.shape, float(samples), dtype=torch.float32,
                         device=ids.device)
@@ -477,17 +477,19 @@ def walk_counts(ids, ii, jj, scene_mat, bounds, cam_row, *, block: int,
     opened = torch.empty((padded,), dtype=torch.int32, device=ids.device)
     fetched = torch.empty((padded // 32,), dtype=torch.int32,
                           device=ids.device)
-    scene, scan = _scan_table(scene_mat)
+    tested = torch.empty_like(fetched)
+    scene, scan = _scan_table(scene_mat, block)
     k0, k1 = rtrng.key_from_seed(rtrng.DEFAULT_SEED)
     tk._raise_on(launch(ids.data_ptr(), ii.data_ptr(), jj.data_ptr(),
                         scene.data_ptr(), scene_mat.shape[0], scan.data_ptr(),
                         bounds.data_ptr(), bounds.shape[0], block,
                         cam_row.data_ptr(), padded, samples, max_depth, k0,
                         k1, opened.data_ptr(), fetched.data_ptr(),
-                        tk._stream(ids)), "stream_walk_counts")
+                        tested.data_ptr(), tk._stream(ids)),
+                 "stream_walk_counts")
     trace.count("launch.stream_train")
-    trace.count("stream.blocks", bounds.shape[0])
-    return opened, fetched
+    sk.count_walk(bounds, block)
+    return opened, fetched, tested
 
 
 def _launch(ids, ii, jj, rows, scene_mat, bounds, cam_row, **kw):

@@ -2,12 +2,15 @@
 
 Counters are always on. ``count(name, n)`` adds ``n`` to a dict that
 ``counts()`` reads: the kernel launches (``launch.<kernel>``, the group
-table's ``launch.group_table`` among them), the closest-hit scan each
+table's ``launch.group_table`` and the stream walk's tables'
+``launch.walk_tables`` among them), the closest-hit scan each
 scanning launch ran (``scan.two_level``, ``scan.one_level``;
 ``ops/group_scan.py``), a streamed scene's size (``stream.rows``, the
 matrix rows ``build_stream_arrays`` writes; ``stream.blocks``, the bounds
-rows each walk launch of the stream kernels reads), the places where the
-host waits for the card (``host_sync``) and the collectives
+rows each walk launch of the stream kernels reads; ``stream.groups``, the
+group-table rows the table launch before it builds, bounds rows times
+groups a block), the places
+where the host waits for the card (``host_sync``) and the collectives
 (``all_reduce.calls``, ``all_reduce.numel``).
 
 Spans are on while a torch profiler records

@@ -218,9 +218,10 @@ def test_render_stream_contract(small):
 @pytest.mark.parametrize("rr", [None, 2])
 def test_plain_warp_union_between_max_and_sum_of_opened(small, rr):
     """The plain walk's warp-union count, with per-pixel budgets: each warp
-    tests at least the blocks of its busiest lane and at most the sum of
-    its lanes' opened blocks; the count sits at each warp's first lane, and
-    the lanes' segments are the brute-force plain render's."""
+    walks at least the blocks of its busiest lane and at most the sum of
+    its lanes' opened blocks, and tests at most the rows those blocks hold;
+    both counts sit at each warp's first lane, and the lanes' segments are
+    the brute-force plain render's."""
     _, ts = small
     cam = TCam.reference_default()
     st = sk.prepare_stream_scene(ts, block=64,
@@ -231,7 +232,7 @@ def test_plain_warp_union_between_max_and_sum_of_opened(small, rr):
     kw = dict(samples=3, max_depth=DEPTH, rr_start=rr)
     stats = sk.stream_reference(ids, ii, jj, bud, st.scene_mat, st.bounds,
                                 row, block=64, emit_stats=True, **kw)
-    assert stats.shape == (3, ids.shape[0])
+    assert stats.shape == (4, ids.shape[0])
     seg = rk.regen_reference(ids, ii, jj, bud, st.scene_mat, row,
                              emit_depth=True, layout="hbm", **kw)
     assert torch.equal(stats[0], seg[0])
@@ -241,6 +242,10 @@ def test_plain_warp_union_between_max_and_sum_of_opened(small, rr):
     assert bool((fetched[:, 0] >= opened.amax(1)).all())
     assert bool((fetched[:, 0] <= opened.sum(1)).all())
     assert bool((fetched[:, 0] < opened.sum(1)).any())
+    tested = stats[3].view(-1, 32)
+    assert not bool(tested[:, 1:].any())
+    assert bool((tested[:, 0] <= fetched[:, 0] * 64).all())
+    assert 0 < float(tested.sum()) < float(fetched.sum()) * 64
 
 
 def test_stream_arguments_raise(small):

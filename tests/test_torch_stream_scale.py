@@ -108,11 +108,12 @@ def test_fused_step_in_blocks_of_1024_against_the_plain_reference(stepped):
 def test_stream_step_counters_and_span(stepped):
     """A stream step counts its rebuild's matrix rows (``stream.rows``)
     and maps its cotangents to slots under ``rt.stream.to_slots``, a child
-    of the step; the plain walk launches nothing, so ``stream.blocks``
-    stays out."""
+    of the step; the plain walk launches nothing, so ``stream.blocks``,
+    ``stream.groups`` and ``launch.walk_tables`` stay out."""
     _, stream, _, _, recs, counts = stepped
     assert counts["stream.rows"] == stream.scene_mat.shape[0] == 4096
-    assert "stream.blocks" not in counts
+    assert "stream.blocks" not in counts and "stream.groups" not in counts
+    assert "launch.walk_tables" not in counts
     root = [r for r in recs if r.name == "rt.stream_step"]
     slots = [r for r in recs if r.name == "rt.stream.to_slots"]
     assert len(root) == len(slots) == 1
@@ -124,19 +125,23 @@ def test_stream_step_counters_and_span(stepped):
 @pytest.mark.cuda
 def test_stream_blocks_counter_on_card(cuda):
     """Each walk launch of kernels 4 and 5 adds its bounds rows to
-    ``stream.blocks``: one stream render, then one fused step."""
+    ``stream.blocks`` and their blocks' group rows to ``stream.groups``:
+    one stream render, then one fused step."""
     s = build_random_scene(1000, seed=3, device=cuda)
     cam = CameraConfig.reference_default()
     st = sk.prepare_stream_scene(s, block=64)
-    nb = st.bounds.shape[0]
+    nb, ng = st.bounds.shape[0], st.bounds.shape[0] * sk.block_groups(64)
     before = trace.counts().get("stream.blocks", 0)
+    groups = trace.counts().get("stream.groups", 0)
     sk.render_stream(st, cam, 64, 40, 2, 4)
     assert trace.counts()["stream.blocks"] == before + nb
+    assert trace.counts()["stream.groups"] == groups + ng
     init_fn, step_fn = grad.make_stream_train(st, 64, 40, 2, 4)
     step_fn(init_fn(s.params), cam, s.mat_type, s.active,
             torch.rand((40, 64, 3), device=cuda))
     torch.cuda.synchronize()
     assert trace.counts()["stream.blocks"] == before + 2 * nb
+    assert trace.counts()["stream.groups"] == groups + 2 * ng
 
 
 @pytest.mark.cuda

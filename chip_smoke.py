@@ -215,7 +215,7 @@ CPU path):
              within the budget, the peak within it plus 256 MiB for that
              window's sort and the step's tensors), launches
   26 large images  images of 2^24 pixels and more (up to
-             render_kernel.MAX_LANES lanes), each kernel held to its plain
+             kernel_io.MAX_LANES lanes), each kernel held to its plain
              version on sampled lanes with pixel ids >= 2^24 (the image's
              last lanes and lanes drawn above 2^24): make_renderer at
              7680x4320x4spp/25b parity, scene 1 (kernel 1: best of 3,
@@ -467,11 +467,12 @@ def large_images(dev, cam, reset_counts, read_counts) -> dict:
     from raytracingincuda_torch.ops import adaptive
     from raytracingincuda_torch.ops import f64_kernel as fk
     from raytracingincuda_torch.ops import grad as gradlib
+    from raytracingincuda_torch.ops import kernel_io as kio
     from raytracingincuda_torch.ops import render_kernel as rk
     from raytracingincuda_torch.ops import stream_kernel as sk
     from raytracingincuda_torch.ops import stream_train_kernel as stk
     from raytracingincuda_torch.ops import train_kernel as tk
-    from raytracingincuda_torch.ops.tracer import _linear_to_gamma
+    from raytracingincuda_torch.ops.tracer import linear_to_gamma
     from raytracingincuda_torch.render_api import make_renderer
     from raytracingincuda_torch.utils import ppm
 
@@ -526,7 +527,7 @@ def large_images(dev, cam, reset_counts, read_counts) -> dict:
                "plain_ms_on_sampled_lanes": plain8_ms,
                "segments": segs8, "issues_over_mean": issues_over_mean,
                "bound": bound(segs8 * n1 * OPS_TEST_STAGED,
-                              n8 * 28 + n1 * rk.USED_COLS * 4 + 96)}
+                              n8 * 28 + n1 * kio.USED_COLS * 4 + 96)}
     if not (render8["bit_equal_to_plain"] and counts8["regen_render"] == 4
             and arr8.shape == (h8, w8, 3) and np.isfinite(arr8).all()
             and 0.0 <= arr8.min() and arr8.max() <= 1.0):
@@ -684,7 +685,7 @@ def large_images(dev, cam, reset_counts, read_counts) -> dict:
     s_counts = read_counts("26 stream render (100k, 4096x4104x1spp/10b)")
     s_peak = peak_since(base)
     ssel = sampled_lanes(n, 2048, 2048, 28, dev)
-    sids, sii, sjj, sbud = rk._lane_setup(w, h, None, spp_s, 0, None, dev)
+    sids, sii, sjj, sbud = kio.lane_setup(w, h, None, spp_s, 0, None, dev)
     srow = rk.pack_camera(initialize(cam, w, h)).to(dev)
     sub = tuple(t[ssel].contiguous() for t in (sids, sii, sjj, sbud))
     sp, sp_ms = timed(lambda: sk.stream_reference(
@@ -809,7 +810,7 @@ def large_images(dev, cam, reset_counts, read_counts) -> dict:
     pb = plain_sums(half, half)
     pc, pc_ms = timed(lambda: plain_sums(r_spp, r_off, extra), 1, warm=False)
     counts = spp_map.reshape(-1)[sel]
-    aplain = _linear_to_gamma(((pa + pc) + pb) / counts[:, None].float())
+    aplain = linear_to_gamma(((pa + pc) + pb) / counts[:, None].float())
     aget = aimg.reshape(-1, 3)[sel]
     adapt = {"render_ms": a_ms, "peak_over_base_mib": a_peak,
              "launches": {k: v for k, v in a_counts.items() if v},
@@ -909,6 +910,7 @@ def group_tables(dev, cam, reset_counts, read_counts) -> dict:
                                                      build_scene)
     from raytracingincuda_torch.ops import grad as gradlib
     from raytracingincuda_torch.ops import group_scan as gs
+    from raytracingincuda_torch.ops import kernel_io as kio
     from raytracingincuda_torch.ops import render_kernel as rk
     from raytracingincuda_torch.ops.vec import Vec3
 
@@ -920,7 +922,7 @@ def group_tables(dev, cam, reset_counts, read_counts) -> dict:
     @torch.no_grad()
     def table_pair(sc):
         sm = rk.pack_scene_matrix(sc)
-        soa = sm[:, :rk.USED_COLS].t().contiguous()
+        soa = kio.soa(sm)
         got = gs.group_table_kernel(soa, row)
         want = gs.group_table_reference(sm, row)
         return sm, soa, got, want
@@ -954,7 +956,7 @@ def group_tables(dev, cam, reset_counts, read_counts) -> dict:
     kernel_ms = dev_ms / 20 if dev_ms else timed(
         lambda: gs.group_table_kernel(soa, row), 20)[1]
     _, plain_ms = timed(lambda: gs.group_table_reference(sm, row), 1)
-    bnd = bound(7 * n, (rk.USED_COLS * n + row.numel()
+    bnd = bound(7 * n, (kio.USED_COLS * n + row.numel()
                         + gs.table_words(n)) * 4)
     out = {"slots": n, "launches": counts,
            "equal": bool(torch.equal(got.cpu(), want.cpu())),
@@ -1032,6 +1034,7 @@ def main() -> int:
     from raytracingincuda_torch.ops import _build
     from raytracingincuda_torch.ops import compact_kernel as ck
     from raytracingincuda_torch.ops import f64_kernel as fk
+    from raytracingincuda_torch.ops import kernel_io as kio
     from raytracingincuda_torch.ops import render_kernel as rk
     from raytracingincuda_torch.ops import stream_kernel as sk
     from raytracingincuda_torch.ops import stream_train_kernel as stk
@@ -1378,7 +1381,7 @@ def main() -> int:
         want = tk.fused_train_kernel(*f_in, **kw)
         lanes, n = inputs[0].shape[0], inputs[4].shape[0]
         block = (rk.PAD * 4 * spp * tk.PARK_ENTRIES_PER_SAMPLE
-                 + 4 * n * tk.GRAD_COLS * 4)
+                 + 4 * n * kio.GRAD_COLS * 4)
         variants = {"capacity 0": dict(capacity=0),
                     f"capacity {spp}": dict(capacity=spp),
                     "2 windows": dict(budget=block * (lanes // rk.PAD + 1) // 2),
@@ -1462,7 +1465,7 @@ def main() -> int:
     ids, ii, jj, _, sm, row = rk.regen_inputs(scene, cam, width, height, spp,
                                               pixel_order=order)
     parts = tk.fused_train_parts(
-        ids, ii, jj, tk._lane_rows(target, ids, width * height), sm, row,
+        ids, ii, jj, kio.lane_rows(target, ids, width * height), sm, row,
         samples=spp, max_depth=bounces, rr_start=2,
         num_pixels=width * height)
     pk = parts.parked[:, :width * height].double()
@@ -1536,7 +1539,7 @@ def main() -> int:
     from raytracingincuda_torch.models.scene import Scene, build_random_scene
 
     def lanes(width, height, spp):
-        ids, ii, jj, bud = rk._lane_setup(width, height, None, spp, 0, None,
+        ids, ii, jj, bud = kio.lane_setup(width, height, None, spp, 0, None,
                                           dev)
         row = rk.pack_camera(initialize(cam, width, height)).to(dev)
         return ids, ii, jj, bud, row
@@ -1591,7 +1594,7 @@ def main() -> int:
                "kernel_ms": k_ms, "plain_ms": p_ms}
         res["bound_ms"], res["bound_by"], res["bound_fmad_off_ms"] = bound(
             walk_ops(st, segs, opened, fetched, tested),
-            padded * 28 + st.scene_mat.shape[0] * rk.USED_COLS * 4
+            padded * 28 + st.scene_mat.shape[0] * kio.USED_COLS * 4
             + st.bounds.numel() * 4 + 96)
         if not (res["bit_equal"] and res["run_to_run_identical"]
                 and res["stats_equal"]):
@@ -1777,7 +1780,7 @@ def main() -> int:
         padded = lanes(width, height, spp)[0].shape[0]
         return bound(walk_ops(st, segs, opened, fetched, tested),
                      padded * 36 + st.scene_mat.shape[0]
-                     * (rk.USED_COLS + 16) * 4 + st.bounds.numel() * 4 + 192)
+                     * (kio.USED_COLS + 16) * 4 + st.bounds.numel() * 4 + 192)
 
     phase = "11 stream grads"
     s1k = build_random_scene(1000, seed=3, device=dev)
@@ -1875,7 +1878,7 @@ def main() -> int:
         raise AssertionError(f"kernel 5's walk opened {union} blocks, the "
                              f"stream kernel's {opened}")
     # the scatter's kernels on this step's records
-    rows = tk._lane_rows(target, ids, w * h)
+    rows = kio.lane_rows(target, ids, w * h)
     _, rec_row, rec_val, _, _ = stk.train_records(
         ids, ii, jj, rows, st0.scene_mat, st0.bounds, row, block=st0.block,
         samples=spp, max_depth=bounces, seed=DEFAULT_SEED, rr_start=None,
@@ -1887,11 +1890,11 @@ def main() -> int:
     seg_plain, seg_plain_ms = timed(lambda: stk.segment_sum_reference(
         keys, src, rec_val, n_rows), 1, warm=False)
     lib_keys, lib_vals = keys.long(), rec_val[src]
-    lib_out = torch.zeros((n_rows, tk.GRAD_COLS), device=dev)
+    lib_out = torch.zeros((n_rows, kio.GRAD_COLS), device=dev)
     _, lib_ms = timed(lambda: lib_out.zero_().index_add_(0, lib_keys,
                                                          lib_vals), 5)
     m = keys.shape[0]
-    seg_bound, seg_by, seg_fmad_off = bound(m * tk.GRAD_COLS,
+    seg_bound, seg_by, seg_fmad_off = bound(m * kio.GRAD_COLS,
                                             m * 48 + n_rows * 36)
     segment_main = {"records": m, "kernel_ms": seg_ms,
                     "record_order_ms": order_ms,
@@ -1929,7 +1932,7 @@ def main() -> int:
     stream_grads_compare(st0, w, h, cspp, cb, None, (torch.randn(
         (3, ids.shape[0]), generator=gen) * 1e-3).to(dev))
     train_100k = stream_fused_compare(st0, w, h, cspp, cb, None,
-                                      tk._lane_rows(target, ids, w * h),
+                                      kio.lane_rows(target, ids, w * h),
                                       "mse", False)
     (train_100k["bound_ms"], train_100k["bound_by"],
      train_100k["bound_fmad_off_ms"]) = stream_train_bound(st0, w, h, cspp, cb,
@@ -2276,7 +2279,7 @@ def main() -> int:
 
     # -- 18 adaptive sampling ------------------------------------------------
     from raytracingincuda_torch.ops import adaptive as ad
-    from raytracingincuda_torch.ops.tracer import _linear_to_gamma
+    from raytracingincuda_torch.ops.tracer import linear_to_gamma
 
     def adaptive_cfg(**kw):
         return RenderConfig(impl="adaptive", **kw)
@@ -2299,7 +2302,7 @@ def main() -> int:
                               accumulate_only=True)
         pb = rk.render_kernel(s, cam, 64, 40, 2, 6, gamma=False,
                               accumulate_only=True, sample_offset=2)
-        base = _linear_to_gamma((pa + pb) / 4.0)
+        base = linear_to_gamma((pa + pb) / 4.0)
         mask = card.spp_map == 4
         out = {"rounds": rounds,
                "renderer_equals_render_adaptive": bool(torch.equal(
@@ -3513,7 +3516,7 @@ def main() -> int:
                 + float(lane_scans.sum()) * groups * OPS_BOUND_TEST)
 
     n1 = build_scene(1, device="cpu").num_slots
-    scene_bytes = n1 * rk.USED_COLS * 4 + 96
+    scene_bytes = n1 * kio.USED_COLS * 4 + 96
     px_head = 1280 * 768
     px_small = 320 * 192
     # kernels 1 and 7 and kernel 2's park render scan in two levels (the

@@ -92,6 +92,7 @@ def card_measure(samples, rr):
     from raytracingincuda_torch.models.camera import CameraConfig
     from raytracingincuda_torch.models.scene import build_scene
     from raytracingincuda_torch.ops import group_scan as gs
+    from raytracingincuda_torch.ops import kernel_io as kio
     from raytracingincuda_torch.ops import render_kernel as rk
 
     scene = build_scene(1, device="cuda")
@@ -101,7 +102,7 @@ def card_measure(samples, rr):
     seg, issues, opened, tests = rk.regen_counts(*inputs, **kw)
     n = inputs[4].shape[0]
     table = gs.unpack(gs.group_table_kernel(
-        inputs[4][:, :rk.USED_COLS].t().contiguous(), inputs[5]), n)
+        kio.soa(inputs[4]), inputs[5]), n)
     it = int(issues.long().sum())
     per = (int(tests.long().sum()) + it * table.n_groups) / it
     times = []

@@ -104,6 +104,7 @@ def main() -> int:
     from raytracingincuda_torch.ops import compact_kernel as ck
     from raytracingincuda_torch.ops import f64_kernel as fk
     from raytracingincuda_torch.ops import grad as gradlib
+    from raytracingincuda_torch.ops import kernel_io as kio
     from raytracingincuda_torch.ops import render_kernel as rk
     from raytracingincuda_torch.ops import stream_kernel as sk
     from raytracingincuda_torch.ops import stream_train_kernel as stk
@@ -216,7 +217,7 @@ def main() -> int:
         res["stream_render_ms"] = each(lambda: renderer(s100k, cam), reps,
                                        RenderTimer, dev)
         # kernels 4 and 5 at 640x384x1spp/3b
-        ids, ii, jj, bud = rk._lane_setup(sw, sh, None, 1, 0, None, dev)
+        ids, ii, jj, bud = kio.lane_setup(sw, sh, None, 1, 0, None, dev)
         kw = dict(block=st0.block, samples=1, max_depth=3, rr_start=None)
         _, res["kernel4_ms"] = timed(lambda: sk.stream_kernel(
             ids, ii, jj, bud, st0.scene_mat, st0.bounds, row, **kw), reps)
@@ -235,7 +236,7 @@ def main() -> int:
                             target), reps, RenderTimer, dev)
     if counts:
         def walk_work(st, samples, depth):
-            ids, ii, jj, bud = rk._lane_setup(sw, sh, None, samples, 0, None,
+            ids, ii, jj, bud = kio.lane_setup(sw, sh, None, samples, 0, None,
                                               dev)
             c = sk.stream_kernel(ids, ii, jj, bud, st.scene_mat, st.bounds,
                                  row, block=st.block, samples=samples,

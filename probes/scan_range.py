@@ -47,6 +47,7 @@ def measure(name, scene, samples, reps):
 
     from raytracingincuda_torch.models.camera import CameraConfig
     from raytracingincuda_torch.ops import group_scan as gs
+    from raytracingincuda_torch.ops import kernel_io as kio
     from raytracingincuda_torch.ops import render_kernel as rk
     from raytracingincuda_torch.utils import trace
 
@@ -83,7 +84,7 @@ def measure(name, scene, samples, reps):
     groups = 0
     if took_two:
         groups = gs.unpack(gs.group_table_kernel(
-            inputs[4][:, :rk.USED_COLS].t().contiguous(), inputs[5]),
+            kio.soa(inputs[4]), inputs[5]),
             n).n_groups
     it = int(issues.long().sum())
     share = (int(tests.long().sum()) + it * groups) / it / n

@@ -69,6 +69,7 @@ def main() -> int:
     from raytracingincuda_torch.models.camera import CameraConfig, initialize
     from raytracingincuda_torch.models.scene import Scene, build_random_scene
     from raytracingincuda_torch.ops import grad as gradlib
+    from raytracingincuda_torch.ops import kernel_io as kio
     from raytracingincuda_torch.ops import render_kernel as rk
     from raytracingincuda_torch.ops import stream_kernel as sk
     from raytracingincuda_torch.ops import stream_train_kernel as stk
@@ -108,9 +109,9 @@ def main() -> int:
         Scene(state0.params, s100k.mat_type, s100k.active), stream.perm,
         stream.block, stream.scene_mat.shape[0], border=border),
         stream.block, stream.perm)
-    ids, ii, jj, _ = rk._lane_setup(w, h, None, spp, 0, None, dev)
+    ids, ii, jj, _ = kio.lane_setup(w, h, None, spp, 0, None, dev)
     row = rk.pack_camera(initialize(cam, w, h)).to(dev)
-    rows = tk._lane_rows(target, ids, w * h)
+    rows = kio.lane_rows(target, ids, w * h)
     _, rec_row, rec_val, _, _ = stk.train_records(
         ids, ii, jj, rows, st0.scene_mat, st0.bounds, row, block=st0.block,
         samples=spp, max_depth=bounces, seed=DEFAULT_SEED, rr_start=None,
@@ -130,15 +131,15 @@ def main() -> int:
     _, seg_ms = timed(lambda: stk.segment_sum_kernel(keys, src, rec_val,
                                                      n_rows), 5)
     lib_vals, lib_keys = rec_val[src], keys.long()
-    out = torch.zeros((n_rows, tk.GRAD_COLS), device=dev)
+    out = torch.zeros((n_rows, kio.GRAD_COLS), device=dev)
     _, lib_ms = timed(lambda: out.zero_().index_add_(0, lib_keys, lib_vals),
                       5)
     res.update(records=int(keys.shape[0]), record_order_ms=order_ms,
                segment_sum_ms=seg_ms, index_add_ms=lib_ms)
     del rec_row, rec_val, keys, src, lib_vals
     # kernels 4 and 5 on the step's stream at 640x384x1spp/3b
-    ids, ii, jj, bud = rk._lane_setup(w, h, None, 1, 0, None, dev)
-    rows = tk._lane_rows(target, ids, w * h)
+    ids, ii, jj, bud = kio.lane_setup(w, h, None, 1, 0, None, dev)
+    rows = kio.lane_rows(target, ids, w * h)
     g = (torch.randn((3, ids.shape[0]), generator=torch.Generator()
                      .manual_seed(6)) * 1e-3).to(dev)
     a5 = (ids, ii, jj, rows, st0.scene_mat, st0.bounds, row)
@@ -150,7 +151,7 @@ def main() -> int:
     _, res["kernel4_ms"] = timed(lambda: sk.stream_kernel(
         ids, ii, jj, bud, st0.scene_mat, st0.bounds, row, **kw), 3)
     if hasattr(stk, "walk_counts"):
-        ids, ii, jj, _ = rk._lane_setup(w, h, None, spp, 0, None, dev)
+        ids, ii, jj, _ = kio.lane_setup(w, h, None, spp, 0, None, dev)
         opened, fetched = stk.walk_counts(ids, ii, jj, st0.scene_mat,
                                           st0.bounds, row, block=st0.block,
                                           samples=spp, max_depth=bounces)[:2]

@@ -94,6 +94,7 @@ def main() -> int:
     from raytracingincuda_torch.models.camera import CameraConfig, initialize
     from raytracingincuda_torch.models.scene import Scene, build_random_scene
     from raytracingincuda_torch.ops import grad as gradlib
+    from raytracingincuda_torch.ops import kernel_io as kio
     from raytracingincuda_torch.ops import render_kernel as rk
     from raytracingincuda_torch.ops import stream_kernel as sk
     from raytracingincuda_torch.ops import stream_train_kernel as stk
@@ -117,7 +118,7 @@ def main() -> int:
     s100k = build_random_scene(100_000, seed=3, device=dev)
     stream = sk.prepare_stream_scene(s100k)
     front = sk.reorder_front_to_back(stream, initialize(cam, w, h).center)
-    ids, ii, jj, bud = rk._lane_setup(w, h, None, 10, 0, None, dev)
+    ids, ii, jj, bud = kio.lane_setup(w, h, None, 10, 0, None, dev)
     kw = dict(block=front.block, samples=10, max_depth=10, rr_start=None,
               finalize_scale=0.1)
     args4 = (ids, ii, jj, bud, front.scene_mat, front.bounds, row)
@@ -152,7 +153,7 @@ def main() -> int:
             Scene(scene.params, scene.mat_type, scene.active), prepared.perm,
             prepared.block, prepared.scene_mat.shape[0], border=border),
             prepared.block, prepared.perm)
-        ids, ii, jj, _ = rk._lane_setup(w, h, None, samples, 0, None, dev)
+        ids, ii, jj, _ = kio.lane_setup(w, h, None, samples, 0, None, dev)
         counts = stk.walk_counts(ids, ii, jj, st.scene_mat, st.bounds, row,
                                  block=st.block, samples=samples,
                                  max_depth=depth)
@@ -160,7 +161,7 @@ def main() -> int:
                    warp_blocks=int(counts[1].long().sum()),
                    rows_tested=(int(counts[2].long().sum())
                                 if len(counts) > 2 else None))
-        tgt = tk._lane_rows(torch.rand((h, w, 3), generator=torch.Generator()
+        tgt = kio.lane_rows(torch.rand((h, w, 3), generator=torch.Generator()
                                        .manual_seed(5)).to(dev), ids, w * h)
         a5 = (ids, ii, jj, tgt, st.scene_mat, st.bounds, row)
         kw = dict(block=st.block, samples=samples, max_depth=depth)

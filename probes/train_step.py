@@ -80,6 +80,7 @@ def main() -> int:
     from raytracingincuda_torch.models.camera import CameraConfig
     from raytracingincuda_torch.models.scene import (build_scene, param_leaves,
                                                       params_from_leaves)
+    from raytracingincuda_torch.ops import kernel_io as kio
     from raytracingincuda_torch.ops import render_kernel as rk
     from raytracingincuda_torch.ops import train_kernel as tk
     from raytracingincuda_torch.render_api import make_renderer
@@ -126,7 +127,7 @@ def main() -> int:
     if hasattr(tk, "fused_train_parts"):
         ids, ii, jj, _, sm, row = rk.regen_inputs(scene, cam, w, h, spp,
                                                   pixel_order=order)
-        rows = tk._lane_rows(target, ids, w * h)
+        rows = kio.lane_rows(target, ids, w * h)
         parts = tk.fused_train_parts(ids, ii, jj, rows, sm, row, samples=spp,
                                      max_depth=bounces, rr_start=2,
                                      num_pixels=w * h)

@@ -91,8 +91,8 @@ def run(args) -> bool:
                    * torch.tensor([-0.6, 0.45, 0.3])])
 
     def cam_at(xv):
-        return poselib._cam_with_pose(true_cam,
-                                      poselib.PoseState(xv[:3], xv[3:]))
+        return poselib.cam_with_pose(true_cam,
+                                     poselib.PoseState(xv[:3], xv[3:]))
 
     def mse_at(xv, p):
         return float(torch.mean((render(p, cam_at(xv)) - target) ** 2))
@@ -104,7 +104,7 @@ def run(args) -> bool:
         W, H, SPP, D, learning_rate=args.scene_lr, trainable=trainable,
         impl="kernel")
     state = init_fn(params)
-    pose_opt = poselib._adam([x], args.pose_lr)
+    pose_opt = poselib.adam([x], args.pose_lr)
 
     def errs(xv, p):
         ef = float(torch.linalg.norm(xv[:3] - true_pose.lookfrom))

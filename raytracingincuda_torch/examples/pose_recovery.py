@@ -69,7 +69,7 @@ def run(args) -> float:
 
     d = torch.tensor([0.71, -0.43, 0.56])
     d = args.perturb * d / torch.linalg.norm(d)
-    init_cam = poselib._cam_with_pose(cam, true._replace(
+    init_cam = poselib.cam_with_pose(cam, true._replace(
         lookfrom=true.lookfrom + d,
         lookat=true.lookat + 0.3 * args.perturb
         * torch.tensor([-0.6, 0.45, 0.3])))
@@ -83,7 +83,7 @@ def run(args) -> float:
         ang = float(torch.rad2deg(torch.arccos(torch.clamp(cos, -1.0,
                                                            1.0))))
         mse = float(torch.mean(
-            (render(poselib._cam_with_pose(cam, ps)) - target) ** 2))
+            (render(poselib.cam_with_pose(cam, ps)) - target) ** 2))
         print(f"{tag}: lookfrom err {ef:.4f}  view-dir err {ang:.3f} deg  "
               f"path-traced MSE {mse:.6f}")
         return ef
@@ -103,7 +103,7 @@ def run(args) -> float:
               f"{time.time() - t0:.0f}s): "
               f"loss {losses[0]:.5f} -> {losses[-1]:.6f}")
         report("stage 1  ", soft_pose)
-        stage2_cam = poselib._cam_with_pose(cam, soft_pose)
+        stage2_cam = poselib.cam_with_pose(cam, soft_pose)
 
     t0 = time.time()
     refined, hist = poselib.refine_pose_fd(

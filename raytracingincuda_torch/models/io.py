@@ -27,7 +27,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .scene import DIELECTRIC, LAMBERTIAN, METAL, Scene, _round_up, _to_scene
+from .scene import DIELECTRIC, LAMBERTIAN, METAL, Scene, round_up, to_scene
 
 _MAT_NAMES = {"lambertian": LAMBERTIAN, "metal": METAL,
               "dielectric": DIELECTRIC,
@@ -77,7 +77,7 @@ def scene_from_arrays(
             "ior must be > 0 (a zero or negative index produces NaN "
             "refraction directions)")
 
-    n_padded = (_round_up(max(n, 1), pad_to_multiple) if pad_to_multiple
+    n_padded = (round_up(max(n, 1), pad_to_multiple) if pad_to_multiple
                 else max(n, 1))
     pad = n_padded - n
 
@@ -90,7 +90,7 @@ def scene_from_arrays(
     center = padf(center)
     if pad:
         center[n:, 1] = -1.0e6     # parked placeholders, as build_scene's
-    return _to_scene(center, padf(radius, 1.0), padf(albedo), padf(fuzz),
+    return to_scene(center, padf(radius, 1.0), padf(albedo), padf(fuzz),
                      padf(ior, 1.0), padf(mat_type), padf(active, False),
                      dtype, device)
 

@@ -60,7 +60,7 @@ class Scene(NamedTuple):
         return self.mat_type.shape[0]
 
 
-def _round_up(n: int, m: int) -> int:
+def round_up(n: int, m: int) -> int:
     return ((n + m - 1) // m) * m
 
 
@@ -116,7 +116,7 @@ def num_slots_for_scene(scene_id: int) -> int:
     return 1 + 11 * 11 + 3
 
 
-def _to_scene(center, radius, albedo, fuzz, ior, mat, active, dtype,
+def to_scene(center, radius, albedo, fuzz, ior, mat, active, dtype,
               device) -> Scene:
     device = resolve_device(device)
 
@@ -147,7 +147,7 @@ def build_scene(
     ``device`` (None: the card); ``pad_to_multiple`` rounds the slot count
     up with inactive padding."""
     n = num_slots_for_scene(scene_id)
-    n_padded = _round_up(n, pad_to_multiple) if pad_to_multiple else n
+    n_padded = round_up(n, pad_to_multiple) if pad_to_multiple else n
     b = _Builder(n_padded)
     rng = np.random.default_rng(seed)
 
@@ -172,7 +172,7 @@ def build_scene(
     b.set(i, (0.0, 1.0, 0.0), 1.0, DIELECTRIC, ior=1.5)
     b.set(i + 1, (-4.0, 1.0, 0.0), 1.0, LAMBERTIAN, (0.4, 0.2, 0.1))
     b.set(i + 2, (4.0, 1.0, 0.0), 1.0, METAL, (0.7, 0.6, 0.5), fuzz=0.0)
-    return _to_scene(b.center, b.radius, b.albedo, b.fuzz, b.ior, b.mat,
+    return to_scene(b.center, b.radius, b.albedo, b.fuzz, b.ior, b.mat,
                      b.active, dtype, device)
 
 
@@ -189,7 +189,7 @@ def build_random_scene(
     ground sphere (the same vectorized numpy draws as the JAX package), on
     ``device`` (None: the card)."""
     n = n_spheres + 1
-    n_padded = _round_up(n, pad_to_multiple) if pad_to_multiple else n
+    n_padded = round_up(n, pad_to_multiple) if pad_to_multiple else n
     rng = np.random.default_rng(seed)
     m = n_spheres
 
@@ -224,7 +224,7 @@ def build_random_scene(
     fuzz[1:n][met] = rng.uniform(0.0, 0.5, m)[met]
     ior[1:n][die] = 1.5
     active[1:n] = True
-    return _to_scene(center, radius, albedo, fuzz, ior, mat, active, dtype,
+    return to_scene(center, radius, albedo, fuzz, ior, mat, active, dtype,
                      device)
 
 
@@ -242,7 +242,7 @@ def build_deep_scene(dtype=torch.float32, pad_to_multiple: Optional[int] = 8,
     eye = np.array([13.0, 2.0, 3.0])
     centre = eye - eye / np.linalg.norm(eye) * 2.1
     n = 2
-    n_padded = _round_up(n, pad_to_multiple) if pad_to_multiple else n
+    n_padded = round_up(n, pad_to_multiple) if pad_to_multiple else n
     center = np.zeros((n_padded, 3))
     center[:, 1] = -1e6
     center[:n] = centre
@@ -255,5 +255,5 @@ def build_deep_scene(dtype=torch.float32, pad_to_multiple: Optional[int] = 8,
     mat = np.zeros(n_padded, np.int32)
     mat[1] = DIELECTRIC
     active = np.arange(n_padded) < n
-    return _to_scene(center, radius, albedo, np.zeros(n_padded), ior, mat,
+    return to_scene(center, radius, albedo, np.zeros(n_padded), ior, mat,
                      active, dtype, device)

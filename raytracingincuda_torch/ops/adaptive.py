@@ -24,7 +24,7 @@ windows base + (2r) w_cap and base + (2r + 1) w_cap, w_cap = max(max_spp -
 base_spp, 2): the RNG needs distinct ids, not contiguous ones. A round
 whose budgets are all zero ends the loop; that test is the one host sync a
 round takes here (each budgeted launch checks its budgets' range on the
-host as well, ``render_kernel._lane_setup``, and each launch copies its
+host as well, ``kernel_io.lane_setup``, and each launch copies its
 camera row to the card).
 
 Every phase is a render of raw sums on the scene's device: kernel 1
@@ -55,7 +55,7 @@ from ..parallel import mesh as meshlib
 from . import render_kernel as rk
 from . import rng as rtrng
 from .stream_kernel import render_stream
-from .tracer import _linear_to_gamma
+from .tracer import linear_to_gamma
 
 _LUM = (0.2126, 0.7152, 0.0722)
 # budgets are quantised into this many buckets for the refine's pixel order
@@ -246,5 +246,5 @@ def render_adaptive(
         counts = counts + extra
     img = (a_cum + b_cum) / counts[..., None].to(a_cum.dtype)
     if gamma:
-        img = _linear_to_gamma(img)
+        img = linear_to_gamma(img)
     return AdaptiveResult(image=img, spp_map=counts, error_map=err)

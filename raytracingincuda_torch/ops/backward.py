@@ -34,7 +34,7 @@ from . import f32math
 from . import rng as rtrng
 from . import vec
 from .intersect import T_MIN, hit_world
-from .tracer import SKY_BLUE, SKY_WHITE, _sky_color
+from .tracer import SKY_BLUE, SKY_WHITE, sky_color
 from .vec import Vec3
 
 # differentiable camera scalars: pack_camera columns 0..17
@@ -181,7 +181,7 @@ def _bounce_primal(wc, wr, walb, wfuzz, wior, wmat, hit, o, d, atten, alive,
         survives = survives & ~(zone & (u_rr >= p_surv))
         atten_upd = m * torch.where(zone, 1.0 / p_surv, one)
     return _Primal(dd, a, h, c, disc, sqrtd, take_near, root, t, ior, p, big,
-                   rs, diff, front, normal, sc, _sky_color(d), alive & ~hit,
+                   rs, diff, front, normal, sc, sky_color(d), alive & ~hit,
                    survives, m, zone, mx, p_surv, atten_upd)
 
 
@@ -245,7 +245,7 @@ def reflect_vjp(v: Vec3, n: Vec3, ct: Vec3):
 
 
 def sky_vjp(d: Vec3, ct_sky: Vec3) -> Vec3:
-    """Adjoint of ``_sky_color(d)`` = lerp(0.5 (unit(d).y + 1), white,
+    """Adjoint of ``sky_color(d)`` = lerp(0.5 (unit(d).y + 1), white,
     blue) with respect to d."""
     ct_a = vec.dot(ct_sky, Vec3(*(b - w for b, w in zip(SKY_BLUE, SKY_WHITE))))
     zero = torch.zeros_like(ct_a)

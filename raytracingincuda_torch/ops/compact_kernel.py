@@ -20,12 +20,13 @@ Two implementations share one signature:
   * ``compact_reference`` is the plain PyTorch version: the JAX compact
     recurrence, one pool over the lanes given.
 
-``_compact`` picks the kernel for CUDA tensors and the plain version only
-for CPU tensors; nothing falls back. Each bounce is the regeneration
-kernel's arithmetic (``tracer.shade_hit``; ``path_common.cuh``'s
-``scatter_bounce`` on the card), and a sample's radiance is added only
-where its ray missed, in sample order in both schedules, so the image
-equals kernel 1's bit for bit.
+``render_compact`` (``kernel_io.by_device``) picks the kernel for CUDA
+tensors and the plain version only for CPU tensors; nothing falls back.
+Each bounce is the regeneration kernel's arithmetic
+(``tracer.shade_hit``; ``path_common.cuh``'s ``scatter_bounce`` on the
+card), and a sample's radiance is added only where its ray missed, in
+sample order in both schedules, so the image equals kernel 1's bit for
+bit.
 """
 from __future__ import annotations
 
@@ -36,19 +37,11 @@ import torch
 
 from ..utils import trace
 from . import group_scan
-from . import render_kernel as rk
+from . import kernel_io as kio
 from . import rng as rtrng
 from . import vec
-from .tracer import _linear_to_gamma, _sky_color, primary_rays_from_ij, shade_hit
+from .tracer import linear_to_gamma, sky_color, primary_rays_from_ij, shade_hit
 from .vec import Vec3
-
-
-def _check(ids, ii, jj, scene_mat, cam_row, *, samples, max_depth, layout):
-    """Kernel 1's argument rules; ``ii`` stands in for the budget row,
-    which the compact kernel has no use for."""
-    rk._check_args(ids, ii, jj, ii, scene_mat, cam_row, samples=samples,
-                   max_depth=max_depth, rr_start=None, sample_offset=0,
-                   layout=layout)
 
 
 def compact_reference(ids, ii, jj, scene_mat, cam_row, *, samples: int,
@@ -61,20 +54,19 @@ def compact_reference(ids, ii, jj, scene_mat, cam_row, *, samples: int,
     over samples ``[0, samples)``. Returns a (3, padded) f32 radiance sum,
     scaled by ``finalize_scale`` and gamma'd when given. ``layout`` only
     changes where the kernel keeps the scene."""
-    _check(ids, ii, jj, scene_mat, cam_row, samples=samples,
-           max_depth=max_depth, layout=layout)
-    scene = rk.scene_from_matrix(scene_mat)
-    cam = rk.unpack_camera(cam_row)
+    kio.check(ids, ii, jj, scene_mat, cam_row, samples=samples,
+              max_depth=max_depth, layout=layout)
+    scene = kio.scene_from_matrix(scene_mat)
+    cam = kio.unpack_camera(cam_row)
     # lanes are independent: one pool per chunk bounds the temporaries
-    chunk = max(rk.PAD, rk._REFERENCE_CHUNK_ELEMS // scene_mat.shape[0]
-                // rk.PAD * rk.PAD)
+    chunk = kio.reference_chunk(scene_mat.shape[0])
     out = torch.cat([
         _compact_lanes(*lanes, scene, cam, samples=samples,
                        max_depth=max_depth, seed=seed)
         for lanes in zip(ids.split(chunk), ii.split(chunk), jj.split(chunk))
     ], dim=1)
     if finalize_scale is not None:
-        out = _linear_to_gamma(out * finalize_scale)
+        out = linear_to_gamma(out * finalize_scale)
     return out
 
 
@@ -100,7 +92,7 @@ def _compact_lanes(ids, ii, jj, scene, cam, *, samples, max_depth, seed):
             hit, p, sc = shade_hit(scene, live["o"], live["d"], live["pix"],
                                    s, b, key)
             miss = ~hit
-            live["rad"] = vec.where(miss, live["atten"] * _sky_color(live["d"]),
+            live["rad"] = vec.where(miss, live["atten"] * sky_color(live["d"]),
                                     live["rad"])
             live["banked"] = live["banked"] | miss
             alive = hit & sc.scattered & (b < max_depth - 1)
@@ -157,7 +149,6 @@ _C_ARGTYPES = [
     ctypes.c_float,    # finalize scale
     ctypes.c_int,      # hbm layout
     ctypes.c_void_p,   # group table (null: the one-level scan)
-    ctypes.c_void_p,   # cudaStream_t
 ]
 
 
@@ -169,35 +160,22 @@ def compact_kernel(ids, ii, jj, scene_mat, cam_row, *, samples: int,
     """Launch the CUDA compact kernel; same contract as
     ``compact_reference``. Launches on the current stream without
     synchronising; scans as kernel 1 does (``group_scan``)."""
-    if ids.device.type != "cuda":
-        raise ValueError(f"compact_kernel takes CUDA tensors, got {ids.device}")
-    _check(ids, ii, jj, scene_mat, cam_row, samples=samples,
-           max_depth=max_depth, layout=layout)
-    from . import _build
-
-    launch = _build.function("compact_render", _C_ARGTYPES)
+    launch = kio.entry("compact_render", _C_ARGTYPES, ids.device)
+    kio.check(ids, ii, jj, scene_mat, cam_row, samples=samples,
+              max_depth=max_depth, layout=layout)
     padded, n = ids.shape[0], scene_mat.shape[0]
-    soa = scene_mat[:, :rk.USED_COLS].t().contiguous()
+    soa = kio.soa(scene_mat)
     out = torch.empty((3, padded), dtype=torch.float32, device=ids.device)
     k0, k1 = rtrng.key_from_seed(seed)
     groups = group_scan.group_table(soa, cam_row, layout)
-    err = launch(ids.data_ptr(), ii.data_ptr(), jj.data_ptr(), soa.data_ptr(),
-                 n, cam_row.data_ptr(), out.data_ptr(), padded, samples,
-                 max_depth, k0, k1, int(finalize_scale is not None),
-                 0.0 if finalize_scale is None else finalize_scale,
-                 int(layout == "hbm"), group_scan.pointer(groups),
-                 torch.cuda.current_stream(ids.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"compact_render launch failed: CUDA error {err}")
+    launch(ids.data_ptr(), ii.data_ptr(), jj.data_ptr(), soa.data_ptr(), n,
+           cam_row.data_ptr(), out.data_ptr(), padded, samples, max_depth,
+           k0, k1, int(finalize_scale is not None),
+           0.0 if finalize_scale is None else finalize_scale,
+           int(layout == "hbm"), kio.at(groups))
     trace.count("launch.compact_render")
     group_scan.count_path(groups)
     return out
 
 
-def _compact(ids, *args, **kw) -> torch.Tensor:
-    """The kernel for CUDA tensors, the plain version for CPU tensors."""
-    if ids.device.type == "cuda":
-        return compact_kernel(ids, *args, **kw)
-    if ids.device.type == "cpu":
-        return compact_reference(ids, *args, **kw)
-    raise ValueError(f"no compact implementation for device {ids.device}")
+render_compact = kio.by_device(compact_kernel, compact_reference)

@@ -15,9 +15,9 @@ Two implementations share one signature:
     ``regen_trace_df64`` recurrence, one wave at a time over all lanes, in
     ``torch.float64``.
 
-``_f64`` picks the kernel for CUDA tensors and the plain version only for
-CPU tensors; nothing falls back from one to the other. ``render_f64`` is
-the ``render_pallas_df64`` counterpart.
+``_f64`` (``kernel_io.by_device``) picks the kernel for CUDA tensors and
+the plain version only for CPU tensors; nothing falls back from one to the
+other. ``render_f64`` is the ``render_pallas_df64`` counterpart.
 
 The df64 contract holds: the camera row, the geometry, attenuation, the
 sky and the sums are double, and the random draws are the f32 Threefry
@@ -41,8 +41,8 @@ import torch
 from ..models.camera import CameraConfig, initialize_f64
 from ..models.scene import LAMBERTIAN, METAL, DIELECTRIC, Scene
 from ..utils import trace
-from . import render_kernel as rk
 from . import f32math
+from . import kernel_io as kio
 from . import rng as rtrng
 from . import vec
 from .intersect import T_MIN, T_MISS
@@ -52,16 +52,6 @@ from .vec import Vec3
 F64 = torch.float64
 # (spheres x lanes) double temporaries of the plain version per chunk
 _REFERENCE_CHUNK_ELEMS = 1 << 23
-
-
-def _check(ids, ii, jj, scene_mat, cam_row, *, samples, max_depth,
-           sample_offset, layout):
-    rk._check_tensors(ids, ii, jj, scene_mat, (("cam_row", cam_row, F64,
-                                                (24,)),), layout=layout)
-    if max_depth < 1 or samples < 1 or sample_offset < 0:
-        raise ValueError("samples and max_depth must be positive and "
-                         "sample_offset non-negative")
-    rtrng.validate_stream_ids(sample_offset + samples, max_depth)
 
 
 # The correctly rounded double sqrt on every device, as the kernel's
@@ -167,18 +157,18 @@ def f64_reference(ids, ii, jj, scene_mat, cam_row, *, samples: int,
     and the (24,) float64 camera row of ``models.camera.initialize_f64``.
     Returns the (3, padded) float64 radiance sums. ``layout`` only
     changes where the kernel keeps the scene."""
-    _check(ids, ii, jj, scene_mat, cam_row, samples=samples,
-           max_depth=max_depth, sample_offset=sample_offset, layout=layout)
+    kio.check(ids, ii, jj, scene_mat, cam_row, samples=samples,
+              max_depth=max_depth, sample_offset=sample_offset,
+              layout=layout, cam_dtype=F64)
     sm = scene_mat.to(F64)
-    cols = {"cx": sm[:, rk.COL_CX, None], "cy": sm[:, rk.COL_CY, None],
-            "cz": sm[:, rk.COL_CZ, None], "r": sm[:, rk.COL_RADIUS, None],
-            "active": scene_mat[:, rk.COL_ACTIVE, None] > 0.5}
+    cols = {"cx": sm[:, kio.COL_CX, None], "cy": sm[:, kio.COL_CY, None],
+            "cz": sm[:, kio.COL_CZ, None], "r": sm[:, kio.COL_RADIUS, None],
+            "active": scene_mat[:, kio.COL_ACTIVE, None] > 0.5}
     c = cam_row
     v3 = lambda k: Vec3(c[k], c[k + 1], c[k + 2])  # noqa: E731
     cam = {"pixel00": v3(0), "du": v3(3), "dv": v3(6), "center": v3(9),
            "disk_u": v3(12), "disk_v": v3(15), "defocus": bool(c[18] > 0.5)}
-    chunk = max(rk.PAD,
-                _REFERENCE_CHUNK_ELEMS // scene_mat.shape[0] // rk.PAD * rk.PAD)
+    chunk = kio.reference_chunk(scene_mat.shape[0], _REFERENCE_CHUNK_ELEMS)
     return torch.cat([
         _f64_lanes(*lanes, sm, cols, cam, samples=samples,
                    max_depth=max_depth, seed=seed,
@@ -209,20 +199,20 @@ def _f64_lanes(ids, fi, fj, sm, cols, cam, *, samples, max_depth, seed,
             break
         hit, t, idx = _hit(cols, o, d)
         p = o + d * torch.where(hit, t, 1.0)
-        center = Vec3(col(rk.COL_CX, idx), col(rk.COL_CY, idx),
-                      col(rk.COL_CZ, idx))
-        outward = (p - center) * (1.0 / vec.safe_radius(col(rk.COL_RADIUS,
+        center = Vec3(col(kio.COL_CX, idx), col(kio.COL_CY, idx),
+                      col(kio.COL_CZ, idx))
+        outward = (p - center) * (1.0 / vec.safe_radius(col(kio.COL_RADIUS,
                                                             idx)))
         front = vec.dot(d, outward) < 0.0
         normal = vec.where(front, outward, -outward)
         ur = _promote(rtrng.random_unit_vector(key, pid, sample, bounce,
                                                rtrng.DRAW_SCATTER))
         coin, _ = rtrng.uniform2(key, pid, sample, bounce, rtrng.DRAW_COIN)
-        albedo = Vec3(col(rk.COL_ALB_R, idx), col(rk.COL_ALB_G, idx),
-                      col(rk.COL_ALB_B, idx))
+        albedo = Vec3(col(kio.COL_ALB_R, idx), col(kio.COL_ALB_G, idx),
+                      col(kio.COL_ALB_B, idx))
         direction, att, scattered = _scatter(
-            d, normal, front, col(rk.COL_MAT, idx).to(torch.int32), albedo,
-            col(rk.COL_FUZZ, idx), col(rk.COL_IOR, idx), ur, coin.to(F64))
+            d, normal, front, col(kio.COL_MAT, idx).to(torch.int32), albedo,
+            col(kio.COL_FUZZ, idx), col(kio.COL_IOR, idx), ur, coin.to(F64))
 
         # scattering at the depth cap exits black
         continues = active & hit & scattered & (bounce < max_depth - 1)
@@ -261,7 +251,6 @@ _C_ARGTYPES = [
     ctypes.c_uint32,   # key word 1
     ctypes.c_int,      # sample_offset
     ctypes.c_int,      # hbm layout
-    ctypes.c_void_p,   # cudaStream_t
 ]
 
 
@@ -272,45 +261,33 @@ def f64_kernel(ids, ii, jj, scene_mat, cam_row, *, samples: int,
                layout: str = "vmem") -> torch.Tensor:
     """Launch the CUDA f64 kernel; same contract as ``f64_reference``.
     Launches on the current stream without synchronising."""
-    if ids.device.type != "cuda":
-        raise ValueError(f"f64_kernel takes CUDA tensors, got {ids.device}")
-    _check(ids, ii, jj, scene_mat, cam_row, samples=samples,
-           max_depth=max_depth, sample_offset=sample_offset, layout=layout)
-    from . import _build
-
-    launch = _build.function("f64_render", _C_ARGTYPES)
+    launch = kio.entry("f64_render", _C_ARGTYPES, ids.device)
+    kio.check(ids, ii, jj, scene_mat, cam_row, samples=samples,
+              max_depth=max_depth, sample_offset=sample_offset,
+              layout=layout, cam_dtype=F64)
     padded, n = ids.shape[0], scene_mat.shape[0]
-    soa = scene_mat[:, :rk.USED_COLS].t().contiguous()
+    soa = kio.soa(scene_mat)
     out = torch.empty((3, padded), dtype=F64, device=ids.device)
     k0, k1 = rtrng.key_from_seed(seed)
-    err = launch(ids.data_ptr(), ii.data_ptr(), jj.data_ptr(), soa.data_ptr(),
-                 n, cam_row.data_ptr(), out.data_ptr(), padded, samples,
-                 max_depth, k0, k1, sample_offset, int(layout == "hbm"),
-                 torch.cuda.current_stream(ids.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"f64_render launch failed: CUDA error {err}")
+    launch(ids.data_ptr(), ii.data_ptr(), jj.data_ptr(), soa.data_ptr(), n,
+           cam_row.data_ptr(), out.data_ptr(), padded, samples, max_depth,
+           k0, k1, sample_offset, int(layout == "hbm"))
     trace.count("launch.f64_render")
     return out
 
 
-def _f64(ids, *args, **kw) -> torch.Tensor:
-    """The kernel for CUDA tensors, the plain version for CPU tensors."""
-    if ids.device.type == "cuda":
-        return f64_kernel(ids, *args, **kw)
-    if ids.device.type == "cpu":
-        return f64_reference(ids, *args, **kw)
-    raise ValueError(f"no f64 implementation for device {ids.device}")
+_f64 = kio.by_device(f64_kernel, f64_reference)
 
 
 def f64_inputs(scene: Scene, cam_cfg: CameraConfig, img_width: int,
                img_height: int, *, pixel_order=None, scene_mat=None) -> tuple:
     """The five tensors both f64 implementations take, on the scene's
     device: (ids, ii, jj, scene_mat, cam_row). ``scene_mat``: the scene
-    already packed (``render_kernel.pack_scene_matrix``)."""
+    already packed (``kernel_io.pack_scene_matrix``)."""
     if scene_mat is None:
-        scene_mat = rk.pack_scene_matrix(scene)
+        scene_mat = kio.pack_scene_matrix(scene)
     dev = scene_mat.device
-    ids, ii, jj, _ = rk._lane_setup(img_width, img_height, pixel_order, 1, 0,
+    ids, ii, jj, _ = kio.lane_setup(img_width, img_height, pixel_order, 1, 0,
                                     None, dev)
     return ids, ii, jj, scene_mat, initialize_f64(cam_cfg, img_width,
                                                   img_height).to(dev)
@@ -330,7 +307,7 @@ def render_f64(scene: Scene, cam_cfg: CameraConfig, img_width: int,
     itself. ``pixel_order`` (a (padded,) permutation of pixel ids) orders
     the lanes and the output is un-permuted exactly, so it changes speed
     only. 1/spp and then gamma 2 run in double. ``scene_mat``: the scene
-    already packed (``render_kernel.pack_scene_matrix``). The pixels
+    already packed (``kernel_io.pack_scene_matrix``). The pixels
     render samples ``[sample_offset, sample_offset + samples_per_pixel)``;
     ``accumulate_only`` returns their raw double sums (un-permuted, no
     1/spp, no gamma), a round of ``utils.checkpoint.render_incremental``.

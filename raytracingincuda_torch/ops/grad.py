@@ -37,7 +37,6 @@ from __future__ import annotations
 
 from typing import Callable, NamedTuple, Optional
 
-import numpy as np
 import torch
 
 from ..models.camera import (CameraConfig, config_from_leaves, config_leaves,
@@ -47,7 +46,11 @@ from ..parallel import mesh as meshlib
 from ..utils import trace
 from . import tracer
 from .render_kernel import make_diff_render
-from .stream_train_kernel import RECORD_BUDGET
+from .stream_kernel import (StreamScene, build_stream_arrays,
+                            front_to_back_order, render_stream)
+from .stream_train_kernel import (RECORD_BUDGET, mse_train_stream,
+                                  render_stream_grads,
+                                  stream_grads_to_scene_mat)
 from .train_kernel import chain_to_params, fused_train, refuse_unported
 
 _STREAM = ("impl='stream' trains streamed scenes through make_stream_train "
@@ -173,23 +176,15 @@ def front_to_back_border(stream, cam_cfg: CameraConfig, img_width: int,
                          img_height: int) -> torch.Tensor:
     """The walk's block visit order for ``build_stream_arrays``: the
     canonical (Morton) block indices sorted by the camera distance of their
-    bounds (distance - bound radius, empty blocks last), on the bounds'
-    device. The prepared bounds rows may already be in camera order
+    bounds (distance - bound radius, empty blocks last), int32 on the
+    bounds' device. The prepared bounds rows may already be in camera order
     (``camdist_from``), so each row's canonical index comes from its
     first-row column. Speed only: the image and gradients are the same
     but for exact ties between blocks."""
-    with trace.sync():
-        bn = stream.bounds.detach().cpu().numpy()
-    dev = stream.bounds.device
-    if bn.shape[0] <= 1:
-        return torch.arange(bn.shape[0], dtype=torch.int32, device=dev)
-    from .stream_kernel import front_to_back
-
-    order = front_to_back(bn, initialize(cam_cfg, img_width,
-                                         img_height).center)
-    canon = np.rint(bn[:, 4] / stream.block).astype(np.int64)
-    with trace.sync():
-        return torch.from_numpy(canon[order].astype(np.int32)).to(dev)
+    order = front_to_back_order(
+        stream.bounds, initialize(cam_cfg, img_width, img_height).center)
+    first = stream.bounds.detach()[order, 4]
+    return torch.round(first / stream.block).to(torch.int32)
 
 
 class AdamState(NamedTuple):
@@ -243,9 +238,41 @@ def train_state_from_leaves(leaves) -> TrainState:
     )
 
 
-def _mask(trainable) -> list:
-    return ([True] * 9 if trainable is None
-            else [bool(t) for t in param_leaves(trainable)])
+def _trained(trainable) -> list:
+    """The indices of the SceneParams leaves ``trainable`` selects."""
+    return [i for i, t in enumerate(
+        [True] * 9 if trainable is None else param_leaves(trainable)) if t]
+
+
+def _init_state(params: SceneParams, opt_state: Callable) -> TrainState:
+    """A step-0 TrainState over copies of ``params``'s leaves, with the
+    optimizer state ``opt_state(leaves, count)``."""
+    leaves = [t.detach().clone() for t in param_leaves(params)]
+    zero = lambda: torch.zeros((), dtype=torch.int32,  # noqa: E731
+                               device=leaves[0].device)
+    return TrainState(params_from_leaves(leaves), opt_state(leaves, zero()),
+                      zero())
+
+
+def _step_leaves(params: SceneParams, d_params: SceneParams, train: list,
+                 make_opt: Callable, state_of: Callable) -> tuple:
+    """One optimizer step of the leaves ``train`` indexes, on copies of
+    ``params``'s leaves: ``make_opt(tensors)`` builds the optimizer over
+    them, and leaf i takes ``state_of(i)`` as its optimizer state (none
+    where that is empty) and ``d_params``'s leaf i as its gradient.
+    Returns (the 9 leaves, {i: leaf i's optimizer state after the step})."""
+    leaves = [t.detach().clone() for t in param_leaves(params)]
+    if not train:
+        return leaves, {}
+    opt, grads = make_opt([leaves[i] for i in train]), param_leaves(d_params)
+    for i in train:
+        leaves[i].grad = grads[i].detach().to(leaves[i].dtype)
+        if state := state_of(i):
+            opt.state[leaves[i]] = state
+    opt.step()
+    for i in train:
+        leaves[i].grad = None
+    return leaves, {i: opt.state[leaves[i]] for i in train}
 
 
 def _adam(learning_rate: float, trainable):
@@ -253,45 +280,30 @@ def _adam(learning_rate: float, trainable):
     ``torch.optim.Adam(lr=learning_rate)`` with optax's defaults (betas
     0.9/0.999, eps 1e-8); ``trainable``, a SceneParams of bools, selects
     the leaves it updates."""
-    mask = _mask(trainable)
+    train = _trained(trainable)
 
-    def init_fn(params: SceneParams) -> TrainState:
-        leaves = [t.detach().clone() for t in param_leaves(params)]
-        zeros = params_from_leaves([torch.zeros_like(t) for t in leaves])
-        dev = leaves[0].device
-        return TrainState(
-            params=params_from_leaves(leaves),
-            opt_state=AdamState(torch.zeros((), dtype=torch.int32,
-                                            device=dev), zeros, zeros),
-            step=torch.zeros((), dtype=torch.int32, device=dev),
-        )
+    def zeros(leaves, count):
+        z = params_from_leaves([torch.zeros_like(t) for t in leaves])
+        return AdamState(count, z, z)
 
     @trace.spanned("rt.optim")
     def apply(state: TrainState, d_params: SceneParams):
-        leaves = [t.detach().clone() for t in param_leaves(state.params)]
         mu = [t.clone() for t in param_leaves(state.opt_state.mu)]
         nu = [t.clone() for t in param_leaves(state.opt_state.nu)]
-        grads = param_leaves(d_params)
-        train = [i for i in range(9) if mask[i]]
+        count = 0.0
         if train:
-            opt = torch.optim.Adam([leaves[i] for i in train],
-                                   lr=learning_rate)
             with trace.sync():
                 count = float(state.opt_state.count)
-            for i in train:
-                leaves[i].grad = grads[i].detach().to(leaves[i].dtype)
-                opt.state[leaves[i]] = {
-                    "step": torch.tensor(count, dtype=torch.float32),
-                    "exp_avg": mu[i], "exp_avg_sq": nu[i],
-                }
-            opt.step()
-            for i in train:
-                leaves[i].grad = None
+        leaves, _ = _step_leaves(
+            state.params, d_params, train,
+            lambda ts: torch.optim.Adam(ts, lr=learning_rate),
+            lambda i: {"step": torch.tensor(count, dtype=torch.float32),
+                       "exp_avg": mu[i], "exp_avg_sq": nu[i]})
         opt_state = AdamState(state.opt_state.count + 1,
                               params_from_leaves(mu), params_from_leaves(nu))
         return params_from_leaves(leaves), opt_state
 
-    return init_fn, apply
+    return lambda params: _init_state(params, zeros), apply
 
 
 def _torch_optimizer(factory: Callable, trainable):
@@ -299,40 +311,24 @@ def _torch_optimizer(factory: Callable, trainable):
     ``factory(tensors)`` builds it over the trainable leaves each step,
     with each leaf's state dict carried in an ``OptimizerState`` (copied,
     so a state is never changed in place)."""
-    mask = _mask(trainable)
+    train = _trained(trainable)
 
     def copy(st: dict) -> dict:
         return {k: v.clone() if torch.is_tensor(v) else v
                 for k, v in st.items()}
 
     def init_fn(params: SceneParams) -> TrainState:
-        leaves = [t.detach().clone() for t in param_leaves(params)]
-        dev = leaves[0].device
         name = getattr(factory, "func", factory).__name__
-        return TrainState(
-            params=params_from_leaves(leaves),
-            opt_state=OptimizerState(
-                name, torch.zeros((), dtype=torch.int32, device=dev),
-                tuple({} for _ in leaves)),
-            step=torch.zeros((), dtype=torch.int32, device=dev),
-        )
+        return _init_state(params, lambda leaves, count: OptimizerState(
+            name, count, tuple({} for _ in leaves)))
 
     @trace.spanned("rt.optim")
     def apply(state: TrainState, d_params: SceneParams):
-        leaves = [t.detach().clone() for t in param_leaves(state.params)]
         per_leaf = list(state.opt_state.per_leaf)
-        grads = param_leaves(d_params)
-        train = [i for i in range(9) if mask[i]]
-        if train:
-            opt = factory([leaves[i] for i in train])
-            for i in train:
-                leaves[i].grad = grads[i].detach().to(leaves[i].dtype)
-                if per_leaf[i]:
-                    opt.state[leaves[i]] = copy(per_leaf[i])
-            opt.step()
-            for i in train:
-                leaves[i].grad = None
-                per_leaf[i] = copy(opt.state[leaves[i]])
+        leaves, after = _step_leaves(state.params, d_params, train, factory,
+                                     lambda i: copy(per_leaf[i]))
+        for i, st in after.items():
+            per_leaf[i] = copy(st)
         opt_state = state.opt_state._replace(
             count=state.opt_state.count + 1, per_leaf=tuple(per_leaf))
         return params_from_leaves(leaves), opt_state
@@ -447,10 +443,6 @@ def make_stream_train(stream, img_width: int, img_height: int,
     gradient records a launch holds (``stream_train_kernel.plan_records``);
     a fused step whose records need more than one window takes the
     ``fused=False`` route on the card (render, loss, gradient windows)."""
-    from .stream_kernel import StreamScene, build_stream_arrays, render_stream
-    from .stream_train_kernel import (mse_train_stream, render_stream_grads,
-                                      stream_grads_to_scene_mat)
-
     meshlib.validate(mesh)
     init_fn, apply = _optimizer(optimizer, learning_rate, trainable)
     block, n_pad, perm = stream.block, stream.scene_mat.shape[0], stream.perm

@@ -29,40 +29,39 @@ from __future__ import annotations
 
 import ctypes
 import re
-from pathlib import Path
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from ..utils import trace
-from . import f32math
+from . import _build, f32math
+from . import kernel_io as kio
+from .kernel_io import WARP
 
-_CSRC = Path(__file__).resolve().parent.parent / "csrc"
 
-
-def _constants(path: Path) -> dict:
-    """``constexpr int|float kName = value;`` lines of a source file."""
+def constants(source: str) -> dict:
+    """The ``constexpr int|float kName = value;`` lines of the kernel
+    source ``csrc/<source>``."""
     out = {}
     for kind, name, value in re.findall(
             r"^constexpr (int|float) (k\w+) = ([0-9a-fA-Fxp.+-]+)f?;",
-            path.read_text(), flags=re.M):
+            (_build.CSRC_DIR / source).read_text(), flags=re.M):
         v = value.rstrip("f")
         out[name] = int(v) if kind == "int" else float(
             np.float32(float.fromhex(v) if v.startswith("0x") else float(v)))
     return out
 
 
-_C = _constants(_CSRC / "path_common.cuh")
+_C = constants("path_common.cuh")
 GROUP = _C["kGroup"]
 LARGE_SCALE = _C["kLargeScale"]
 PAD = _C["kPad"]
 SLACK = _C["kSlack"]
 SAFE = _C["kSafe"]
 HEAD = _C["kTableHead"]
-MAX_SLOTS = _constants(_CSRC / "group_table.cu")["kMaxSlots"]
+MAX_SLOTS = constants("group_table.cu")["kMaxSlots"]
 T_MIN, T_MISS = _C["kTMin"], _C["kTMiss"]
-WARP = 32
 _NAN_BITS = 0x7FFFFFFF
 
 
@@ -90,7 +89,7 @@ def _f32(x):
 
 def _morton(q: torch.Tensor) -> torch.Tensor:
     """(N, 3) 10-bit coordinates -> (N,) int64 Morton codes, bit 3b + a
-    holding bit b of axis a (stream_kernel._morton3)."""
+    holding bit b of axis a, as ``stream_kernel``'s Morton sort orders."""
     out = torch.zeros(q.shape[0], dtype=torch.int64)
     for b in range(10):
         for a in range(3):
@@ -189,25 +188,19 @@ _TABLE_ARGTYPES = [
     ctypes.c_int,      # N
     ctypes.c_void_p,   # cam row
     ctypes.c_void_p,   # table (table_words(N),) int32
-    ctypes.c_void_p,   # cudaStream_t
 ]
 
 
 def group_table_kernel(soa: torch.Tensor, cam_row: torch.Tensor) -> torch.Tensor:
     """Launch ``csrc/group_table.cu`` on the current stream over the (11, N)
     SoA scene a kernel takes; counts ``launch.group_table``."""
-    from . import _build
-
+    launch = kio.entry("group_table", _TABLE_ARGTYPES, soa.device)
     n = soa.shape[1]
     if not 2 * GROUP <= n <= MAX_SLOTS:
         raise ValueError(f"a group table takes {2 * GROUP} to {MAX_SLOTS} "
                          f"slots, got {n}")
     table = torch.empty((table_words(n),), dtype=torch.int32, device=soa.device)
-    launch = _build.function("group_table", _TABLE_ARGTYPES)
-    err = launch(soa.data_ptr(), n, cam_row.data_ptr(), table.data_ptr(),
-                 torch.cuda.current_stream(soa.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"group_table launch failed: CUDA error {err}")
+    launch(soa.data_ptr(), n, cam_row.data_ptr(), table.data_ptr())
     trace.count("launch.group_table")
     return table
 
@@ -224,10 +217,6 @@ def group_table(soa: torch.Tensor, cam_row: torch.Tensor,
 def count_path(table: Optional[torch.Tensor]) -> None:
     """Count a scanning launch by the scan it runs."""
     trace.count("scan.one_level" if table is None else "scan.two_level")
-
-
-def pointer(table: Optional[torch.Tensor]) -> int:
-    return 0 if table is None else table.data_ptr()
 
 
 class Table(NamedTuple):

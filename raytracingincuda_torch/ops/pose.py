@@ -164,7 +164,8 @@ class PoseState(NamedTuple):
     lookat: torch.Tensor    # (3,)
 
 
-def _cam_with_pose(base: CameraConfig, pose: PoseState) -> CameraConfig:
+def cam_with_pose(base: CameraConfig, pose: PoseState) -> CameraConfig:
+    """``base`` with the pose's lookfrom and lookat."""
     return base._replace(
         lookfrom=Vec3(pose.lookfrom[0], pose.lookfrom[1], pose.lookfrom[2]),
         lookat=Vec3(pose.lookat[0], pose.lookat[1], pose.lookat[2]))
@@ -185,7 +186,7 @@ def _avg_pool(img: torch.Tensor, k: int) -> torch.Tensor:
     return img[:h2, :w2].reshape(h2 // k, k, w2 // k, k, c).mean((1, 3))
 
 
-def _adam(tensors, lr: float) -> torch.optim.Adam:
+def adam(tensors, lr: float) -> torch.optim.Adam:
     """``optax.adam(lr)``'s counterpart: torch's Adam with optax's
     defaults (betas 0.9 / 0.999, eps 1e-8)."""
     return torch.optim.Adam(tensors, lr=lr, betas=(0.9, 0.999), eps=1e-8)
@@ -225,11 +226,11 @@ def recover_pose(scene: Scene, target: torch.Tensor, init_cam: CameraConfig,
     stage_lr = lr
     for k in pyramid:
         tgt = _avg_pool(target, k)
-        opt = _adam([lf, la], stage_lr)
+        opt = adam([lf, la], stage_lr)
         for _ in range(steps // len(pyramid)):
             opt.zero_grad()
-            img = soft_render(scene, _cam_with_pose(init_cam,
-                                                    PoseState(lf, la)),
+            img = soft_render(scene, cam_with_pose(init_cam,
+                                                   PoseState(lf, la)),
                               img_width, img_height, soft)
             if objective == "edges":
                 # a floor, not 0: sqrt'(0) is infinite and would reach the
@@ -285,13 +286,13 @@ def refine_pose_fd(scene: Scene, target: torch.Tensor, init_cam: CameraConfig,
         scene.mat_type.device)
 
     def mse(x):
-        img = render_fn(_cam_with_pose(init_cam, PoseState(x[:3], x[3:])))
+        img = render_fn(cam_with_pose(init_cam, PoseState(x[:3], x[3:])))
         return float(torch.mean((img - target) ** 2))
 
     start = pose_of(init_cam)
     x = torch.cat([start.lookfrom, start.lookat]).detach().cpu().clone()
     n_free = 6 if optimize_lookat else 3
-    opt = _adam([x], lr)
+    opt = adam([x], lr)
     history = []
     for it in range(steps):
         g = np.zeros(6, np.float32)

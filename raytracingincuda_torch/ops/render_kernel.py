@@ -13,20 +13,21 @@ Two implementations share one signature:
   * ``regen_reference`` is the plain PyTorch version: the JAX
     ``_regen_body`` recurrence, one wave at a time over all lanes.
 
-``_regen`` picks the kernel for CUDA tensors and the plain version only
-for CPU tensors; nothing falls back from one to the other. The kernel
-finds the closest hit with the two-level scan where its launch builds a
-group table (``ops/group_scan.py``). The kernel's count mode
-(``regen_counts``, with ``regen_counts_reference``, ``sample_segments``,
-``warp_iterations`` and ``wave_rays`` beside it) counts what each warp's
-loop runs instead of rendering.
+``_regen`` (``kernel_io.by_device``) picks the kernel for CUDA tensors
+and the plain version only for CPU tensors; nothing falls back from one to
+the other. The kernel finds the closest hit with the two-level scan where
+its launch builds a group table (``ops/group_scan.py``). The kernel's count
+mode (``regen_counts``, with ``regen_counts_reference``,
+``sample_segments``, ``warp_iterations`` and ``wave_rays`` beside it)
+counts what each warp's loop runs instead of rendering.
 
-Around them sit the host plumbing (``_lane_setup``, ``_finalize_output``),
-``render_kernel`` (the ``render_pallas`` counterpart), the difficulty
-prepass (``measure_difficulty``, ``difficulty_order``), which sorts pixels
-by traced depth so that each warp holds pixels of similar path length,
-and ``make_diff_render``, the render as a ``torch.autograd.Function``
-whose backward is the gradient kernel (``ops/train_kernel.py``).
+Around them sit ``regen_inputs``, ``render_kernel`` (the
+``render_pallas`` counterpart), the difficulty prepass
+(``measure_difficulty``, ``difficulty_order``), which sorts pixels by
+traced depth so that each warp holds pixels of similar path length, and
+``make_diff_render``, the render as a ``torch.autograd.Function`` whose
+backward is the gradient kernel (``ops/train_kernel.py``). The scene
+matrix, the camera row and the lanes are ``ops/kernel_io.py``'s formats.
 ``render_kernel(mode=...)`` also takes the JAX package's older schedules:
 ``'simple'`` runs this kernel, ``'compact'`` the compact kernel
 (``ops/compact_kernel.py``). ``mesh=`` (``parallel/mesh.py``) gives each
@@ -40,161 +41,27 @@ from typing import Optional
 
 import torch
 
-from ..models.camera import (Camera, CameraConfig, config_from_leaves,
-                             config_leaves, initialize)
-from ..models.scene import (Scene, SceneParams, _round_up, param_leaves,
-                            params_from_leaves)
+from ..models.camera import CameraConfig, config_from_leaves, config_leaves
+from ..models.camera import initialize  # noqa: F401  (the benchmark's)
+from ..models.scene import Scene, SceneParams, param_leaves, params_from_leaves
 from ..parallel import mesh as meshlib
 from ..utils import trace
 from . import group_scan
+from . import kernel_io as kio
 from . import rng as rtrng
 from . import tracer, vec
-from .tracer import _linear_to_gamma, _sky_color, primary_rays_from_ij, shade_hit
+from .kernel_io import (  # noqa: F401  (the JAX package's, the benchmark's)
+    COL_ACTIVE, COL_ALB_B, COL_ALB_G, COL_ALB_R, COL_CX, COL_CY, COL_CZ,
+    COL_FUZZ, COL_IOR, COL_MAT, COL_RADIUS, NUM_COLS, PAD, WARP, pack_camera,
+    pack_scene_matrix)
+from .tracer import linear_to_gamma, primary_rays_from_ij, shade_hit, sky_color
 from .vec import Vec3
 
-# Scene-matrix columns (the JAX pack_scene_matrix layout).
-COL_CX, COL_CY, COL_CZ = 0, 1, 2
-COL_RADIUS = 3
-COL_ALB_R, COL_ALB_G, COL_ALB_B = 4, 5, 6
-COL_FUZZ, COL_IOR, COL_MAT, COL_ACTIVE = 7, 8, 9, 10
-NUM_COLS = 16
-USED_COLS = 11
-
-# Lanes per CUDA block; images are padded to a multiple of it.
-PAD = 128
-# layout='vmem' stages the scene in shared memory (44 bytes a slot, about
-# 180 KB at this bound, inside the 227 KB a Hopper block may take).
-MAX_VMEM_SLOTS = 4096
-# The most lanes (the padded pixels of every rank together) a call takes.
-# Lane ids are int32 and the kernels read them as uint32; coordinates are
-# f32, exact for widths and heights below 2^24. The bound is the kernels'
-# 32-bit index products: a (3, lanes) row array is indexed as
-# c * lanes + i in int (csrc/*.cu), which holds while 3 x lanes < 2^31.
-# Widening those products to size_t would raise the bound to the ids'
-# 2^31, but at this one a render's lane rows and image already take 20 GB.
-MAX_LANES = (2**31 - 1) // 3 // PAD * PAD
 # The JAX package renders mode='compact' as 'simple' from this many pixels
 # on (its compact kernel carries pixel ids as f32); the port keeps the rule.
 COMPACT_MAX_PIXELS = 1 << 24
-# The plain version bounds its (spheres x lanes) temporaries to this many
-# elements by tracing lanes in chunks (lanes are independent).
-_REFERENCE_CHUNK_ELEMS = 1 << 24
-
-
-def pack_scene_matrix(scene: Scene) -> torch.Tensor:
-    """Scene -> (N, 16) f32 attribute matrix on the scene's device."""
-    p = scene.params
-    cols = [
-        p.center.x, p.center.y, p.center.z,
-        p.radius,
-        p.albedo.x, p.albedo.y, p.albedo.z,
-        p.fuzz, p.ior,
-        scene.mat_type, scene.active,
-    ]
-    m = torch.zeros((scene.num_slots, NUM_COLS), dtype=torch.float32,
-                    device=scene.mat_type.device)
-    for k, c in enumerate(cols):
-        m[:, k] = c.to(torch.float32)
-    return m
-
-
-def scene_from_matrix(scene_mat: torch.Tensor) -> Scene:
-    """A Scene view over the columns of a packed matrix."""
-    col = lambda k: scene_mat[:, k]  # noqa: E731
-    return Scene(
-        params=SceneParams(
-            center=Vec3(col(COL_CX), col(COL_CY), col(COL_CZ)),
-            radius=col(COL_RADIUS),
-            albedo=Vec3(col(COL_ALB_R), col(COL_ALB_G), col(COL_ALB_B)),
-            fuzz=col(COL_FUZZ),
-            ior=col(COL_IOR),
-        ),
-        mat_type=col(COL_MAT).to(torch.int32),
-        active=col(COL_ACTIVE) > 0.5,
-    )
-
-
-def pack_camera(cam: Camera) -> torch.Tensor:
-    """Derived camera -> (1, 24) f32 row."""
-    vals = [
-        *cam.pixel00_loc, *cam.pixel_delta_u, *cam.pixel_delta_v,
-        *cam.center, *cam.defocus_disk_u, *cam.defocus_disk_v,
-        cam.use_defocus,
-    ]
-    row = torch.zeros((1, 24), dtype=torch.float32, device=cam.center.x.device)
-    for k, v in enumerate(vals):
-        row[0, k] = v.to(torch.float32)
-    return row
-
-
-def unpack_camera(cam_row: torch.Tensor) -> Camera:
-    g = lambda k: cam_row[0, k]  # noqa: E731
-    v3 = lambda k: Vec3(g(k), g(k + 1), g(k + 2))  # noqa: E731
-    return Camera(
-        pixel00_loc=v3(0),
-        pixel_delta_u=v3(3),
-        pixel_delta_v=v3(6),
-        center=v3(9),
-        defocus_disk_u=v3(12),
-        defocus_disk_v=v3(15),
-        use_defocus=g(18) > 0.5,
-    )
-
-
-def _check_tensors(ids, ii, jj, scene_mat, others, *, layout):
-    """Device, dtype, shape and contiguity of the lane rows, the scene
-    matrix and ``others`` ((name, tensor, dtype, shape) entries); then the
-    lane count, the matrix's width and the layout. Raises on anything
-    else."""
-    dev = ids.device
-    for name, t, dtype, shape in (
-        ("ids", ids, torch.int32, None),
-        ("ii", ii, torch.float32, ids.shape),
-        ("jj", jj, torch.float32, ids.shape),
-        ("scene_mat", scene_mat, torch.float32, None),
-        *others,
-    ):
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, ids on {dev}")
-        if t.dtype != dtype:
-            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-        if shape is not None and tuple(t.shape) != tuple(shape):
-            raise ValueError(f"{name} must have shape {tuple(shape)}, "
-                             f"got {tuple(t.shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if ids.dim() != 1 or ids.shape[0] % PAD or ids.shape[0] > MAX_LANES:
-        raise ValueError(f"ids must be 1-D, a multiple of {PAD} long and at "
-                         f"most MAX_LANES = {MAX_LANES} long; got "
-                         f"{tuple(ids.shape)}")
-    if scene_mat.dim() != 2 or scene_mat.shape[1] != NUM_COLS:
-        raise ValueError(f"scene_mat must be (N, {NUM_COLS}), got "
-                         f"{tuple(scene_mat.shape)}")
-    if layout not in ("vmem", "hbm"):
-        raise ValueError(f"layout must be 'vmem' or 'hbm', got {layout!r}")
-    if layout == "vmem" and scene_mat.shape[0] > MAX_VMEM_SLOTS:
-        raise ValueError(
-            f"layout='vmem' stages at most {MAX_VMEM_SLOTS} slots in shared "
-            f"memory, the scene has {scene_mat.shape[0]}; use layout='hbm'"
-        )
-
-
-def _check_args(ids, ii, jj, budget, scene_mat, cam_row, *, samples,
-                max_depth, rr_start, sample_offset, layout):
-    """What both implementations take; raises on anything else. The
-    gradient kernels pass their (3, padded) cotangent or target rows as
-    ``budget``."""
-    budget_shape = ids.shape if budget.dim() == 1 else (3, ids.shape[0])
-    _check_tensors(ids, ii, jj, scene_mat, (
-        ("budget" if budget.dim() == 1 else "rows", budget, torch.float32,
-         budget_shape),
-        ("cam_row", cam_row, torch.float32, (1, 24)),
-    ), layout=layout)
-    if max_depth < 1 or samples < 1 or sample_offset < 0:
-        raise ValueError("samples and max_depth must be positive and "
-                         "sample_offset non-negative")
-    rtrng.validate_stream_ids(sample_offset + samples, max_depth)
-    return rtrng.validate_rr_start(rr_start)
+# the benchmark's name for the lanes' setup
+_lane_setup = kio.lane_setup
 
 
 def regen_reference(ids, ii, jj, budget, scene_mat, cam_row, *, samples: int,
@@ -212,15 +79,15 @@ def regen_reference(ids, ii, jj, budget, scene_mat, cam_row, *, samples: int,
     Like the JAX kernel it stops after ``samples * max_depth`` waves,
     which never binds while ``budget - sample_offset <= samples``.
     ``layout`` only changes where the kernel keeps the scene."""
-    rr_start = _check_args(ids, ii, jj, budget, scene_mat, cam_row,
-                           samples=samples, max_depth=max_depth,
-                           rr_start=rr_start, sample_offset=sample_offset,
-                           layout=layout)
-    chunk = max(PAD, _REFERENCE_CHUNK_ELEMS // scene_mat.shape[0] // PAD * PAD)
-    scene = scene_from_matrix(scene_mat)
-    cam = unpack_camera(cam_row)
+    rr_start = kio.check(ids, ii, jj, scene_mat, cam_row, rows=budget,
+                         samples=samples, max_depth=max_depth,
+                         rr_start=rr_start, sample_offset=sample_offset,
+                         layout=layout)
+    chunk = kio.reference_chunk(scene_mat.shape[0])
+    scene = kio.scene_from_matrix(scene_mat)
+    cam = kio.unpack_camera(cam_row)
     outs = [
-        _regen_lanes(*lanes, scene, cam, samples=samples, max_depth=max_depth,
+        regen_lanes(*lanes, scene, cam, samples=samples, max_depth=max_depth,
                      seed=seed, legacy_sky=legacy_sky, emit_depth=emit_depth,
                      rr_start=rr_start, sample_offset=sample_offset,
                      finalize_scale=finalize_scale)
@@ -230,7 +97,7 @@ def regen_reference(ids, ii, jj, budget, scene_mat, cam_row, *, samples: int,
     return torch.cat(outs, dim=1)
 
 
-def _regen_lanes(ids, fi, fj, budget, scene, cam, *, samples, max_depth, seed,
+def regen_lanes(ids, fi, fj, budget, scene, cam, *, samples, max_depth, seed,
                  legacy_sky, emit_depth, rr_start, sample_offset,
                  finalize_scale, hit_fn=None):
     """The JAX ``_regen_body`` recurrence (K=1) over one chunk of lanes.
@@ -277,7 +144,7 @@ def _regen_lanes(ids, fi, fj, budget, scene, cam, *, samples, max_depth, seed,
         if emit_depth:
             seg = seg + torch.where(dies, bounce_f + 1.0, zero_row)
         else:
-            sky = _sky_color(prim_d if legacy_sky else d)
+            sky = sky_color(prim_d if legacy_sky else d)
             acc = acc + vec.where(active & ~hit, atten * sky, zero3)
 
         o = vec.where(continues, p, o)
@@ -302,7 +169,7 @@ def _regen_lanes(ids, fi, fj, budget, scene, cam, *, samples, max_depth, seed,
         return seg[None]
     rad = acc.stack(0)
     if finalize_scale is not None:
-        rad = _linear_to_gamma(rad * finalize_scale)
+        rad = linear_to_gamma(rad * finalize_scale)
     return rad
 
 
@@ -327,7 +194,6 @@ _C_ARGTYPES = [
     ctypes.c_float,    # finalize scale
     ctypes.c_int,      # hbm layout
     ctypes.c_void_p,   # group table (null: the one-level scan)
-    ctypes.c_void_p,   # cudaStream_t
 ]
 
 
@@ -344,34 +210,27 @@ def regen_kernel(ids, ii, jj, budget, scene_mat, cam_row, *, samples: int,
     ``launch.regen_render``, and its scan (``group_scan``): with a group
     table, built by one launch before it, ``scan.two_level``, else
     ``scan.one_level``."""
-    if ids.device.type != "cuda":
-        raise ValueError(f"regen_kernel takes CUDA tensors, got {ids.device}")
-    rr_start = _check_args(ids, ii, jj, budget, scene_mat, cam_row,
-                           samples=samples, max_depth=max_depth,
-                           rr_start=rr_start, sample_offset=sample_offset,
-                           layout=layout)
-    from . import _build
-
-    launch = _build.function("regen_render", _C_ARGTYPES)
+    launch = kio.entry("regen_render", _C_ARGTYPES, ids.device)
+    rr_start = kio.check(ids, ii, jj, scene_mat, cam_row, rows=budget,
+                         samples=samples, max_depth=max_depth,
+                         rr_start=rr_start, sample_offset=sample_offset,
+                         layout=layout)
     padded = ids.shape[0]
     n = scene_mat.shape[0]
-    soa = scene_mat[:, :USED_COLS].t().contiguous()
+    soa = kio.soa(scene_mat)
     out = torch.empty((1 if emit_depth else 3, padded), dtype=torch.float32,
                       device=ids.device)
     k0, k1 = rtrng.key_from_seed(seed)
     groups = group_scan.group_table(soa, cam_row, layout)
-    stream = torch.cuda.current_stream(ids.device).cuda_stream
-    err = launch(
+    launch(
         ids.data_ptr(), ii.data_ptr(), jj.data_ptr(), budget.data_ptr(),
         soa.data_ptr(), n, cam_row.data_ptr(), out.data_ptr(), padded,
         max_depth, k0, k1, sample_offset,
         -1 if rr_start is None else rr_start, int(legacy_sky),
         int(emit_depth), int(finalize_scale is not None),
         0.0 if finalize_scale is None else finalize_scale,
-        int(layout == "hbm"), group_scan.pointer(groups), stream,
+        int(layout == "hbm"), kio.at(groups),
     )
-    if err != 0:
-        raise RuntimeError(f"regen_render launch failed: CUDA error {err}")
     trace.count("launch.regen_render")
     group_scan.count_path(groups)
     return out
@@ -395,10 +254,8 @@ _COUNT_ARGTYPES = [
     ctypes.c_int,      # legacy_sky
     ctypes.c_int,      # hbm layout
     ctypes.c_void_p,   # group table (null: the one-level scan)
-    ctypes.c_void_p,   # cudaStream_t
 ]
 LOOPS = ("regen", "nested", "compact", "pool")
-WARP = 32
 # lanes a block of the compact kernel takes (csrc/compact_render.cu kTile)
 POOL = 128
 
@@ -415,32 +272,24 @@ def regen_counts(ids, ii, jj, budget, scene_mat, cam_row, *, samples: int,
     opened; the slot tests it issued: the large entries and ``GROUP`` an
     opened group a scan, or every slot a scan of the one-level scan).
     ``regen_counts_reference`` is its plain version."""
-    if ids.device.type != "cuda":
-        raise ValueError(f"regen_counts takes CUDA tensors, got {ids.device}")
-    rr_start = _check_args(ids, ii, jj, budget, scene_mat, cam_row,
-                           samples=samples, max_depth=max_depth,
-                           rr_start=rr_start, sample_offset=sample_offset,
-                           layout=layout)
-    from . import _build
-
-    launch = _build.function("regen_counts", _COUNT_ARGTYPES)
+    launch = kio.entry("regen_counts", _COUNT_ARGTYPES, ids.device)
+    rr_start = kio.check(ids, ii, jj, scene_mat, cam_row, rows=budget,
+                         samples=samples, max_depth=max_depth,
+                         rr_start=rr_start, sample_offset=sample_offset,
+                         layout=layout)
     padded = ids.shape[0]
-    soa = scene_mat[:, :USED_COLS].t().contiguous()
+    soa = kio.soa(scene_mat)
     seg = torch.empty((padded,), dtype=torch.float32, device=ids.device)
     per_warp = [torch.empty((padded // WARP,), dtype=torch.int32,
                             device=ids.device) for _ in range(3)]
     k0, k1 = rtrng.key_from_seed(seed)
     groups = group_scan.group_table(soa, cam_row, layout)
-    err = launch(ids.data_ptr(), ii.data_ptr(), jj.data_ptr(),
-                 budget.data_ptr(), soa.data_ptr(), scene_mat.shape[0],
-                 cam_row.data_ptr(), seg.data_ptr(),
-                 *(t.data_ptr() for t in per_warp), padded,
-                 max_depth, k0, k1, sample_offset,
-                 -1 if rr_start is None else rr_start, int(legacy_sky),
-                 int(layout == "hbm"), group_scan.pointer(groups),
-                 torch.cuda.current_stream(ids.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"regen_counts launch failed: CUDA error {err}")
+    launch(ids.data_ptr(), ii.data_ptr(), jj.data_ptr(), budget.data_ptr(),
+           soa.data_ptr(), scene_mat.shape[0], cam_row.data_ptr(),
+           seg.data_ptr(), *(t.data_ptr() for t in per_warp), padded,
+           max_depth, k0, k1, sample_offset,
+           -1 if rr_start is None else rr_start, int(legacy_sky),
+           int(layout == "hbm"), kio.at(groups))
     group_scan.count_path(groups)
     if groups is None:      # the one-level scan tests every slot an issue
         per_warp[2] = per_warp[0] * scene_mat.shape[0]
@@ -559,87 +408,21 @@ def wave_rays(ids, ii, jj, budget, scene_mat, cam_row, fn, *, samples: int,
     loop at that iteration."""
     from .intersect import hit_world
 
-    scene = scene_from_matrix(scene_mat)
+    scene = kio.scene_from_matrix(scene_mat)
 
     def hit(o, d, active):
         fn(o, d, active)
         return hit_world(scene, o, d)
 
     rr_start = rtrng.validate_rr_start(rr_start)
-    _regen_lanes(ids, ii, jj, budget, scene, unpack_camera(cam_row),
+    regen_lanes(ids, ii, jj, budget, scene, kio.unpack_camera(cam_row),
                  samples=samples, max_depth=max_depth, seed=seed,
                  legacy_sky=legacy_sky, emit_depth=True, rr_start=rr_start,
                  sample_offset=sample_offset, finalize_scale=None,
                  hit_fn=hit)
 
 
-def _regen(ids, *args, **kw) -> torch.Tensor:
-    """The kernel for CUDA tensors, the plain version for CPU tensors."""
-    if ids.device.type == "cuda":
-        return regen_kernel(ids, *args, **kw)
-    if ids.device.type == "cpu":
-        return regen_reference(ids, *args, **kw)
-    raise ValueError(f"no regen implementation for device {ids.device}")
-
-
-@trace.spanned("rt.lanes")
-def _lane_setup(img_width, img_height, pixel_order, samples_per_pixel,
-                sample_offset, sample_budgets, device, mesh=None):
-    """Lane -> pixel plumbing: padding to ``PAD`` lanes on every rank of
-    ``mesh``, the optional pixel order, f32 pixel coordinates, and
-    per-lane ABSOLUTE budgets (exclusive end sample ids). Returns (ids,
-    ii, jj, budget) over all the ranks' lanes (``shard`` takes this
-    rank's). An order over one process's lanes (``PAD``-padded) is
-    extended with the padding ids under a mesh. Raises where the lanes of
-    every rank together exceed ``MAX_LANES``."""
-    num_pixels = img_width * img_height
-    padded = meshlib.padded_lanes(num_pixels, mesh)
-    if padded > MAX_LANES:
-        raise ValueError(
-            f"a {img_width}x{img_height} image pads to {padded} lanes, above "
-            f"MAX_LANES = {MAX_LANES} (the kernels' 32-bit index products)")
-    if pixel_order is not None:
-        n = pixel_order.shape[0] if pixel_order.dim() == 1 else -1
-        if n not in (_round_up(num_pixels, PAD), padded):
-            raise ValueError(f"pixel_order must have shape ({padded},), "
-                             f"got {tuple(pixel_order.shape)}")
-        ids = pixel_order.to(device=device, dtype=torch.int32)
-        if n < padded:
-            ids = torch.cat([ids, torch.arange(n, padded, dtype=torch.int32,
-                                               device=device)])
-        ids = ids.contiguous()
-    else:
-        ids = torch.arange(padded, dtype=torch.int32, device=device)
-    ii = (ids % img_width).to(torch.float32)
-    jj = torch.div(ids, img_width, rounding_mode="floor").to(torch.float32)
-
-    if sample_budgets is not None:
-        nb = torch.as_tensor(sample_budgets).reshape(-1)
-        if tuple(nb.shape) != (num_pixels,):
-            raise ValueError(f"sample_budgets must have shape ({num_pixels},)")
-        with trace.sync():
-            lo, hi = torch.stack(torch.aminmax(nb)).tolist()
-        if lo < 0 or hi > samples_per_pixel:
-            raise ValueError(
-                f"sample_budgets must lie in [0, {samples_per_pixel}]")
-        nb_pad = torch.zeros(padded, dtype=torch.float32, device=device)
-        nb_pad[:num_pixels] = nb.to(device=device, dtype=torch.float32)
-        budget = float(sample_offset) + nb_pad[ids.long()]
-    else:
-        budget = torch.full((padded,), float(sample_offset + samples_per_pixel),
-                            dtype=torch.float32, device=device)
-    return ids, ii, jj, budget
-
-
-def camera_row(cam_cfg: CameraConfig, img_width: int, img_height: int,
-               device) -> torch.Tensor:
-    """The (1, 24) camera row on ``device``, derived from ``cam_cfg`` where
-    that lives (the host, by default): span ``rt.camera``, its copy to the
-    card a host sync."""
-    with trace.span("rt.camera"), torch.no_grad():
-        row = pack_camera(initialize(cam_cfg, img_width, img_height))
-        with trace.sync():
-            return row.to(device)
+_regen = kio.by_device(regen_kernel, regen_reference)
 
 
 def regen_inputs(scene: Scene, cam_cfg: CameraConfig, img_width: int,
@@ -652,35 +435,11 @@ def regen_inputs(scene: Scene, cam_cfg: CameraConfig, img_width: int,
     lives (the host, by default)."""
     scene_mat = pack_scene_matrix(scene)
     dev = scene_mat.device
-    cam_row = camera_row(cam_cfg, img_width, img_height, dev)
-    lanes = _lane_setup(img_width, img_height, pixel_order, samples_per_pixel,
-                        sample_offset, sample_budgets, dev, mesh)
+    cam_row = kio.camera_row(cam_cfg, img_width, img_height, dev)
+    lanes = kio.lane_setup(img_width, img_height, pixel_order,
+                           samples_per_pixel, sample_offset, sample_budgets,
+                           dev, mesh)
     return (*lanes, scene_mat, cam_row)
-
-
-def shard(mesh, *lanes) -> tuple:
-    """This rank's contiguous slice of each lane tensor (the last axis)."""
-    sl = meshlib.local_slice(lanes[0].shape[-1], mesh)
-    return tuple(t[..., sl].contiguous() for t in lanes)
-
-
-@trace.spanned("rt.finalize")
-def _finalize_output(acc, ids, use_sort, img_width, img_height,
-                     samples_per_pixel, gamma, accumulate_only,
-                     already_finalized):
-    """Un-permute sorted lanes; then the raw sum (``accumulate_only``),
-    the kernel's fused finalize, or 1/spp and gamma here."""
-    acc = acc.t()                                        # (padded, 3)
-    if use_sort:
-        out = torch.zeros_like(acc)
-        out[ids.long()] = acc
-        acc = out
-    img = acc[:img_width * img_height]
-    if not (already_finalized or accumulate_only):
-        img = img * (1.0 / samples_per_pixel)
-        if gamma:
-            img = _linear_to_gamma(img)
-    return img.reshape(img_height, img_width, 3)
 
 
 def render_kernel(
@@ -751,16 +510,17 @@ def render_kernel(
                           sample_offset=sample_offset,
                           sample_budgets=sample_budgets, mesh=mesh)
     ids, padded = inputs[0], inputs[0].shape[0]
-    ids_l, ii, jj, budget = shard(mesh, *inputs[:4])
+    ids_l, ii, jj, budget = kio.shard(mesh, *inputs[:4])
     fuse = (gamma and not accumulate_only and not return_depth
             and sample_budgets is None)
     scale = 1.0 / samples_per_pixel if fuse else None
     if mode == "compact":
-        from .compact_kernel import _compact
+        from . import compact_kernel
 
-        out = _compact(ids_l, ii, jj, *inputs[4:], samples=samples_per_pixel,
-                       max_depth=max_depth, seed=seed, finalize_scale=scale,
-                       layout=layout)
+        out = compact_kernel.render_compact(
+            ids_l, ii, jj, *inputs[4:], samples=samples_per_pixel,
+            max_depth=max_depth, seed=seed, finalize_scale=scale,
+            layout=layout)
     else:
         out = _regen(ids_l, ii, jj, budget, *inputs[4:],
                      samples=samples_per_pixel, max_depth=max_depth,
@@ -771,9 +531,9 @@ def render_kernel(
     out = meshlib.gather_lanes(mesh, out, padded)
     if return_depth:
         return out[0]
-    return _finalize_output(out, ids, pixel_order is not None,
-                            img_width, img_height, samples_per_pixel, gamma,
-                            accumulate_only, already_finalized=fuse)
+    return kio.finalize_output(out, ids, pixel_order is not None,
+                               img_width, img_height, samples_per_pixel,
+                               gamma, accumulate_only, already_finalized=fuse)
 
 
 def measure_difficulty(scene: Scene, cam_cfg: CameraConfig, img_width: int,

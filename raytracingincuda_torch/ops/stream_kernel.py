@@ -15,11 +15,12 @@ Two implementations share one signature:
   * ``stream_kernel`` launches the hand-written CUDA kernel
     (``csrc/stream_render.cu``, one thread per pixel) on CUDA tensors;
   * ``stream_reference`` is the plain PyTorch version: the regen
-    recurrence of ``render_kernel._regen_lanes`` with the all-slot hit
-    test swapped for the walk (``_Walk``).
+    recurrence of ``render_kernel.regen_lanes`` with the all-slot hit
+    test swapped for the walk (``Walk``).
 
-``_stream`` picks the kernel for CUDA tensors and the plain version only
-for CPU tensors; nothing falls back from one to the other.
+``_stream`` (``kernel_io.by_device``) picks the kernel for CUDA tensors
+and the plain version only for CPU tensors; nothing falls back from one to
+the other. ``check_args`` is ``kernel_io.check`` with the walk's rules.
 ``render_stream`` is the ``render_pallas_stream`` counterpart.
 
 What differs from the TPU layout: the stream matrix has the 16 columns
@@ -40,15 +41,17 @@ import numpy as np
 import torch
 
 from ..models.camera import CameraConfig
-from ..models.scene import Scene, _round_up
+from ..models.scene import Scene, round_up
 from ..parallel import mesh as meshlib
 from ..utils import trace
 from . import f32math
 from . import group_scan as gs
+from . import kernel_io as kio
 from . import render_kernel as rk
 from . import rng as rtrng
 from . import vec
 from .intersect import T_MIN, T_MISS, HitResult, hit_world, root_numerators
+from .kernel_io import COL_ACTIVE, COL_CX, COL_CZ, COL_RADIUS, WARP
 
 DEFAULT_BLOCK = 256
 # stream-row id (the matrix row, as f32, exact below 2^24): the gradient
@@ -62,7 +65,7 @@ _MAX_BLOCKS = 1792
 # |M| + R + |o| and by SLACK; a lane whose ray lies outside SAFE tests every
 # group with an active row.
 GROUP, SAFE, SLACK = gs.GROUP, gs.SAFE, gs.SLACK
-BOX_PAD = gs._constants(gs._CSRC / "staged_walk.cuh")["kBoxPad"]
+BOX_PAD = gs.constants("staged_walk.cuh")["kBoxPad"]
 
 
 class StreamScene(NamedTuple):
@@ -91,7 +94,7 @@ def _morton3(q: np.ndarray, bits: int = 10) -> np.ndarray:
 def _auto_block(n_act: int, block: int) -> int:
     """``block`` doubled until at most ``_MAX_BLOCKS`` blocks of it hold
     ``n_act`` rows in pairs."""
-    while _round_up(max(n_act, 1), 2 * block) // block > _MAX_BLOCKS:
+    while round_up(max(n_act, 1), 2 * block) // block > _MAX_BLOCKS:
         block *= 2
     return block
 
@@ -127,14 +130,14 @@ def prepare_stream_scene(scene: Scene, block: int = DEFAULT_BLOCK,
     if dtype not in (torch.float32, np.float32, "float32"):
         raise NotImplementedError("stream scenes are float32 only")
     dev = scene.mat_type.device
-    mat = rk.pack_scene_matrix(scene).detach().cpu().numpy()
-    active = mat[:, rk.COL_ACTIVE] > 0.5
+    mat = kio.pack_scene_matrix(scene).detach().cpu().numpy()
+    active = mat[:, COL_ACTIVE] > 0.5
     n_act = int(active.sum())
 
     act_idx = np.flatnonzero(active)
     act_mat = mat[active]
     if sort and n_act > 1:
-        c = act_mat[:, rk.COL_CX:rk.COL_CZ + 1].astype(np.float64)
+        c = act_mat[:, COL_CX:COL_CZ + 1].astype(np.float64)
         lo = c.min(0)
         span = np.maximum(c.max(0) - lo, 1e-9)
         q = np.clip(((c - lo) / span * 1023.0), 0, 1023).astype(np.uint32)
@@ -143,19 +146,19 @@ def prepare_stream_scene(scene: Scene, block: int = DEFAULT_BLOCK,
         act_idx = act_idx[order]
 
     block = _auto_block(n_act, block)
-    n_pad = _round_up(max(n_act, 1), (2 if pad_pairs else 1) * block)
-    out = np.zeros((n_pad, rk.NUM_COLS), np.float32)
+    n_pad = round_up(max(n_act, 1), (2 if pad_pairs else 1) * block)
+    out = np.zeros((n_pad, kio.NUM_COLS), np.float32)
     out[:n_act] = act_mat
     # padding rows: radius 0, inactive (never hit), centres at the origin
     nb = n_pad // block
     bounds = np.zeros((nb, 8), np.float32)
     for b in range(nb):
         blk = out[b * block:(b + 1) * block]
-        a_blk = blk[blk[:, rk.COL_ACTIVE] > 0.5]
+        a_blk = blk[blk[:, COL_ACTIVE] > 0.5]
         if a_blk.shape[0] == 0:
             continue                                  # empty: r_bound 0
-        c = a_blk[:, rk.COL_CX:rk.COL_CZ + 1]
-        r = a_blk[:, rk.COL_RADIUS]
+        c = a_blk[:, COL_CX:COL_CZ + 1]
+        r = a_blk[:, COL_RADIUS]
         lo, hi = c.min(0), c.max(0)
         ctr = (lo + hi) * 0.5
         # |r|: a negative (hollow-glass) radius still occupies |r|
@@ -185,18 +188,18 @@ def build_stream_arrays(scene: Scene, perm: torch.Tensor, block: int,
     bounds rows. Counts ``stream.rows`` by the matrix rows it writes."""
     trace.count("stream.rows", n_pad)
     with torch.no_grad():
-        mat = rk.pack_scene_matrix(scene)
+        mat = kio.pack_scene_matrix(scene)
         dev = mat.device
         n_act = perm.shape[0]
-        out = torch.zeros((n_pad, rk.NUM_COLS), dtype=torch.float32,
+        out = torch.zeros((n_pad, kio.NUM_COLS), dtype=torch.float32,
                           device=dev)
         out[:n_act] = mat[perm.long()]
         out[:, STREAM_COL_SID] = torch.arange(n_pad, dtype=torch.float32,
                                               device=dev)
         nb = n_pad // block
-        c = out[:, rk.COL_CX:rk.COL_CZ + 1].reshape(nb, block, 3)
-        r = out[:, rk.COL_RADIUS].reshape(nb, block)
-        act = out[:, rk.COL_ACTIVE].reshape(nb, block) > 0.5
+        c = out[:, COL_CX:COL_CZ + 1].reshape(nb, block, 3)
+        r = out[:, COL_RADIUS].reshape(nb, block)
+        act = out[:, COL_ACTIVE].reshape(nb, block) > 0.5
         with trace.sync():
             big = torch.tensor(1e30, dtype=torch.float32, device=dev)
         lo = torch.where(act[..., None], c, big).amin(1)
@@ -218,14 +221,23 @@ def build_stream_arrays(scene: Scene, perm: torch.Tensor, block: int,
     return out, bounds.contiguous()
 
 
+def front_to_back_order(bounds: torch.Tensor, point) -> torch.Tensor:
+    """``front_to_back`` of a bounds table on any device: the order of its
+    rows, int64 on the bounds' device. The read of the bounds on the host
+    and the order's copy back are one host wait (``trace.sync``); a scene
+    or a fit takes it once."""
+    with trace.sync():
+        order = front_to_back(bounds.detach().cpu().numpy(), point)
+        return torch.from_numpy(order).to(bounds.device)
+
+
 def reorder_front_to_back(stream: StreamScene, point) -> StreamScene:
     """``stream`` with its bounds rows front to back from ``point`` (the
     matrix does not move)."""
-    bn = stream.bounds.cpu().numpy()
-    if bn.shape[0] <= 1:
+    if stream.bounds.shape[0] <= 1:
         return stream
-    order = torch.from_numpy(front_to_back(bn, point))
-    return stream._replace(bounds=stream.bounds[order.to(stream.bounds.device)])
+    return stream._replace(
+        bounds=stream.bounds[front_to_back_order(stream.bounds, point)])
 
 
 # -- the plain version ---------------------------------------------------------
@@ -321,7 +333,7 @@ def _box_can_improve(g, ray, cap):
                        (near <= torch.minimum(far, cap)) & (far > tmin_a))
 
 
-class _Walk:
+class Walk:
     """The stream walk's closest hit, plain version: ``hit_world``'s
     contract over the stream rows. Per bounds row in order, the bound test
     per lane; the lanes that pass (and trace this wave) merge the block's
@@ -341,7 +353,7 @@ class _Walk:
                  block: int, groups: Optional[torch.Tensor] = None):
         self.bounds = [tuple(row) for row in bounds[:, :4].unbind(0)]
         self.first = [int(v) for v in bounds[:, 4].tolist()]
-        self.blocks = [rk.scene_from_matrix(scene_mat[k:k + block])
+        self.blocks = [kio.scene_from_matrix(scene_mat[k:k + block])
                        for k in self.first]
         self.block = block
         self.groups = None
@@ -353,7 +365,7 @@ class _Walk:
 
     def count(self, lanes: int, device):
         self.opened = torch.zeros(lanes, dtype=torch.int64, device=device)
-        self.fetched = torch.zeros(lanes // rk.WARP, dtype=torch.int64,
+        self.fetched = torch.zeros(lanes // WARP, dtype=torch.int64,
                                    device=device)
         self.tested = torch.zeros_like(self.fetched)
 
@@ -373,10 +385,10 @@ class _Walk:
         for g in range(per):
             cap = torch.minimum(best, tca)
             warp = (can & _box_can_improve(table[g], ray, cap)).view(
-                -1, rk.WARP).any(1)
+                -1, WARP).any(1)
             if self.tested is not None:
                 self.tested += warp * min(GROUP, self.block - g * GROUP)
-            take = can & warp.repeat_interleave(rk.WARP) & (gmin[g] < best)
+            take = can & warp.repeat_interleave(WARP) & (gmin[g] < best)
             best = torch.where(take, gmin[g], best)
             win = torch.where(take, garg[g] + (k0 + g * GROUP), win)
         return best, win
@@ -394,7 +406,7 @@ class _Walk:
                 continue
             if self.opened is not None:
                 self.opened += can
-                self.fetched += can.view(-1, rk.WARP).any(1)
+                self.fetched += can.view(-1, WARP).any(1)
             if self.groups is None:
                 h = hit_world(blk, o, d)
                 h_t, h_idx = h.t, h.idx + k0
@@ -409,13 +421,13 @@ class _Walk:
         return HitResult(hit=t_cur < T_MISS, t=t_cur, idx=win)
 
 
-def _check(ids, ii, jj, budget, scene_mat, bounds, cam_row, *, block,
-           samples, max_depth, rr_start, sample_offset):
-    """What both implementations take; raises on anything else."""
-    rr_start = rk._check_args(ids, ii, jj, budget, scene_mat, cam_row,
-                              samples=samples, max_depth=max_depth,
-                              rr_start=rr_start, sample_offset=sample_offset,
-                              layout="hbm")
+def check_args(ids, ii, jj, rows, scene_mat, bounds, cam_row, *, block,
+               **kw):
+    """``kernel_io.check`` with the stream matrix as the scene (layout
+    'hbm'), then the walk's rules: (nb, 8) f32 ``bounds``, at most a row a
+    block of ``block`` matrix rows, column 4 a block's first matrix row."""
+    rr_start = kio.check(ids, ii, jj, scene_mat, cam_row, rows=rows,
+                         layout="hbm", **kw)
     if bounds.device != ids.device or bounds.dtype != torch.float32:
         raise ValueError("bounds must be f32 on the lanes' device")
     if (bounds.dim() != 2 or bounds.shape[1] != 8
@@ -453,28 +465,28 @@ def stream_reference(ids, ii, jj, budget, scene_mat, bounds, cam_row, *,
     opened, and at each warp's first lane the blocks that the warp of 32
     lanes walked (at each iteration of the regenerating loop, the union of
     its lanes' opened blocks) and the rows it tested in them (the walk's
-    two levels, ``_Walk`` with ``walk_groups_reference``'s table); 0 at the
+    two levels, ``Walk`` with ``walk_groups_reference``'s table); 0 at the
     other lanes."""
-    rr_start = _check(ids, ii, jj, budget, scene_mat, bounds, cam_row,
-                      block=block, samples=samples, max_depth=max_depth,
-                      rr_start=rr_start, sample_offset=sample_offset)
-    chunk = max(rk.PAD, rk._REFERENCE_CHUNK_ELEMS // block // rk.PAD * rk.PAD)
-    walk = _Walk(scene_mat, bounds, block, groups=(
+    rr_start = check_args(ids, ii, jj, budget, scene_mat, bounds, cam_row,
+                          block=block, samples=samples, max_depth=max_depth,
+                          rr_start=rr_start, sample_offset=sample_offset)
+    chunk = kio.reference_chunk(block)
+    walk = Walk(scene_mat, bounds, block, groups=(
         walk_groups_reference(scene_mat, block) if emit_stats else None))
-    scene = rk.scene_from_matrix(scene_mat)
-    cam = rk.unpack_camera(cam_row)
+    scene = kio.scene_from_matrix(scene_mat)
+    cam = kio.unpack_camera(cam_row)
     outs = []
     for lanes in zip(ids.split(chunk), ii.split(chunk), jj.split(chunk),
                      budget.split(chunk)):
         if emit_stats:
             walk.count(lanes[0].shape[0], lanes[0].device)
-        out = rk._regen_lanes(*lanes, scene, cam, samples=samples,
-                              max_depth=max_depth, seed=seed,
-                              legacy_sky=False, emit_depth=emit_stats,
-                              rr_start=rr_start, sample_offset=sample_offset,
-                              finalize_scale=finalize_scale, hit_fn=walk)
+        out = rk.regen_lanes(*lanes, scene, cam, samples=samples,
+                             max_depth=max_depth, seed=seed,
+                             legacy_sky=False, emit_depth=emit_stats,
+                             rr_start=rr_start, sample_offset=sample_offset,
+                             finalize_scale=finalize_scale, hit_fn=walk)
         if emit_stats:
-            warps = torch.zeros((2, walk.fetched.shape[0], rk.WARP),
+            warps = torch.zeros((2, walk.fetched.shape[0], WARP),
                                 device=out.device)
             warps[0, :, 0] = walk.fetched.float()
             warps[1, :, 0] = walk.tested.float()
@@ -498,13 +510,7 @@ _C_ARGTYPES = [
     _I, _I,             # sample_offset, rr_start (-1 = off)
     _I, _F,             # fused finalize, its scale
     _I,                 # emit the work counts instead of radiance
-    _P,                 # cudaStream_t
 ]
-
-
-def soa(scene_mat: torch.Tensor) -> torch.Tensor:
-    """The kernels' view of a stream matrix: columns 0-10 as (11, rows)."""
-    return scene_mat[:, :rk.USED_COLS].t().contiguous()
 
 
 def scan_buffer(scene_mat: torch.Tensor, block: int) -> torch.Tensor:
@@ -522,17 +528,9 @@ def walk_tables_kernel(scene_mat: torch.Tensor, block: int):
     before every walk): (the (rows, 4) scan table, the (walk_groups, 8)
     group table), for the tests and ``chip_smoke.py``. Counts
     ``launch.walk_tables``."""
-    if scene_mat.device.type != "cuda":
-        raise ValueError(f"walk_tables_kernel takes CUDA tensors, got "
-                         f"{scene_mat.device}")
-    from . import _build
-
-    launch = _build.function("stream_tables", [_P, _I, _I, _P, _P])
-    rows, table = soa(scene_mat), scan_buffer(scene_mat, block)
-    err = launch(rows.data_ptr(), scene_mat.shape[0], block, table.data_ptr(),
-                 torch.cuda.current_stream(scene_mat.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"stream_tables launch failed: CUDA error {err}")
+    launch = kio.entry("stream_tables", [_P, _I, _I, _P], scene_mat.device)
+    rows, table = kio.soa(scene_mat), scan_buffer(scene_mat, block)
+    launch(rows.data_ptr(), scene_mat.shape[0], block, table.data_ptr())
     trace.count("launch.walk_tables")
     n = scene_mat.shape[0]
     return table[:n], table[n:].reshape(-1, 8)
@@ -559,20 +557,16 @@ def stream_kernel(ids, ii, jj, budget, scene_mat, bounds, cam_row, *,
     the current stream without synchronising. Counts
     ``launch.stream_render``, its table launch and its rows
     (``count_walk``)."""
-    if ids.device.type != "cuda":
-        raise ValueError(f"stream_kernel takes CUDA tensors, got {ids.device}")
-    rr_start = _check(ids, ii, jj, budget, scene_mat, bounds, cam_row,
-                      block=block, samples=samples, max_depth=max_depth,
-                      rr_start=rr_start, sample_offset=sample_offset)
-    from . import _build
-
-    launch = _build.function("stream_render", _C_ARGTYPES)
+    launch = kio.entry("stream_render", _C_ARGTYPES, ids.device)
+    rr_start = check_args(ids, ii, jj, budget, scene_mat, bounds, cam_row,
+                          block=block, samples=samples, max_depth=max_depth,
+                          rr_start=rr_start, sample_offset=sample_offset)
     padded = ids.shape[0]
-    rows, scan = soa(scene_mat), scan_buffer(scene_mat, block)
+    rows, scan = kio.soa(scene_mat), scan_buffer(scene_mat, block)
     out = torch.empty((4 if emit_stats else 3, padded), dtype=torch.float32,
                       device=ids.device)
     k0, k1 = rtrng.key_from_seed(seed)
-    err = launch(
+    launch(
         ids.data_ptr(), ii.data_ptr(), jj.data_ptr(), budget.data_ptr(),
         rows.data_ptr(), scene_mat.shape[0], scan.data_ptr(),
         bounds.data_ptr(), bounds.shape[0], block, cam_row.data_ptr(),
@@ -581,22 +575,13 @@ def stream_kernel(ids, ii, jj, budget, scene_mat, bounds, cam_row, *,
         -1 if rr_start is None else rr_start,
         int(finalize_scale is not None),
         0.0 if finalize_scale is None else finalize_scale, int(emit_stats),
-        torch.cuda.current_stream(ids.device).cuda_stream,
     )
-    if err != 0:
-        raise RuntimeError(f"stream_render launch failed: CUDA error {err}")
     trace.count("launch.stream_render")
     count_walk(bounds, block)
     return out
 
 
-def _stream(ids, *args, **kw) -> torch.Tensor:
-    """The kernel for CUDA tensors, the plain version for CPU tensors."""
-    if ids.device.type == "cuda":
-        return stream_kernel(ids, *args, **kw)
-    if ids.device.type == "cpu":
-        return stream_reference(ids, *args, **kw)
-    raise ValueError(f"no stream implementation for device {ids.device}")
+_stream = kio.by_device(stream_kernel, stream_reference)
 
 
 # -- the entry point ------------------------------------------------------------
@@ -621,17 +606,17 @@ def render_stream(stream: StreamScene, cam_cfg: CameraConfig, img_width: int,
 
     refuse_unported(dtype)
     dev = stream.scene_mat.device
-    cam_row = rk.camera_row(cam_cfg, img_width, img_height, dev)
-    ids, ii, jj, budget = rk._lane_setup(img_width, img_height, pixel_order,
+    cam_row = kio.camera_row(cam_cfg, img_width, img_height, dev)
+    ids, ii, jj, budget = kio.lane_setup(img_width, img_height, pixel_order,
                                          samples_per_pixel, sample_offset,
                                          sample_budgets, dev, mesh)
     fuse = gamma and not accumulate_only and sample_budgets is None
-    out = _stream(*rk.shard(mesh, ids, ii, jj, budget), stream.scene_mat,
+    out = _stream(*kio.shard(mesh, ids, ii, jj, budget), stream.scene_mat,
                   stream.bounds, cam_row, block=stream.block,
                   samples=samples_per_pixel, max_depth=max_depth, seed=seed,
                   rr_start=rr_start, sample_offset=sample_offset,
                   finalize_scale=1.0 / samples_per_pixel if fuse else None)
     out = meshlib.gather_lanes(mesh, out, ids.shape[0])
-    return rk._finalize_output(out, ids, pixel_order is not None, img_width,
+    return kio.finalize_output(out, ids, pixel_order is not None, img_width,
                                img_height, samples_per_pixel, gamma,
                                accumulate_only, already_finalized=fuse)

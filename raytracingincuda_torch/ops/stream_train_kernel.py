@@ -27,7 +27,7 @@ then the segmented sum (``segment_sum_kernel`` /
 of ``TILE`` sorted records). Memory is O(pixels x samples x depth), no
 float atomics, and the gradients are the same bits from run to run. The
 camera's scalars and the loss keep the train kernels' block partials and
-``train_kernel._reduce_rows``. ``walk_counts`` runs the fused mode's walk
+``kernel_io.reduce_rows``. ``walk_counts`` runs the fused mode's walk
 alone and counts its work.
 
 A call's records take 40 bytes each, lanes x samples x max_depth of them
@@ -43,8 +43,9 @@ cotangent with ``train_kernel.loss_and_cotangent`` and runs the gradient
 windows; one window is the single fused launch. ``budget`` is a keyword
 for tests, not a user's knob.
 
-``_grads``, ``_fused`` and ``_segment_sum`` pick the kernel for CUDA
-tensors and the plain version for CPU tensors; nothing falls back.
+``_grads``, ``_fused`` and ``_segment_sum`` (``kernel_io.by_device``)
+pick the kernel for CUDA tensors and the plain version for CPU tensors;
+nothing falls back.
 Gradients come back in stream row order; ``stream_grads_to_scene_mat``
 maps them to scene order through ``perm``.
 """
@@ -58,22 +59,22 @@ import torch
 from ..models.camera import CameraConfig
 from ..parallel import mesh as meshlib
 from ..utils import trace
-from . import render_kernel as rk
+from . import kernel_io as kio
 from . import rng as rtrng
 from . import stream_kernel as sk
 from . import train_kernel as tk
 from .backward import N_CAM
+from .kernel_io import GRAD_COLS, PAD, WARP
 from .stream_kernel import StreamScene
 
 # sorted records per tile of the segmented sum (csrc/stream_train.cu:kTile,
 # 32 warps of 32, one record a thread); the association depends on it alone
 TILE = 1024
-_WARP = 32
 # The record buffers hold lanes x samples x max_depth records of 40 bytes
 # (a row and nine floats); a launch's records take at most this many bytes
 # (plan_records), as the train kernels' park (train_kernel.PARK_BUDGET).
 RECORD_BUDGET = 2 << 30
-RECORD_BYTES = 4 + 4 * tk.GRAD_COLS
+RECORD_BYTES = 4 + 4 * GRAD_COLS
 
 # The wrappers count their launches (utils/trace.py): launch.stream_train
 # (stream_train_render in both modes, stream_walk_counts) and
@@ -99,17 +100,17 @@ def plan_records(lanes: int, samples: int, max_depth: int,
     every lane where one sample fits, as many samples each as fit; else
     one sample at a time in chunks of lanes (multiples of ``PAD``), the
     chunks of a sample in lane order."""
-    if lanes <= 0 or lanes % rk.PAD:
-        raise ValueError(f"lanes must be a positive multiple of {rk.PAD}")
+    if lanes <= 0 or lanes % PAD:
+        raise ValueError(f"lanes must be a positive multiple of {PAD}")
     lane_bytes = max_depth * RECORD_BYTES            # one sample of a lane
     if lanes * lane_bytes <= budget:
         per = min(samples, budget // (lanes * lane_bytes))
         return [RecordWindow(0, lanes, s0, min(per, samples - s0))
                 for s0 in range(0, samples, per)]
-    chunk = budget // lane_bytes // rk.PAD * rk.PAD
+    chunk = budget // lane_bytes // PAD * PAD
     if chunk == 0:
-        raise ValueError(f"one sample of {rk.PAD} lanes at depth {max_depth} "
-                         f"needs {rk.PAD * lane_bytes} bytes of records, "
+        raise ValueError(f"one sample of {PAD} lanes at depth {max_depth} "
+                         f"needs {PAD * lane_bytes} bytes of records, "
                          f"above the budget of {budget}")
     return [RecordWindow(l0, min(chunk, lanes - l0), s0, 1)
             for s0 in range(samples) for l0 in range(0, lanes, chunk)]
@@ -144,9 +145,9 @@ def _warp_scan(f, v):
     32) head flags and (rows, 32, 9) values; in steps of 1, 2, 4, 8, 16
     lanes, lane l takes (f, v) of lane l - step on the left: (f_l-step |
     f_l, f_l ? v_l : v_l-step + v_l)."""
-    lane = torch.arange(_WARP, device=f.device)
+    lane = torch.arange(WARP, device=f.device)
     step = 1
-    while step < _WARP:
+    while step < WARP:
         fp = torch.zeros_like(f)
         fp[:, step:] = f[:, :-step]
         vp = torch.zeros_like(v)
@@ -170,30 +171,30 @@ def segment_sum_reference(keys, src, vals, n_rows: int) -> torch.Tensor:
     lane by lane over 32 lanes (partial i to lane i % 32), then in a
     halving tree (lanes l and l + 16, then l + 8, ...)."""
     m, dev = keys.shape[0], keys.device
-    out = torch.zeros((n_rows, tk.GRAD_COLS), dtype=torch.float32, device=dev)
+    out = torch.zeros((n_rows, GRAD_COLS), dtype=torch.float32, device=dev)
     if m == 0:
         return out
     tiles = -(-m // TILE)
     size = tiles * TILE
     k = torch.full((size,), -1, dtype=torch.int64, device=dev)
     k[:m] = keys
-    x = torch.zeros((size, tk.GRAD_COLS), dtype=torch.float32, device=dev)
+    x = torch.zeros((size, GRAD_COLS), dtype=torch.float32, device=dev)
     x[:m] = vals[src]
     pos = torch.arange(size, device=dev)
     tid = pos % TILE
     valid = pos < m
     prev = torch.cat([k.new_full((1,), -1), k[:-1]])
-    f, v = _warp_scan((valid & ((tid == 0) | (k != prev))).view(-1, _WARP),
-                      x.view(-1, _WARP, tk.GRAD_COLS))
-    _, tot = _warp_scan(f[:, -1].reshape(tiles, _WARP),
-                        v[:, -1].reshape(tiles, _WARP, tk.GRAD_COLS))
+    f, v = _warp_scan((valid & ((tid == 0) | (k != prev))).view(-1, WARP),
+                      x.view(-1, WARP, GRAD_COLS))
+    _, tot = _warp_scan(f[:, -1].reshape(tiles, WARP),
+                        v[:, -1].reshape(tiles, WARP, GRAD_COLS))
     carry = torch.zeros_like(tot)           # warp w adds warps < w's scan
     carry[:, 1:] = tot[:, :-1]
-    later = (torch.arange(_WARP, device=dev) > 0)[:, None]
-    f = f.view(tiles, _WARP, _WARP)
-    v = v.view(tiles, _WARP, _WARP, tk.GRAD_COLS)
+    later = (torch.arange(WARP, device=dev) > 0)[:, None]
+    f = f.view(tiles, WARP, WARP)
+    v = v.view(tiles, WARP, WARP, GRAD_COLS)
     v = torch.where((later & ~f)[..., None], carry[:, :, None] + v, v)
-    v = v.reshape(size, tk.GRAD_COLS)
+    v = v.reshape(size, GRAD_COLS)
     nxt = torch.cat([k[1:], k.new_full((1,), -1)])
     last = valid & ((tid == TILE - 1) | (nxt != k))
     base = pos - tid
@@ -201,7 +202,7 @@ def segment_sum_reference(keys, src, vals, n_rows: int) -> torch.Tensor:
     after = (tid == TILE - 1) & (pos + 1 < m) & (nxt == k)
     inner = last & ~before & ~after
     out[k[inner]] = v[inner]
-    head = torch.zeros((tiles, tk.GRAD_COLS), dtype=torch.float32, device=dev)
+    head = torch.zeros((tiles, GRAD_COLS), dtype=torch.float32, device=dev)
     tail = torch.zeros_like(head)
     head[pos[last & before] // TILE] = v[last & before]
     tail[pos[after] // TILE] = v[after]
@@ -216,17 +217,17 @@ def segment_sum_reference(keys, src, vals, n_rows: int) -> torch.Tensor:
         ot, okey = t[own], key_t[own]
         tb = (torch.searchsorted(k[:m], okey, right=True) - 1) // TILE
         n = tb - ot + 1
-        width = -(-int(n.max()) // _WARP) * _WARP
+        width = -(-int(n.max()) // WARP) * WARP
         j = torch.arange(width, device=dev)
         parts = torch.where((j == 0)[None, :, None], tail[ot][:, None],
                             head[(ot[:, None] + j).clamp(max=tiles - 1)])
         live = j[None, :] < n[:, None]
-        acc = torch.zeros((ot.shape[0], _WARP, tk.GRAD_COLS),
+        acc = torch.zeros((ot.shape[0], WARP, GRAD_COLS),
                           dtype=torch.float32, device=dev)
-        for r in range(0, width, _WARP):
-            sl = slice(r, r + _WARP)
+        for r in range(0, width, WARP):
+            sl = slice(r, r + WARP)
             acc = torch.where(live[:, sl, None], acc + parts[:, sl], acc)
-        off = _WARP // 2
+        off = WARP // 2
         while off:
             acc[:, :off] = acc[:, :off] + acc[:, off:2 * off]
             off //= 2
@@ -238,41 +239,29 @@ def segment_sum_reference(keys, src, vals, n_rows: int) -> torch.Tensor:
 def segment_sum_kernel(keys, src, vals, n_rows: int) -> torch.Tensor:
     """Launch the segmented-sum kernels (``csrc/stream_train.cu``); same
     contract as ``segment_sum_reference``, the same bits."""
-    if keys.device.type != "cuda":
-        raise ValueError(f"segment_sum_kernel takes CUDA tensors, got "
-                         f"{keys.device}")
+    launch = kio.entry("segment_sum", [ctypes.c_void_p] * 3 + [
+        ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p], keys.device)
     if not (keys.dtype == torch.int32 and src.dtype == torch.int64
             and vals.dtype == torch.float32 and vals.dim() == 2
-            and vals.shape[1] == tk.GRAD_COLS and keys.is_contiguous()
+            and vals.shape[1] == GRAD_COLS and keys.is_contiguous()
             and src.is_contiguous() and vals.is_contiguous()
             and keys.shape == src.shape):
         raise ValueError("segment_sum_kernel takes int32 keys, int64 src "
                          "and (records, 9) f32 values, contiguous")
-    from . import _build
-
-    launch = _build.function("segment_sum", [ctypes.c_void_p] * 3 + [
-        ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
     m = keys.shape[0]
-    out = torch.zeros((n_rows, tk.GRAD_COLS), dtype=torch.float32,
+    out = torch.zeros((n_rows, GRAD_COLS), dtype=torch.float32,
                       device=keys.device)
     # the head, then the tail partials of each tile
-    part = torch.empty((2 * max(-(-m // TILE), 1), tk.GRAD_COLS),
+    part = torch.empty((2 * max(-(-m // TILE), 1), GRAD_COLS),
                        dtype=torch.float32, device=keys.device)
-    tk._raise_on(launch(keys.data_ptr(), src.data_ptr(), vals.data_ptr(), m,
-                        part.data_ptr(), out.data_ptr(), tk._stream(keys)),
-                 "segment_sum")
+    launch(keys.data_ptr(), src.data_ptr(), vals.data_ptr(), m,
+           part.data_ptr(), out.data_ptr())
     if m:   # tile_sums_kernel, then cross_sums_kernel
         trace.count("launch.stream_segment_sum", 2)
     return out
 
 
-def _segment_sum(keys, *args) -> torch.Tensor:
-    """The kernel for CUDA tensors, the plain version for CPU tensors."""
-    if keys.device.type == "cuda":
-        return segment_sum_kernel(keys, *args)
-    if keys.device.type == "cpu":
-        return segment_sum_reference(keys, *args)
-    raise ValueError(f"no segmented sum for device {keys.device}")
+_segment_sum = kio.by_device(segment_sum_kernel, segment_sum_reference)
 
 
 @trace.spanned("rt.records")
@@ -297,9 +286,10 @@ def stream_grads_reference(ids, ii, jj, g_rows, scene_mat, bounds, cam_row, *,
     ``plan_records(..., budget)``, the windows' sums added in the plan's
     order. Returns (d_stream (rows, 16) in stream order, d_cam_row (1,
     24)); columns 9-15 and 18-23 are zero."""
-    rr_start = sk._check(ids, ii, jj, g_rows, scene_mat, bounds, cam_row,
-                         block=block, samples=samples, max_depth=max_depth,
-                         rr_start=rr_start, sample_offset=sample_offset)
+    rr_start = sk.check_args(ids, ii, jj, g_rows, scene_mat, bounds, cam_row,
+                             block=block, samples=samples,
+                             max_depth=max_depth, rr_start=rr_start,
+                             sample_offset=sample_offset)
     d9 = dcam = None
     for w, *lanes in _windows(ids, ii, jj, g_rows,
                               plan_records(ids.shape[0], samples, max_depth,
@@ -310,7 +300,7 @@ def stream_grads_reference(ids, ii, jj, g_rows, scene_mat, bounds, cam_row, *,
             rr_start=rr_start, sample_offset=sample_offset + w.sample0)
         d9 = d9_w if d9 is None else d9 + d9_w
         dcam = dcam_w if dcam is None else dcam + dcam_w
-    return tk._outputs(d9, dcam)
+    return kio.grad_outputs(d9, dcam)
 
 
 def _grads_window(ids, ii, jj, g_rows, scene_mat, bounds, cam_row, *, block,
@@ -320,14 +310,14 @@ def _grads_window(ids, ii, jj, g_rows, scene_mat, bounds, cam_row, *, block,
     dev, padded = ids.device, ids.shape[0]
     rec_row = torch.full((samples, max_depth, padded), -1, dtype=torch.int32,
                          device=dev)
-    rec_val = torch.zeros((samples, max_depth, padded, tk.GRAD_COLS),
+    rec_val = torch.zeros((samples, max_depth, padded, GRAD_COLS),
                           dtype=torch.float32, device=dev)
     dcam = torch.zeros(N_CAM, dtype=torch.float32, device=dev)
-    walk = sk._Walk(scene_mat, bounds, block)
-    scene = rk.scene_from_matrix(scene_mat)
-    cam = rk.unpack_camera(cam_row)
+    walk = sk.Walk(scene_mat, bounds, block)
+    scene = kio.scene_from_matrix(scene_mat)
+    cam = kio.unpack_camera(cam_row)
     key = rtrng.key_from_seed(seed)
-    chunk = max(rk.PAD, rk._REFERENCE_CHUNK_ELEMS // block // rk.PAD * rk.PAD)
+    chunk = kio.reference_chunk(block)
     for lo in range(0, padded, chunk):
         sl = slice(lo, lo + chunk)
 
@@ -335,12 +325,12 @@ def _grads_window(ids, ii, jj, g_rows, scene_mat, bounds, cam_row, *, block,
             rec_row[si, b, sl] = slot.to(torch.int32)
             rec_val[si, b, sl] = rows9
 
-        tk._grad_lanes(ids[sl], ii[sl], jj[sl], g_rows[:, sl], scene, cam,
-                       key, None, dcam, samples=samples, max_depth=max_depth,
-                       rr_start=rr_start, sample_offset=sample_offset,
-                       hit_fn=walk, record=record)
+        tk.grad_lanes(ids[sl], ii[sl], jj[sl], g_rows[:, sl], scene, cam,
+                      key, None, dcam, samples=samples, max_depth=max_depth,
+                      rr_start=rr_start, sample_offset=sample_offset,
+                      hit_fn=walk, record=record)
     keys, src = record_order(rec_row.reshape(-1))
-    d9 = segment_sum_reference(keys, src, rec_val.reshape(-1, tk.GRAD_COLS),
+    d9 = segment_sum_reference(keys, src, rec_val.reshape(-1, GRAD_COLS),
                                scene_mat.shape[0])
     return d9, dcam
 
@@ -357,9 +347,9 @@ def fused_stream_reference(ids, ii, jj, target_rows, scene_mat, bounds,
     then ``stream_grads_reference`` with that cotangent (in the windows of
     ``budget``). Returns (loss sum before the weight (), image (3, padded),
     d_stream, d_cam_row)."""
-    sk._check(ids, ii, jj, target_rows, scene_mat, bounds, cam_row,
-              block=block, samples=samples, max_depth=max_depth,
-              rr_start=rr_start, sample_offset=0)
+    sk.check_args(ids, ii, jj, target_rows, scene_mat, bounds, cam_row,
+                  block=block, samples=samples, max_depth=max_depth,
+                  rr_start=rr_start)
     full = torch.full(ids.shape, float(samples), dtype=torch.float32,
                       device=ids.device)
     acc = sk.stream_reference(ids, ii, jj, full, scene_mat, bounds, cam_row,
@@ -395,7 +385,6 @@ _C_ARGTYPES = [
     _P,                 # image (3, padded), fused
     _P, _P,             # record rows, record values
     _P, _P,             # camera and loss partials
-    _P,                 # cudaStream_t
 ]
 _COUNT_ARGTYPES = [
     _P, _P, _P,         # ids, ii, jj
@@ -405,14 +394,7 @@ _COUNT_ARGTYPES = [
     _I, _I, _I,         # padded, samples, max_depth
     _U, _U,             # key words
     _P, _P, _P,         # opened per lane, walked and tested per warp
-    _P,                 # cudaStream_t
 ]
-
-
-def _scan_table(scene_mat, block):
-    """The kernels' inputs from a stream matrix: its SoA, and room for the
-    walk's tables that each launch builds from it."""
-    return sk.soa(scene_mat), sk.scan_buffer(scene_mat, block)
 
 
 @trace.spanned("rt.launch.stream_train")
@@ -424,33 +406,30 @@ def train_records(ids, ii, jj, rows, scene_mat, bounds, cam_row, *, block,
     values (records, 9), camera partials (blocks, 18), loss partials
     (blocks, 1)). Record ((sample, bounce), lane) is at index (sample *
     max_depth + bounce) * padded + lane. ``scatter_records`` and
-    ``_reduce_rows`` finish them."""
-    from . import _build
-
-    launch = _build.function("stream_train_render", _C_ARGTYPES)
+    ``kernel_io.reduce_rows`` finish them."""
+    launch = kio.entry("stream_train_render", _C_ARGTYPES, ids.device)
     dev, padded = ids.device, ids.shape[0]
-    blocks = padded // rk.PAD
+    blocks = padded // PAD
     n_rec = padded * samples * max_depth
     rec_row = torch.full((n_rec,), -1, dtype=torch.int32, device=dev)
-    rec_val = torch.empty((n_rec, tk.GRAD_COLS), dtype=torch.float32,
+    rec_val = torch.empty((n_rec, GRAD_COLS), dtype=torch.float32,
                           device=dev)
     image = torch.empty((3, padded) if fused else (1,), dtype=torch.float32,
                         device=dev)
     cam_part = torch.empty((blocks, N_CAM), dtype=torch.float32, device=dev)
     loss_part = torch.empty((blocks, 1), dtype=torch.float32, device=dev)
-    scene, scan = _scan_table(scene_mat, block)
+    scene, scan = kio.soa(scene_mat), sk.scan_buffer(scene_mat, block)
     k = tk.loss_constants(samples, max(num_pixels, 1), huber_delta)
     k0, k1 = rtrng.key_from_seed(seed)
-    err = launch(ids.data_ptr(), ii.data_ptr(), jj.data_ptr(),
-                 rows.data_ptr(), scene.data_ptr(), scene_mat.shape[0],
-                 scan.data_ptr(), bounds.data_ptr(), bounds.shape[0],
-                 block, cam_row.data_ptr(), padded, samples, max_depth, k0,
-                 k1, sample_offset, -1 if rr_start is None else rr_start,
-                 int(fused), int(gamma), tk.LOSSES.index(loss), num_pixels,
-                 k["inv_spp"], k["w"], k["two_w"], k["hd"], k["half_hd"],
-                 image.data_ptr(), rec_row.data_ptr(), rec_val.data_ptr(),
-                 cam_part.data_ptr(), loss_part.data_ptr(), tk._stream(ids))
-    tk._raise_on(err, "stream_train_render")
+    launch(ids.data_ptr(), ii.data_ptr(), jj.data_ptr(), rows.data_ptr(),
+           scene.data_ptr(), scene_mat.shape[0], scan.data_ptr(),
+           bounds.data_ptr(), bounds.shape[0], block, cam_row.data_ptr(),
+           padded, samples, max_depth, k0, k1, sample_offset,
+           -1 if rr_start is None else rr_start, int(fused), int(gamma),
+           tk.LOSSES.index(loss), num_pixels, k["inv_spp"], k["w"],
+           k["two_w"], k["hd"], k["half_hd"], image.data_ptr(),
+           rec_row.data_ptr(), rec_val.data_ptr(), cam_part.data_ptr(),
+           loss_part.data_ptr())
     trace.count("launch.stream_train")
     sk.count_walk(bounds, block)
     return image, rec_row, rec_val, cam_part, loss_part
@@ -464,29 +443,21 @@ def walk_counts(ids, ii, jj, scene_mat, bounds, cam_row, *, block: int,
     mode does: (blocks opened per lane (padded,) int32; blocks walked per
     warp (padded // 32,) int32, the union of its 32 lanes' opened blocks;
     rows tested per warp (padded // 32,) int32)."""
-    tk._cuda_only(ids, "walk_counts")
-    budget = torch.full(ids.shape, float(samples), dtype=torch.float32,
-                        device=ids.device)
-    sk._check(ids, ii, jj, budget, scene_mat, bounds, cam_row, block=block,
-              samples=samples, max_depth=max_depth, rr_start=None,
-              sample_offset=0)
-    from . import _build
-
-    launch = _build.function("stream_walk_counts", _COUNT_ARGTYPES)
+    launch = kio.entry("stream_walk_counts", _COUNT_ARGTYPES, ids.device)
+    sk.check_args(ids, ii, jj, None, scene_mat, bounds, cam_row, block=block,
+                  samples=samples, max_depth=max_depth)
     padded = ids.shape[0]
     opened = torch.empty((padded,), dtype=torch.int32, device=ids.device)
     fetched = torch.empty((padded // 32,), dtype=torch.int32,
                           device=ids.device)
     tested = torch.empty_like(fetched)
-    scene, scan = _scan_table(scene_mat, block)
+    scene, scan = kio.soa(scene_mat), sk.scan_buffer(scene_mat, block)
     k0, k1 = rtrng.key_from_seed(rtrng.DEFAULT_SEED)
-    tk._raise_on(launch(ids.data_ptr(), ii.data_ptr(), jj.data_ptr(),
-                        scene.data_ptr(), scene_mat.shape[0], scan.data_ptr(),
-                        bounds.data_ptr(), bounds.shape[0], block,
-                        cam_row.data_ptr(), padded, samples, max_depth, k0,
-                        k1, opened.data_ptr(), fetched.data_ptr(),
-                        tested.data_ptr(), tk._stream(ids)),
-                 "stream_walk_counts")
+    launch(ids.data_ptr(), ii.data_ptr(), jj.data_ptr(), scene.data_ptr(),
+           scene_mat.shape[0], scan.data_ptr(), bounds.data_ptr(),
+           bounds.shape[0], block, cam_row.data_ptr(), padded, samples,
+           max_depth, k0, k1, opened.data_ptr(), fetched.data_ptr(),
+           tested.data_ptr())
     trace.count("launch.stream_train")
     sk.count_walk(bounds, block)
     return opened, fetched, tested
@@ -496,7 +467,7 @@ def _launch(ids, ii, jj, rows, scene_mat, bounds, cam_row, **kw):
     image, rec_row, rec_val, cam_part, loss_part = train_records(
         ids, ii, jj, rows, scene_mat, bounds, cam_row, **kw)
     d9 = scatter_records(rec_row, rec_val, scene_mat.shape[0])
-    d_stream, d_cam = tk._outputs(d9, tk._reduce_rows(cam_part))
+    d_stream, d_cam = kio.grad_outputs(d9, kio.reduce_rows(cam_part))
     return image, loss_part, d_stream, d_cam
 
 
@@ -508,10 +479,10 @@ def stream_grads_kernel(ids, ii, jj, g_rows, scene_mat, bounds, cam_row, *,
     ``plan_records``; same contract as ``stream_grads_reference``.
     Launches on the current stream; each window's record sort syncs once
     (``record_order``)."""
-    tk._cuda_only(ids, "stream_grads_kernel")
-    rr_start = sk._check(ids, ii, jj, g_rows, scene_mat, bounds, cam_row,
-                         block=block, samples=samples, max_depth=max_depth,
-                         rr_start=rr_start, sample_offset=sample_offset)
+    rr_start = sk.check_args(ids, ii, jj, g_rows, scene_mat, bounds, cam_row,
+                             block=block, samples=samples,
+                             max_depth=max_depth, rr_start=rr_start,
+                             sample_offset=sample_offset)
     d_stream = d_cam = None
     for w, *lanes in _windows(ids, ii, jj, g_rows,
                               plan_records(ids.shape[0], samples, max_depth,
@@ -538,12 +509,11 @@ def fused_stream_kernel(ids, ii, jj, target_rows, scene_mat, bounds, cam_row,
     window: the stream kernel's render, the loss block on the card
     (``train_kernel.loss_and_cotangent``, its loss summed in the fused
     launch's order) and the gradient mode window by window."""
-    tk._cuda_only(ids, "fused_stream_kernel")
     if loss not in tk.LOSSES:
         raise ValueError(f"unknown loss {loss!r}; one of {tk.LOSSES}")
-    rr_start = sk._check(ids, ii, jj, target_rows, scene_mat, bounds, cam_row,
-                         block=block, samples=samples, max_depth=max_depth,
-                         rr_start=rr_start, sample_offset=0)
+    rr_start = sk.check_args(ids, ii, jj, target_rows, scene_mat, bounds,
+                             cam_row, block=block, samples=samples,
+                             max_depth=max_depth, rr_start=rr_start)
     if len(plan_records(ids.shape[0], samples, max_depth, budget)) > 1:
         full = torch.full(ids.shape, float(samples), dtype=torch.float32,
                           device=ids.device)
@@ -564,37 +534,23 @@ def fused_stream_kernel(ids, ii, jj, target_rows, scene_mat, bounds, cam_row,
         samples=samples, max_depth=max_depth, seed=seed, rr_start=rr_start,
         sample_offset=0, fused=True, num_pixels=num_pixels, gamma=gamma,
         loss=loss, huber_delta=huber_delta)
-    return tk._reduce_rows(loss_part)[0], image, d_stream, d_cam
+    return kio.reduce_rows(loss_part)[0], image, d_stream, d_cam
 
 
 def _block_sum(terms: torch.Tensor) -> torch.Tensor:
     """The lanes' loss terms (padded,) summed as the fused launch sums
     them: a halving tree over each block of ``PAD`` lanes (``block_tree``),
-    then the block partials by ``train_kernel._reduce_rows``."""
-    x = terms.view(-1, rk.PAD)
-    half = rk.PAD // 2
+    then the block partials by ``kernel_io.reduce_rows``."""
+    x = terms.view(-1, PAD)
+    half = PAD // 2
     while half:
         x = x[:, :half] + x[:, half:2 * half]
         half //= 2
-    return tk._reduce_rows(x.contiguous())[0]
+    return kio.reduce_rows(x.contiguous())[0]
 
 
-def _grads(ids, *args, **kw):
-    """The gradient mode for CUDA tensors, its plain version for CPU."""
-    if ids.device.type == "cuda":
-        return stream_grads_kernel(ids, *args, **kw)
-    if ids.device.type == "cpu":
-        return stream_grads_reference(ids, *args, **kw)
-    raise ValueError(f"no stream gradient implementation for {ids.device}")
-
-
-def _fused(ids, *args, **kw):
-    """The fused mode for CUDA tensors, its plain version for CPU."""
-    if ids.device.type == "cuda":
-        return fused_stream_kernel(ids, *args, **kw)
-    if ids.device.type == "cpu":
-        return fused_stream_reference(ids, *args, **kw)
-    raise ValueError(f"no fused stream step for device {ids.device}")
+_grads = kio.by_device(stream_grads_kernel, stream_grads_reference)
+_fused = kio.by_device(fused_stream_kernel, fused_stream_reference)
 
 
 # -- entry points -------------------------------------------------------------
@@ -604,12 +560,12 @@ def _lanes(stream: StreamScene, cam_cfg, img_width, img_height,
     """The lanes of every rank of ``mesh`` with ``img``'s lane rows, then
     this rank's slice of each: (ids, ii, jj, rows, cam_row)."""
     dev = stream.scene_mat.device
-    cam_row = rk.camera_row(cam_cfg, img_width, img_height, dev)
-    ids, ii, jj, _ = rk._lane_setup(img_width, img_height, pixel_order,
+    cam_row = kio.camera_row(cam_cfg, img_width, img_height, dev)
+    ids, ii, jj, _ = kio.lane_setup(img_width, img_height, pixel_order,
                                     samples_per_pixel, sample_offset, None,
                                     dev, mesh)
-    rows = tk._lane_rows(img, ids, img_width * img_height)
-    return (*rk.shard(mesh, ids, ii, jj, rows), cam_row)
+    rows = kio.lane_rows(img, ids, img_width * img_height)
+    return (*kio.shard(mesh, ids, ii, jj, rows), cam_row)
 
 
 def render_stream_grads(stream: StreamScene, cam_cfg: CameraConfig, g_acc,
@@ -679,7 +635,7 @@ def stream_grads_to_scene_mat(d_stream: torch.Tensor, stream: StreamScene,
                               n_slots: int) -> torch.Tensor:
     """Stream-order cotangents (rows, 16) -> scene slot order (n_slots,
     16) through ``perm``; inactive slots get zero."""
-    out = torch.zeros((n_slots, rk.NUM_COLS), dtype=d_stream.dtype,
+    out = torch.zeros((n_slots, kio.NUM_COLS), dtype=d_stream.dtype,
                       device=d_stream.device)
     out[stream.perm.long()] = d_stream[:stream.perm.shape[0]]
     return out

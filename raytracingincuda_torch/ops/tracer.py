@@ -26,7 +26,7 @@ import torch
 from ..models import materials
 from ..models.camera import (Camera, CameraConfig, config_from_leaves,
                              config_leaves, initialize)
-from ..models.scene import Scene, _round_up, param_leaves, params_from_leaves
+from ..models.scene import Scene, round_up, param_leaves, params_from_leaves
 from ..parallel import mesh as meshlib
 from . import f32math
 from . import rng as rtrng
@@ -88,7 +88,7 @@ def make_primary_rays(cam: Camera, pixel_ids, img_width: int, sample_idx, key):
     return primary_rays_from_ij(cam, i, j, pixel_ids, sample_idx, key)
 
 
-def _sky_color(direction: Vec3) -> Vec3:
+def sky_color(direction: Vec3) -> Vec3:
     """Blue-to-white background gradient, in the direction's dtype."""
     ud = vec.unit(direction)
     a = 0.5 * (ud.y + 1.0)
@@ -98,7 +98,7 @@ def _sky_color(direction: Vec3) -> Vec3:
     return vec.lerp(a, white, blue)
 
 
-def _linear_to_gamma(x: torch.Tensor) -> torch.Tensor:
+def linear_to_gamma(x: torch.Tensor) -> torch.Tensor:
     """Gamma 2: sqrt of positive values, 0 at and below black."""
     pos = x > 0.0
     return torch.where(pos, f32math.sqrt(torch.where(pos, x, torch.ones_like(x))),
@@ -161,7 +161,7 @@ def trace_sample(
     for bounce in range(max_depth):
         hit, p, sc = shade_hit(scene, s.origin, s.direction, pixel_ids,
                                sample_idx, bounce, key)
-        sky = _sky_color(primary_dir if legacy_sky else s.direction)
+        sky = sky_color(primary_dir if legacy_sky else s.direction)
         miss_now = s.alive & ~hit
         radiance = s.radiance + vec.where(miss_now, s.attenuation * sky, zero)
 
@@ -241,11 +241,11 @@ def render(
     cam = camera_to(initialize(cam_cfg, img_width, img_height), dev)
 
     num_pixels = img_width * img_height
-    chunk = chunk_pixels or min(DEFAULT_CHUNK_PIXELS, _round_up(num_pixels, 256))
+    chunk = chunk_pixels or min(DEFAULT_CHUNK_PIXELS, round_up(num_pixels, 256))
     if meshlib.sharded(mesh):
         padded = meshlib.padded_lanes(num_pixels, mesh)
     else:
-        padded = _round_up(num_pixels, chunk)
+        padded = round_up(num_pixels, chunk)
     ids = torch.arange(padded, dtype=torch.int64, device=dev)
     ids = ids[meshlib.local_slice(padded, mesh)]
 
@@ -261,5 +261,5 @@ def render(
     if not accumulate_only:
         img = img * (1.0 / samples_per_pixel)
         if gamma:
-            img = _linear_to_gamma(img)
+            img = linear_to_gamma(img)
     return img.reshape(img_height, img_width, 3)

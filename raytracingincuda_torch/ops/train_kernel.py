@@ -29,8 +29,10 @@ order whether it was parked or re-traced, so the gradients are the same
 bits at any capacity and window. ``capacity``, ``budget`` and ``acc``
 are for tests, not a user's knobs.
 
-``_grad`` and ``_fused`` pick the kernel for CUDA tensors and the plain
-version for CPU tensors; neither falls back to the other.
+``_grad`` and ``_fused`` (``kernel_io.by_device``) pick the kernel for
+CUDA tensors and the plain version for CPU tensors; neither falls back to
+the other. The formats, the launch and the fixed-order sum of the block
+partials (``reduce_rows``) are ``ops/kernel_io.py``'s.
 
 The TPU kernels' schedule knobs (``ray_tile``, ``bwd_ray_tile``,
 ``sweep``, ``window``, ``park_residuals``, ``park``, ``pixels_per_lane``)
@@ -54,15 +56,17 @@ import torch
 
 from ..models.camera import (CameraConfig, config_from_leaves, config_leaves,
                              initialize)
-from ..models.scene import Scene, param_leaves, params_from_leaves
+from ..models.scene import Scene, round_up
 from ..parallel import mesh as meshlib
 from ..utils import trace
 from . import group_scan
+from . import kernel_io as kio
 from . import render_kernel as rk
 from . import rng as rtrng
+from .kernel_io import GRAD_COLS, PAD
 from .backward import (N_CAM, bounce_draws, hit_winner, primary_ray_vjp,
                        winner_bounce, winner_bounce_vjp)
-from .tracer import _linear_to_gamma, primary_ray_draws, primary_rays_from_ij
+from .tracer import linear_to_gamma, primary_ray_draws, primary_rays_from_ij
 from .vec import Vec3
 
 # The deepest path the train kernels take: the sampler's bounce field
@@ -74,11 +78,6 @@ from .vec import Vec3
 MAX_DEPTH = rtrng.MAX_BOUNCE
 STACK_SHALLOW = 64
 LOSSES = ("mse", "l1", "huber", "relmse")
-# scene-matrix columns that carry gradients (centre, radius, albedo,
-# fuzz, ior); mat/active and the spare columns get zeros
-GRAD_COLS = 9
-# rows summed per thread in each pass of the fixed-order block reduction
-_REDUCE_CHUNK = 64
 # The fused step's park: at most this many bytes at once (the park and,
 # where the warps' accumulators live in device memory, theirs), and at
 # least this many entries a lane per sample unless the budget forbids it.
@@ -148,33 +147,24 @@ def grad_reference(ids, ii, jj, g_rows, scene_mat, cam_row, *, samples: int,
     primary ray's adjoint. Returns (d_scene_mat (N, 16), d_cam_row (1,
     24)); columns 9-15 and 18-23 are zero. ``layout`` only changes where
     the kernel keeps the scene."""
-    rr_start = rk._check_args(ids, ii, jj, g_rows, scene_mat, cam_row,
-                              samples=samples, max_depth=max_depth,
-                              rr_start=rr_start, sample_offset=sample_offset,
-                              layout=layout)
+    rr_start = kio.check(ids, ii, jj, scene_mat, cam_row, rows=g_rows,
+                         samples=samples, max_depth=max_depth,
+                         rr_start=rr_start, sample_offset=sample_offset,
+                         layout=layout)
     n = scene_mat.shape[0]
     dev = ids.device
     d9 = torch.zeros((n, GRAD_COLS), dtype=torch.float32, device=dev)
     dcam = torch.zeros(N_CAM, dtype=torch.float32, device=dev)
-    chunk = max(rk.PAD, rk._REFERENCE_CHUNK_ELEMS // n // rk.PAD * rk.PAD)
-    scene = rk.scene_from_matrix(scene_mat)
-    cam = rk.unpack_camera(cam_row)
+    chunk = kio.reference_chunk(n)
+    scene = kio.scene_from_matrix(scene_mat)
+    cam = kio.unpack_camera(cam_row)
     key = rtrng.key_from_seed(seed)
     for lanes in zip(ids.split(chunk), ii.split(chunk), jj.split(chunk),
                      g_rows.split(chunk, dim=1)):
-        _grad_lanes(*lanes, scene, cam, key, d9, dcam, samples=samples,
-                    max_depth=max_depth, rr_start=rr_start,
-                    sample_offset=sample_offset)
-    return _outputs(d9, dcam)
-
-
-def _outputs(d9, dcam):
-    d_scene = torch.zeros((d9.shape[0], rk.NUM_COLS), dtype=torch.float32,
-                          device=d9.device)
-    d_scene[:, :GRAD_COLS] = d9
-    d_cam = torch.zeros((1, 24), dtype=torch.float32, device=d9.device)
-    d_cam[0, :N_CAM] = dcam
-    return d_scene, d_cam
+        grad_lanes(*lanes, scene, cam, key, d9, dcam, samples=samples,
+                   max_depth=max_depth, rr_start=rr_start,
+                   sample_offset=sample_offset)
+    return kio.grad_outputs(d9, dcam)
 
 
 def path_ends(ids, ii, jj, scene_mat, cam_row, *, samples: int,
@@ -185,26 +175,25 @@ def path_ends(ids, ii, jj, scene_mat, cam_row, *, samples: int,
     (its reverse runs that many steps), or 0 where it has nothing to pass
     back (it ended black, or its primary ray missed)."""
     rows = torch.ones((3, ids.shape[0]), device=ids.device)
-    rr_start = rk._check_args(ids, ii, jj, rows, scene_mat, cam_row,
-                              samples=samples, max_depth=max_depth,
-                              rr_start=rr_start, sample_offset=0,
-                              layout=layout)
+    rr_start = kio.check(ids, ii, jj, scene_mat, cam_row, rows=rows,
+                         samples=samples, max_depth=max_depth,
+                         rr_start=rr_start, layout=layout)
     ends = torch.zeros((samples, ids.shape[0]), dtype=torch.int64,
                        device=ids.device)
 
     def record(si, b, slot, rows9):
         ends[si] = torch.where((slot >= 0) & (ends[si] == 0), b + 1, ends[si])
 
-    _grad_lanes(ids, ii, jj, rows, rk.scene_from_matrix(scene_mat),
-                rk.unpack_camera(cam_row), rtrng.key_from_seed(seed), None,
-                torch.zeros(N_CAM, device=ids.device), samples=samples,
-                max_depth=max_depth, rr_start=rr_start, sample_offset=0,
-                record=record)
+    grad_lanes(ids, ii, jj, rows, kio.scene_from_matrix(scene_mat),
+               kio.unpack_camera(cam_row), rtrng.key_from_seed(seed), None,
+               torch.zeros(N_CAM, device=ids.device), samples=samples,
+               max_depth=max_depth, rr_start=rr_start, sample_offset=0,
+               record=record)
     return ends
 
 
-def _grad_lanes(ids, fi, fj, rows, scene, cam, key, d9, dcam, *, samples,
-                max_depth, rr_start, sample_offset, hit_fn=None, record=None):
+def grad_lanes(ids, fi, fj, rows, scene, cam, key, d9, dcam, *, samples,
+               max_depth, rr_start, sample_offset, hit_fn=None, record=None):
     """Kernel A's recurrence over one chunk of lanes, adding into ``d9``
     and ``dcam``. ``hit_fn(o, d, alive) -> HitResult`` replaces the
     all-slot scan (the stream walk). ``record(sample - sample_offset,
@@ -276,7 +265,7 @@ def loss_and_cotangent(acc, target_rows, ids, *, samples: int, gamma: bool,
         raise ValueError(f"unknown loss {loss!r}; one of {LOSSES}")
     k = loss_constants(samples, num_pixels, huber_delta)
     lin = acc * k["inv_spp"]
-    img = _linear_to_gamma(lin) if gamma else lin
+    img = linear_to_gamma(lin) if gamma else lin
     valid = (ids < num_pixels)[None, :]
     diff = torch.where(valid, img - target_rows, torch.zeros_like(img))
     sq = diff * diff
@@ -313,9 +302,9 @@ def fused_train_reference(ids, ii, jj, target_rows, scene_mat, cam_row, *,
     the pointwise loss block, then ``grad_reference`` with that
     cotangent. Returns (loss sum before the weight (), image (3, padded),
     d_scene_mat (N, 16), d_cam_row (1, 24))."""
-    rk._check_args(ids, ii, jj, target_rows, scene_mat, cam_row,
-                   samples=samples, max_depth=max_depth, rr_start=rr_start,
-                   sample_offset=0, layout=layout)
+    kio.check(ids, ii, jj, scene_mat, cam_row, rows=target_rows,
+              samples=samples, max_depth=max_depth, rr_start=rr_start,
+              layout=layout)
     budget = torch.full(ids.shape, float(samples), dtype=torch.float32,
                         device=ids.device)
     acc = rk.regen_reference(ids, ii, jj, budget, scene_mat, cam_row,
@@ -349,7 +338,6 @@ _PARK_ARGTYPES = [
     _P, _I,         # park (capacity, window lanes) int32, capacity
     _P,             # parked (2, padded) int32
     _P,             # group table (null: the one-level scan)
-    _P,             # cudaStream_t
 ]
 _REVERSE_ARGTYPES = [
     _P, _P, _P,     # ids, ii, jj (at the window's first lane)
@@ -363,9 +351,7 @@ _REVERSE_ARGTYPES = [
     _P, _P,         # park, parked (null: nothing parked)
     _P,             # the warps' accumulators (null: shared memory)
     _P, _P,         # scene partials (blocks, N * 9), camera partials (blocks, 18)
-    _P,             # cudaStream_t
 ]
-_REDUCE_ARGTYPES = [_P, _I, _I, _I, _P, _P]
 
 
 class ParkPlan(NamedTuple):
@@ -397,8 +383,8 @@ def plan_park(lanes: int, samples: int, max_depth: int, n: int,
     one window of all lanes allows, at least ``PARK_ENTRIES_PER_SAMPLE`` a
     sample (windows, if the budget needs them) and at most ``samples *
     max_depth`` (no sample parks more than ``max_depth`` entries)."""
-    if lanes <= 0 or lanes % rk.PAD:
-        raise ValueError(f"lanes must be a positive multiple of {rk.PAD}")
+    if lanes <= 0 or lanes % PAD:
+        raise ValueError(f"lanes must be a positive multiple of {PAD}")
     if acc not in (None, "shared", "device"):
         raise ValueError(f"acc must be None, 'shared' or 'device', got {acc!r}")
     smem = _acc_smem_bytes(n, layout)
@@ -410,8 +396,8 @@ def plan_park(lanes: int, samples: int, max_depth: int, n: int,
         raise ValueError(f"{n} slots' warp accumulators do not fit in shared "
                          f"memory")
     scratch = 0 if in_smem else _WARPS * n * GRAD_COLS * 4  # bytes a block
-    blocks = lanes // rk.PAD
-    per_entry = rk.PAD * _PARK_ENTRY_BYTES                  # bytes a block
+    blocks = lanes // PAD
+    per_entry = PAD * _PARK_ENTRY_BYTES                     # bytes a block
     if capacity is None:
         one_window = (budget // blocks - scratch) // per_entry
         capacity = min(samples * max_depth,
@@ -421,79 +407,29 @@ def plan_park(lanes: int, samples: int, max_depth: int, n: int,
         raise ValueError(f"capacity must be >= 0, got {capacity}")
     block_bytes = capacity * per_entry + scratch
     if block_bytes > budget:
-        raise ValueError(f"one block of {rk.PAD} lanes needs {block_bytes} "
+        raise ValueError(f"one block of {PAD} lanes needs {block_bytes} "
                          f"bytes, above the budget of {budget}")
     per = min(blocks, budget // block_bytes) if block_bytes else blocks
-    windows = [(b * rk.PAD, min(per, blocks - b) * rk.PAD)
+    windows = [(b * PAD, min(per, blocks - b) * PAD)
                for b in range(0, blocks, per)]
     return ParkPlan(int(capacity), in_smem, windows)
 
 
-def _cuda_only(ids, name):
-    if ids.device.type != "cuda":
-        raise ValueError(f"{name} takes CUDA tensors, got {ids.device}")
-
-
-def _stream(t):
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
-def _raise_on(err, name):
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-
-
-def _at(t: Optional[torch.Tensor], row: int = 0, col: int = 0) -> int:
-    """The address of t[row, col] (t[col] for a vector); 0 for None."""
-    if t is None:
-        return 0
-    stride = t.stride(0) if t.dim() > 1 else 0
-    return t.data_ptr() + (row * stride + col) * t.element_size()
-
-
-@trace.spanned("rt.launch.reduce_rows")
-def _reduce_rows(partials: torch.Tensor) -> torch.Tensor:
-    """Sum a (rows, cols) partials buffer over rows in a fixed order:
-    passes of ``_REDUCE_CHUNK``-row groups, each summed in row order, so
-    the result is the same bits on every run."""
-    from . import _build
-
-    launch = _build.function("reduce_rows", _REDUCE_ARGTYPES)
-    x = partials
-    while x.shape[0] > 1:
-        rows, cols = x.shape
-        out = torch.empty((-(-rows // _REDUCE_CHUNK), cols),
-                          dtype=torch.float32, device=x.device)
-        _raise_on(launch(x.data_ptr(), rows, cols, _REDUCE_CHUNK,
-                         out.data_ptr(), _stream(x)), "reduce_rows")
-        x = out
-    return x[0]
-
-
 @trace.spanned("rt.launch.reverse")
-def _reverse(ids, ii, jj, g_rows, soa, cam_row, window, *, samples,
+def _reverse(launch, ids, ii, jj, g_rows, soa, cam_row, window, *, samples,
              max_depth, key, sample_offset, rr_start, layout, stack, park,
              parked, warp_acc, scene_part, cam_part):
-    """One launch of the reverse over one window of lanes; its re-traced
-    samples scan in one level."""
-    from . import _build
-
-    launch = _build.function("reverse_render", _REVERSE_ARGTYPES)
+    """One ``launch`` of the reverse over one window of lanes; its
+    re-traced samples scan in one level."""
+    at = kio.at
     w0, lanes = window
-    err = launch(_at(ids, col=w0), _at(ii, col=w0), _at(jj, col=w0),
-                 _at(g_rows, col=w0), g_rows.shape[1], soa.data_ptr(),
-                 soa.shape[1], cam_row.data_ptr(), lanes, samples, max_depth,
-                 *key, sample_offset, -1 if rr_start is None else rr_start,
-                 int(layout == "hbm"), stack or 0, _at(park),
-                 _at(parked, col=w0),
-                 _at(warp_acc), _at(scene_part, w0 // rk.PAD),
-                 _at(cam_part, w0 // rk.PAD), _stream(ids))
-    _raise_on(err, "reverse_render")
+    launch(at(ids, col=w0), at(ii, col=w0), at(jj, col=w0),
+           at(g_rows, col=w0), g_rows.shape[1], soa.data_ptr(), soa.shape[1],
+           cam_row.data_ptr(), lanes, samples, max_depth, *key,
+           sample_offset, -1 if rr_start is None else rr_start,
+           int(layout == "hbm"), stack or 0, at(park), at(parked, col=w0),
+           at(warp_acc), at(scene_part, w0 // PAD), at(cam_part, w0 // PAD))
     group_scan.count_path(None)
-
-
-def _soa(scene_mat):
-    return scene_mat[:, :rk.USED_COLS].t().contiguous()
 
 
 def _warp_acc(plan: ParkPlan, n: int, dev):
@@ -515,30 +451,30 @@ def grad_kernel(ids, ii, jj, g_rows, scene_mat, cam_row, *, samples: int,
     current stream without synchronising. ``stack`` (STACK_SHALLOW or
     MAX_DEPTH) forces the reverse's instance, for tests and measurements;
     by default the smaller one that holds ``max_depth``."""
-    _cuda_only(ids, "grad_kernel")
-    rr_start = rk._check_args(ids, ii, jj, g_rows, scene_mat, cam_row,
-                              samples=samples, max_depth=max_depth,
-                              rr_start=rr_start, sample_offset=sample_offset,
-                              layout=layout)
+    reverse = kio.entry("reverse_render", _REVERSE_ARGTYPES, ids.device)
+    rr_start = kio.check(ids, ii, jj, scene_mat, cam_row, rows=g_rows,
+                         samples=samples, max_depth=max_depth,
+                         rr_start=rr_start, sample_offset=sample_offset,
+                         layout=layout)
     padded, n = ids.shape[0], scene_mat.shape[0]
     plan = plan_park(padded, samples, max_depth, n, layout, capacity=0,
                      budget=budget, acc=acc)
-    blocks = padded // rk.PAD
+    blocks = padded // PAD
     scene_part = torch.empty((blocks, n * GRAD_COLS), dtype=torch.float32,
                              device=ids.device)
     cam_part = torch.empty((blocks, N_CAM), dtype=torch.float32,
                            device=ids.device)
-    soa, warp_acc = _soa(scene_mat), _warp_acc(plan, n, ids.device)
+    soa, warp_acc = kio.soa(scene_mat), _warp_acc(plan, n, ids.device)
     g_rows, key = g_rows.contiguous(), rtrng.key_from_seed(seed)
     for window in plan.windows:
-        _reverse(ids, ii, jj, g_rows, soa, cam_row, window, samples=samples,
-                 max_depth=max_depth, key=key,
+        _reverse(reverse, ids, ii, jj, g_rows, soa, cam_row, window,
+                 samples=samples, max_depth=max_depth, key=key,
                  sample_offset=sample_offset, rr_start=rr_start,
                  layout=layout, stack=stack, park=None, parked=None,
                  warp_acc=warp_acc, scene_part=scene_part, cam_part=cam_part)
         trace.count("launch.grad_render")
-    return _outputs(_reduce_rows(scene_part).view(n, GRAD_COLS),
-                    _reduce_rows(cam_part))
+    return kio.grad_outputs(kio.reduce_rows(scene_part).view(n, GRAD_COLS),
+                            kio.reduce_rows(cam_part))
 
 
 class FusedParts(NamedTuple):
@@ -565,20 +501,17 @@ def fused_train_parts(ids, ii, jj, target_rows, scene_mat, cam_row, *,
     """Kernel B's launches (per window of ``plan_park``: the park render,
     then the reverse), before the block partials are summed; ``stack`` as
     ``grad_kernel``'s."""
-    _cuda_only(ids, "fused_train_kernel")
+    render = kio.entry("fused_park_render", _PARK_ARGTYPES, ids.device)
+    reverse = kio.entry("reverse_render", _REVERSE_ARGTYPES, ids.device)
     if loss not in LOSSES:
         raise ValueError(f"unknown loss {loss!r}; one of {LOSSES}")
-    rr_start = rk._check_args(ids, ii, jj, target_rows, scene_mat, cam_row,
-                              samples=samples, max_depth=max_depth,
-                              rr_start=rr_start, sample_offset=0,
-                              layout=layout)
-    from . import _build
-
-    render = _build.function("fused_park_render", _PARK_ARGTYPES)
+    rr_start = kio.check(ids, ii, jj, scene_mat, cam_row, rows=target_rows,
+                         samples=samples, max_depth=max_depth,
+                         rr_start=rr_start, layout=layout)
     padded, n = ids.shape[0], scene_mat.shape[0]
     plan = plan_park(padded, samples, max_depth, n, layout, capacity=capacity,
                      budget=budget, acc=acc)
-    blocks, dev = padded // rk.PAD, ids.device
+    blocks, dev = padded // PAD, ids.device
     f32 = dict(dtype=torch.float32, device=dev)
     image = torch.empty((3, padded), **f32)
     g = torch.empty((3, padded), **f32)
@@ -589,28 +522,28 @@ def fused_train_parts(ids, ii, jj, target_rows, scene_mat, cam_row, *,
     widest = max(c for _, c in plan.windows)
     park = (torch.empty((plan.capacity * widest,), dtype=torch.int32,
                         device=dev) if plan.capacity else None)
-    soa, warp_acc = _soa(scene_mat), _warp_acc(plan, n, dev)
+    soa, warp_acc = kio.soa(scene_mat), _warp_acc(plan, n, dev)
     target_rows = target_rows.contiguous()
     k = loss_constants(samples, num_pixels, huber_delta)
     key = rtrng.key_from_seed(seed)
     rr = -1 if rr_start is None else rr_start
     groups = group_scan.group_table(soa, cam_row, layout)
+    at = kio.at
     for window in plan.windows:
         w0, lanes = window
-        err = render(_at(ids, col=w0), _at(ii, col=w0), _at(jj, col=w0),
-                     _at(target_rows, col=w0), padded, soa.data_ptr(), n,
-                     cam_row.data_ptr(), lanes, samples, max_depth, *key, rr,
-                     int(layout == "hbm"), int(gamma), LOSSES.index(loss),
-                     num_pixels, k["inv_spp"], k["w"], k["two_w"], k["hd"],
-                     k["half_hd"], _at(image, col=w0), _at(g, col=w0),
-                     _at(loss_part, w0 // rk.PAD), _at(park), plan.capacity,
-                     _at(parked, col=w0), group_scan.pointer(groups),
-                     _stream(ids))
-        _raise_on(err, "fused_park_render")
+        render(at(ids, col=w0), at(ii, col=w0), at(jj, col=w0),
+               at(target_rows, col=w0), padded, soa.data_ptr(), n,
+               cam_row.data_ptr(), lanes, samples, max_depth, *key, rr,
+               int(layout == "hbm"), int(gamma), LOSSES.index(loss),
+               num_pixels, k["inv_spp"], k["w"], k["two_w"], k["hd"],
+               k["half_hd"], at(image, col=w0), at(g, col=w0),
+               at(loss_part, w0 // PAD), at(park), plan.capacity,
+               at(parked, col=w0), at(groups))
         group_scan.count_path(groups)
-        _reverse(ids, ii, jj, g, soa, cam_row, window, samples=samples,
-                 max_depth=max_depth, key=key, sample_offset=0,
-                 rr_start=rr_start, layout=layout, stack=stack, park=park,
+        _reverse(reverse, ids, ii, jj, g, soa, cam_row, window,
+                 samples=samples, max_depth=max_depth, key=key,
+                 sample_offset=0, rr_start=rr_start, layout=layout,
+                 stack=stack, park=park,
                  parked=None if park is None else parked, warp_acc=warp_acc,
                  scene_part=scene_part, cam_part=cam_part)
         trace.count("launch.fused_train_render", 2)
@@ -634,50 +567,24 @@ def fused_train_kernel(ids, ii, jj, target_rows, scene_mat, cam_row, *,
         layout=layout, capacity=capacity, budget=budget, acc=acc,
         stack=stack)
     n = scene_mat.shape[0]
-    d_scene, d_cam = _outputs(
-        _reduce_rows(parts.scene_part).view(n, GRAD_COLS),
-        _reduce_rows(parts.cam_part))
-    return _reduce_rows(parts.loss_part)[0], parts.image, d_scene, d_cam
+    d_scene, d_cam = kio.grad_outputs(
+        kio.reduce_rows(parts.scene_part).view(n, GRAD_COLS),
+        kio.reduce_rows(parts.cam_part))
+    return kio.reduce_rows(parts.loss_part)[0], parts.image, d_scene, d_cam
 
 
-def _grad(ids, *args, **kw):
-    """Kernel A for CUDA tensors, its plain version for CPU tensors."""
-    if ids.device.type == "cuda":
-        return grad_kernel(ids, *args, **kw)
-    if ids.device.type == "cpu":
-        return grad_reference(ids, *args, **kw)
-    raise ValueError(f"no gradient implementation for device {ids.device}")
-
-
-def _fused(ids, *args, **kw):
-    """Kernel B for CUDA tensors, its plain version for CPU tensors."""
-    if ids.device.type == "cuda":
-        return fused_train_kernel(ids, *args, **kw)
-    if ids.device.type == "cpu":
-        return fused_train_reference(ids, *args, **kw)
-    raise ValueError(f"no fused-step implementation for device {ids.device}")
+_grad = kio.by_device(grad_kernel, grad_reference)
+_fused = kio.by_device(fused_train_kernel, fused_train_reference)
 
 
 # -- entry points -------------------------------------------------------------
 
-@trace.spanned("rt.lanes")
-def _lane_rows(img, ids, num_pixels: int) -> torch.Tensor:
-    """(H, W, 3) per-pixel data -> (3, padded) lane rows: lane i carries
-    pixel ids[i]'s values, zeros for padding."""
-    padded = ids.shape[0]
-    flat = torch.as_tensor(img).reshape(num_pixels, 3).to(
-        device=ids.device, dtype=torch.float32)
-    pad = torch.zeros((padded, 3), dtype=torch.float32, device=ids.device)
-    pad[:num_pixels] = flat
-    return pad[ids.long()].t().contiguous()
-
-
 def _packed(scene: Scene, cam_cfg: CameraConfig, img_width, img_height):
     """Detached packed scene matrix and camera row on the scene's device."""
     with torch.no_grad():
-        scene_mat = rk.pack_scene_matrix(scene)
-    return scene_mat, rk.camera_row(cam_cfg, img_width, img_height,
-                                    scene_mat.device)
+        scene_mat = kio.pack_scene_matrix(scene)
+    return scene_mat, kio.camera_row(cam_cfg, img_width, img_height,
+                                     scene_mat.device)
 
 
 def render_kernel_grads(scene: Scene, cam_cfg: CameraConfig, g_acc,
@@ -703,11 +610,11 @@ def render_kernel_grads(scene: Scene, cam_cfg: CameraConfig, g_acc,
     refuse_unported(dtype, layout)
     del ray_tile, sweep, window, pixels_per_lane, park
     scene_mat, cam_row = _packed(scene, cam_cfg, img_width, img_height)
-    ids, ii, jj, _ = rk._lane_setup(img_width, img_height, pixel_order,
+    ids, ii, jj, _ = kio.lane_setup(img_width, img_height, pixel_order,
                                     samples_per_pixel, sample_offset, None,
                                     scene_mat.device, mesh)
-    rows = _lane_rows(g_acc, ids, img_width * img_height)
-    ids, ii, jj, rows = rk.shard(mesh, ids, ii, jj, rows)
+    rows = kio.lane_rows(g_acc, ids, img_width * img_height)
+    ids, ii, jj, rows = kio.shard(mesh, ids, ii, jj, rows)
     d_scene, d_cam = _grad(ids, ii, jj, rows, scene_mat, cam_row,
                            samples=samples_per_pixel, max_depth=max_depth,
                            seed=seed, rr_start=rr_start,
@@ -748,19 +655,19 @@ def fused_train(scene: Scene, cam_cfg: CameraConfig, target,
                          "takes no mesh")
     scene_mat, cam_row = _packed(scene, cam_cfg, img_width, img_height)
     num_pixels = img_width * img_height
-    ids, ii, jj, _ = rk._lane_setup(img_width, img_height, pixel_order,
+    ids, ii, jj, _ = kio.lane_setup(img_width, img_height, pixel_order,
                                     samples_per_pixel, 0, None,
                                     scene_mat.device, mesh)
-    rows = _lane_rows(target, ids, num_pixels)
+    rows = kio.lane_rows(target, ids, num_pixels)
     full_ids, padded = ids, ids.shape[0]
-    ids, ii, jj, rows = rk.shard(mesh, ids, ii, jj, rows)
+    ids, ii, jj, rows = kio.shard(mesh, ids, ii, jj, rows)
     if tile_chunk is not None:
         t0, count = (int(v) for v in tile_chunk)
-        tiles = ids.shape[0] // rk.PAD
+        tiles = ids.shape[0] // PAD
         if count < 1 or t0 < 0 or t0 + count > tiles:
             raise ValueError(f"tile_chunk {tile_chunk} outside the {tiles} "
-                             f"tiles of {rk.PAD} lanes")
-        sl = slice(t0 * rk.PAD, (t0 + count) * rk.PAD)
+                             f"tiles of {PAD} lanes")
+        sl = slice(t0 * PAD, (t0 + count) * PAD)
         ids, ii, jj = ids[sl], ii[sl], jj[sl]
         rows = rows[:, sl].contiguous()
     total, img, d_scene, d_cam = _fused(
@@ -777,7 +684,7 @@ def fused_train(scene: Scene, cam_cfg: CameraConfig, target,
                                     huber_delta)["w"]
     if tile_chunk is not None:
         return loss_v, img, d_scene, d_cam
-    return (loss_v, rk._finalize_output(img, full_ids,
+    return (loss_v, kio.finalize_output(img, full_ids,
                                         pixel_order is not None,
                                         img_width, img_height,
                                         samples_per_pixel, gamma,
@@ -800,7 +707,7 @@ def make_tiled_train(scene: Scene, cam_cfg: CameraConfig, img_width: int,
     ``pixels_per_lane`` and ``park_residuals`` are ignored."""
     refuse_unported(dtype, layout)
     num_pixels = img_width * img_height
-    tiles = rk._round_up(num_pixels, rk.PAD) // rk.PAD
+    tiles = round_up(num_pixels, PAD) // PAD
     bounds = [(tiles * c // n_chunks, tiles * (c + 1) // n_chunks)
               for c in range(n_chunks)]
     bounds = [(t0, t1 - t0) for t0, t1 in bounds if t1 > t0]
@@ -819,9 +726,9 @@ def make_tiled_train(scene: Scene, cam_cfg: CameraConfig, img_width: int,
             d_sm = dsm if d_sm is None else d_sm + dsm
             d_cr = dcr if d_cr is None else d_cr + dcr
             rows.append(im)
-        ids = (torch.arange(tiles * rk.PAD, dtype=torch.int32)
+        ids = (torch.arange(tiles * PAD, dtype=torch.int32)
                if pixel_order is None else torch.as_tensor(pixel_order))
-        img = rk._finalize_output(torch.cat(rows, dim=1),
+        img = kio.finalize_output(torch.cat(rows, dim=1),
                                   ids.to(rows[0].device),
                                   pixel_order is not None, img_width,
                                   img_height, samples_per_pixel, gamma,
@@ -877,29 +784,24 @@ def make_mse_train(mat_type, active, img_width: int, img_height: int,
 def chain_to_params(d_scene_mat, d_cam_row, params, cam_cfg, mat_type,
                     active, img_width: int, img_height: int):
     """Packed-matrix and camera-row cotangents -> (SceneParams,
-    CameraConfig) cotangents: autograd through ``pack_scene_matrix`` (span
-    ``rt.chain.scene``, on the scene's device) and
-    ``pack_camera(initialize(...))`` (``rt.chain.camera``, where the camera
-    lives: the host, by default; its forward pass ``rt.camera``, as
-    ``render_kernel.camera_row``'s)."""
-    p_leaves = [t.detach().requires_grad_(True) for t in param_leaves(params)]
+    CameraConfig) cotangents. The scene's is the packing's inverse, a read
+    of the matrix's columns (``kernel_io.scene_cotangent``, span
+    ``rt.chain.scene``; ``mat_type`` and ``active`` take none); the
+    camera's is autograd through ``pack_camera(initialize(...))``
+    (``rt.chain.camera``, where the camera lives: the host, by default;
+    its forward pass ``rt.camera``, as ``kernel_io.camera_row``'s)."""
+    del mat_type, active
+    with trace.span("rt.chain.scene"):
+        d_params = kio.scene_cotangent(d_scene_mat, params)
     c_leaves = [t.detach().requires_grad_(True)
                 for t in config_leaves(cam_cfg)]
-    with torch.enable_grad():
-        with trace.span("rt.chain.scene"):
-            m = rk.pack_scene_matrix(Scene(params_from_leaves(p_leaves),
-                                           mat_type, active))
-            dp = torch.autograd.grad(m, p_leaves, d_scene_mat.to(m.device),
-                                     allow_unused=True)
-        with trace.span("rt.chain.camera"):
-            with trace.span("rt.camera"):
-                row = rk.pack_camera(initialize(
-                    config_from_leaves(c_leaves), img_width, img_height))
-            with trace.sync():
-                d_cam = d_cam_row.to(row.device)
-            dc = torch.autograd.grad(row, c_leaves, d_cam,
-                                     allow_unused=True)
-    fill = lambda gs, ls: [torch.zeros_like(l) if g is None else g  # noqa: E731
-                           for g, l in zip(gs, ls)]
-    return (params_from_leaves(fill(dp, p_leaves)),
-            config_from_leaves(fill(dc, c_leaves)))
+    with torch.enable_grad(), trace.span("rt.chain.camera"):
+        with trace.span("rt.camera"):
+            row = kio.pack_camera(initialize(
+                config_from_leaves(c_leaves), img_width, img_height))
+        with trace.sync():
+            d_cam = d_cam_row.to(row.device)
+        dc = torch.autograd.grad(row, c_leaves, d_cam, allow_unused=True)
+    return d_params, config_from_leaves([
+        torch.zeros_like(leaf) if g is None else g
+        for g, leaf in zip(dc, c_leaves)])

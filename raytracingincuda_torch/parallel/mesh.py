@@ -42,8 +42,8 @@ import torch.distributed as dist
 from ..device import resolve_device
 from ..utils import trace
 
-# Lanes per CUDA block (render_kernel.PAD): every rank's slice is a
-# multiple of it, so padding goes to PAD * world.
+# Lanes per CUDA block, the lane format of ops/kernel_io.py: every rank's
+# slice is a multiple of it, so padding goes to PAD * world.
 PAD = 128
 _ENV = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
 
@@ -147,8 +147,8 @@ def sharded(mesh: Optional[Mesh]) -> bool:
 
 def padded_lanes(num_lanes: int, mesh: Optional[Mesh]) -> int:
     """``num_lanes`` padded to a multiple of PAD lanes on every rank: the
-    lanes of the whole world, which ``render_kernel._lane_setup`` holds to
-    ``render_kernel.MAX_LANES``."""
+    lanes of the whole world, which ``kernel_io.lane_setup`` holds to
+    ``kernel_io.MAX_LANES``."""
     m = PAD * (mesh.world if sharded(mesh) else 1)
     return -(-num_lanes // m) * m
 

@@ -41,7 +41,7 @@ import torch
 from .config import RenderConfig
 from .device import resolve_device
 from .models.camera import CameraConfig, initialize
-from .models.scene import Scene, _round_up, param_leaves
+from .models.scene import Scene, round_up, param_leaves
 from .ops import f64_kernel, render_kernel, stream_kernel, tracer
 from .parallel import mesh as meshlib
 from .utils import trace
@@ -90,7 +90,7 @@ def _stream_preparer(cfg: RenderConfig) -> Callable:
     def build(scene):
         if scene.num_slots <= _ONE_BLOCK_SLOTS:
             return {"stream": stream_kernel.prepare_stream_scene(
-                scene, block=_round_up(scene.num_slots, 256),
+                scene, block=round_up(scene.num_slots, 256),
                 pad_pairs=False)}
         return {"stream": stream_kernel.prepare_stream_scene(
             scene, block=cfg.stream_block)}

@@ -110,7 +110,7 @@ def render_incremental(scene: Scene, cam_cfg: CameraConfig, cfg: RenderConfig,
         if checkpoint_path:
             save_checkpoint(checkpoint_path, acc, done, cfg)
     img = torch.from_numpy(acc / acc_dtype(cfg.samples))
-    return tracer._linear_to_gamma(img).numpy()
+    return tracer.linear_to_gamma(img).numpy()
 
 
 def _text(s: str) -> np.ndarray:

@@ -23,7 +23,7 @@ from raytracingincuda_torch.models.scene import build_random_scene, build_scene
 from raytracingincuda_torch.ops import adaptive as ad
 from raytracingincuda_torch.ops import render_kernel as rk
 from raytracingincuda_torch.ops import stream_kernel as sk
-from raytracingincuda_torch.ops.tracer import _linear_to_gamma
+from raytracingincuda_torch.ops.tracer import linear_to_gamma
 from raytracingincuda_torch.render_api import make_renderer
 from raytracingincuda_torch.utils import ppm
 
@@ -173,7 +173,7 @@ def _check_invariants(res, probes_a, probes_b, rounds, max_spp=MAX):
         assert bool(((spp - BASE) % 2 == 0).all())  # two half launches
     mask = spp == BASE
     assert bool(mask.any())
-    base = _linear_to_gamma((probes_a + probes_b) / float(BASE))
+    base = linear_to_gamma((probes_a + probes_b) / float(BASE))
     assert torch.equal(img[mask], base[mask])
 
 

@@ -102,7 +102,7 @@ def test_compact_reference_equals_regen_reference():
 def test_compact_with_legacy_sky_runs_simple(monkeypatch):
     """As in JAX: compact has no legacy-sky rows, so it runs 'simple'."""
     s, cam = t_build(2, device="cpu"), TCam.reference_default()
-    monkeypatch.setattr(ck, "_compact", lambda *a, **k: pytest.fail(
+    monkeypatch.setattr(ck, "render_compact", lambda *a, **k: pytest.fail(
         "compact ran with legacy_sky"))
     got = rk.render_kernel(s, cam, 16, 8, 2, 5, mode="compact",
                            legacy_sky=True)

@@ -29,6 +29,7 @@ from raytracingincuda_torch.models.convert import (camera_config_from_numpy,
 from raytracingincuda_torch.models.scene import DIELECTRIC, Scene
 from raytracingincuda_torch.models.scene import build_scene as t_build
 from raytracingincuda_torch.ops import f64_kernel as fk
+from raytracingincuda_torch.ops import kernel_io as kio
 from raytracingincuda_torch.ops import render_kernel as rk
 from raytracingincuda_torch.render_api import make_renderer
 from raytracingincuda_torch.utils import ppm, trace
@@ -111,7 +112,7 @@ def test_plain_version_vs_jax_df64_kernel(tiny_scene, default_camera):
     sm, row = f64_inputs_from_numpy(*pack_scene_matrix_df64(tiny_scene),
                                     jinit_f64(default_camera, W, H),
                                     device="cpu")
-    ids, ii, jj, _ = rk._lane_setup(W, H, None, SPP, 0, None, "cpu")
+    ids, ii, jj, _ = kio.lane_setup(W, H, None, SPP, 0, None, "cpu")
     acc = fk.f64_reference(ids, ii, jj, sm, row, samples=SPP,
                            max_depth=DEPTH)
     img = acc.t()[:W * H].reshape(H, W, 3) * (1.0 / SPP)
@@ -272,7 +273,7 @@ def test_wrapper_checks_raise():
         fk.f64_reference(ids, ii, jj, sm, row.float(), **kw)
     with pytest.raises(ValueError):
         fk.f64_reference(ids, ii, jj, sm, row, layout="packed", **kw)
-    big = torch.zeros((rk.MAX_VMEM_SLOTS + 1, rk.NUM_COLS))
+    big = torch.zeros((kio.MAX_VMEM_SLOTS + 1, rk.NUM_COLS))
     with pytest.raises(ValueError, match="hbm"):
         fk.f64_reference(ids, ii, jj, big, row, **kw)
 

@@ -19,7 +19,9 @@ from raytracingincuda_torch.models.camera import CameraConfig, initialize
 from raytracingincuda_torch.models.scene import (build_deep_scene,
                                                  build_random_scene,
                                                  build_scene)
+from raytracingincuda_torch.ops import _build
 from raytracingincuda_torch.ops import group_scan as gs
+from raytracingincuda_torch.ops import kernel_io as kio
 from raytracingincuda_torch.ops import render_kernel as rk
 from raytracingincuda_torch.ops.intersect import hit_world
 from raytracingincuda_torch.ops.vec import Vec3
@@ -70,7 +72,7 @@ def _check(table, scene, o, d, active=None):
 def test_constants_and_path_rule():
     """The constants come from the source; the launch's rule from the slot
     count and the layout alone."""
-    src = (gs._CSRC / "path_common.cuh").read_text()
+    src = (_build.CSRC_DIR / "path_common.cuh").read_text()
     assert f"constexpr int kGroup = {gs.GROUP};" in src
     assert gs.GROUP in (8, 16) and gs.PAD == 2.0 ** -7 and gs.SAFE == 2.0 ** 40
     n_min = 2 * gs.GROUP
@@ -254,7 +256,7 @@ def test_scene_too_small_for_groups_scans_in_one_level(name, slots,
     assert gs.uses_groups(slots, "vmem") == two_level
     if two_level:
         return
-    soa = sm[:, :rk.USED_COLS].t().contiguous()
+    soa = kio.soa(sm)
     before = dict(trace.counts())
     assert gs.group_table(soa, _cam(16, 8), "vmem") is None
     gs.count_path(None)
@@ -284,7 +286,7 @@ def test_table_equals_twin_on_card(cuda, name):
         sm[:, 0:4] += (torch.randn(sm[:, 0:4].shape, generator=gen) * 0.05).to(cuda)
     cam = _cam(64, 40).to(cuda)
     before = trace.counts().get("launch.group_table", 0)
-    got = gs.group_table_kernel(sm[:, :rk.USED_COLS].t().contiguous(), cam)
+    got = gs.group_table_kernel(kio.soa(sm), cam)
     torch.cuda.synchronize()
     assert trace.counts().get("launch.group_table", 0) == before + 1
     assert torch.equal(got.cpu(), gs.group_table_reference(sm, cam).cpu())

@@ -1,4 +1,4 @@
-"""Images of 2^24 pixels and more, up to ``render_kernel.MAX_LANES`` lanes.
+"""Images of 2^24 pixels and more, up to ``kernel_io.MAX_LANES`` lanes.
 
 The JAX package renders such images wherever a lane holds one pixel; the
 port, whose lanes always hold one, takes them on every kernel route. The
@@ -34,11 +34,12 @@ from raytracingincuda_torch.models.camera import CameraConfig as TCam
 from raytracingincuda_torch.models.camera import initialize
 from raytracingincuda_torch.models.scene import (build_random_scene,
                                                  build_scene)
+from raytracingincuda_torch.ops import kernel_io as kio
 from raytracingincuda_torch.ops import render_kernel as rk
 from raytracingincuda_torch.ops import stream_kernel as sk
 from raytracingincuda_torch.ops import stream_train_kernel as stk
 from raytracingincuda_torch.ops import train_kernel as tk
-from raytracingincuda_torch.ops.tracer import _linear_to_gamma
+from raytracingincuda_torch.ops.tracer import linear_to_gamma
 from raytracingincuda_torch.utils import ppm
 
 # One intra-op thread: the suite runs in several worker processes, and
@@ -152,7 +153,7 @@ def _assert_sums_close(got, want):
     assert off.mean() <= FLIPPED_SHARE, (off.sum(), np.abs(got - want).max())
 
     def image(sums):     # the lanes as a (1, lanes, 3) gamma'd image
-        return _linear_to_gamma(torch.from_numpy(sums.T / SPP)).numpy()[None]
+        return linear_to_gamma(torch.from_numpy(sums.T / SPP)).numpy()[None]
 
     st = ppm.diff_stats(image(got), ppm.quantize(image(want)))
     assert ppm.passes_cross_framework_gate(st), st
@@ -165,7 +166,7 @@ def test_lane_setup_exact_at_large_sizes(size):
     """Every lane of the image, its coordinates exact: ii == id % W and
     jj == id // W as integers, the budget row the sample count."""
     w, h = SIZES[size]
-    ids, ii, jj, budget = rk._lane_setup(w, h, None, 4, 0, None, "cpu")
+    ids, ii, jj, budget = kio.lane_setup(w, h, None, 4, 0, None, "cpu")
     assert ids.shape == (w * h,) and w * h % rk.PAD == 0
     assert ids.dtype == torch.int32 and int(ids[-1]) == w * h - 1
     assert torch.equal(ids, torch.arange(w * h, dtype=torch.int32))
@@ -183,16 +184,16 @@ def test_lanes_above_the_cap_raise():
     with the cap's name, before any lane exists."""
     from raytracingincuda_torch.parallel.mesh import Mesh
 
-    cap = rk.MAX_LANES
+    cap = kio.MAX_LANES
     assert cap % rk.PAD == 0 and 3 * cap <= 2**31 - 1
     assert 3 * (cap + rk.PAD) > 2**31 - 1
     with pytest.raises(ValueError, match="MAX_LANES"):
-        rk._lane_setup(32768, 32768, None, 1, 0, None, "cpu")
+        kio.lane_setup(32768, 32768, None, 1, 0, None, "cpu")
     with pytest.raises(ValueError, match="MAX_LANES"):
-        rk._lane_setup(cap + 1, 1, None, 1, 0, None, "cpu")
+        kio.lane_setup(cap + 1, 1, None, 1, 0, None, "cpu")
     two = Mesh(None, 0, 2, torch.device("cpu"), ("dp",), (2,))
     with pytest.raises(ValueError, match="MAX_LANES"):
-        rk._lane_setup(cap - 1, 1, None, 1, 0, None, "cpu", two)
+        kio.lane_setup(cap - 1, 1, None, 1, 0, None, "cpu", two)
     meta = dict(device="meta")
     n = cap + rk.PAD
     ids = torch.empty(n, dtype=torch.int32, **meta)
@@ -242,7 +243,7 @@ def test_grad_reference_past_2_24_matches_jax_vjp(scene1_jax):
                                     torch.from_numpy(_cotangent()),
                                     *_port_inputs(ts), samples=SPP,
                                     max_depth=DEPTH, rr_start=rr)
-    for got, want in ((d_sm[:, :tk.GRAD_COLS], want_sm), (d_cam[0, :18],
+    for got, want in ((d_sm[:, :kio.GRAD_COLS], want_sm), (d_cam[0, :18],
                                                           want_cam)):
         got = got.numpy()
         assert np.isfinite(got).all()
@@ -279,7 +280,7 @@ def test_plan_park_windows_at_large_sizes(size, samples, depth, n, layout):
         plan = tk.plan_park(lanes, samples, depth, n, layout,
                             capacity=capacity)
         _contiguous(plan.windows, lanes)
-        acc = 0 if plan.acc_in_smem else tk._WARPS * n * tk.GRAD_COLS * 4
+        acc = 0 if plan.acc_in_smem else tk._WARPS * n * kio.GRAD_COLS * 4
         for _, count in plan.windows:
             assert (count * plan.capacity * 4 + count // rk.PAD * acc
                     <= tk.PARK_BUDGET)
@@ -438,7 +439,7 @@ def test_stream_kernel_on_large_image_on_card(cuda):
     cam = TCam.reference_default()
     st = sk.prepare_stream_scene(build_random_scene(1000, seed=3,
                                                     device=cuda), block=64)
-    ids, ii, jj, bud = rk._lane_setup(w, h, None, 1, 0, None, cuda)
+    ids, ii, jj, bud = kio.lane_setup(w, h, None, 1, 0, None, cuda)
     row = rk.pack_camera(initialize(cam, w, h)).to(cuda)
     kw = dict(block=64, samples=1, max_depth=6, finalize_scale=1.0)
     got = sk.stream_kernel(ids, ii, jj, bud, st.scene_mat, st.bounds, row,

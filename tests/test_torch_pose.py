@@ -91,7 +91,7 @@ def test_soft_render_matches_jax(monkeypatch):
 
 def _port_loss(scene, cam, target, w, h):
     def loss(lf, la):
-        c = tpose._cam_with_pose(cam, tpose.PoseState(lf, la))
+        c = tpose.cam_with_pose(cam, tpose.PoseState(lf, la))
         return torch.mean((tpose.soft_render(scene, c, w, h) - target) ** 2)
     return loss
 
@@ -145,13 +145,13 @@ def test_recover_pose_steps_match_jax():
     bias correction, optax before: a last-bit difference a step)."""
     scene, cam = build_scene(2, device="cpu"), CameraConfig.reference_default()
     target = tpose.soft_render(scene, cam, W, H)
-    init = tpose._cam_with_pose(cam, _shifted(tpose.pose_of(cam),
-                                              (0.1, -0.05, 0.08)))
+    init = tpose.cam_with_pose(cam, _shifted(tpose.pose_of(cam),
+                                             (0.1, -0.05, 0.08)))
     got, losses = tpose.recover_pose(scene, target, init, W, H, steps=6)
 
     js, jc = j_build(2), JCam.reference_default()
     jinit = jpose._cam_with_pose(jc, _shifted(jpose.pose_of(jc),
-                                              (0.1, -0.05, 0.08)))
+                                             (0.1, -0.05, 0.08)))
     want, jlosses = jpose.recover_pose(js, jpose.soft_render(js, jc, W, H),
                                        jinit, W, H, steps=6)
     assert len(losses) == len(jlosses) == 6
@@ -176,14 +176,14 @@ def test_refine_pose_fd_first_step_as_jax():
     stays put with optimize_lookat=False."""
     scene, cam = build_scene(2, device="cpu"), CameraConfig.reference_default()
     target = rk.render_kernel(scene, cam, W, H, 2, 3)
-    init = tpose._cam_with_pose(cam, _shifted(tpose.pose_of(cam),
-                                              (0.12, -0.08, 0.1)))
+    init = tpose.cam_with_pose(cam, _shifted(tpose.pose_of(cam),
+                                             (0.12, -0.08, 0.1)))
     got, hist = tpose.refine_pose_fd(scene, target, init, W, H,
                                      samples_per_pixel=2, max_depth=3,
                                      steps=1, optimize_lookat=False)
     js, jc = j_build(2), JCam.reference_default()
     jinit = jpose._cam_with_pose(jc, _shifted(jpose.pose_of(jc),
-                                              (0.12, -0.08, 0.1)))
+                                             (0.12, -0.08, 0.1)))
     want, jhist = jpose.refine_pose_fd(js, jnp.asarray(target.numpy()),
                                        jinit, W, H, samples_per_pixel=2,
                                        max_depth=3, steps=1,
@@ -209,7 +209,7 @@ def test_refine_pose_fd_converges_on_real_target():
 
     target = render(cam)
     true = tpose.pose_of(cam)
-    init = tpose._cam_with_pose(cam, true._replace(
+    init = tpose.cam_with_pose(cam, true._replace(
         lookfrom=true.lookfrom + torch.tensor([0.12, -0.08, 0.1])))
     mse0 = float(torch.mean((render(init) - target) ** 2))
     kw = dict(samples_per_pixel=spp, max_depth=depth, optimize_lookat=False)

@@ -20,6 +20,7 @@ import torch
 from raytracingincuda_torch.config import RenderConfig
 from raytracingincuda_torch.models.camera import CameraConfig as TCam
 from raytracingincuda_torch.models.scene import build_scene as t_build
+from raytracingincuda_torch.ops import kernel_io as kio
 from raytracingincuda_torch.ops import render_kernel as rk
 from raytracingincuda_torch.ops import tracer as ttr
 from raytracingincuda_torch.render_api import make_renderer
@@ -173,7 +174,7 @@ def test_wrapper_checks_raise():
         rk.regen_reference(ids, ii, jj, bud, sm[:, :11], row, **kw)
     with pytest.raises(ValueError):
         rk.regen_reference(ids, ii, jj, bud, sm, row, layout="packed", **kw)
-    big = torch.zeros((rk.MAX_VMEM_SLOTS + 1, rk.NUM_COLS))
+    big = torch.zeros((kio.MAX_VMEM_SLOTS + 1, rk.NUM_COLS))
     with pytest.raises(ValueError):
         rk.regen_reference(ids, ii, jj, bud, big, row, **kw)
     with pytest.raises(ValueError):

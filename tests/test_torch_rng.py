@@ -91,7 +91,7 @@ def test_samplers_allclose():
 def _large_ids(seed):
     """N pixel ids from 2^24 up to the port's lane cap: the ends, the last
     pixel of 7680x4320, and draws between."""
-    from raytracingincuda_torch.ops.render_kernel import MAX_LANES
+    from raytracingincuda_torch.ops.kernel_io import MAX_LANES
 
     rng = np.random.default_rng(seed)
     ends = [1 << 24, (1 << 24) + 1, 7680 * 4320 - 1, MAX_LANES - 1]

@@ -358,7 +358,7 @@ DEPTH_DIVERGENCES = {
     for entry in ("make_mse_train", "make_train_step fused",
                   "render_kernel_grads", "make_stream_train fused")}
 PIXEL_LIMIT_DIVERGENCE = (
-    "Above render_kernel.MAX_LANES (715,827,840 lanes, the kernels' 32-bit "
+    "Above kernel_io.MAX_LANES (715,827,840 lanes, the kernels' 32-bit "
     "(3, lanes) index products) the port raises on every route; JAX's "
     "render_pallas at pixels_per_lane=1 takes any image whose pixel ids "
     "fit its uint32 ids. Below that cap both packages take an image at "
@@ -533,6 +533,7 @@ def test_max_pixels_divergence(monkeypatch):
     from raytracingincuda_tpu.ops import pallas_kernel as pk
     from raytracingincuda_tpu.ops import pallas_stream as ps
     from raytracingincuda_tpu.ops import pallas_stream_backward as psb
+    from raytracingincuda_torch.ops import kernel_io as kio
     from raytracingincuda_torch.ops import render_kernel as rk
     from raytracingincuda_torch.ops import train_kernel as tk
 
@@ -577,7 +578,7 @@ def test_max_pixels_divergence(monkeypatch):
         assert got.lanes == w * h, entry
         assert got.last == (w * h - 1, w - 1.0, h - 1.0), entry
     big = 32768
-    assert big * big > rk.MAX_LANES
+    assert big * big > kio.MAX_LANES
     for spp in (1, 8):
         with pytest.raises(ValueError, match="MAX_LANES"):
             make_renderer(RenderConfig(scene_id=2, width=big, height=big,

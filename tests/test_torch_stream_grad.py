@@ -21,6 +21,7 @@ import torch
 from raytracingincuda_torch.models.camera import CameraConfig as TCam
 from raytracingincuda_torch.models.camera import initialize
 from raytracingincuda_torch.models.scene import build_random_scene
+from raytracingincuda_torch.ops import kernel_io as kio
 from raytracingincuda_torch.ops import render_kernel as rk
 from raytracingincuda_torch.ops import stream_kernel as sk
 from raytracingincuda_torch.ops import stream_train_kernel as stk
@@ -98,7 +99,7 @@ def test_stream_grads_match_pallas_stream_grads(spread, weight):
         assert np.isfinite(g).all()
         assert (err <= 1e-3).mean() >= share and err.max() <= 1e-2, (
             (err <= 1e-3).mean(), err.max())
-    assert not got[0][:, tk.GRAD_COLS:].any()
+    assert not got[0][:, kio.GRAD_COLS:].any()
 
 
 def test_stream_grads_match_eager_jax_oracle(spread, weight):
@@ -346,7 +347,7 @@ def test_stream_grads_in_record_windows(spread, weight, budget, n_windows):
     cam = TCam.reference_default()
     st = sk.prepare_stream_scene(ts, block=32)
     ids, ii, jj, _, _, row = rk.regen_inputs(ts, cam, W, H, SPP)
-    g = tk._lane_rows(torch.from_numpy(weight), ids, W * H)
+    g = kio.lane_rows(torch.from_numpy(weight), ids, W * H)
     args = (ids, ii, jj, g, st.scene_mat, st.bounds, row)
     kw = dict(block=32, samples=SPP, max_depth=DEPTH, rr_start=2)
     assert len(stk.plan_records(ids.shape[0], SPP, DEPTH, budget)) == n_windows

@@ -2,7 +2,7 @@
 
 Kernels 4 and 5 test a block's rows only in the groups whose conservative
 box some lane can improve in (``csrc/staged_walk.cuh``). On the CPU, the
-plain twin (``stream_kernel._Walk`` with ``walk_groups_reference``'s
+plain twin (``stream_kernel.Walk`` with ``walk_groups_reference``'s
 table) is held to the one-level walk on adversarial cases: every ray whose
 root lies in a group passes that group's box at that root, and the grouped
 walk returns the one-level walk's (hit, t, winner). The ``cuda`` tests hold
@@ -19,6 +19,7 @@ import torch
 
 from raytracingincuda_torch.models.camera import CameraConfig, initialize
 from raytracingincuda_torch.models.scene import build_random_scene
+from raytracingincuda_torch.ops import kernel_io as kio
 from raytracingincuda_torch.ops import render_kernel as rk
 from raytracingincuda_torch.ops import stream_kernel as sk
 from raytracingincuda_torch.ops import stream_train_kernel as stk
@@ -47,7 +48,7 @@ def stream_of(c, r, block, sort=True):
     m[:, 3] = torch.as_tensor(np.asarray(r), dtype=torch.float32)
     m[:, 4:7] = 0.5
     m[:, rk.COL_ACTIVE] = 1.0
-    return sk.prepare_stream_scene(rk.scene_from_matrix(m), block=block,
+    return sk.prepare_stream_scene(kio.scene_from_matrix(m), block=block,
                                    sort=sort)
 
 
@@ -177,7 +178,7 @@ def test_group_cull_keeps_every_root(name):
     o, d = vec3(o_np), vec3(d_np)
     table = sk.walk_groups_reference(st.scene_mat, st.block)
     per = sk.block_groups(st.block)
-    t_num, a = root_numerators(rk.scene_from_matrix(st.scene_mat), o, d)
+    t_num, a = root_numerators(kio.scene_from_matrix(st.scene_mat), o, d)
     a = a[0]
     ray = sk._box_ray(o, d)
     ng = table.shape[0]
@@ -203,8 +204,8 @@ def test_group_cull_keeps_every_root(name):
         assert bool((table[:, 4:7] == math.inf).any())
 
     active = torch.ones(o.x.shape[0], dtype=torch.bool)
-    want = sk._Walk(st.scene_mat, st.bounds, st.block)(o, d, active)
-    walk = sk._Walk(st.scene_mat, st.bounds, st.block, groups=table)
+    want = sk.Walk(st.scene_mat, st.bounds, st.block)(o, d, active)
+    walk = sk.Walk(st.scene_mat, st.bounds, st.block, groups=table)
     walk.count(o.x.shape[0], "cpu")
     got = walk(o, d, active)
     assert torch.equal(got.hit, want.hit)

@@ -20,6 +20,7 @@ import torch
 from raytracingincuda_torch.models.camera import CameraConfig as TCam
 from raytracingincuda_torch.models.camera import config_leaves
 from raytracingincuda_torch.models.scene import build_scene, param_leaves
+from raytracingincuda_torch.ops import kernel_io as kio
 from raytracingincuda_torch.ops import render_kernel as rk
 from raytracingincuda_torch.ops import train_kernel as tk
 from raytracingincuda_torch.utils import trace
@@ -95,7 +96,7 @@ def test_grad_reference_matches_pallas_grads(mixed, rr):
                                  rr_start=rr)
     _close(got[0], want[0], 1e-3, "d_scene_mat")
     _close(got[1], want[1], 1e-3, "d_cam_row")
-    assert not got[0][:, tk.GRAD_COLS:].any()
+    assert not got[0][:, kio.GRAD_COLS:].any()
     assert not got[1][0, 18:].any()
 
 
@@ -281,7 +282,7 @@ def test_depth_cap_and_arguments_raise():
 
 def _window_bytes(plan, lanes, n):
     """One window's park and device-memory warp accumulators, in bytes."""
-    acc = 0 if plan.acc_in_smem else lanes // 32 * n * tk.GRAD_COLS * 4
+    acc = 0 if plan.acc_in_smem else lanes // 32 * n * kio.GRAD_COLS * 4
     return lanes * plan.capacity * 4 + acc
 
 

@@ -212,8 +212,8 @@ CPU path):
              640x384, 100 spp, 25 bounces, which raised before record
              windows: windows, 3 timed steps from one state
              (bit-identical), peak memory (the largest window's records
-             within the budget, the peak within it plus 256 MiB for that
-             window's sort and the step's tensors), launches
+             and their sort within the budget, the peak within it plus
+             256 MiB for the step's tensors), launches
   26 large images  images of 2^24 pixels and more (up to
              kernel_io.MAX_LANES lanes), each kernel held to its plain
              version on sampled lanes with pixel ids >= 2^24 (the image's
@@ -1883,14 +1883,18 @@ def main() -> int:
         ids, ii, jj, rows, st0.scene_mat, st0.bounds, row, block=st0.block,
         samples=spp, max_depth=bounces, seed=DEFAULT_SEED, rr_start=None,
         sample_offset=0, fused=True, num_pixels=w * h)
-    (keys, src), order_ms = timed(lambda: stk.record_order(rec_row), 5)
+    # every record sorted, the unwritten ones summed into one row past the
+    # last (record_order); the plain version and index_add_ sum the same
     n_rows = st0.scene_mat.shape[0]
+    (keys, src), order_ms = timed(lambda: stk.record_order(rec_row, n_rows),
+                                  5)
     seg_out, seg_ms = timed(lambda: stk.segment_sum_kernel(keys, src, rec_val,
-                                                           n_rows), 5)
+                                                           n_rows + 1), 5)
     seg_plain, seg_plain_ms = timed(lambda: stk.segment_sum_reference(
-        keys, src, rec_val, n_rows), 1, warm=False)
+        keys, src, rec_val, n_rows + 1), 1, warm=False)
+    seg_out, seg_plain = seg_out[:n_rows], seg_plain[:n_rows]
     lib_keys, lib_vals = keys.long(), rec_val[src]
-    lib_out = torch.zeros((n_rows, kio.GRAD_COLS), device=dev)
+    lib_out = torch.zeros((n_rows + 1, kio.GRAD_COLS), device=dev)
     _, lib_ms = timed(lambda: lib_out.zero_().index_add_(0, lib_keys,
                                                          lib_vals), 5)
     m = keys.shape[0]
@@ -3352,7 +3356,7 @@ def main() -> int:
     st1k = sk.prepare_stream_scene(s1k, block=64)
     ids, ii, jj, _, row = lanes(64, 40, 4)
     g1k = (torch.randn((3, ids.shape[0]), generator=gen) * 1e-3).to(dev)
-    w_budget = 7 * rk.PAD * 6 * stk.RECORD_BYTES
+    w_budget = 7 * rk.PAD * 6 * stk.PLAN_BYTES
     w_args = (ids, ii, jj, g1k, st1k.scene_mat, st1k.bounds, row)
     w_kw = dict(block=64, samples=4, max_depth=6, rr_start=2,
                 budget=w_budget)
@@ -3436,16 +3440,16 @@ def main() -> int:
             torch.equal(a, b) for a, b in zip(param_leaves(o[0].params),
                                               param_leaves(first_r[0].params)))
         for o in outs_r)
-    # the largest window's records; the rest of the peak is that window's
-    # sort (record_order: a mask a record, keys and indices a written
-    # record) and the step's own tensors (image, scene, optimizer state)
+    # the largest window's records and their sort (record_order over every
+    # record), the budget's share of the peak; the rest is the step's own
+    # tensors (image, scene, optimizer state)
     window_mib = max(x.lanes * x.samples for x in stk.plan_records(
-        w * h, spp_r, d_r)) * d_r * stk.RECORD_BYTES / 2**20
+        w * h, spp_r, d_r)) * d_r * stk.PLAN_BYTES / 2**20
     refused = {"shape": f"{w}x{h}x{spp_r}spp/{d_r}b", "windows": n_r,
                "step_ms": times_r, "loss": float(first_r[1]),
                "peak_over_base_mib": peak_r,
                "record_budget_mib": stk.RECORD_BUDGET / 2**20,
-               "largest_window_records_mib": window_mib,
+               "largest_window_records_and_sort_mib": window_mib,
                "run_to_run_identical": identical_r,
                "launches": nonzero(refused_counts)}
     if not (identical_r and np.isfinite(refused["loss"])
@@ -3458,9 +3462,9 @@ def main() -> int:
         f"record windows): {n_r} windows; step ms "
         f"{', '.join(f'{t:.2f}' for t in times_r)}; peak {peak_r:.1f} MiB "
         f"above the {base_mib:.1f} MiB held before: the largest window's "
-        f"records {window_mib:.1f} MiB (budget "
-        f"{refused['record_budget_mib']:.0f} MiB), its sort and the step's "
-        f"tensors {peak_r - window_mib:.1f} MiB; loss {refused['loss']:.9g},"
+        f"records and their sort {window_mib:.1f} MiB (budget "
+        f"{refused['record_budget_mib']:.0f} MiB), the step's tensors "
+        f"{peak_r - window_mib:.1f} MiB; loss {refused['loss']:.9g},"
         f" bit-identical from run to run; launches {refused['launches']}")
     record["deep_and_windows"] = {
         "deep": deep_rows, "stack_instances": stack_ms,

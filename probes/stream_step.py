@@ -126,12 +126,14 @@ def main() -> int:
             res["records_bit_equal"] = all(
                 a.shape == b.shape and torch.equal(a, b)
                 for a, b in zip(got, want))
-    (keys, src), order_ms = timed(lambda: stk.record_order(rec_row), 5)
-    n_rows = st0.scene_mat.shape[0]
+    # every record, the unwritten ones into one row past the last
+    sums = st0.scene_mat.shape[0] + 1
+    (keys, src), order_ms = timed(
+        lambda: stk.record_order(rec_row, sums - 1), 5)
     _, seg_ms = timed(lambda: stk.segment_sum_kernel(keys, src, rec_val,
-                                                     n_rows), 5)
+                                                     sums), 5)
     lib_vals, lib_keys = rec_val[src], keys.long()
-    out = torch.zeros((n_rows, kio.GRAD_COLS), device=dev)
+    out = torch.zeros((sums, kio.GRAD_COLS), device=dev)
     _, lib_ms = timed(lambda: out.zero_().index_add_(0, lib_keys, lib_vals),
                       5)
     res.update(records=int(keys.shape[0]), record_order_ms=order_ms,

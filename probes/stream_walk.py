@@ -29,8 +29,12 @@ opened, each lane's), ``warp_blocks`` (the union a warp walks),
 where the tree has one, else every row of ``warp_blocks``), with
 ``rows_tested_share`` = rows_tested / (warp_blocks x block); and the
 SHA-256 of what the kernels return (kernel 4's image; kernel 5's records,
-image, loss and gradients), so that two trees' outputs compare bit for bit
-across processes. ``render_request`` is one request of the stream render
+the written ones' values, image, loss and gradients), so that two trees'
+outputs compare bit for bit across processes. The train shapes also
+report the record sort on kernel 5's records: their count and the share
+written, and the device ms of ``record_order``, of the segmented sum and
+of ``scatter_records``.
+``render_request`` is one request of the stream render
 cell (``make_renderer(impl='stream')``, its stream prepared first) with
 the port's spans on: the counters that rose inside its ``rt.render`` span.
 Prints one JSON line and writes it to ``chiprun_out/stream_walk_<tag>.json``.
@@ -172,9 +176,28 @@ def main() -> int:
         recs = stk.train_records(*a5, seed=DEFAULT_SEED, rr_start=None,
                                  sample_offset=0, fused=True,
                                  num_pixels=w * h, **kw)
-        out["sha_records"] = digest(*recs)
+        written = recs[1] >= 0     # the rest of the buffers is never set
+        out["sha_records"] = digest(recs[0], recs[1], recs[2][written],
+                                    *recs[3:])
+        out.update(record_sort(recs[1], recs[2], st.scene_mat.shape[0]))
         del recs
         return out
+
+    def record_sort(rec_row, rec_val, n_rows):
+        """The records' share written, and the device ms of the record
+        sort (every record, the unwritten ones into one row past the
+        last), of its segmented sum and of the two together
+        (``scatter_records``)."""
+        order = lambda: stk.record_order(rec_row, n_rows)  # noqa: E731
+        keys, src = order()
+        return {"records": rec_row.numel(),
+                "written_share": int((rec_row >= 0).sum()) / rec_row.numel(),
+                "sorted": keys.numel(),
+                "record_order_ms": timed(order, args.reps),
+                "segment_sum_ms": timed(lambda: stk.segment_sum_kernel(
+                    keys, src, rec_val, n_rows + 1), args.reps),
+                "scatter_ms": timed(lambda: stk.scatter_records(
+                    rec_row, rec_val, n_rows), args.reps)}
 
     res["train_100k"] = train_shape(s100k, stream, 4, 10)
     del s100k, stream, front

@@ -111,7 +111,8 @@ def train_state_from_numpy(arrays: Sequence[np.ndarray], trainable=None,
     9 SceneParams leaves, optax's ``count``, ``mu`` and ``nu``, and
     ``step``. With a ``trainable`` mask (a SceneParams of bools, as the
     JAX step was given) optax keeps moments for the trainable leaves
-    only; the frozen leaves' moments are zeros here, and stay so."""
+    only; the frozen leaves' moments are zeros here, and stay so. The
+    count stays on the host, as ``AdamState`` keeps it."""
     from ..ops.grad import AdamState, TrainState
 
     device = resolve_device(device)
@@ -131,7 +132,7 @@ def train_state_from_numpy(arrays: Sequence[np.ndarray], trainable=None,
 
     return TrainState(
         params=params_from_leaves(params),
-        opt_state=AdamState(_t(arrays[9], device, torch.int32),
+        opt_state=AdamState(_t(arrays[9], "cpu", torch.int32),
                             moments(arrays[10:10 + k]),
                             moments(arrays[10 + k:10 + 2 * k])),
         step=_t(arrays[-1], device, torch.int32),

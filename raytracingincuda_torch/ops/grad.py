@@ -37,6 +37,7 @@ from __future__ import annotations
 
 from typing import Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from ..models.camera import (CameraConfig, config_from_leaves, config_leaves,
@@ -51,7 +52,7 @@ from .stream_kernel import (StreamScene, build_stream_arrays,
 from .stream_train_kernel import (RECORD_BUDGET, mse_train_stream,
                                   render_stream_grads,
                                   stream_grads_to_scene_mat)
-from .train_kernel import chain_to_params, fused_train, refuse_unported
+from .train_kernel import chain_to_scene, fused_train, refuse_unported
 
 _STREAM = ("impl='stream' trains streamed scenes through make_stream_train "
            "(the JAX make_loss_fn falls back to its oracle here)")
@@ -179,18 +180,27 @@ def front_to_back_border(stream, cam_cfg: CameraConfig, img_width: int,
     bounds (distance - bound radius, empty blocks last), int32 on the
     bounds' device. The prepared bounds rows may already be in camera order
     (``camdist_from``), so each row's canonical index comes from its
-    first-row column. Speed only: the image and gradients are the same
-    but for exact ties between blocks."""
-    order = front_to_back_order(
+    first-row column. Raises unless those indices, read on the host in the
+    one host wait of ``front_to_back_order``, are a permutation of the
+    blocks. Speed only: the image and gradients are the same but for exact
+    ties between blocks."""
+    order, rows = front_to_back_order(
         stream.bounds, initialize(cam_cfg, img_width, img_height).center)
+    if not np.array_equal(np.sort(np.round(rows[:, 4] / stream.block)),
+                          np.arange(stream.n_blocks)):
+        raise ValueError(f"bounds column 4 over the block of {stream.block} "
+                         f"rows must index each of the {stream.n_blocks} "
+                         f"blocks once")
     first = stream.bounds.detach()[order, 4]
     return torch.round(first / stream.block).to(torch.int32)
 
 
 class AdamState(NamedTuple):
     """optax.adam's state: the step count and both moments, one leaf per
-    SceneParams leaf (frozen leaves keep zero moments)."""
-    count: torch.Tensor     # int32 scalar
+    SceneParams leaf (frozen leaves keep zero moments). The count lives on
+    the host: each step reads it, and a read from a card would wait for
+    the step's kernels."""
+    count: torch.Tensor     # int32 scalar, on the CPU
     mu: SceneParams
     nu: SceneParams
 
@@ -226,13 +236,14 @@ def train_state_leaves(state: TrainState) -> list:
 
 
 def train_state_from_leaves(leaves) -> TrainState:
-    """Inverse of ``train_state_leaves``."""
+    """Inverse of ``train_state_leaves``, the count moved to the host."""
     leaves = list(leaves)
     if len(leaves) != 29:
         raise ValueError(f"a TrainState has 29 leaves, got {len(leaves)}")
     return TrainState(
         params=params_from_leaves(leaves[:9]),
-        opt_state=AdamState(leaves[9], params_from_leaves(leaves[10:19]),
+        opt_state=AdamState(leaves[9].cpu(),
+                            params_from_leaves(leaves[10:19]),
                             params_from_leaves(leaves[19:28])),
         step=leaves[28],
     )
@@ -284,16 +295,17 @@ def _adam(learning_rate: float, trainable):
 
     def zeros(leaves, count):
         z = params_from_leaves([torch.zeros_like(t) for t in leaves])
-        return AdamState(count, z, z)
+        return AdamState(torch.zeros_like(count, device="cpu"), z, z)
 
     @trace.spanned("rt.optim")
     def apply(state: TrainState, d_params: SceneParams):
         mu = [t.clone() for t in param_leaves(state.opt_state.mu)]
         nu = [t.clone() for t in param_leaves(state.opt_state.nu)]
-        count = 0.0
-        if train:
+        count = state.opt_state.count
+        if count.is_cuda:           # a state built elsewhere: a host wait
             with trace.sync():
-                count = float(state.opt_state.count)
+                count = count.cpu()
+        count = float(count)
         leaves, _ = _step_leaves(
             state.params, d_params, train,
             lambda ts: torch.optim.Adam(ts, lr=learning_rate),
@@ -386,13 +398,11 @@ def make_train_step(img_width: int, img_height: int, samples_per_pixel: int,
                        active, target):
             scene = Scene(params=state.params, mat_type=mat_type,
                           active=active)
-            loss, _img, d_sm, d_cr = fused_train(
+            loss, _img, d_sm, _ = fused_train(
                 scene, cam_cfg, target, img_width, img_height,
                 samples_per_pixel, max_depth, gamma=gamma, **fused_kw)
-            d_params, _ = chain_to_params(d_sm, d_cr, state.params, cam_cfg,
-                                          mat_type, active, img_width,
-                                          img_height)
-            params, opt_state = apply(state, d_params)
+            params, opt_state = apply(state, chain_to_scene(d_sm,
+                                                            state.params))
             return TrainState(params, opt_state, state.step + 1), loss
 
         return init_fn, fused_step
@@ -463,7 +473,7 @@ def make_stream_train(stream, img_width: int, img_height: int,
         st = stream_of(state.params, mat_type, active, cam_cfg)
         kw = dict(seed=seed, mesh=mesh, budget=budget)
         if fused:
-            loss_v, d_stream, d_cr = mse_train_stream(
+            loss_v, d_stream, _ = mse_train_stream(
                 st, cam_cfg, target, img_width, img_height, samples_per_pixel,
                 max_depth, loss=loss, huber_delta=huber_delta, **kw)
         else:
@@ -474,14 +484,12 @@ def make_stream_train(stream, img_width: int, img_height: int,
                 loss_v = image_loss(img, torch.as_tensor(target).to(img),
                                     loss, huber_delta)
                 (g_img,) = torch.autograd.grad(loss_v, img)
-            d_stream, d_cr = render_stream_grads(
+            d_stream, _ = render_stream_grads(
                 st, cam_cfg, g_img / samples_per_pixel, img_width,
                 img_height, samples_per_pixel, max_depth, **kw)
             loss_v = loss_v.detach()
         d_sm = stream_grads_to_scene_mat(d_stream, st, mat_type.shape[0])
-        d_params, _ = chain_to_params(d_sm, d_cr, state.params, cam_cfg,
-                                      mat_type, active, img_width, img_height)
-        params, opt_state = apply(state, d_params)
+        params, opt_state = apply(state, chain_to_scene(d_sm, state.params))
         return TrainState(params, opt_state, state.step + 1), loss_v
 
     return init_fn, step_fn

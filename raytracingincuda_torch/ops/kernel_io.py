@@ -227,12 +227,15 @@ def unpack_camera(cam_row: torch.Tensor) -> Camera:
 def camera_row(cam_cfg: CameraConfig, img_width: int, img_height: int,
                device) -> torch.Tensor:
     """The (1, 24) camera row on ``device``, derived from ``cam_cfg`` where
-    that lives (the host, by default): span ``rt.camera``, its copy to the
-    card a host sync."""
+    that lives (the host, by default): span ``rt.camera``. A row derived on
+    the host reaches a card from pinned memory, a copy queued on the
+    current stream that the host does not wait for (torch's pinned
+    allocator keeps the block until the copy has run)."""
     with trace.span("rt.camera"), torch.no_grad():
         row = pack_camera(initialize(cam_cfg, img_width, img_height))
-        with trace.sync():
-            return row.to(device)
+        if row.device.type == "cpu" and torch.device(device).type == "cuda":
+            return row.pin_memory().to(device, non_blocking=True)
+        return row.to(device)
 
 
 # -- the checks ---------------------------------------------------------------

@@ -20,8 +20,11 @@ Two implementations share one signature:
 
 ``_stream`` (``kernel_io.by_device``) picks the kernel for CUDA tensors
 and the plain version only for CPU tensors; nothing falls back from one to
-the other. ``check_args`` is ``kernel_io.check`` with the walk's rules.
-``render_stream`` is the ``render_pallas_stream`` counterpart.
+the other. ``check_args`` is ``kernel_io.check`` with the walk's rules; it
+reads a bounds table's column 4 on the host only where this module did not
+build the table itself (``prepare_stream_scene``, ``reorder_front_to_back``,
+``build_stream_arrays``), so a step on bounds built here never waits for
+the card. ``render_stream`` is the ``render_pallas_stream`` counterpart.
 
 What differs from the TPU layout: the stream matrix has the 16 columns
 of ``pack_scene_matrix`` (the TPU padded it to 128 lanes for its DMA
@@ -80,6 +83,21 @@ class StreamScene(NamedTuple):
     @property
     def n_blocks(self) -> int:
         return self.scene_mat.shape[0] // self.block
+
+
+def _vouch(bounds: torch.Tensor, rows: int, block: int) -> torch.Tensor:
+    """Mark ``bounds`` as built by this module for a matrix of ``rows`` rows
+    in blocks of ``block``: the mark holds while the tensor's version does,
+    so a write in place voids it, and a copy or a new tensor carries none."""
+    bounds._rt_vouched = (bounds._version, rows, block)
+    return bounds
+
+
+def _vouched(bounds: torch.Tensor, rows: int, block: int) -> bool:
+    """Whether ``_vouch(bounds, rows, block)`` marked ``bounds`` and it is
+    unchanged since."""
+    return (getattr(bounds, "_rt_vouched", None)
+            == (bounds._version, rows, block))
 
 
 def _morton3(q: np.ndarray, bits: int = 10) -> np.ndarray:
@@ -172,7 +190,8 @@ def prepare_stream_scene(scene: Scene, block: int = DEFAULT_BLOCK,
         bounds = bounds[front_to_back(bounds, camdist_from)]
     out[:, STREAM_COL_SID] = np.arange(n_pad, dtype=np.float32)
     return StreamScene(torch.from_numpy(out).to(dev),
-                       torch.from_numpy(bounds).to(dev), block,
+                       _vouch(torch.from_numpy(bounds).to(dev), n_pad,
+                              block), block,
                        torch.from_numpy(act_idx.astype(np.int32)).to(dev))
 
 
@@ -185,7 +204,10 @@ def build_stream_arrays(scene: Scene, perm: torch.Tensor, block: int,
     block (to an ulp of the numpy ones: another summation order and
     sqrt). A stale sort only loosens culling. ``border`` (a permutation of
     the canonical block order, ``grad.front_to_back_border``) reorders the
-    bounds rows. Counts ``stream.rows`` by the matrix rows it writes."""
+    bounds rows. The bounds are vouched for (``check_args`` reads nothing of
+    them on the host): column 4 is written here, and a ``border`` index out
+    of range raises in the gather. Counts ``stream.rows`` by the matrix rows
+    it writes."""
     trace.count("stream.rows", n_pad)
     with torch.no_grad():
         mat = kio.pack_scene_matrix(scene)
@@ -200,10 +222,8 @@ def build_stream_arrays(scene: Scene, perm: torch.Tensor, block: int,
         c = out[:, COL_CX:COL_CZ + 1].reshape(nb, block, 3)
         r = out[:, COL_RADIUS].reshape(nb, block)
         act = out[:, COL_ACTIVE].reshape(nb, block) > 0.5
-        with trace.sync():
-            big = torch.tensor(1e30, dtype=torch.float32, device=dev)
-        lo = torch.where(act[..., None], c, big).amin(1)
-        hi = torch.where(act[..., None], c, -big).amax(1)
+        lo = torch.where(act[..., None], c, 1e30).amin(1)
+        hi = torch.where(act[..., None], c, -1e30).amax(1)
         any_act = act.any(1)
         zero = torch.zeros((), dtype=torch.float32, device=dev)
         ctr = torch.where(any_act[:, None], (lo + hi) * 0.5, zero)
@@ -218,26 +238,31 @@ def build_stream_arrays(scene: Scene, perm: torch.Tensor, block: int,
                                     device=dev) * block
         if border is not None:
             bounds = bounds[torch.as_tensor(border, device=dev).long()]
-    return out, bounds.contiguous()
+    return out, _vouch(bounds.contiguous(), n_pad, block)
 
 
-def front_to_back_order(bounds: torch.Tensor, point) -> torch.Tensor:
-    """``front_to_back`` of a bounds table on any device: the order of its
-    rows, int64 on the bounds' device. The read of the bounds on the host
-    and the order's copy back are one host wait (``trace.sync``); a scene
-    or a fit takes it once."""
+def front_to_back_order(bounds: torch.Tensor, point) -> tuple:
+    """``front_to_back`` of a bounds table on any device: (the order of its
+    rows, int64 on the bounds' device; the rows in that order, a numpy
+    copy on the host). The read of the bounds on the host and the order's
+    copy back are one host wait (``trace.sync``); a scene or a fit takes
+    it once."""
     with trace.sync():
-        order = front_to_back(bounds.detach().cpu().numpy(), point)
-        return torch.from_numpy(order).to(bounds.device)
+        host = bounds.detach().cpu().numpy()
+        order = front_to_back(host, point)
+        return torch.from_numpy(order).to(bounds.device), host[order]
 
 
 def reorder_front_to_back(stream: StreamScene, point) -> StreamScene:
     """``stream`` with its bounds rows front to back from ``point`` (the
-    matrix does not move)."""
+    matrix does not move); vouched for where ``stream``'s bounds were."""
     if stream.bounds.shape[0] <= 1:
         return stream
-    return stream._replace(
-        bounds=stream.bounds[front_to_back_order(stream.bounds, point)])
+    what = (stream.scene_mat.shape[0], stream.block)
+    bounds = stream.bounds[front_to_back_order(stream.bounds, point)[0]]
+    if _vouched(stream.bounds, *what):
+        _vouch(bounds, *what)
+    return stream._replace(bounds=bounds)
 
 
 # -- the plain version ---------------------------------------------------------
@@ -425,7 +450,9 @@ def check_args(ids, ii, jj, rows, scene_mat, bounds, cam_row, *, block,
                **kw):
     """``kernel_io.check`` with the stream matrix as the scene (layout
     'hbm'), then the walk's rules: (nb, 8) f32 ``bounds``, at most a row a
-    block of ``block`` matrix rows, column 4 a block's first matrix row."""
+    block of ``block`` matrix rows, column 4 a block's first matrix row.
+    Column 4 is read on the host (a host wait) unless this module built the
+    bounds for this matrix and block and they have not changed since."""
     rr_start = kio.check(ids, ii, jj, scene_mat, cam_row, rows=rows,
                          layout="hbm", **kw)
     if bounds.device != ids.device or bounds.dtype != torch.float32:
@@ -440,6 +467,8 @@ def check_args(ids, ii, jj, rows, scene_mat, bounds, cam_row, *, block,
     if bounds.shape[0] > scene_mat.shape[0] // block:
         raise ValueError(f"{bounds.shape[0]} bounds rows for "
                          f"{scene_mat.shape[0] // block} blocks")
+    if _vouched(bounds, scene_mat.shape[0], block):
+        return rr_start
     first = bounds[:, 4]  # each row's first matrix row: the walk reads there
     ok = ((first >= 0) & (first + block <= scene_mat.shape[0])
           & (torch.remainder(first, block) == 0)).all()

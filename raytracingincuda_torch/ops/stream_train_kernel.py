@@ -21,18 +21,22 @@ The sphere cotangents leave the kernel as records: the kernel parks the
 state entering each bounce in the record buffers, and each reverse step
 overwrites its entry with (stream row, nine cotangents), at the fixed
 index ((sample, bounce), lane). ``scatter_records`` adds each row's
-records in record order: a stable sort of the rows (``record_order``),
-then the segmented sum (``segment_sum_kernel`` /
-``segment_sum_reference``, the same adds in the same association: tiles
-of ``TILE`` sorted records). Memory is O(pixels x samples x depth), no
-float atomics, and the gradients are the same bits from run to run. The
+records in record order: a stable sort of every record by its row, the
+unwritten ones keyed past the last row so that they sort last
+(``record_order``; the sort needs no count from the card, so the host
+does not wait for the kernel), then the segmented sum
+(``segment_sum_kernel`` / ``segment_sum_reference``, the same adds in the
+same association: tiles of ``TILE`` sorted records) into one row more,
+which is dropped. Memory is O(pixels x samples x depth), no float
+atomics, and the gradients are the same bits from run to run. The
 camera's scalars and the loss keep the train kernels' block partials and
 ``kernel_io.reduce_rows``. ``walk_counts`` runs the fused mode's walk
 alone and counts its work.
 
 A call's records take 40 bytes each, lanes x samples x max_depth of them
-(24.6 GB at 640x384, 100 spp and 25 bounces). ``plan_records`` splits a
-call into windows whose records fit ``RECORD_BUDGET``: windows of samples
+(24.6 GB at 640x384, 100 spp and 25 bounces), and their sort 36 bytes
+more. ``plan_records`` splits a call into windows whose records and sort
+fit ``RECORD_BUDGET``: windows of samples
 (``sample_offset`` windows add up) and, where one sample of every lane
 does not fit, chunks of lanes (lanes are independent). The gradient mode
 launches once a window and adds the windows' cotangents in the plan's
@@ -71,10 +75,16 @@ from .stream_kernel import StreamScene
 # 32 warps of 32, one record a thread); the association depends on it alone
 TILE = 1024
 # The record buffers hold lanes x samples x max_depth records of 40 bytes
-# (a row and nine floats); a launch's records take at most this many bytes
-# (plan_records), as the train kernels' park (train_kernel.PARK_BUDGET).
+# (a row and nine floats), and their sort (record_order, every record)
+# SORT_BYTES a record more while it runs: the int32 keys, torch.sort's int32
+# keys and int64 indices out, and the radix sort's int64 index input and
+# int32/int64 alternate buffers. A launch's records and their sort take at
+# most RECORD_BUDGET bytes (plan_records, PLAN_BYTES a record), as the train
+# kernels' park (train_kernel.PARK_BUDGET).
 RECORD_BUDGET = 2 << 30
 RECORD_BYTES = 4 + 4 * GRAD_COLS
+SORT_BYTES = 4 + 4 + 8 + 8 + 12
+PLAN_BYTES = RECORD_BYTES + SORT_BYTES
 
 # The wrappers count their launches (utils/trace.py): launch.stream_train
 # (stream_train_render in both modes, stream_walk_counts) and
@@ -95,14 +105,14 @@ def plan_records(lanes: int, samples: int, max_depth: int,
                  budget: int = RECORD_BUDGET) -> list:
     """The windows of a call over ``lanes`` lanes (a multiple of ``PAD``),
     in the order their cotangents are added: each (lane, sample) falls in
-    exactly one, and one window's records (lanes x samples x max_depth x
-    40 bytes) take at most ``budget`` bytes. Windows of whole samples of
-    every lane where one sample fits, as many samples each as fit; else
-    one sample at a time in chunks of lanes (multiples of ``PAD``), the
-    chunks of a sample in lane order."""
+    exactly one, and one window's records and their sort (lanes x samples
+    x max_depth x ``PLAN_BYTES``) take at most ``budget`` bytes. Windows
+    of whole samples of every lane where one sample fits, as many samples
+    each as fit; else one sample at a time in chunks of lanes (multiples
+    of ``PAD``), the chunks of a sample in lane order."""
     if lanes <= 0 or lanes % PAD:
         raise ValueError(f"lanes must be a positive multiple of {PAD}")
-    lane_bytes = max_depth * RECORD_BYTES            # one sample of a lane
+    lane_bytes = max_depth * PLAN_BYTES              # one sample of a lane
     if lanes * lane_bytes <= budget:
         per = min(samples, budget // (lanes * lane_bytes))
         return [RecordWindow(0, lanes, s0, min(per, samples - s0))
@@ -110,7 +120,8 @@ def plan_records(lanes: int, samples: int, max_depth: int,
     chunk = budget // lane_bytes // PAD * PAD
     if chunk == 0:
         raise ValueError(f"one sample of {PAD} lanes at depth {max_depth} "
-                         f"needs {PAD * lane_bytes} bytes of records, "
+                         f"needs {PAD * lane_bytes} bytes of records and "
+                         f"their sort, "
                          f"above the budget of {budget}")
     return [RecordWindow(l0, min(chunk, lanes - l0), s0, 1)
             for s0 in range(samples) for l0 in range(0, lanes, chunk)]
@@ -129,15 +140,15 @@ def _windows(ids, ii, jj, rows, plan):
 
 # -- the scatter ----------------------------------------------------------------
 
-def record_order(rec_row: torch.Tensor):
-    """(keys, src) of the written records (row >= 0), sorted stably by
-    row: ``keys`` int32 rows, ``src`` int64 record indices, so each row's
-    records stay in record order."""
-    with trace.sync():
-        src = torch.nonzero(rec_row >= 0).squeeze(1)
-    keys = rec_row[src]
-    order = torch.argsort(keys, stable=True)
-    return keys[order].contiguous(), src[order].contiguous()
+def record_order(rec_row: torch.Tensor, n_rows: int):
+    """(keys, src) of every record, sorted stably by row: ``keys`` int32,
+    each written record's row (row >= 0) and ``n_rows`` for the others,
+    ``src`` int64 record indices. Each row's records stay in record order
+    and the unwritten ones come last, so the written records take the
+    places a sort of them alone gives them."""
+    keys = torch.where(rec_row >= 0, rec_row, n_rows)
+    keys, src = torch.sort(keys, stable=True)
+    return keys.contiguous(), src.contiguous()
 
 
 def _warp_scan(f, v):
@@ -267,9 +278,10 @@ _segment_sum = kio.by_device(segment_sum_kernel, segment_sum_reference)
 @trace.spanned("rt.records")
 def scatter_records(rec_row, rec_val, n_rows: int) -> torch.Tensor:
     """(records,) rows (-1: none) and (records, 9) cotangents -> (n_rows,
-    9) per-row sums, each row's records added in record order."""
-    keys, src = record_order(rec_row)
-    return _segment_sum(keys, src, rec_val, n_rows)
+    9) per-row sums, each row's records added in record order (the
+    unwritten records' row ``n_rows`` summed and dropped)."""
+    keys, src = record_order(rec_row, n_rows)
+    return _segment_sum(keys, src, rec_val, n_rows + 1)[:n_rows]
 
 
 # -- the plain versions -------------------------------------------------------
@@ -329,9 +341,10 @@ def _grads_window(ids, ii, jj, g_rows, scene_mat, bounds, cam_row, *, block,
                       key, None, dcam, samples=samples, max_depth=max_depth,
                       rr_start=rr_start, sample_offset=sample_offset,
                       hit_fn=walk, record=record)
-    keys, src = record_order(rec_row.reshape(-1))
+    n_rows = scene_mat.shape[0]
+    keys, src = record_order(rec_row.reshape(-1), n_rows)
     d9 = segment_sum_reference(keys, src, rec_val.reshape(-1, GRAD_COLS),
-                               scene_mat.shape[0])
+                               n_rows + 1)[:n_rows]
     return d9, dcam
 
 
@@ -477,8 +490,7 @@ def stream_grads_kernel(ids, ii, jj, g_rows, scene_mat, bounds, cam_row, *,
                         sample_offset: int = 0, budget: int = RECORD_BUDGET):
     """Launch the kernel's gradient mode, once a window of
     ``plan_records``; same contract as ``stream_grads_reference``.
-    Launches on the current stream; each window's record sort syncs once
-    (``record_order``)."""
+    Launches on the current stream without synchronising."""
     rr_start = sk.check_args(ids, ii, jj, g_rows, scene_mat, bounds, cam_row,
                              block=block, samples=samples,
                              max_depth=max_depth, rr_start=rr_start,

@@ -4,7 +4,8 @@ The counterpart of ``raytracingincuda_tpu/ops/pallas_backward.py``:
 ``render_kernel_grads`` (``render_pallas_grads`` :1914), ``fused_train``
 (``mse_train_pallas`` :2206), ``make_mse_train`` :2744,
 ``make_tiled_train`` :2634, ``mse_train_tiled`` (``mse_train_pallas_tiled``
-:2725) and ``chain_to_params`` :2798.
+:2725) and ``chain_to_params`` :2798. ``chain_to_scene`` is the chain's
+scene part alone, for the train steps, which drop the camera's cotangent.
 
 Two kernels (``csrc/train_render.cu``), each with its plain PyTorch
 version beside it, and one signature per pair:
@@ -805,3 +806,14 @@ def chain_to_params(d_scene_mat, d_cam_row, params, cam_cfg, mat_type,
     return d_params, config_from_leaves([
         torch.zeros_like(leaf) if g is None else g
         for g, leaf in zip(dc, c_leaves)])
+
+
+@trace.spanned("rt.chain")
+def chain_to_scene(d_scene_mat, params):
+    """``chain_to_params``' scene part alone: the SceneParams cotangent of
+    a packed-matrix one (``kernel_io.scene_cotangent``, span
+    ``rt.chain.scene``), the same bits. For the train steps, which keep no
+    camera cotangent: the camera's chain would derive the camera again on
+    the host and wait for the card's camera sums."""
+    with trace.span("rt.chain.scene"):
+        return kio.scene_cotangent(d_scene_mat, params)

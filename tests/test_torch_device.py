@@ -154,9 +154,51 @@ def cuda():
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", sorted(FACTORIES))
 def test_default_lands_on_the_card(cuda, name, tmp_path):
+    """Every tensor on ``cuda:0`` but an Adam state's step count, which
+    lives on the host (``grad.AdamState``)."""
     got = FACTORIES[name](tmp_path)
-    assert all(t.device == torch.device("cuda", 0) for t in tensors(got))
+    host = [got.opt_state.count] if name == "train_state_from_numpy" else []
+    assert all(t.device == torch.device("cuda", 0) for t in tensors(got)
+               if not any(t is h for h in host))
+    assert all(t.device.type == "cpu" for t in host)
     assert digest(got) == CPU_DIGESTS[name]
+
+
+def _adam_count_on(device) -> None:
+    """An Adam step from a state whose count a caller put on ``device``:
+    ``train_state_from_leaves`` brings the count to the host, and the step
+    reads a count left on a card inside ``rt.sync`` (one host wait, none
+    for the host's count), with the same result."""
+    from raytracingincuda_torch.ops import grad as tgrad
+
+    init, apply = tgrad._adam(1e-2, None)
+    state = init(tscene.build_scene(1, device=device).params)
+    leaves = tgrad.train_state_leaves(state)
+    assert leaves[9].device.type == "cpu"
+    leaves[9] = leaves[9].to(device)
+    home = tgrad.train_state_from_leaves(leaves).opt_state.count
+    assert home.device.type == "cpu"
+    moved = state._replace(opt_state=state.opt_state._replace(
+        count=leaves[9]))
+    d = tscene.params_from_leaves([torch.ones_like(t)
+                                   for t in param_leaves(state.params)])
+    waits, outs = [], []
+    for st in (state, moved):
+        before = trace.counts().get("host_sync", 0)
+        outs.append(apply(st, d)[0])
+        waits.append(trace.counts().get("host_sync", 0) - before)
+    assert waits == [0, int(torch.device(device).type == "cuda")]
+    assert all(torch.equal(a, b) for a, b in zip(param_leaves(outs[0]),
+                                                 param_leaves(outs[1])))
+
+
+def test_adam_count_read_is_counted():
+    _adam_count_on(torch.device("cpu"))
+
+
+@pytest.mark.cuda
+def test_adam_count_read_is_counted_on_card(cuda):
+    _adam_count_on(cuda)
 
 
 @pytest.mark.cuda

@@ -74,13 +74,51 @@ def test_scene_cotangent_equals_autograd(setup, path, cols, dtype):
         assert torch.equal(g, w)
 
 
+@pytest.mark.parametrize("kind", ["fused", "stream"])
+def test_steps_chain_the_scene_part_alone(setup, monkeypatch, kind):
+    """The fused and the stream train steps take ``chain_to_scene``, the
+    chain's scene part alone: two steps give the states and losses, bit
+    for bit, that they give with ``chain_to_params``' scene cotangent in
+    its place."""
+    s, cam, target, st = setup
+    if kind == "fused":
+        init_fn, step_fn = tgrad.make_train_step(W, H, SPP, DEPTH,
+                                                 impl="fused", gamma=True,
+                                                 rr_start=2)
+    else:
+        init_fn, step_fn = tgrad.make_stream_train(st, W, H, SPP, DEPTH)
+    calls = []
+
+    def scene_only(d_sm, params):
+        calls.append(d_sm)
+        return tk.chain_to_scene(d_sm, params)
+
+    def full_chain(d_sm, params):
+        return tk.chain_to_params(d_sm, torch.zeros((1, 24)), params, cam,
+                                  s.mat_type, s.active, W, H)[0]
+
+    runs = []
+    for chain in (scene_only, full_chain):
+        monkeypatch.setattr(tgrad, "chain_to_scene", chain)
+        state, losses = init_fn(s.params), []
+        for _ in range(2):
+            state, loss = step_fn(state, cam, s.mat_type, s.active, target)
+            losses.append(loss)
+        runs.append((tgrad.train_state_leaves(state), losses))
+    assert len(calls) == 2 and all(bool(d.any()) for d in calls)
+    (got, got_loss), (want, want_loss) = runs
+    assert int(got[9]) == 2 and got[9].device.type == "cpu"
+    for a, b in zip(got + got_loss, want + want_loss):
+        assert torch.equal(a, b)
+
+
 def _calls(s, cam, target, st):
     """(module, dispatcher) -> the arguments and keywords of a call."""
     ids, ii, jj, bud, sm, row = rk.regen_inputs(s, cam, W, H, SPP)
     rows = kio.lane_rows(target, ids, W * H)
     stream = (st.scene_mat, st.bounds, row)
     keys, src = stk.record_order(torch.tensor([3, -1, 0, 3, 1],
-                                              dtype=torch.int32))
+                                              dtype=torch.int32), 4)
     vals = torch.rand((5, kio.GRAD_COLS),
                       generator=torch.Generator().manual_seed(2))
     kw = dict(samples=SPP, max_depth=DEPTH)
@@ -97,7 +135,7 @@ def _calls(s, cam, target, st):
                                             dict(kw, block=BLOCK)),
         ("stream_train_kernel", "_fused"): ((ids, ii, jj, rows, *stream),
                                             dict(fused, block=BLOCK)),
-        ("stream_train_kernel", "_segment_sum"): ((keys, src, vals, 4), {}),
+        ("stream_train_kernel", "_segment_sum"): ((keys, src, vals, 5), {}),
     }
 
 

@@ -297,7 +297,7 @@ def test_plan_records_windows_at_large_sizes(size, samples, depth):
     """Kernel 5's windows: one sample of every lane does not fit 2 GiB of
     records at these sizes (4096x4104x1spp/10b is 168 M records), so each
     sample splits into lane chunks that tile the image in order, each
-    within RECORD_BUDGET; the samples come in order."""
+    within RECORD_BUDGET with their sort; the samples come in order."""
     lanes = int(np.prod(SIZES[size]))
     assert lanes * depth * stk.RECORD_BYTES > stk.RECORD_BUDGET
     plan = stk.plan_records(lanes, samples, depth)
@@ -306,7 +306,7 @@ def test_plan_records_windows_at_large_sizes(size, samples, depth):
         mine = [w for w in plan if w.sample0 == s]
         assert all(w.samples == 1 for w in mine)
         _contiguous([(w.lane0, w.lanes) for w in mine], lanes)
-    assert all(w.lanes * depth * stk.RECORD_BYTES <= stk.RECORD_BUDGET
+    assert all(w.lanes * depth * stk.PLAN_BYTES <= stk.RECORD_BUDGET
                for w in plan)
 
 

@@ -272,6 +272,90 @@ def test_stream_arguments_raise(small):
         sk.prepare_stream_scene(ts, dtype=torch.float64)
 
 
+ENTRIES = ("render_stream", "mse_train_stream", "render_stream_grads")
+
+
+def _enter(entry, st, cam):
+    """One call of a stream entry point on ``st`` at the file's shape."""
+    from raytracingincuda_torch.ops import stream_train_kernel as stk
+
+    img = torch.zeros((H, W, 3), device=st.scene_mat.device)
+    if entry == "render_stream":
+        return sk.render_stream(st, cam, W, H, SPP, DEPTH)
+    if entry == "mse_train_stream":
+        return stk.mse_train_stream(st, cam, img, W, H, SPP, DEPTH)
+    return stk.render_stream_grads(st, cam, img, W, H, SPP, DEPTH)
+
+
+def _host_syncs(fn) -> int:
+    before = trace.counts().get("host_sync", 0)
+    fn()
+    return trace.counts().get("host_sync", 0) - before
+
+
+def _outside_bounds_checked(entry, ts, device):
+    """The port's own bounds (prepared, reordered front to back, rebuilt
+    in ``front_to_back_border``'s order or in any other) pass the walk's
+    check with no host wait; bounds from outside are read on the host, and a bad column
+    4 raises there, as it does in a table of the port's written in place."""
+    from raytracingincuda_torch.models.scene import Scene
+    from raytracingincuda_torch.ops import grad as tgrad
+
+    cam = TCam.reference_default()
+    st = sk.prepare_stream_scene(ts, block=64)
+    front = sk.reorder_front_to_back(st, initialize(cam, W, H).center)
+    scene = Scene(ts.params, ts.mat_type, ts.active)
+    rows = st.scene_mat.shape[0]
+    step = sk.StreamScene(*sk.build_stream_arrays(
+        scene, st.perm, 64, rows,
+        border=tgrad.front_to_back_border(st, cam, W, H)), 64, st.perm)
+    canonical = sk.StreamScene(*sk.build_stream_arrays(
+        scene, st.perm, 64, rows, border=torch.arange(
+            st.n_blocks, dtype=torch.int32, device=device)), 64, st.perm)
+    for own in (st, front, step, canonical):
+        assert _host_syncs(lambda: _enter(entry, own, cam)) == 0
+    outside = st._replace(bounds=st.bounds.clone())
+    assert _host_syncs(lambda: _enter(entry, outside, cam)) > 0
+    bad = outside.bounds.clone()
+    bad[0, 4] += 1.0                    # a first row off the block grid
+    with pytest.raises(ValueError, match="first matrix row"):
+        _enter(entry, st._replace(bounds=bad), cam)
+    st.bounds[0, 4] += 1.0              # the same, in the port's own table
+    with pytest.raises(ValueError, match="first matrix row"):
+        _enter(entry, st, cam)
+
+
+@pytest.mark.parametrize("entry", ENTRIES)
+def test_outside_bounds_checked_at_every_entry(small, entry):
+    _outside_bounds_checked(entry, small[1], torch.device("cpu"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ENTRIES)
+def test_outside_bounds_checked_at_every_entry_on_card(cuda, entry):
+    """As on the CPU, through the kernels."""
+    _outside_bounds_checked(entry, build_random_scene(
+        300, seed=3, half_extent=10.0, device=cuda), cuda)
+
+
+def test_front_to_back_border_refuses_a_bad_column(small):
+    """The border of a fit indexes each block once, or raises before any
+    step: a bounds table whose column 4 names a block twice, or that lacks
+    a block."""
+    from raytracingincuda_torch.ops import grad as tgrad
+
+    _, ts = small
+    st = sk.prepare_stream_scene(ts, block=64)
+    cam = TCam.reference_default()
+    border = tgrad.front_to_back_border(st, cam, W, H)
+    assert sorted(border.tolist()) == list(range(st.n_blocks))
+    twice = st.bounds.clone()
+    twice[1, 4] = twice[0, 4]
+    for bad in (twice, st.bounds[1:]):
+        with pytest.raises(ValueError, match="each of the"):
+            tgrad.front_to_back_border(st._replace(bounds=bad), cam, W, H)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("rr", [None, 2])
 def test_stream_kernel_equals_plain_version_on_card(cuda, rr):

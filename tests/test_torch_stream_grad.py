@@ -244,7 +244,8 @@ def _sequential_segment_sum(keys, src, vals, n_rows):
 
 
 def test_record_scatter_order():
-    """``record_order`` keeps each row's records in record order;
+    """``record_order`` keeps each row's records in record order and keys
+    the unwritten ones (row -1) past the last row, so they sort last;
     ``segment_sum_reference`` adds them in the kernels' association, bit
     for bit, with a row across two tiles; the sums agree with index_add_
     to 1e-5."""
@@ -252,16 +253,18 @@ def test_record_scatter_order():
     rows = rng.integers(-1, 40, 3000).astype(np.int32)
     rows[100:1400] = 5                      # one row across two tiles
     vals = torch.from_numpy(rng.standard_normal((3000, 9)).astype(np.float32))
-    keys, src = stk.record_order(torch.from_numpy(rows))
+    keys, src = stk.record_order(torch.from_numpy(rows), 40)
     assert keys.dtype == torch.int32 and src.dtype == torch.int64
+    assert keys.shape == src.shape == (3000,)
     assert (np.diff(keys.numpy()) >= 0).all()
-    for k in (5, 17):
+    assert (keys.numpy() == 40).sum() == (rows < 0).sum()
+    for k in (5, 17, 40):
         assert (np.diff(src.numpy()[keys.numpy() == k]) > 0).all()
-    got = stk.segment_sum_reference(keys, src, vals, 40)
+    got = stk.segment_sum_reference(keys, src, vals, 41)
     np.testing.assert_array_equal(got.numpy(), _sequential_segment_sum(
-        keys, src, vals, 40))
-    want = torch.zeros((40, 9)).index_add_(0, keys.long(), vals[src])
-    _close(got, want.numpy(), 1e-5, "segment sums")
+        keys, src, vals, 41))
+    want = torch.zeros((41, 9)).index_add_(0, keys.long(), vals[src])
+    _close(got[:40], want[:40].numpy(), 1e-5, "segment sums")
     assert not stk.scatter_records(torch.full((10,), -1, dtype=torch.int32),
                                    torch.zeros((10, 9)), 4).any()
 
@@ -285,23 +288,100 @@ def _case_rows(case, rng):
     "row_across_many_tiles", "runs_crossing_tile_edges",
     "single_record_rows", "all_minus_one", "empty"])
 def test_segment_sum_cases(case):
-    """The plain segmented sum equals the loops above bit for bit and a
-    float64 index_add_ within 1e-5 of the largest entry."""
+    """The plain segmented sum of every record (the unwritten ones in row
+    ``n_rows``, one past the last) equals the loops above bit for bit and
+    a float64 index_add_ within 1e-5 of the largest entry."""
     rng = np.random.default_rng(4)
     rows, n_rows = _case_rows(case, rng)
     vals = torch.from_numpy(rng.standard_normal((rows.shape[0], 9)).astype(
         np.float32))
-    keys, src = stk.record_order(torch.from_numpy(rows.astype(np.int32)))
-    got = stk.segment_sum_reference(keys, src, vals, n_rows)
-    assert got.shape == (n_rows, 9) and got.dtype == torch.float32
+    keys, src = stk.record_order(torch.from_numpy(rows.astype(np.int32)),
+                                 n_rows)
+    got = stk.segment_sum_reference(keys, src, vals, n_rows + 1)
+    assert got.shape == (n_rows + 1, 9) and got.dtype == torch.float32
     np.testing.assert_array_equal(
-        got.numpy(), _sequential_segment_sum(keys, src, vals, n_rows))
-    want = torch.zeros((n_rows, 9), dtype=torch.float64).index_add_(
+        got.numpy(), _sequential_segment_sum(keys, src, vals, n_rows + 1))
+    want = torch.zeros((n_rows + 1, 9), dtype=torch.float64).index_add_(
         0, keys.long(), vals[src].double()).numpy()
     np.testing.assert_allclose(got.numpy(), want, rtol=0,
                                atol=1e-5 * max(np.abs(want).max(), 1e-6))
     if case in ("all_minus_one", "empty"):
-        assert not got.any()
+        assert not got[:n_rows].any()
+
+
+def _written_order(rec_row):
+    """The record sort before every record was sorted: the written
+    records (row >= 0) alone, stably by row (the count of them read back
+    from the card)."""
+    src = torch.nonzero(rec_row >= 0).squeeze(1)
+    keys = rec_row[src]
+    order = torch.argsort(keys, stable=True)
+    return keys[order].contiguous(), src[order].contiguous()
+
+
+def _sort_case(case, rng):
+    """(record rows, n_rows) of one all-record sort case."""
+    if case == "last_partial_tile":     # written records end mid-tile
+        return rng.integers(-1, 60, 5000), 60
+    if case == "runs_crossing_tile_edges":
+        rows = rng.integers(0, 12, 6000)
+        rows[rng.random(6000) < 0.3] = -1   # runs of ~350 written records
+        return rows, 12
+    if case == "unwritten_from_a_tile_edge":
+        rows = np.full(5000, -1)
+        rows[rng.permutation(5000)[:2 * stk.TILE]] = rng.integers(
+            0, 40, 2 * stk.TILE)
+        return rows, 40
+    return np.full(3000, -1), 8         # all unwritten
+
+
+SORT_CASES = ["last_partial_tile", "runs_crossing_tile_edges",
+              "unwritten_from_a_tile_edge", "all_unwritten"]
+
+
+def _sort_inputs(case, device):
+    rng = np.random.default_rng(6)
+    rows, n_rows = _sort_case(case, rng)
+    rows = torch.from_numpy(rows.astype(np.int32)).to(device)
+    vals = torch.from_numpy(rng.standard_normal((rows.shape[0], 9)).astype(
+        np.float32)).to(device)
+    vals[rows < 0] = float("nan")       # the kernel leaves them unwritten
+    return rows, vals, n_rows
+
+
+@pytest.mark.parametrize("case", SORT_CASES)
+def test_all_record_sort_equals_written_sort(case):
+    """Sorting every record, the unwritten keyed past the last row, gives
+    the (n_rows, 9) sums of the written records' sort alone bit for bit
+    through ``segment_sum_reference``: the written records keep their
+    sorted places, and so their tiles and association."""
+    rows, vals, n_rows = _sort_inputs(case, "cpu")
+    keys, src = stk.record_order(rows, n_rows)
+    wk, ws = _written_order(rows)
+    assert torch.equal(keys[:wk.shape[0]], wk)
+    assert torch.equal(src[:ws.shape[0]], ws)
+    got = stk.segment_sum_reference(keys, src, vals, n_rows + 1)[:n_rows]
+    want = stk.segment_sum_reference(wk, ws, vals, n_rows)
+    assert torch.equal(got, want)
+    assert torch.equal(stk.scatter_records(rows, vals, n_rows), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SORT_CASES)
+def test_all_record_sort_equals_written_sort_on_card(cuda, case):
+    """The same through ``segment_sum_kernel``, and ``scatter_records`` on
+    the card, with no host wait."""
+    rows, vals, n_rows = _sort_inputs(case, cuda)
+    keys, src = stk.record_order(rows, n_rows)
+    wk, ws = _written_order(rows)
+    got = stk.segment_sum_kernel(keys, src, vals, n_rows + 1)[:n_rows]
+    want = stk.segment_sum_kernel(wk, ws, vals, n_rows)
+    assert torch.equal(got, want)
+    before = trace.counts().get("host_sync", 0)
+    assert torch.equal(stk.scatter_records(rows, vals, n_rows), want)
+    assert trace.counts().get("host_sync", 0) == before
+    assert torch.equal(want.cpu(), stk.segment_sum_reference(
+        wk.cpu(), ws.cpu(), vals.cpu(), n_rows))
 
 
 def test_stream_gradient_arguments_raise(spread):
@@ -324,7 +404,7 @@ def test_stream_gradient_arguments_raise(spread):
     stk.stream_grads_reference(*args, block=32, samples=1,
                                max_depth=tk.STACK_SHALLOW + 1)
     assert len(stk.plan_records(ids.shape[0], 1 << 20, 256)) == -(-(1 << 20)
-                                                                 // 546)
+                                                                 // 287)
     with pytest.raises(ValueError, match="CUDA"):
         stk.walk_counts(ids, ii, jj, st.scene_mat, st.bounds, row, block=32,
                         samples=SPP, max_depth=DEPTH)
@@ -335,8 +415,8 @@ def test_stream_gradient_arguments_raise(spread):
 
 
 @pytest.mark.parametrize("budget,n_windows", [
-    (2 * rk.PAD * DEPTH * stk.RECORD_BYTES, 4),   # chunks of 256 lanes
-    (W * H * DEPTH * stk.RECORD_BYTES, 2),        # one sample a window
+    (2 * rk.PAD * DEPTH * stk.PLAN_BYTES, 4),     # chunks of 256 lanes
+    (W * H * DEPTH * stk.PLAN_BYTES, 2),          # one sample a window
 ])
 def test_stream_grads_in_record_windows(spread, weight, budget, n_windows):
     """The plain gradient mode in the windows of a small record budget
@@ -389,14 +469,14 @@ def test_segment_sum_kernel_equals_plain_version_on_card(cuda):
     rows[:30_000] = 7                      # one row across 30 tiles
     vals = torch.from_numpy(rng.standard_normal((100_000, 9)).astype(
         np.float32))
-    keys, src = stk.record_order(rows)
+    keys, src = stk.record_order(rows, 500)
     before = trace.counts().get("launch.stream_segment_sum", 0)
     got = stk.segment_sum_kernel(keys.to(cuda), src.to(cuda), vals.to(cuda),
-                                 500)
+                                 501)
     # its two kernels
     assert trace.counts().get("launch.stream_segment_sum", 0) == before + 2
     assert torch.equal(got.cpu(), stk.segment_sum_reference(keys, src, vals,
-                                                            500))
+                                                            501))
 
 
 @pytest.mark.cuda
@@ -451,7 +531,7 @@ def test_stream_grads_kernel_in_record_windows_on_card(cuda, rr):
     ids, ii, jj, _, _, row = rk.regen_inputs(s, cam, 64, 40, 4)
     g = torch.randn((3, ids.shape[0]), generator=torch.Generator().manual_seed(
         4)).to(cuda)
-    budget = 7 * rk.PAD * 6 * stk.RECORD_BYTES   # 20 blocks a sample: 3 chunks
+    budget = 7 * rk.PAD * 6 * stk.PLAN_BYTES   # 20 blocks a sample: 3 chunks
     kw = dict(block=64, samples=4, max_depth=6, rr_start=rr, budget=budget)
     args = (ids, ii, jj, g, st.scene_mat, st.bounds, row)
     n = len(stk.plan_records(ids.shape[0], 4, 6, budget))

@@ -206,7 +206,7 @@ def test_carried_stream_train_step_in_record_windows(small, target,
     JAX step as test_carried_stream_train_step_matches_jax does."""
     js, ts = small
     tmask = _albedo_fuzz_mask()
-    budget = rk.PAD * DEPTH * stk.RECORD_BYTES
+    budget = rk.PAD * DEPTH * stk.PLAN_BYTES
     assert len(stk.plan_records(W * H, SPP, DEPTH, budget)) == 6
     state, nxt, jloss = jax_carried(fused)
     carried = _carry(state, tmask)
@@ -227,41 +227,43 @@ def test_carried_stream_train_step_in_record_windows(small, target,
 
 
 @pytest.mark.parametrize("lanes,samples,depth,budget,n_windows", [
-    (640 * 384, 100, 25, stk.RECORD_BUDGET, 13),  # refused before
+    (640 * 384, 100, 25, stk.RECORD_BUDGET, 25),  # refused before
     (640 * 384, 4, 10, stk.RECORD_BUDGET, 1),     # chip_smoke.py phase 12
-    (1280 * 768, 3, 256, stk.RECORD_BUDGET, 15),  # a sample does not fit
-    (24 * 16, 2, 3, 128 * 3 * 40, 6),
-    (5 * 128, 3, 4, 2 * 128 * 4 * 40, 9),
-    (5 * 128, 7, 4, 5 * 128 * 4 * 40 * 3, 3),
+    (1280 * 768, 3, 256, stk.RECORD_BUDGET, 27),  # a sample does not fit
+    (24 * 16, 2, 3, 128 * 3 * stk.PLAN_BYTES, 6),
+    (5 * 128, 3, 4, 2 * 128 * 4 * stk.PLAN_BYTES, 9),
+    (5 * 128, 7, 4, 5 * 128 * 4 * stk.PLAN_BYTES * 3, 3),
 ])
 def test_plan_records_windows_cover_within_budget(lanes, samples, depth,
                                                   budget, n_windows):
     """Every (lane, sample) falls in exactly one window, a window's records
-    (40 bytes each) stay within the budget, lane chunks are whole blocks
-    of 128 and appear only where one sample of every lane does not fit. At
-    640x384, 100 spp and 25 bounces a sample's records take 245.76 MB, so
-    2 GiB holds 8 samples: 13 windows."""
+    and their sort (PLAN_BYTES, 76 bytes a record) stay within the budget,
+    lane chunks are whole blocks of 128 and appear only where one sample of
+    every lane does not fit. At 640x384, 100 spp and 25 bounces a sample's
+    records take 245.76 MB and 466.944 MB with their sort, so 2 GiB holds
+    4 samples: 25 windows."""
     plan = stk.plan_records(lanes, samples, depth, budget)
     assert len(plan) == n_windows
     covered = np.zeros((samples, lanes), np.int8)
     for w in plan:
         covered[w.sample0:w.sample0 + w.samples,
                 w.lane0:w.lane0 + w.lanes] += 1
-        assert w.lanes * w.samples * depth * stk.RECORD_BYTES <= budget
+        assert w.lanes * w.samples * depth * stk.PLAN_BYTES <= budget
         assert w.lane0 % rk.PAD == 0 and w.lanes % rk.PAD == 0
     assert (covered == 1).all()
     assert (any(w.lanes < lanes for w in plan)
-            == (lanes * depth * stk.RECORD_BYTES > budget))
+            == (lanes * depth * stk.PLAN_BYTES > budget))
     if samples == 100:
-        assert max(w.samples for w in plan) == 8
+        assert max(w.samples for w in plan) == 4
         assert lanes * depth * stk.RECORD_BYTES == 245_760_000
+        assert lanes * depth * stk.PLAN_BYTES == 466_944_000
 
 
 def test_plan_records_refusals():
     with pytest.raises(ValueError, match="multiple"):
         stk.plan_records(100, 1, 4)
     with pytest.raises(ValueError, match="budget"):
-        stk.plan_records(rk.PAD, 1, 256, budget=rk.PAD * 256 * 40 - 1)
+        stk.plan_records(rk.PAD, 1, 256, budget=rk.PAD * 256 * stk.PLAN_BYTES - 1)
     assert stk.RECORD_BUDGET == tk.PARK_BUDGET == 2 << 30
 
 
@@ -440,7 +442,7 @@ def test_fused_stream_kernel_in_record_windows_on_card(cuda, loss):
     kw = dict(block=64, samples=4, max_depth=6, rr_start=2,
               num_pixels=64 * 40, gamma=loss == "mse", loss=loss,
               huber_delta=0.25)
-    budget = ids.shape[0] * 6 * stk.RECORD_BYTES   # one sample a window
+    budget = ids.shape[0] * 6 * stk.PLAN_BYTES   # one sample a window
     one = stk.fused_stream_kernel(*args, **kw)
     before = trace.counts()
     got = stk.fused_stream_kernel(*args, budget=budget, **kw)

@@ -273,6 +273,7 @@ def f64_kernel(ids, ii, jj, scene_mat, cam_row, *, samples: int,
            cam_row.data_ptr(), out.data_ptr(), padded, samples, max_depth,
            k0, k1, sample_offset, int(layout == "hbm"))
     trace.count("launch.f64_render")
+    trace.count("scan.one_level")
     return out
 
 
@@ -287,10 +288,23 @@ def f64_inputs(scene: Scene, cam_cfg: CameraConfig, img_width: int,
     if scene_mat is None:
         scene_mat = kio.pack_scene_matrix(scene)
     dev = scene_mat.device
+    cam_row = camera_row(cam_cfg, img_width, img_height, dev)
     ids, ii, jj, _ = kio.lane_setup(img_width, img_height, pixel_order, 1, 0,
                                     None, dev)
-    return ids, ii, jj, scene_mat, initialize_f64(cam_cfg, img_width,
-                                                  img_height).to(dev)
+    return ids, ii, jj, scene_mat, cam_row
+
+
+def camera_row(cam_cfg: CameraConfig, img_width: int, img_height: int,
+               device) -> torch.Tensor:
+    """``initialize_f64``'s (24,) float64 row on ``device``: span
+    ``rt.camera``. It reaches a card as ``kernel_io.camera_row``'s does:
+    from pinned memory, a copy queued on the current stream that the host
+    does not wait for."""
+    with trace.span("rt.camera"):
+        row = initialize_f64(cam_cfg, img_width, img_height)
+        if torch.device(device).type == "cuda":
+            return row.pin_memory().to(device, non_blocking=True)
+        return row.to(device)
 
 
 def render_f64(scene: Scene, cam_cfg: CameraConfig, img_width: int,
@@ -329,6 +343,7 @@ def render_f64(scene: Scene, cam_cfg: CameraConfig, img_width: int,
                                                            img_width, 3)
 
 
+@trace.spanned("rt.finalize")
 def finalize(acc: torch.Tensor, samples: int, gamma: bool = True):
     """``render_f64``'s finish of raw double sums: 1/spp, then gamma 2."""
     img = acc * (1.0 / samples)

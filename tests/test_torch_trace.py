@@ -194,10 +194,11 @@ def _request(kind: str, device):
     cam = CameraConfig.reference_default()
     target = torch.rand((H, W, 3), generator=torch.Generator().manual_seed(
         0)).to(device)
-    if kind == "render":
+    if kind in ("render", "render_f64"):
         scene = build_scene(2, device=device)
+        dtype = "float64" if kind == "render_f64" else "float32"
         cfg = RenderConfig(scene_id=2, width=W, height=H, samples=SPP,
-                           bounces=DEPTH)
+                           bounces=DEPTH, dtype=dtype)
         return lambda: make_renderer(cfg, device)(scene, cam)
     if kind == "train":
         scene = build_scene(2, device=device)
@@ -227,6 +228,9 @@ CHAIN = [("rt.chain", 1), ("rt.chain.scene", 2)]
 CPU_TREES = {
     "render": ([("rt.make_renderer", 0), ("rt.render", 0), ("rt.camera", 1),
                 ("rt.lanes", 1), ("rt.finalize", 1)], 0),
+    "render_f64": ([("rt.make_renderer", 0), ("rt.render", 0),
+                    ("rt.camera", 1), ("rt.lanes", 1), ("rt.finalize", 1)],
+                   0),
     "train": ([("rt.train_step", 0), ("rt.camera", 1), ("rt.lanes", 1),
                ("rt.lanes", 1), ("rt.finalize", 1), *CHAIN, ("rt.optim", 1)],
               0),
@@ -238,6 +242,9 @@ CARD_TREES = {
     "render": ([("rt.make_renderer", 0), ("rt.render", 0), ("rt.camera", 1),
                 ("rt.lanes", 1), ("rt.launch.regen_render", 1),
                 ("rt.finalize", 1)], 0),
+    "render_f64": ([("rt.make_renderer", 0), ("rt.render", 0),
+                    ("rt.camera", 1), ("rt.lanes", 1),
+                    ("rt.launch.f64_render", 1), ("rt.finalize", 1)], 0),
     "train": ([("rt.train_step", 0), ("rt.camera", 1), ("rt.lanes", 1),
                ("rt.lanes", 1), ("rt.launch.fused_train", 1),
                ("rt.launch.fused_train_render", 2), ("rt.launch.reverse", 3),
@@ -301,3 +308,6 @@ def test_request_span_tree_and_host_syncs_on_card(kind, cuda):
     torch.cuda.synchronize()
     assert (_tree(), trace.counts().get("host_sync", 0)) == CARD_TREES[kind]
     assert outside == []
+    if kind == "render_f64":     # kernel 6 once, with its one-level scan
+        assert trace.counts()["launch.f64_render"] == 1
+        assert trace.counts()["scan.one_level"] == 1

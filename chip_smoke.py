@@ -3028,8 +3028,9 @@ def main() -> int:
             and routes["incremental_f64_max_abs_err"] <= 1e-12):
         raise AssertionError(f"render_incremental float64: {routes}")
     # with impl='kernel' a float64 config renders each round on the f64
-    # kernel, a window of samples at the round's sample_offset, and never
-    # on the oracle: two rounds within 1e-12 of one make_renderer render
+    # kernel (after its group table's launch), a window of samples at the
+    # round's sample_offset, and never on the oracle: two rounds within
+    # 1e-12 of one make_renderer render
     from raytracingincuda_torch.ops import tracer as tracer_mod
 
     cfg = RenderConfig(scene_id=1, width=320, height=192, samples=4,
@@ -3049,8 +3050,9 @@ def main() -> int:
     routes["incremental_f64_kernel"] = {
         "launches": nonzero(counts), "oracle_calls": len(oracle_calls),
         "max_abs_err": float(np.abs(inc - one).max())}
-    if not (counts["f64_render"] == 2 and not oracle_calls
-            and sum(counts.values()) == 2 and inc.dtype == np.float64
+    if not (counts["f64_render"] == counts["group_table"] == 2
+            and not oracle_calls
+            and sum(counts.values()) == 4 and inc.dtype == np.float64
             and inc.shape == (192, 320, 3) and np.isfinite(inc).all()
             and routes["incremental_f64_kernel"]["max_abs_err"] <= 1e-12):
         raise AssertionError(f"render_incremental float64 kernel: {routes}")
@@ -3501,17 +3503,22 @@ def main() -> int:
                                      rr_start=rr, emit_depth=True)
                      .double().sum())
 
-    def scan_ops(width, height, spp, bounces, rr):
+    def scan_ops(width, height, spp, bounces, rr, f64=False):
         """Operations of the two-level scans at these inputs (scene 1), as
-        kernel 1's count mode measures them: a lane that scans runs its
-        warp's slot tests of that scan (the large entries and GROUP an
-        opened group), OPS_TEST_STAGED each, and every group's bound test,
-        OPS_BOUND_TEST each. A warp's tests a scan are its tests over its
-        issues; its lanes' scans are their segments."""
-        inputs = rk.regen_inputs(build_scene(1, device=dev), cam, width,
-                                 height, spp)
-        seg, issues, _, tests = rk.regen_counts(
-            *inputs, samples=spp, max_depth=bounces, rr_start=rr)
+        kernel 1's count mode (kernel 6's with ``f64``) measures them: a
+        lane that scans runs its warp's slot tests of that scan (the large
+        entries and GROUP an opened group), OPS_TEST_STAGED each, and every
+        group's bound test, OPS_BOUND_TEST each. A warp's tests a scan are
+        its tests over its issues; its lanes' scans are their segments."""
+        if f64:
+            seg, issues, _, tests = fk.f64_counts(
+                *fk.f64_inputs(build_scene(1, device=dev), cam, width,
+                               height), samples=spp, max_depth=bounces)
+        else:
+            inputs = rk.regen_inputs(build_scene(1, device=dev), cam, width,
+                                     height, spp)
+            seg, issues, _, tests = rk.regen_counts(
+                *inputs, samples=spp, max_depth=bounces, rr_start=rr)
         lane_scans = seg.double().view(-1, 32).sum(1)
         slot_tests = float((tests.double() / issues.double().clamp_min(1)
                             * lane_scans).sum())
@@ -3523,14 +3530,13 @@ def main() -> int:
     scene_bytes = n1 * kio.USED_COLS * 4 + 96
     px_head = 1280 * 768
     px_small = 320 * 192
-    # kernels 1 and 7 and kernel 2's park render scan in two levels (the
-    # count mode's work); kernel 3's reverse and kernel 6 test every slot
+    # kernels 1, 6 and 7 and kernel 2's park render scan in two levels
+    # (the count mode's work); kernel 3's reverse tests every slot
     head_ops = scan_ops(1280, 768, 2, 25, None)
     regen_bound = bound(head_ops, px_head * 28 + scene_bytes)
-    # the f64 kernel at the same shape: kernel 1's segments, every slot
-    # tested (the f64 paths part from the f32 ones only at knife edges);
-    # ids, ii and jj read, the image written (double for f64)
-    f64_bound = bound(segments(1280, 768, 2, 25, None) * n1 * OPS_TEST_STAGED,
+    # the f64 kernel at the same shape, its scan in double (its own count
+    # mode); ids, ii and jj read, the image written (double)
+    f64_bound = bound(scan_ops(1280, 768, 2, 25, None, f64=True),
                       px_head * (12 + 24) + scene_bytes + 24 * 8, FP64_PER_S)
     compact_bound = bound(head_ops, px_head * (12 + 12) + scene_bytes)
     grad_bound = bound(segments(320, 192, 4, 8, 2) * n1 * OPS_TEST_STAGED,

@@ -14,8 +14,8 @@ static shared memory). Blocks per SM follow from the H100's limits
 with 1 KB reserved a block, 2,048 threads, 32 blocks) at each kernel's
 block size (the compact kernel's ``kTile``, its pool; else 128) and its
 dynamic shared memory at the main path's shapes (the staged scene 1: 512
-slots of 44 bytes, with its group table where the kernel stages one, or
-of 32 bytes as the f64 kernel's double scan table;
+slots of 44 bytes, with its group table where the kernel stages one; the
+f64 kernel's group table as double entries, 36 bytes each with its slot);
 the stream walk's 32 KB of stage). For the kernels whose names contain
 one of ``--functions``, ``cuobjdump -sass`` gives the machine code: every
 loop (a branch back to an earlier address) is listed with its length in
@@ -44,10 +44,14 @@ THREADS = 128  # kBlock (path_common.cuh)
 # The kernels that stage scene 1's group table beside it take 34,032 bytes
 # (path_common.cuh: staged_bytes(512, false, true)).
 TWO_LEVEL = 512 * 44 + 524 * 20 + 64 * 16
+# The f64 kernel stages the table's 532 entries as double Slots with their
+# slot ids, and 32 bounds (f64_render.cu: stage_bytes_d(512, false, true)).
+F64_TWO_LEVEL = 532 * 36 + 32 * 16
 DYNAMIC = {"regen_kernel<false>": TWO_LEVEL, "count_kernel<false": TWO_LEVEL,
            "park_render_kernel<false>": TWO_LEVEL,
            "reverse_kernel<false": 512 * 44, "compact_kernel<false>": TWO_LEVEL,
-           "f64_kernel<false>": 512 * 32}
+           "f64_kernel<false>": F64_TWO_LEVEL,
+           "f64_count_kernel<false>": F64_TWO_LEVEL}
 STAGE = 32768
 
 

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Kernel 1's two-level scan against its one-level scan as the scene grows:
-where the group table pays for its shared memory.
+"""Kernel 1's (or, with ``--f64``, kernel 6's) two-level scan against its
+one-level scan as the scene grows: where the group table pays for its
+shared memory.
 
     PYTHONPATH=. python3 probes/scan_range.py [--spheres 480 1000 1500 2000]
-        [--samples 100] [--reps 3] [--tag X]
+        [--samples 100] [--reps 3] [--f64] [--tag X]
 
 For each count of random spheres (``models.scene.build_random_scene``: the
 reference's material mix and a ground sphere, slots padded to 128) in two
@@ -15,8 +16,10 @@ one-level scan), in alternating pairs, ``--reps`` pairs after one warm-up
 of each, timed with CUDA events; the two images must be the same bits.
 Beside the times: the path the launch took, the dynamic shared memory a
 block stages on each path, and the count mode's slot tests a warp
-iteration (bound tests included) as a share of the slots. Prints one JSON
-line a scene and writes them to ``chiprun_out/scan_range_<tag>.json``.
+iteration (bound tests included) as a share of the slots. ``--f64``
+renders the same frames in double with kernel 6 (``f64_kernel``, its
+count mode ``f64_counts``). Prints one JSON line a scene and writes them
+to ``chiprun_out/scan_range_<tag>.json``.
 """
 from __future__ import annotations
 
@@ -32,29 +35,42 @@ W, H, DEPTH = 1280, 768, 25
 GATHER_BYTES = 16 + 7 * 4      # a staged slot: float4 scan entry, 7 gathers
 
 
-def staged(n: int, groups: bool) -> int:
-    """path_common.cuh:staged_bytes for layout 'vmem'."""
+def staged(n: int, groups: bool, f64: bool = False) -> int:
+    """path_common.cuh:staged_bytes for layout 'vmem' (f64_render.cu:
+    stage_bytes_d with ``f64``)."""
     from raytracingincuda_torch.ops import group_scan as gs
 
+    if f64:
+        return gs.entries(n) * 36 + gs.bounds(n) * 16 if groups else n * 32
     base = n * GATHER_BYTES
     if not groups:
         return base
     return ((base + 15) & ~15) + gs.entries(n) * 20 + gs.bounds(n) * 16
 
 
-def measure(name, scene, samples, reps):
+def measure(name, scene, samples, reps, f64=False):
     import torch
 
     from raytracingincuda_torch.models.camera import CameraConfig
+    from raytracingincuda_torch.ops import f64_kernel as fk
     from raytracingincuda_torch.ops import group_scan as gs
     from raytracingincuda_torch.ops import kernel_io as kio
     from raytracingincuda_torch.ops import render_kernel as rk
     from raytracingincuda_torch.utils import trace
 
-    inputs = rk.regen_inputs(scene, CameraConfig.reference_default(), W, H,
-                             samples)
-    n = inputs[4].shape[0]
-    kw = dict(samples=samples, max_depth=DEPTH, finalize_scale=1.0 / samples)
+    cam = CameraConfig.reference_default()
+    if f64:
+        inputs = fk.f64_inputs(scene, cam, W, H)
+        sm, row = inputs[3], inputs[4].float()[None]
+        kw = dict(samples=samples, max_depth=DEPTH)
+        kernel, counts = fk.f64_kernel, fk.f64_counts
+    else:
+        inputs = rk.regen_inputs(scene, cam, W, H, samples)
+        sm, row = inputs[4], inputs[5]
+        kw = dict(samples=samples, max_depth=DEPTH,
+                  finalize_scale=1.0 / samples)
+        kernel, counts = rk.regen_kernel, rk.regen_counts
+    n = sm.shape[0]
     real = gs.group_table
 
     def render(two: bool):
@@ -62,7 +78,7 @@ def measure(name, scene, samples, reps):
         try:
             a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
             a.record()
-            img = rk.regen_kernel(*inputs, **kw)
+            img = kernel(*inputs, **kw)
             b.record()
             torch.cuda.synchronize()
             return img, a.elapsed_time(b)
@@ -79,20 +95,21 @@ def measure(name, scene, samples, reps):
     for _ in range(reps):
         two_ms.append(render(True)[1])
         one_ms.append(render(False)[1])
-    _, issues, _, tests = rk.regen_counts(*inputs, samples=samples,
-                                          max_depth=DEPTH)
+    _, issues, _, tests = counts(*inputs, samples=samples,
+                                 max_depth=DEPTH)
     groups = 0
     if took_two:
-        groups = gs.unpack(gs.group_table_kernel(
-            kio.soa(inputs[4]), inputs[5]),
-            n).n_groups
+        groups = gs.unpack(gs.group_table_kernel(kio.soa(sm), row),
+                           n).n_groups
     it = int(issues.long().sum())
     share = (int(tests.long().sum()) + it * groups) / it / n
-    return {"scene": name, "slots": n, "two_level": took_two,
+    return {"scene": name, "kernel": "f64_render" if f64 else "regen_render",
+            "slots": n, "two_level": took_two,
             "two_ms": two_ms, "one_ms": one_ms,
             "two_over_one": statistics.median(two_ms)
             / statistics.median(one_ms),
-            "smem_two": staged(n, True), "smem_one": staged(n, False),
+            "smem_two": staged(n, True, f64),
+            "smem_one": staged(n, False, f64),
             "share_of_slots_tested": share, "groups": groups}
 
 
@@ -102,6 +119,7 @@ def main() -> int:
                     default=[480, 1000, 1500, 2000])
     ap.add_argument("--samples", type=int, default=100)
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--f64", action="store_true")
     ap.add_argument("--tag", default="probe")
     args = ap.parse_args()
 
@@ -124,7 +142,7 @@ def main() -> int:
                            m, half_extent=e, device="cuda")))
     lines = []
     for name, make in scenes:
-        res = measure(name, make(), args.samples, args.reps)
+        res = measure(name, make(), args.samples, args.reps, args.f64)
         res["card"] = card.strip()
         print(json.dumps(res), flush=True)
         lines.append(res)

@@ -55,7 +55,57 @@
 //     broadcast. Kernel 1's f32 staging doubled would need 360 KB at 4096
 //     slots, so the seven gather columns, read once per bounce for the
 //     winning slot, come from device memory in both layouts. Layout 'hbm'
-//     reads the f32 SoA per test and converts there.
+//     reads the f32 SoA per test and converts there;
+//   * with a group table (group_table.cu, one launch before this one; the
+//     wrapper builds it where group_scan.uses_groups holds: layout 'vmem',
+//     2 * kGroup to kMaxSlots slots) the scan runs in two levels, as
+//     kernel 1's ScanHit (path_common.cuh) does in f32: the large slots
+//     four a step, then the table's groups of kGroup small slots in its
+//     order (front to back from the camera), and a warp tests a group's
+//     members, four a step, only where some lane's bound test in double
+//     (group_can_improve_d) says its best root numerator can improve
+//     inside the group's widened bound sphere (__any_sync). The block
+//     stages the table's entries as double Slots in place of the slot-order
+//     scan table, each built from the SoA by the table's slot id (padding,
+//     slot -1, gets a NaN |C|^2 - r^2 and never hits), with the slot ids
+//     and the f32 bounds: 36 B an entry and 16 B a group, 19.7 KB at 512
+//     slots, so the 4 blocks an SM stay.
+//
+// The two-level scan's winner is the one-level scan's, bit for bit: the
+// argument of path_common.cuh's header, items 1, 2 and 6 as they stand
+// (each slot's root numerator is slot_disc_d/take_root_d's arithmetic; a
+// root equal to the best replaces it only at a lower slot, take_root_at_d,
+// so any set of tested slots keeps the least (root, slot) pair; a warp
+// skips a group only when every lane's own test fails; the wide fallback),
+// and items 3-5 in double, u = 2^-53:
+//   3. The slot test's 16 rounded operations leave disc within 22 u A S^2
+//      of the exact A (r^2 - rho^2) (S = |c_k| + |r_k| + |o|, A the
+//      computed |d|^2): the point P at t = Z / A that the root Z places on
+//      the sphere lies within r_k + sqrt(40 u) S = r_k + 6.7e-8 S of c_k.
+//   4. The bound is the table's f32 (C, R widened to R + kPad (|C| + R) +
+//      kSlack), promoted exactly; every member (its f32 centre and radius,
+//      which the double test promotes exactly too) lies within the
+//      unwidened R of C up to the f32 rounding of R, which the table's
+//      widening covers as in the f32 scan. The lane adds kPad |o| in
+//      double (pad_o, two roundings). So P lies inside the widened sphere
+//      by at least (kPad - 6.7e-8 - 4u) S' > 7.8e-3 S', S' = |C| + R + |o|.
+//   5. The bound test's own rounding (group_can_improve_d, in double on
+//      the promoted bound) moves its chord ends h -/+ sqrt(disc) by at most
+//      sqrt(22 u) (|C| + |o| + R_widened) |d| <= 1.0e-7 S' |d|, and P's
+//      depth puts the exact chord ends at least 7.8e-3 S' |d| from Z: the
+//      computed h - sq stays below Z <= best, h + sq above Z > tmin_a, and
+//      disc above 0.
+// Both error terms sit some 10^5 times inside the table's kPad = 2^-7,
+// which was sized for the f32 scan's 1.55e-3 S; the slack is not narrowed.
+// The wide fallback carries over: a lane with |d|^2 below 1e-12 or above
+// kSafe, or |o|^2 above kSafe, opens every group.
+//
+// The count mode (f64_counts: f64_count_kernel, render_lane's kCount
+// instance, which the render's instance does not carry) runs the same loop
+// and counts, (4, padded) int32 a lane: the lane's segments (its scans),
+// and at the leader of the lanes in each scan the scan's issue, the groups
+// it opened and the slot tests it issued (the large entries and kGroup an
+// opened group); the wrapper sums each warp's.
 
 #include "path_common.cuh"
 
@@ -91,18 +141,19 @@ __device__ __forceinline__ CamD load_cam_d(const double* c) {
           c[18] > 0.5};
 }
 
-// One slot's scan entry in double; c2r2 = NaN when inactive, so that its
-// discriminant is NaN and the slot never hits.
+// One slot's scan entry in double; c2r2 = NaN when inactive (and for the
+// group table's padding), so that its discriminant is NaN and the slot
+// never hits.
 struct alignas(16) Slot {
   double cx, cy, cz, c2r2;
 };
+__device__ __forceinline__ double never() { return __longlong_as_double(0x7ff8000000000000ll); }
 
 __device__ __forceinline__ Slot slot_of(const float* scene, int n, int k) {
   const double cx = scene[kCx * n + k], cy = scene[kCy * n + k], cz = scene[kCz * n + k];
   const double r = scene[kRadius * n + k];
   const double c2r2 = ((cx * cx + cy * cy) + cz * cz) - r * r;
-  return {cx, cy, cz,
-          scene[kActive * n + k] > 0.5f ? c2r2 : __longlong_as_double(0x7ff8000000000000ll)};
+  return {cx, cy, cz, scene[kActive * n + k] > 0.5f ? c2r2 : never()};
 }
 
 struct Params {
@@ -121,16 +172,63 @@ struct Params {
   // the end, which summed in the loop's test cost the f64 headline 2.5%
   // on the H100 (PERF.md)
   int sample_offset, sample_end;
+  const int32_t* groups;  // the group table, or null: the one-level scan
+  int32_t* counts;        // the count mode: (4, padded) segments, issues, opened, tests
 };
 
 // Slots tested a step by the closest hit, and the blocks an SM asked of
 // the compiler.
 constexpr int kSlotStep = 4;
 constexpr int kMinBlocks = 4;
+static_assert(kGroup % kSlotStep == 0, "a group is whole steps");
 
 template <bool kHbm>
 __device__ __forceinline__ Slot slot_at(const Params& p, const Slot* scan, int k) {
   return kHbm ? slot_of(p.scene, p.n, k) : scan[k];
+}
+
+// The staged group table: `scan` holds its entries (double Slots), then
+// group_bounds(n) f32 bounds and group_entries(n) slot ids. on: staged
+// (layout 'vmem' with a table); else `scan` is the slot-order table.
+struct Walk {
+  bool on;
+  int n_large, n_groups;
+};
+
+// Shared memory a block stages (0 for layout 'hbm').
+__host__ __device__ __forceinline__ size_t stage_bytes_d(int n, bool hbm, bool groups) {
+  if (hbm) return 0;
+  if (!groups) return (size_t)n * sizeof(Slot);
+  return (size_t)group_entries(n) * (sizeof(Slot) + sizeof(int)) +
+         (size_t)group_bounds(n) * sizeof(float4);
+}
+__device__ __forceinline__ const float4* walk_bounds(const Slot* scan, int n) {
+  return reinterpret_cast<const float4*>(scan + group_entries(n));
+}
+__device__ __forceinline__ const int* walk_slots(const Slot* scan, int n) {
+  return reinterpret_cast<const int*>(walk_bounds(scan, n) + group_bounds(n));
+}
+
+// All threads of the block stage the scan table (the slot-order one, or
+// the group table's entries, bounds and slot ids), then the caller syncs.
+__device__ __forceinline__ Walk stage_d(const Params& p, Slot* scan) {
+  const int n = p.n;
+  if (!p.groups) {
+    for (int k = threadIdx.x; k < n; k += blockDim.x) scan[k] = slot_of(p.scene, n, k);
+    return {false, 0, 0};
+  }
+  const float4* src_b = reinterpret_cast<const float4*>(p.groups + kTableHead) + group_entries(n);
+  const int* src_s = reinterpret_cast<const int*>(src_b + group_bounds(n));
+  const Walk w{true, p.groups[0], p.groups[1]};
+  float4* bound = const_cast<float4*>(walk_bounds(scan, n));
+  int* slot = const_cast<int*>(walk_slots(scan, n));
+  for (int q = threadIdx.x; q < w.n_large + w.n_groups * kGroup; q += blockDim.x) {
+    const int k = src_s[q];
+    slot[q] = k;
+    scan[q] = k >= 0 ? slot_of(p.scene, n, k) : Slot{0.0, 0.0, 0.0, never()};
+  }
+  for (int g = threadIdx.x; g < w.n_groups; g += blockDim.x) bound[g] = src_b[g];
+  return w;
 }
 
 // One slot's test in two parts: the half-b numerator h and the
@@ -157,35 +255,123 @@ __device__ __forceinline__ void take_root_d(DiscD q, double tmin_a, int k, doubl
     }
   }
 }
+// take_root_d for the two-level scan, whose slots come out of order
+// (path_common.cuh's take_root_at): a root equal to the best replaces it
+// when its slot is lower. The slot is read only for a root at or below best.
+__device__ __forceinline__ void take_root_at_d(DiscD q, double tmin_a, const int* slot, int e,
+                                               double& best, int& win) {
+  if (q.disc > 0.0) {
+    const double sq = sqrt(q.disc);
+    const double near = q.h - sq;
+    const double root = near > tmin_a ? near : q.h + sq;
+    if (root > tmin_a && root <= best) {
+      const int k = slot[e];
+      if (root < best || k < win) {
+        best = root;
+        win = k;
+      }
+    }
+  }
+}
+
+// Entries e..e+3 of the staged group table, as the one-level scan's step.
+__device__ __forceinline__ void test_step_at(const Slot* scan, const int* slot, int e, D3 o,
+                                             D3 d, double a, double d_dot_o, double o2,
+                                             double tmin_a, double& best, int& win) {
+  DiscD q[kSlotStep];
+  bool any = false;
+#pragma unroll
+  for (int j = 0; j < kSlotStep; ++j) {
+    q[j] = slot_disc_d(scan[e + j], o, d, a, d_dot_o, o2);
+    any = any || q[j].disc > 0.0;
+  }
+  if (any) {
+#pragma unroll
+    for (int j = 0; j < kSlotStep; ++j) take_root_at_d(q[j], tmin_a, slot, e + j, best, win);
+  }
+}
+
+// Can the lane's best root numerator improve inside group bound b (f32,
+// promoted), widened by pad_o = kPad |o|? The half-b quadratic of the
+// widened sphere in double: its chord must overlap (tmin_a, best).
+__device__ __forceinline__ bool group_can_improve_d(const float4 b, double pad_o, D3 o, D3 d,
+                                                    double a, double d_dot_o, double o2,
+                                                    double tmin_a, double best) {
+  const D3 c = {(double)b.x, (double)b.y, (double)b.z};
+  const double r = (double)b.w + pad_o;
+  const double h = dot(c, d) - d_dot_o;
+  const double c2r2 = dot(c, c) - r * r;
+  const double cc = (c2r2 + o2) - 2.0 * dot(c, o);
+  const double disc = h * h - a * cc;
+  if (!(disc > 0.0)) return false;
+  const double sq = sqrt(disc);
+  return h + sq > tmin_a && h - sq < best;
+}
+
+// A lane's count-mode counters: its scans, and what it adds as the leader
+// of a scan's lanes.
+struct Counts {
+  int segments = 0, issues = 0, opened = 0, tests = 0;
+};
 
 // The closest hit over every slot: true on a hit, with the winning slot
-// and t = t_num / a.
-template <bool kHbm>
-__device__ __forceinline__ bool hit_d(const Params& p, const Slot* scan, D3 o, D3 d, int& win,
-                                      double& t) {
-  const double a = max_d(dot(d, d), 1e-12);
+// and t = t_num / a. One level (layout 'hbm', or no table): every slot,
+// four a step. Two levels (a staged table): the header's walk.
+template <bool kHbm, bool kCount>
+__device__ __forceinline__ bool hit_d(const Params& p, const Slot* scan, const Walk& w, D3 o,
+                                      D3 d, int& win, double& t, Counts& cnt) {
+  const double dd = dot(d, d);
+  const double a = max_d(dd, 1e-12);
   const double d_dot_o = dot(d, o);
   const double o2 = dot(o, o);
   const double tmin_a = kTMin64 * a;
   double best = kTMiss64;
   win = 0;
-  int k = 0;
-  for (; k + kSlotStep <= p.n; k += kSlotStep) {
-    DiscD q[kSlotStep];
-    bool any = false;
-#pragma unroll
-    for (int j = 0; j < kSlotStep; ++j) {
-      q[j] = slot_disc_d(slot_at<kHbm>(p, scan, k + j), o, d, a, d_dot_o, o2);
-      any = any || q[j].disc > 0.0;
-    }
-    if (any) {
-#pragma unroll
-      for (int j = 0; j < kSlotStep; ++j) take_root_d(q[j], tmin_a, k + j, best, win);
-    }
+  bool lead = false;
+  if constexpr (kCount) {
+    ++cnt.segments;
+    lead = (threadIdx.x & 31) == __ffs(__activemask()) - 1;
+    if (lead) ++cnt.issues;
   }
-  for (; k < p.n; ++k) {
-    const DiscD q = slot_disc_d(slot_at<kHbm>(p, scan, k), o, d, a, d_dot_o, o2);
-    take_root_d(q, tmin_a, k, best, win);
+  if (!kHbm && w.on) {
+    const float4* bound = walk_bounds(scan, p.n);
+    const int* slot = walk_slots(scan, p.n);
+    if (kCount && lead) cnt.tests += w.n_large;
+    for (int e = 0; e < w.n_large; e += kSlotStep)
+      test_step_at(scan, slot, e, o, d, a, d_dot_o, o2, tmin_a, best, win);
+    const bool wide = !(dd >= 1e-12 && dd <= (double)kSafe && o2 <= (double)kSafe);
+    const double pad_o = (double)kPad * sqrt(o2);
+    for (int g = 0, e = w.n_large; g < w.n_groups; ++g, e += kGroup) {
+      const bool can =
+          wide || group_can_improve_d(bound[g], pad_o, o, d, a, d_dot_o, o2, tmin_a, best);
+      if (!__any_sync(__activemask(), can)) continue;
+      if (kCount && lead) {
+        ++cnt.opened;
+        cnt.tests += kGroup;
+      }
+#pragma unroll
+      for (int j = 0; j < kGroup; j += kSlotStep)
+        test_step_at(scan, slot, e + j, o, d, a, d_dot_o, o2, tmin_a, best, win);
+    }
+  } else {
+    int k = 0;
+    for (; k + kSlotStep <= p.n; k += kSlotStep) {
+      DiscD q[kSlotStep];
+      bool any = false;
+#pragma unroll
+      for (int j = 0; j < kSlotStep; ++j) {
+        q[j] = slot_disc_d(slot_at<kHbm>(p, scan, k + j), o, d, a, d_dot_o, o2);
+        any = any || q[j].disc > 0.0;
+      }
+      if (any) {
+#pragma unroll
+        for (int j = 0; j < kSlotStep; ++j) take_root_d(q[j], tmin_a, k + j, best, win);
+      }
+    }
+    for (; k < p.n; ++k) {
+      const DiscD q = slot_disc_d(slot_at<kHbm>(p, scan, k), o, d, a, d_dot_o, o2);
+      take_root_d(q, tmin_a, k, best, win);
+    }
   }
   if (!(best < kTMiss64)) return false;
   t = best / a;
@@ -262,13 +448,15 @@ __device__ __forceinline__ bool scatter_d(const Params& p, const Stream& st, int
   return true;
 }
 
-template <bool kHbm>
-__global__ void __launch_bounds__(kBlock, kMinBlocks) f64_kernel(Params p) {
-  extern __shared__ Slot scan[];
+// The kernels' body: stage the scan table, then lane i's loop.
+template <bool kHbm, bool kCount>
+__device__ __forceinline__ void render_lane(const Params& p, Slot* scan) {
+  Walk w{false, 0, 0};
   if (!kHbm) {
-    for (int k = threadIdx.x; k < p.n; k += blockDim.x) scan[k] = slot_of(p.scene, p.n, k);
+    w = stage_d(p, scan);
     __syncthreads();
   }
+  Counts cnt;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= p.padded) return;
   const CamD cam = load_cam_d(p.cam);
@@ -294,7 +482,7 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks) f64_kernel(Params p) {
     }
     int win;
     double t;
-    if (!hit_d<kHbm>(p, scan, o, d, win, t)) {
+    if (!hit_d<kHbm, kCount>(p, scan, w, o, d, win, t, cnt)) {
       acc = acc + atten * sky_d(d);
     } else if (scatter_d(p, st, s, b, win, t, o, d, atten)) {
       ++b;
@@ -306,29 +494,69 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks) f64_kernel(Params p) {
   p.out[i] = acc.x;
   p.out[p.padded + i] = acc.y;
   p.out[2 * p.padded + i] = acc.z;
+  if constexpr (kCount) {
+    p.counts[i] = cnt.segments;
+    p.counts[p.padded + i] = cnt.issues;
+    p.counts[2 * p.padded + i] = cnt.opened;
+    p.counts[3 * p.padded + i] = cnt.tests;
+  }
+}
+
+template <bool kHbm>
+__global__ void __launch_bounds__(kBlock, kMinBlocks) f64_kernel(Params p) {
+  extern __shared__ Slot scan[];
+  render_lane<kHbm, false>(p, scan);
+}
+
+// The count mode's instance: the same loop with the counters.
+template <bool kHbm>
+__global__ void __launch_bounds__(kBlock, kMinBlocks) f64_count_kernel(Params p) {
+  extern __shared__ Slot scan[];
+  render_lane<kHbm, true>(p, scan);
+}
+
+// Launch `kernel` over p.padded lanes with `smem` bytes of staged table
+// (allowed above 48 KB).
+int launch(void (*kernel)(Params), const Params& p, size_t smem, cudaStream_t st) {
+  if (smem > 48 * 1024) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kernel<<<(p.padded + kBlock - 1) / kBlock, kBlock, smem, st>>>(p);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// C entry: launches on `stream` and returns cudaGetLastError().
+// C entries: each launches on `stream` and returns cudaGetLastError().
+// `groups`: the group table (group_table.cu) for the two-level scan, or
+// null; layout 'hbm' takes none.
 extern "C" int f64_render(const int32_t* ids, const float* ii, const float* jj,
                           const float* scene, int n, const double* cam, double* out, int padded,
                           int samples, int max_depth, uint32_t k0, uint32_t k1,
-                          int sample_offset, int hbm, void* stream) {
+                          int sample_offset, int hbm, const int32_t* groups, void* stream) {
+  if (hbm && groups) return (int)cudaErrorInvalidValue;
   const Params p{ids, ii, jj, scene, n, cam, out, padded, max_depth, k0, k1,
-                 sample_offset, sample_offset + samples};
-  const dim3 grid((padded + kBlock - 1) / kBlock);
+                 sample_offset, sample_offset + samples, groups, nullptr};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (hbm) {
-    f64_kernel<true><<<grid, kBlock, 0, st>>>(p);
-  } else {
-    const size_t smem = (size_t)n * sizeof(Slot);
-    if (smem > 48 * 1024) {
-      const cudaError_t e = cudaFuncSetAttribute(
-          f64_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (e != cudaSuccess) return (int)e;
-    }
-    f64_kernel<false><<<grid, kBlock, smem, st>>>(p);
-  }
-  return (int)cudaGetLastError();
+  const size_t smem = stage_bytes_d(n, hbm, groups != nullptr);
+  return launch(hbm ? f64_kernel<true> : f64_kernel<false>, p, smem, st);
+}
+
+// The count mode: the render's loop (out gets the same sums) with
+// counts (4, padded) int32: each lane's segments, and its issues, groups
+// opened and slot tests as the leader of its scans (the one-level scan
+// counts segments and issues only).
+extern "C" int f64_counts(const int32_t* ids, const float* ii, const float* jj,
+                          const float* scene, int n, const double* cam, double* out,
+                          int32_t* counts, int padded, int samples, int max_depth, uint32_t k0,
+                          uint32_t k1, int sample_offset, int hbm, const int32_t* groups,
+                          void* stream) {
+  if (hbm && groups) return (int)cudaErrorInvalidValue;
+  const Params p{ids, ii, jj, scene, n, cam, out, padded, max_depth, k0, k1,
+                 sample_offset, sample_offset + samples, groups, counts};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const size_t smem = stage_bytes_d(n, hbm, groups != nullptr);
+  return launch(hbm ? f64_count_kernel<true> : f64_count_kernel<false>, p, smem, st);
 }

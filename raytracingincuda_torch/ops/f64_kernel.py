@@ -19,6 +19,14 @@ Two implementations share one signature:
 the plain version only for CPU tensors; nothing falls back from one to the
 other. ``render_f64`` is the ``render_pallas_df64`` counterpart.
 
+Where ``group_scan.uses_groups`` holds (layout ``'vmem'``, 2 * ``GROUP`` to
+``MAX_SLOTS`` slots) the kernel's closest hit walks the group table in
+two levels, in double (``csrc/f64_render.cu``'s header); the plain
+version keeps the brute-force scan, and the image is the same bits. Its
+count mode (``f64_counts``, plain version ``f64_counts_reference``, which
+runs ``group_scan.model_scan`` in double over ``f64_wave_rays``' rays)
+counts what each warp's scan tests.
+
 The df64 contract holds: the camera row, the geometry, attenuation, the
 sky and the sums are double, and the random draws are the f32 Threefry
 values of ``ops/rng.py`` and ``ops/f32math.py``, promoted exactly (the
@@ -41,7 +49,7 @@ import torch
 from ..models.camera import CameraConfig, initialize_f64
 from ..models.scene import LAMBERTIAN, METAL, DIELECTRIC, Scene
 from ..utils import trace
-from . import f32math
+from . import f32math, group_scan
 from . import kernel_io as kio
 from . import rng as rtrng
 from . import vec
@@ -161,13 +169,7 @@ def f64_reference(ids, ii, jj, scene_mat, cam_row, *, samples: int,
               max_depth=max_depth, sample_offset=sample_offset,
               layout=layout, cam_dtype=F64)
     sm = scene_mat.to(F64)
-    cols = {"cx": sm[:, kio.COL_CX, None], "cy": sm[:, kio.COL_CY, None],
-            "cz": sm[:, kio.COL_CZ, None], "r": sm[:, kio.COL_RADIUS, None],
-            "active": scene_mat[:, kio.COL_ACTIVE, None] > 0.5}
-    c = cam_row
-    v3 = lambda k: Vec3(c[k], c[k + 1], c[k + 2])  # noqa: E731
-    cam = {"pixel00": v3(0), "du": v3(3), "dv": v3(6), "center": v3(9),
-           "disk_u": v3(12), "disk_v": v3(15), "defocus": bool(c[18] > 0.5)}
+    cols, cam = _columns(sm, scene_mat), _camera(cam_row)
     chunk = kio.reference_chunk(scene_mat.shape[0], _REFERENCE_CHUNK_ELEMS)
     return torch.cat([
         _f64_lanes(*lanes, sm, cols, cam, samples=samples,
@@ -177,10 +179,25 @@ def f64_reference(ids, ii, jj, scene_mat, cam_row, *, samples: int,
     ], dim=1)
 
 
+def _columns(sm, scene_mat) -> dict:
+    """The hit test's (N, 1) double columns and active mask."""
+    return {"cx": sm[:, kio.COL_CX, None], "cy": sm[:, kio.COL_CY, None],
+            "cz": sm[:, kio.COL_CZ, None], "r": sm[:, kio.COL_RADIUS, None],
+            "active": scene_mat[:, kio.COL_ACTIVE, None] > 0.5}
+
+
+def _camera(c) -> dict:
+    """The (24,) double camera row's vectors."""
+    v3 = lambda k: Vec3(c[k], c[k + 1], c[k + 2])  # noqa: E731
+    return {"pixel00": v3(0), "du": v3(3), "dv": v3(6), "center": v3(9),
+            "disk_u": v3(12), "disk_v": v3(15), "defocus": bool(c[18] > 0.5)}
+
+
 def _f64_lanes(ids, fi, fj, sm, cols, cam, *, samples, max_depth, seed,
-               sample_offset):
+               sample_offset, wave_fn=None):
     """The regen_trace_df64 recurrence over one chunk of lanes; the
-    sample counter starts at ``sample_offset``."""
+    sample counter starts at ``sample_offset``. ``wave_fn(o, d, active)``
+    sees each wave's rays and the lanes that trace in it."""
     key = rtrng.key_from_seed(seed)
     pid = ids.to(torch.int64)
     fi, fj = fi.to(F64), fj.to(F64)
@@ -197,6 +214,8 @@ def _f64_lanes(ids, fi, fj, sm, cols, cam, *, samples, max_depth, seed,
         active = sample < end
         if not bool(active.any()):
             break
+        if wave_fn is not None:
+            wave_fn(o, d, active)
         hit, t, idx = _hit(cols, o, d)
         p = o + d * torch.where(hit, t, 1.0)
         center = Vec3(col(kio.COL_CX, idx), col(kio.COL_CY, idx),
@@ -251,7 +270,17 @@ _C_ARGTYPES = [
     ctypes.c_uint32,   # key word 1
     ctypes.c_int,      # sample_offset
     ctypes.c_int,      # hbm layout
+    ctypes.c_void_p,   # group table (null: the one-level scan)
 ]
+
+
+def _table(soa, cam_row, layout: str) -> Optional[torch.Tensor]:
+    """The group table a launch over the (11, N) SoA scene scans with
+    (``group_scan.group_table``; its order reads the camera centre from an
+    f32 copy of the double row, made on the card), or None: one level."""
+    if not group_scan.uses_groups(soa.shape[1], layout):
+        return None
+    return group_scan.group_table(soa, cam_row.to(torch.float32), layout)
 
 
 @trace.spanned("rt.launch.f64_render")
@@ -260,7 +289,10 @@ def f64_kernel(ids, ii, jj, scene_mat, cam_row, *, samples: int,
                sample_offset: int = 0,
                layout: str = "vmem") -> torch.Tensor:
     """Launch the CUDA f64 kernel; same contract as ``f64_reference``.
-    Launches on the current stream without synchronising."""
+    Launches on the current stream without synchronising. Counts
+    ``launch.f64_render``, and its scan (``group_scan.count_path``): with
+    a group table, built by one launch before it, ``scan.two_level``,
+    else ``scan.one_level``."""
     launch = kio.entry("f64_render", _C_ARGTYPES, ids.device)
     kio.check(ids, ii, jj, scene_mat, cam_row, samples=samples,
               max_depth=max_depth, sample_offset=sample_offset,
@@ -269,15 +301,112 @@ def f64_kernel(ids, ii, jj, scene_mat, cam_row, *, samples: int,
     soa = kio.soa(scene_mat)
     out = torch.empty((3, padded), dtype=F64, device=ids.device)
     k0, k1 = rtrng.key_from_seed(seed)
+    groups = _table(soa, cam_row, layout)
     launch(ids.data_ptr(), ii.data_ptr(), jj.data_ptr(), soa.data_ptr(), n,
            cam_row.data_ptr(), out.data_ptr(), padded, samples, max_depth,
-           k0, k1, sample_offset, int(layout == "hbm"))
+           k0, k1, sample_offset, int(layout == "hbm"), kio.at(groups))
     trace.count("launch.f64_render")
-    trace.count("scan.one_level")
+    group_scan.count_path(groups)
     return out
 
 
 _f64 = kio.by_device(f64_kernel, f64_reference)
+
+
+# f64_counts: f64_render's arguments with the (4, padded) int32 counts
+# after out
+_COUNT_ARGTYPES = _C_ARGTYPES[:7] + [ctypes.c_void_p] + _C_ARGTYPES[7:]
+
+
+def f64_counts(ids, ii, jj, scene_mat, cam_row, *, samples: int,
+               max_depth: int, seed: int = rtrng.DEFAULT_SEED,
+               sample_offset: int = 0, layout: str = "vmem") -> tuple:
+    """The kernel's count mode on the card: the render's loop, counting.
+    Returns each lane's segments (padded,) f32 and, per warp of 32 lanes,
+    each (padded // 32,) int32: the times the warp ran the closest-hit
+    scan (as the leader of each group of lanes that ran it together
+    counted them), the groups the two-level scan opened, and the slot
+    tests it issued (the large entries and ``GROUP`` an opened group a
+    scan; every slot a scan of the one-level scan), as
+    ``render_kernel.regen_counts`` returns them. ``f64_counts_reference``
+    is its plain version."""
+    launch = kio.entry("f64_counts", _COUNT_ARGTYPES, ids.device)
+    kio.check(ids, ii, jj, scene_mat, cam_row, samples=samples,
+              max_depth=max_depth, sample_offset=sample_offset,
+              layout=layout, cam_dtype=F64)
+    padded, n = ids.shape[0], scene_mat.shape[0]
+    soa = kio.soa(scene_mat)
+    out = torch.empty((3, padded), dtype=F64, device=ids.device)
+    counts = torch.empty((4, padded), dtype=torch.int32, device=ids.device)
+    k0, k1 = rtrng.key_from_seed(seed)
+    groups = _table(soa, cam_row, layout)
+    launch(ids.data_ptr(), ii.data_ptr(), jj.data_ptr(), soa.data_ptr(), n,
+           cam_row.data_ptr(), out.data_ptr(), counts.data_ptr(), padded,
+           samples, max_depth, k0, k1, sample_offset, int(layout == "hbm"),
+           kio.at(groups))
+    group_scan.count_path(groups)
+    issues, opened, tests = (c.view(-1, kio.WARP).sum(1).to(torch.int32)
+                             for c in counts[1:])
+    if groups is None:      # the one-level scan tests every slot an issue
+        tests = issues * n
+    return counts[0].float(), issues, opened, tests
+
+
+def f64_wave_rays(ids, ii, jj, scene_mat, cam_row, fn, *, samples: int,
+                  max_depth: int, seed: int = rtrng.DEFAULT_SEED,
+                  sample_offset: int = 0) -> None:
+    """Run the plain version's recurrence over all lanes at once and call
+    ``fn(o, d, active)`` with each wave's double rays (``Vec3`` over the
+    lanes) and the lanes that trace in it. Lane i of a wave is the i-th
+    lane of the kernel's loop at that iteration."""
+    kio.check(ids, ii, jj, scene_mat, cam_row, samples=samples,
+              max_depth=max_depth, sample_offset=sample_offset,
+              cam_dtype=F64)
+    sm = scene_mat.to(F64)
+    _f64_lanes(ids, ii, jj, sm, _columns(sm, scene_mat), _camera(cam_row),
+               samples=samples, max_depth=max_depth, seed=seed,
+               sample_offset=sample_offset, wave_fn=fn)
+
+
+def f64_counts_reference(ids, ii, jj, scene_mat, cam_row, *, samples: int,
+                         max_depth: int, seed: int = rtrng.DEFAULT_SEED,
+                         sample_offset: int = 0,
+                         layout: str = "vmem") -> tuple:
+    """Plain version of the count mode: each lane's segments (padded,)
+    f32 (the waves it traces in; a wave is one iteration of every warp's
+    loop) and per warp (padded // 32,) int32: the waves in which any of its
+    lanes traces, and the groups opened and slot tests of each wave's rays
+    through ``group_scan.model_scan`` in double on the table the launch
+    would build (``group_table_reference`` with the row's f32 copy,
+    ``double_table``), or ``scene_mat``'s slots an issue where the launch
+    scans in one level."""
+    n = scene_mat.shape[0]
+    table = None
+    if group_scan.uses_groups(n, layout):
+        table = group_scan.double_table(group_scan.unpack(
+            group_scan.group_table_reference(
+                scene_mat, cam_row.to(torch.float32)[None]), n), scene_mat)
+    warps = torch.zeros((ids.shape[0] // kio.WARP,), dtype=torch.int64)
+    tot = {"segments": torch.zeros(ids.shape, dtype=torch.int64),
+           "issues": warps, "opened": warps, "tests": warps}
+
+    def wave(o, d, active):
+        active = active.cpu()
+        tot["segments"] = tot["segments"] + active.long()
+        tot["issues"] = tot["issues"] + active.view(-1, kio.WARP).any(1)
+        if table is not None:
+            res = group_scan.model_scan(table, o, d, active)
+            tot["opened"] = tot["opened"] + res.opened
+            tot["tests"] = tot["tests"] + res.tests
+
+    f64_wave_rays(ids, ii, jj, scene_mat, cam_row, wave, samples=samples,
+                  max_depth=max_depth, seed=seed, sample_offset=sample_offset)
+    if table is None:
+        tot["tests"] = tot["issues"] * n
+    dev = ids.device
+    return (tot["segments"].to(dev, torch.float32),
+            *(tot[k].to(dev, torch.int32) for k in ("issues", "opened",
+                                                    "tests")))
 
 
 def f64_inputs(scene: Scene, cam_cfg: CameraConfig, img_width: int,

@@ -1,15 +1,17 @@
-"""The two-level closest-hit scan: its group table and its plain f32 model.
+"""The two-level closest-hit scan: its group table and its plain models.
 
 Kernel 1, kernel 2's park render and kernel 7 find the closest hit with
-``csrc/path_common.cuh``'s ``ScanHit`` and a group table; the reverse
+``csrc/path_common.cuh``'s ``ScanHit`` and a group table, and kernel 6
+with the same table in double (``csrc/f64_render.cu``); the reverse
 (kernels 2 and 3) scans in one level. With a table the scan tests the
 large slots, then walks groups of ``GROUP`` small slots, each behind a
 conservative bound sphere, and a warp tests a group's members only where
-some lane of it could improve its best hit there. The header of
-``path_common.cuh`` argues why the winner is the brute-force scan's bit for
-bit; ``model_scan`` here is that scan in f32 with the kernel's arithmetic,
-its warps' votes and its counts, for the tests and the count mode's plain
-version.
+some lane of it could improve its best hit there. The headers of
+``path_common.cuh`` and ``f64_render.cu`` argue why the winner is the
+brute-force scan's bit for bit; ``model_scan`` here is that scan with the
+kernel's arithmetic, its warps' votes and its counts, for the tests and the
+count modes' plain versions: in f32 on a table as it is built, in double
+(kernel 6's) on ``double_table``'s.
 
   * ``group_table`` builds the table for a CUDA launch with the one-block
     kernel of ``csrc/group_table.cu`` (``group_table_kernel``, counted
@@ -20,7 +22,8 @@ version.
     on the CPU (the tests, the count mode's plain version);
   * ``count_path`` counts a scanning launch as ``scan.two_level`` or
     ``scan.one_level`` (``utils/trace.py``);
-  * ``unpack`` reads a table's header, entries, slots and bounds.
+  * ``unpack`` reads a table's header, entries, slots and bounds, and
+    ``double_table`` gives it kernel 6's double entries.
 
 The group size and the other constants are read from ``path_common.cuh``
 and ``group_table.cu``, their one place in the source.
@@ -241,9 +244,30 @@ def unpack(table: torch.Tensor, n: int) -> Table:
                  int(t[2]), int(t[3]))
 
 
+def double_table(table: Table, scene_mat: torch.Tensor) -> Table:
+    """``table`` with the entries kernel 6 stages (``f64_render.cu``:
+    ``stage_d``): each slot's (cx, cy, cz, |c|^2 - r^2) in double from the
+    (N, 16) scene matrix's f32 values, (0, 0, 0, NaN) for padding."""
+    m = scene_mat.detach().to("cpu", torch.float64)
+    have = table.slot >= 0
+    k = table.slot.clamp_min(0)
+    c, r = m[k, 0:3], m[k, 3]
+    c2r2 = ((c[:, 0] * c[:, 0] + c[:, 1] * c[:, 1]) + c[:, 2] * c[:, 2]) \
+        - r * r
+    live = have & (m[k, 10] > 0.5)
+    ent = torch.cat([torch.where(have[:, None], c, 0.0), torch.where(
+        live, c2r2, float("nan"))[:, None]], 1)
+    return table._replace(entry=ent)
+
+
+# (t_min, t_miss) of the scans: kernel 1's f32 constants, kernel 6's double
+_LIMITS = {torch.float32: (T_MIN, T_MISS), torch.float64: (1.0e-3, 1.0e30)}
+
+
 class ScanResult(NamedTuple):
     hit: torch.Tensor      # (R,) bool
-    t: torch.Tensor        # (R,) f32 best numerator * (1 / a); T_MISS on a miss
+    t: torch.Tensor        # (R,) f32 best numerator * (1 / a), double best
+                           # numerator / a; T_MISS on a miss
     idx: torch.Tensor      # (R,) int64 winning slot (0 on a miss)
     opened: torch.Tensor   # (R // 32,) int64 groups each warp opened
     tests: torch.Tensor    # (R // 32,) int64 slot tests each warp issued
@@ -269,10 +293,10 @@ def _roots(e, o, d, a, d_dot_o, o2, tmin_a):
     return root, pos & (root > tmin_a)
 
 
-def _take(root, valid, slots, rows, best, win):
+def _take(root, valid, slots, rows, best, win, t_miss):
     """Merge the least (root, slot) pair of each ray's valid entries among
     ``rows`` (rays that test them) into (best, win)."""
-    big = torch.full_like(root, T_MISS)
+    big = torch.full_like(root, t_miss)
     r = torch.where(valid, root, big)
     rmin = r.amin(0)
     cand = valid & (r == rmin)
@@ -284,12 +308,15 @@ def _take(root, valid, slots, rows, best, win):
 
 def model_scan(table: Table, o, d, active: torch.Tensor) -> ScanResult:
     """The two-level scan of ``ScanHit`` for R rays (R a multiple of 32;
-    lanes 32k..32k+31 a warp), in f32 with the kernel's arithmetic, on the
-    CPU. ``active`` marks the lanes in the scan (the warp's vote is among
-    them); the counts are the count mode's for one scan of each warp with
-    an active lane."""
-    o = type(o)(*(x.detach().cpu().float() for x in _vec(o)))
-    d = type(d)(*(x.detach().cpu().float() for x in _vec(d)))
+    lanes 32k..32k+31 a warp) with the kernel's arithmetic, on the CPU: in
+    f32 on a table as built, or, on ``double_table``'s, in double as
+    kernel 6 scans (its t = numerator / a). ``active`` marks the lanes in
+    the scan (the warp's vote is among them); the counts are the count
+    mode's for one scan of each warp with an active lane."""
+    dt = table.entry.dtype
+    t_min, t_miss = _LIMITS[dt]
+    o = type(o)(*(x.detach().cpu().to(dt) for x in _vec(o)))
+    d = type(d)(*(x.detach().cpu().to(dt) for x in _vec(d)))
     active = active.detach().cpu()
     ox, oy, oz = _vec(o)
     dx, dy, dz = _vec(d)
@@ -297,9 +324,9 @@ def model_scan(table: Table, o, d, active: torch.Tensor) -> ScanResult:
     a = torch.clamp_min(dd, 1e-12)
     d_dot_o = (dx * ox + dy * oy) + dz * oz
     o2 = (ox * ox + oy * oy) + oz * oz
-    tmin_a = _f32(T_MIN) * a
+    tmin_a = torch.tensor(t_min, dtype=dt) * a
     R = a.shape[0]
-    best = torch.full((R,), T_MISS, dtype=torch.float32)
+    best = torch.full((R,), t_miss, dtype=dt)
     win = torch.zeros((R,), dtype=torch.int64)
     every = torch.ones((R,), dtype=torch.bool)
     live = active.view(-1, WARP).any(1)
@@ -309,11 +336,11 @@ def model_scan(table: Table, o, d, active: torch.Tensor) -> ScanResult:
         e = table.entry[:table.n_large]
         root, valid = _roots(e, o, d, a, d_dot_o, o2, tmin_a)
         best, win = _take(root, valid, table.slot[:table.n_large], every,
-                          best, win)
+                          best, win, t_miss)
     wide = ~((dd >= 1e-12) & (dd <= SAFE) & (o2 <= SAFE))
-    pad_o = _f32(PAD) * f32math.sqrt(o2)
+    pad_o = torch.tensor(PAD, dtype=dt) * f32math.sqrt(o2)
     for g in range(table.n_groups):
-        b = table.bound[g]
+        b = table.bound[g].to(dt)
         bx, by, bz = b[0], b[1], b[2]
         rr = b[3] + pad_o
         h = ((bx * dx + by * dy) + bz * dz) - d_dot_o
@@ -333,7 +360,8 @@ def model_scan(table: Table, o, d, active: torch.Tensor) -> ScanResult:
         root, valid = _roots(table.entry[p:p + GROUP], o, d, a, d_dot_o, o2,
                              tmin_a)
         best, win = _take(root, valid, table.slot[p:p + GROUP], rows, best,
-                          win)
-    hit = best < T_MISS
-    t = torch.where(hit, best * (1.0 / a), torch.full_like(best, T_MISS))
+                          win, t_miss)
+    hit = best < t_miss
+    t = best * (1.0 / a) if dt == torch.float32 else best / a
+    t = torch.where(hit, t, torch.full_like(best, t_miss))
     return ScanResult(hit, t, torch.where(hit, win, 0), opened, tests)

@@ -10,8 +10,10 @@ carried across with ``models/convert.py``. A window of samples at a
 ``sample_offset`` (a round of ``render_incremental``) is held to the
 pinned oracle's window, and two windows to one. The ``cuda`` tests hold
 the CUDA kernel to the plain version on the card, bit for bit, at the
-regenerating loop's edge cases and at an offset too; they skip without a
-card.
+regenerating loop's edge cases and at an offset too, and in two levels on
+the two-level scan's scenes and at its rule's slot counts (a group table a
+launch, counted, and the same image as the launch made one-level); its
+count mode equals the plain count. They skip without a card.
 """
 import os
 
@@ -29,6 +31,7 @@ from raytracingincuda_torch.models.convert import (camera_config_from_numpy,
 from raytracingincuda_torch.models.scene import DIELECTRIC, Scene
 from raytracingincuda_torch.models.scene import build_scene as t_build
 from raytracingincuda_torch.ops import f64_kernel as fk
+from raytracingincuda_torch.ops import group_scan as gs
 from raytracingincuda_torch.ops import kernel_io as kio
 from raytracingincuda_torch.ops import render_kernel as rk
 from raytracingincuda_torch.render_api import make_renderer
@@ -316,21 +319,99 @@ def test_f64_inputs_from_numpy_round_trip(tiny_scene, default_camera):
         f64_inputs_from_numpy(hi, lo, rows[:1], device="cpu")
 
 
+# The kernel's scenes on the card: group_scenes' scenes, and scene 1 cut to
+# or padded (inactive rows) to the two-level rule's edges: (scene, slots)
+CARD_SCENES = {"cover": ("cover", None), "tie": ("tie", None),
+               "random2000": ("random2000", None), "slots31": ("cover", 31),
+               "slots32": ("cover", 32), "slots2049": ("random2000", 2049)}
+
+
+def _card_inputs(name, dev, w=64, h=40):
+    from group_scenes import scene_named
+
+    base, slots = CARD_SCENES[name]
+    ids, ii, jj, sm, row = fk.f64_inputs(scene_named(base, dev),
+                                         TCam.reference_default(), w, h)
+    if slots is not None:
+        pad = torch.zeros((max(slots - sm.shape[0], 0), sm.shape[1]),
+                          device=dev)
+        sm = torch.cat([sm[:slots], pad]).contiguous()
+    return ids, ii, jj, sm, row
+
+
+def test_plain_count_mode_follows_the_rule():
+    """The count mode's plain version: a lane's segments are the waves it
+    traces in (two samples take two at least), a warp's issues its longest
+    lane's; in two levels each issue tests the large entries and GROUP slots
+    an opened group; in one level (layout 'hbm', 31 slots) every slot."""
+    for name, layout in (("cover", "vmem"), ("cover", "hbm"),
+                         ("slots31", "vmem")):
+        inputs = _card_inputs(name, "cpu", 32, 8)
+        n = inputs[3].shape[0]
+        seg, issues, opened, tests = fk.f64_counts_reference(
+            *inputs, samples=2, max_depth=6, layout=layout)
+        assert issues.shape == (inputs[0].shape[0] // 32,)
+        assert torch.equal(issues.float(), seg.view(-1, 32).amax(1))
+        assert bool((seg >= 2).all())
+        if gs.uses_groups(n, layout):
+            t = gs.unpack(gs.group_table_reference(
+                inputs[3], inputs[4].float()[None]), n)
+            assert bool((opened > 0).any())
+            assert torch.equal(tests, issues * t.n_large + opened * gs.GROUP)
+            assert bool((tests < issues * n).all())
+        else:
+            assert bool((opened == 0).all())
+            assert torch.equal(tests, issues * n)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("layout", ["vmem", "hbm"])
-def test_kernel_equals_plain_version_on_card(cuda, layout):
-    s = t_build(1, device=cuda)
-    inputs = fk.f64_inputs(s, TCam.reference_default(), 64, 40)
+@pytest.mark.parametrize("name,layout", [
+    ("cover", "vmem"), ("cover", "hbm"), ("tie", "vmem"),
+    ("random2000", "vmem"), ("slots31", "vmem"), ("slots32", "vmem"),
+    ("slots2049", "vmem")])
+def test_kernel_equals_plain_version_on_card(cuda, name, layout,
+                                             monkeypatch):
+    """Bit for bit against the plain version, on the card and the CPU, and
+    from run to run; the launch scans as the rule says (two levels, after
+    a group table's launch, from 2 x GROUP to MAX_SLOTS slots in layout
+    'vmem'), and equals the same launch made one-level."""
+    from group_scenes import one_level
+
+    inputs = _card_inputs(name, cuda)
+    two = gs.uses_groups(inputs[3].shape[0], layout)
     kw = dict(samples=2, max_depth=10, layout=layout)
-    before = trace.counts().get("launch.f64_render", 0)
+    keys = ("launch.f64_render", "launch.group_table", "scan.two_level",
+            "scan.one_level")
+    before = {k: trace.counts().get(k, 0) for k in keys}
     got = fk.f64_kernel(*inputs, **kw)
     torch.cuda.synchronize()
-    assert trace.counts().get("launch.f64_render", 0) == before + 1
+    rise = {k: trace.counts().get(k, 0) - before[k] for k in keys}
+    assert rise == {"launch.f64_render": 1, "launch.group_table": int(two),
+                    "scan.two_level": int(two),
+                    "scan.one_level": int(not two)}, rise
     assert got.dtype == torch.float64
     assert torch.equal(got, fk.f64_reference(*inputs, **kw))
     assert torch.equal(got, fk.f64_kernel(*inputs, **kw))
     cpu = fk.f64_reference(*(t.cpu() for t in inputs), **kw)
     assert torch.equal(got.cpu(), cpu)
+    one_level(monkeypatch)
+    assert torch.equal(got, fk.f64_kernel(*inputs, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,layout", [
+    ("cover", "vmem"), ("cover", "hbm"), ("tie", "vmem")])
+def test_count_mode_equals_plain_count_on_card(cuda, name, layout):
+    """The count mode's segments per lane and issues, groups opened and
+    slot tests per warp equal the plain count's (the double walk's vote wave by wave in layout
+    'vmem'; every slot an issue in 'hbm')."""
+    inputs = _card_inputs(name, cuda)
+    kw = dict(samples=4, max_depth=12, layout=layout)
+    got = fk.f64_counts(*inputs, **kw)
+    want = fk.f64_counts_reference(*inputs, **kw)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b.cpu())
+    assert bool((got[2] > 0).any()) == (layout == "vmem")
 
 
 @pytest.mark.cuda

@@ -6,7 +6,9 @@ f32 model of the kernel's scan (``model_scan``) against the brute-force
 scan (``hit_world``): on the plain render's rays at the headline, on rays
 that graze a member at its group bound's edge, on far and degenerate rays,
 and on a scene whose duplicate spheres sit in two groups (the lower slot
-wins the exact tie). The ``cuda`` tests hold the card's table to the twin
+wins the exact tie). The same cases hold the double model (kernel 6's walk,
+``model_scan`` on ``double_table``) to kernel 6's brute-force double scan
+(``f64_kernel._hit``). The ``cuda`` tests hold the card's table to the twin
 word for word and count the scan each launch ran; ``pytest --noconftest -m
 cuda`` runs them on the card.
 """
@@ -20,6 +22,7 @@ from raytracingincuda_torch.models.scene import (build_deep_scene,
                                                  build_random_scene,
                                                  build_scene)
 from raytracingincuda_torch.ops import _build
+from raytracingincuda_torch.ops import f64_kernel as fk
 from raytracingincuda_torch.ops import group_scan as gs
 from raytracingincuda_torch.ops import kernel_io as kio
 from raytracingincuda_torch.ops import render_kernel as rk
@@ -148,11 +151,11 @@ def test_model_equals_brute_force_on_headline_rays(rr):
     assert iters > 0 and tests / iters / sm.shape[0] < 0.5
 
 
-def _grazing(t, sm, origin_scale):
+def _grazing(t, sm, origin_scale, dtype=torch.float32):
     """Rays tangent to a group's outermost member at its point farthest
     from the bound's centre, nudged by 0, +-1 ulp-scale and +-1e-6 across
-    the tangent, from origins at ``origin_scale`` from the tangent point;
-    and each ray's grazed slot."""
+    the tangent, from origins at ``origin_scale`` from the tangent point,
+    in ``dtype``; and each ray's grazed slot."""
     c, r = sm[:, 0:3].double(), sm[:, rk.COL_RADIUS].double().abs()
     gen = torch.Generator().manual_seed(7)
     os_, ds, aims = [], [], []
@@ -175,8 +178,8 @@ def _grazing(t, sm, origin_scale):
                 os_.append(q - origin_scale * v)
                 aims.append(k)
                 ds.append(v * float(torch.rand(1, generator=gen) * 2 + 0.1))
-    o = torch.stack(os_).float()
-    d = torch.stack(ds).float()
+    o = torch.stack(os_).to(dtype)
+    d = torch.stack(ds).to(dtype)
     pad = -len(os_) % 32
     o = torch.cat([o, o[:pad]])
     d = torch.cat([d, d[:pad]])
@@ -199,12 +202,10 @@ def test_model_on_grazing_rays(name, origin_scale):
     assert bool(on.any()) and not bool(on.all())
 
 
-def test_model_on_far_and_degenerate_rays():
-    """Rays whose magnitudes leave the rounding argument (|d|^2 below
-    1e-12 or above kSafe, |o|^2 above kSafe) open every group, and rays
-    from far away: the winner is hit_world's."""
-    scene = build_scene(1, device="cpu")
-    sm, t = _table("cover")
+def _far_rays(dtype=torch.float32):
+    """Rays at scene 1 whose magnitudes leave the rounding argument (|d|^2
+    below 1e-12 or above kSafe, |o|^2 above kSafe) and rays from far away,
+    in ``dtype``."""
     gen = torch.Generator().manual_seed(11)
     n = 256
     target = (torch.rand((n, 3), generator=gen) - 0.5) * torch.tensor(
@@ -215,31 +216,112 @@ def test_model_on_far_and_degenerate_rays():
     dirn = dirn / dirn.norm(dim=1, keepdim=True)
     o = target - far * dirn
     d = dirn * scale
-    o, d = Vec3(*o.float().unbind(1)), Vec3(*d.float().unbind(1))
+    return Vec3(*o.to(dtype).unbind(1)), Vec3(*d.to(dtype).unbind(1))
+
+
+def test_model_on_far_and_degenerate_rays():
+    """Rays whose magnitudes leave the rounding argument open every group,
+    and rays from far away: the winner is hit_world's."""
+    scene = build_scene(1, device="cpu")
+    sm, t = _table("cover")
+    o, d = _far_rays()
     res = _check(t, scene, o, d)
     assert bool(res.hit.any())
     assert int(res.opened.max()) == t.n_groups  # wide lanes open every group
 
 
-def test_duplicate_spheres_in_two_groups_lower_slot_wins():
-    """Two copies of one sphere in two groups, the higher slot's group
-    walked first: every ray at it (from above, where nothing hides it) ties
-    exactly, and the lower slot wins, as in the brute-force scan."""
+def _tie_rays(dtype=torch.float32):
+    """The tie scene's matrix, table and duplicate slots (lo, hi), and 128
+    rays from above at the duplicated sphere, in ``dtype``."""
     scene, lo, hi = tie_scene("cpu")
     sm = rk.pack_scene_matrix(scene)
     t = gs.unpack(gs.group_table_reference(sm, _cam()), sm.shape[0])
-    grp = groups_of(t)
-    assert grp[hi] < grp[lo]
     c = sm[lo, 0:3]
     rad = float(sm[lo, rk.COL_RADIUS])
     gen = torch.Generator().manual_seed(3)
     aim = c + (torch.rand((128, 3), generator=gen) - 0.5) * rad
     o = (c + torch.tensor([0.0, 3.0, 0.0])).expand(128, 3)
     d = aim - o
-    res = _check(t, scene, Vec3(*o.unbind(1)), Vec3(*d.unbind(1)))
+    return (scene, sm, t, lo, hi, Vec3(*o.to(dtype).unbind(1)),
+            Vec3(*d.to(dtype).unbind(1)))
+
+
+def test_duplicate_spheres_in_two_groups_lower_slot_wins():
+    """Two copies of one sphere in two groups, the higher slot's group
+    walked first: every ray at it (from above, where nothing hides it) ties
+    exactly, and the lower slot wins, as in the brute-force scan."""
+    scene, sm, t, lo, hi, o, d = _tie_rays()
+    grp = groups_of(t)
+    assert grp[hi] < grp[lo]
+    res = _check(t, scene, o, d)
     hit_dup = res.hit & ((res.idx == lo) | (res.idx == hi))
     assert int(hit_dup.sum()) > 32
     assert bool((res.idx[hit_dup] == lo).all())
+
+
+def _double_case(case):
+    """(scene matrix, table, batches of (o, d, active) in double, the
+    slots the case aims at) of one case of the double model's test."""
+    if case == "headline":
+        sm, t = _table("cover")
+        ids, fi, fj, _ = _headline_rays([150, 650], 2, None)
+        row = fk.camera_row(CameraConfig.reference_default(), W, H, "cpu")
+        waves = []
+        fk.f64_wave_rays(ids, fi, fj, sm, row,
+                         lambda o, d, act: waves.append((o, d, act)),
+                         samples=2, max_depth=25)
+        return sm, t, waves, None
+    if case.startswith("grazing"):
+        _, name, scale = case.split("-")
+        sm, t = _table(name)
+        o, d, aims = _grazing(t, sm, float(scale), torch.float64)
+    elif case == "far":
+        sm, t = _table("cover")
+        (o, d), aims = _far_rays(torch.float64), None
+    else:
+        _, sm, t, lo, hi, o, d = _tie_rays(torch.float64)
+        aims = (lo, hi)
+    return sm, t, [(o, d, torch.ones(o.x.shape, dtype=torch.bool))], aims
+
+
+@pytest.mark.parametrize("case", [
+    "headline", "grazing-cover-3", "grazing-cover-300",
+    "grazing-random2000-3", "grazing-random2000-300", "far", "tie"])
+def test_double_model_equals_kernel6_brute_force(case):
+    """Kernel 6's walk in double (``model_scan`` on ``double_table``)
+    against its brute-force double scan (``f64_kernel._hit``): the same
+    slot and t on the f64 plain render's rays at the headline (two rows, 2
+    samples, 25 bounces, every wave), on rays that graze a member at its
+    group bound's edge, on far and degenerate rays, and on the duplicate
+    spheres (the lower slot wins). So the double bound test never skips the
+    winning group; the headline's warps test under half of the slots."""
+    sm, t, batches, aims = _double_case(case)
+    table = gs.double_table(t, sm)
+    cols = fk._columns(sm.double(), sm)
+    hits = tests = iters = 0
+    for o, d, a in batches:
+        got = gs.model_scan(table, o, d, a)
+        hit, tt, idx = fk._hit(cols, o, d)
+        on = a & hit
+        assert torch.equal(got.hit[a], hit[a])
+        assert torch.equal(got.t[on], tt[on])
+        assert torch.equal(got.idx[on], idx[on])
+        hits += int(on.sum())
+        live = int(a.view(-1, 32).any(1).sum())
+        tests += int(got.tests.sum()) + live * t.n_groups
+        iters += live
+    assert hits > 0
+    if case == "headline":
+        assert tests / iters / sm.shape[0] < 0.5
+    elif case == "far":
+        assert int(got.opened.max()) == t.n_groups  # wide lanes open all
+    elif case == "tie":
+        lo, hi = aims
+        dup = got.hit & ((got.idx == lo) | (got.idx == hi))
+        assert int(dup.sum()) > 32 and bool((got.idx[dup] == lo).all())
+    else:
+        grazed = got.hit & (got.idx == aims)
+        assert bool(grazed.any()) and not bool(grazed.all())
 
 
 @pytest.mark.parametrize("name,slots,two_level", [
@@ -294,20 +376,24 @@ def test_table_equals_twin_on_card(cuda, name):
 
 @pytest.mark.cuda
 def test_launches_count_their_scan_on_card(cuda):
-    """Kernel 1 over scene 1 builds a table and scans in two levels; over
-    the 8-slot deep scene, and in layout 'hbm', in one."""
+    """Kernel 1 and kernel 6 over scene 1 build a table and scan in two
+    levels; over the 8-slot deep scene, and in layout 'hbm', in one."""
     cam = CameraConfig.reference_default()
     for scene, layout, two in ((build_scene(1, device=cuda), "vmem", True),
                                (build_scene(1, device=cuda), "hbm", False),
                                (build_deep_scene(device=cuda), "vmem", False)):
-        inputs = rk.regen_inputs(scene, cam, 32, 20, 2)
-        before = dict(trace.counts())
-        rk.regen_kernel(*inputs, samples=2, max_depth=6, layout=layout)
-        torch.cuda.synchronize()
-        after = trace.counts()
-        rise = {k: after.get(k, 0) - before.get(k, 0)
-                for k in ("launch.group_table", "scan.two_level",
-                          "scan.one_level")}
-        assert rise == {"launch.group_table": int(two),
-                        "scan.two_level": int(two),
-                        "scan.one_level": int(not two)}, (layout, rise)
+        for launch in (
+                lambda: rk.regen_kernel(*rk.regen_inputs(scene, cam, 32, 20, 2),
+                                        samples=2, max_depth=6, layout=layout),
+                lambda: fk.f64_kernel(*fk.f64_inputs(scene, cam, 32, 20),
+                                      samples=2, max_depth=6, layout=layout)):
+            before = dict(trace.counts())
+            launch()
+            torch.cuda.synchronize()
+            after = trace.counts()
+            rise = {k: after.get(k, 0) - before.get(k, 0)
+                    for k in ("launch.group_table", "scan.two_level",
+                              "scan.one_level")}
+            assert rise == {"launch.group_table": int(two),
+                            "scan.two_level": int(two),
+                            "scan.one_level": int(not two)}, (layout, rise)

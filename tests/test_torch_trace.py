@@ -308,6 +308,8 @@ def test_request_span_tree_and_host_syncs_on_card(kind, cuda):
     torch.cuda.synchronize()
     assert (_tree(), trace.counts().get("host_sync", 0)) == CARD_TREES[kind]
     assert outside == []
-    if kind == "render_f64":     # kernel 6 once, with its one-level scan
+    if kind == "render_f64":     # kernel 6 once, in two levels
         assert trace.counts()["launch.f64_render"] == 1
-        assert trace.counts()["scan.one_level"] == 1
+        assert trace.counts()["launch.group_table"] == 1
+        assert trace.counts()["scan.two_level"] == 1
+        assert trace.counts().get("scan.one_level", 0) == 0
